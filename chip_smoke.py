@@ -16,18 +16,35 @@ Drives the port's main path once on the card and fails loudly:
    columns held against the twin run on the card;
 7. the RHS rate: bench.py's Euler chain at 2^20 boxes through the
    coalescence kernel; then both kernels against their twins once more at
-   the main path's shapes (f32), and the twins' times there.
+   the main path's shapes (f32), and the twins' times there;
+8. the coalescence kernel's MovingThreshold and lognormal arms against the
+   twin (bench-style inputs, 65,536 boxes, f32 and f64), then each arm's
+   Euler chain at 2^20 boxes and a comparison at that shape;
+9. the whole-step kernel's arms against the twin (the `moving` and
+   `lognorm` pod data, 4,096 columns x 32 levels, one step, f32 and f64);
+10. the fused per-level RHS kernel against its twin (4,096 columns, f32 and
+   f64, all three variants; then the pod state [6, 2^25], f32), and the
+   fused-RHS route (that kernel + torch stencil + `stepper.ssprk33_step`)
+   for 20 steps at 2^20 x 32 `fixed2gamma`, held against 20 whole steps;
+11. the `moving` and `lognorm` pod scenarios at 2^20 columns x 32 levels x
+   120 f32 steps through the whole-step kernel, the first 4,096 columns
+   held against the twin run on the card;
+12. the f64 anchor of each variant: the f64 whole-step kernel against the
+   f64 twin on the card, 128 columns, 120 steps.
 
-The launch counts of both kernels are zeroed just before phase 6 and read
-after the timed chain of phase 7. The last two lines are a JSON object of
-per-kernel numbers (errors from the main-path-shape comparison, the step's
-in normalized moment units) and ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
-no CUDA device is present or the port's package is missing.
+Each main path's launch counts are zeroed just before it runs and read just
+after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
+arm's chain in phase 8, the fused-RHS route in phase 10, each variant's run
+in phase 11. The last two lines are a JSON object of per-kernel numbers
+(errors from the main-path-shape comparison, the steps' in normalized moment
+units) and ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
+result, when no CUDA device is present or the port's package is missing.
 
     python3 chip_smoke.py
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,16 +55,43 @@ N_POD_COLUMNS = 1 << 20
 N_CMP_COLUMNS = 4096
 NZ = 32
 N_RHS_STEPS = 100
+N_ARM_STEPS = 20  # Euler chain steps of each coalescence arm (phase 8)
+N_FUSED_STEPS = 20  # fused-RHS route vs whole step (phase 10)
+N_ANCHOR_COLUMNS = 128
+VARIANTS = {"moving": "pod_ensemble_moving", "lognorm": "pod_ensemble_lognorm"}
 TOL = {"float32": 1e-4, "float64": 1e-9}  # kernel vs twin, row-scaled
 GOLDEN_TOL = 1e-3  # fast tier vs the stored f64 Simpson-tier trajectory
 B1_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:876"
 B3_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:662"
+B4_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:771"
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def ptxas_summary(log):
+    """One line per kernel instance from the build's ``-Xptxas -v`` report:
+    registers, stack frame and spills."""
+    out, entry, props, stack = [], None, None, ("?", "?", "?")
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\w+)", ln):
+            props = m.group(1)
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads", ln)) and props == entry:
+            stack = m.groups()
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            k = re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry)
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
+                    f"{'true' if k.group(3) == '1' else 'false'}>") if k else entry
+            out.append(f"{name}: {m.group(1)} registers, {stack[0]} B stack, "
+                       f"{stack[1]} B spill stores, {stack[2]} B spill loads")
+            entry = None
+    return out
 
 
 def row_scaled(got, want):
@@ -72,7 +116,8 @@ def main():
 
     import numpy as np
 
-    from cloudy_tpu_torch import bench, harness
+    from cloudy_tpu_torch import bench, harness, stepper
+    from cloudy_tpu_torch import distributions as pd
     from cloudy_tpu_torch import kernels as K
     from cloudy_tpu_torch.coalescence import build_coalescence_data
     from cloudy_tpu_torch.models import rainshaft as rs
@@ -103,9 +148,8 @@ def main():
     _build.load_library()
     build_s = time.perf_counter() - t
     log = _build.library_path().with_suffix(".log").read_text()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "stack frame" in ln]
     print(f"phase 2 build: {_build.library_path().name} in {build_s:.3f} s {card}")
-    for ln in regs:
+    for ln in ptxas_summary(log):
         print(f"  ptxas: {ln}")
     print(f"phase 2 seconds {time.perf_counter() - t:.3f}")
 
@@ -274,6 +318,211 @@ def main():
          "max_row_scaled_err": results[("coal", "main")][0],
          "ms": coal_ms, "plain_ms": coal_plain_ms},
     ]
+
+    def variant_moments(variant, n, seed):
+        """Normalized bench-style moments [n_tot, n]: bench.py's joint
+        amplitude and mass scalings for two gamma modes; for lognormal +
+        gamma, parameters drawn first (tests/test_pallas.py:311-319)."""
+        if variant == "moving":
+            return bench.bench_moments(n, seed=seed).T.copy()
+        vspec, _ = harness.pod_data(variant)
+        rng = np.random.default_rng(seed)
+        par = np.stack([
+            np.stack([rng.uniform(10, 200, n), rng.uniform(-2.0, 0.5, n),
+                      rng.uniform(0.3, 1.2, n)], -1),
+            np.stack([rng.uniform(10, 200, n), rng.uniform(0.05, 5.0, n),
+                      rng.uniform(0.5, 5.0, n)], -1)], axis=1)
+        return pd.get_moments(vspec, torch.as_tensor(par)).numpy().T.copy()
+
+    # ---- 8. coalescence-kernel arms vs twin, and each arm's chain ----------
+    t = time.perf_counter()
+    for variant in VARIANTS:
+        _, vdata = harness.pod_data(variant)
+        mom_np = variant_moments(variant, 65536, seed=1)
+        for name, dt in dtypes.items():
+            fn = fc.make_coal_fn(vdata, device=dev, dtype=dt)
+            x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+            got = fn.soa(x)
+            want = fn.plain(x)
+            torch.cuda.synchronize()
+            err, abs_err = row_scaled(got, want)
+            print(f"phase 8 coal kernel [{variant}] vs twin {name}: row-scaled {err:.3e} "
+                  f"(tol {TOL[name]:.0e}), max abs {abs_err:.3e}, finite "
+                  f"{bool(torch.isfinite(got).all())} {card}")
+            check(bool(torch.isfinite(got).all()), f"coal kernel [{variant}] {name} not finite")
+            check(err < TOL[name], f"coal kernel [{variant}] {name} vs twin {err:.3e}")
+        fn = fc.make_coal_fn(vdata, device=dev, dtype=torch.float32)
+        x = torch.as_tensor(variant_moments(variant, bench.BENCH_COLUMNS, seed=0),
+                            dtype=torch.float32, device=dev)
+        fn.launches = 0
+        s_chain = bench.time_chain(fn.soa, x, N_ARM_STEPS)
+        n_launch = fn.launches
+        check(n_launch == N_ARM_STEPS + 3,
+              f"coal kernel [{variant}] launched {n_launch} times, not {N_ARM_STEPS + 3}")
+        err, abs_err = row_scaled(fn.soa(x), fn.plain(x))
+        check(err < TOL["float32"], f"coal kernel [{variant}] vs twin at [6, 2^20] {err:.3e}")
+        ms, plain_ms = _time_ms(lambda: fn.soa(x), 20), _time_ms(lambda: fn.plain(x), 2)
+        print(f"phase 8 coal RHS chain [{variant}] {bench.BENCH_COLUMNS} boxes f32: "
+              f"{s_chain * 1e3:.4f} ms/step, {bench.BENCH_COLUMNS * 6 / s_chain:.4e} "
+              f"moment-updates/s, launches {n_launch}; at [6, {bench.BENCH_COLUMNS}] "
+              f"row-scaled {err:.3e}, max abs {abs_err:.3e}; kernel {ms:.4f} ms, "
+              f"twin {plain_ms:.4f} ms {card}")
+        kernels.append({"name": f"coal_rhs[{variant}]", "route": "cuda", "source": SOURCE,
+                        "replaces": B3_REPLACES, "launches": n_launch,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
+        del fn, x
+    print(f"phase 8 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 9. whole-step kernel arms vs twin --------------------------------
+    t = time.perf_counter()
+    for variant in VARIANTS:
+        _, vdata = harness.pod_data(variant)
+        for name, dt in dtypes.items():
+            step = fc.make_rainshaft_step_fn(
+                vdata, sc_cfg.vel, sc_cfg.norms, nz=NZ, dz=sc_cfg.dz, dt=1.0,
+                device=dev, dtype=dt)
+            x = torch.as_tensor(state_np, dtype=dt, device=dev)
+            got = step(x)
+            want = step.plain(x)
+            torch.cuda.synchronize()
+            norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+            err, abs_err = row_scaled(got / norm, want / norm)
+            print(f"phase 9 step kernel [{variant}] vs twin {name}: row-scaled {err:.3e} "
+                  f"(tol {TOL[name]:.0e}), max abs {abs_err:.3e} (normalized) {card}")
+            check(bool(torch.isfinite(got).all()), f"step kernel [{variant}] {name} not finite")
+            check(err < TOL[name], f"step kernel [{variant}] {name} vs twin {err:.3e}")
+    print(f"phase 9 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 10. fused per-level RHS kernel, and the fused-RHS route ----------
+    t = time.perf_counter()
+    for variant in ("fixed2gamma", *VARIANTS):
+        _, vdata = harness.pod_data(variant)
+        for name, dt in dtypes.items():
+            rfn = fc.make_rainshaft_rhs_fn(vdata, sc_cfg.vel, sc_cfg.norms, device=dev,
+                                           dtype=dt)
+            x = torch.as_tensor(state_np, dtype=dt, device=dev)
+            got = rfn.soa(x)
+            want = rfn.plain(x)
+            torch.cuda.synchronize()
+            norm = torch.tensor(rfn.plan.mom_norms * 2, dtype=dt, device=dev)[:, None]
+            err, abs_err = row_scaled(got / norm, want / norm)
+            print(f"phase 10 rhs kernel [{variant}] vs twin {name}: row-scaled {err:.3e} "
+                  f"(tol {TOL[name]:.0e}), max abs {abs_err:.3e} (normalized) {card}")
+            check(bool(torch.isfinite(got).all()), f"rhs kernel [{variant}] {name} not finite")
+            check(err < TOL[name], f"rhs kernel [{variant}] {name} vs twin {err:.3e}")
+    sc = harness.SCENARIOS["pod_ensemble"](
+        n_columns=N_POD_COLUMNS, device=dev, dtype=torch.float32)
+    cfg = sc["config"]
+    rfn = fc.make_rainshaft_rhs_fn(sc["data"], cfg.vel, cfg.norms, device=dev)
+    rhs = rs.make_rainshaft_rhs_fused(cfg, rfn)
+    rfn.soa(sc["state0"][:, :NZ].contiguous())  # warm-up outside the count
+    torch.cuda.synchronize()
+    rfn.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    y = sc["state0"]
+    for _ in range(N_FUSED_STEPS):
+        y = stepper.ssprk33_step(rhs, y, 0.0, cfg.dt)
+    end.record()
+    end.synchronize()
+    fused_s = start.elapsed_time(end) / 1e3
+    rhs_launches = rfn.launches
+    check(rhs_launches == 3 * N_FUSED_STEPS,
+          f"rhs kernel launched {rhs_launches} times, not {3 * N_FUSED_STEPS}")
+    yb = sc["state0"]
+    for _ in range(N_FUSED_STEPS):
+        yb = sc["step"](yb)
+    ferr, _ = row_scaled(y, yb)
+    print(f"phase 10 fused-RHS route fixed2gamma {N_POD_COLUMNS} x {NZ} x {N_FUSED_STEPS} "
+          f"f32: {fused_s / N_FUSED_STEPS * 1e3:.4f} ms/step, "
+          f"{N_POD_COLUMNS * N_FUSED_STEPS / fused_s:.4e} column-updates/s, rhs launches "
+          f"{rhs_launches}; vs {N_FUSED_STEPS} whole steps: row-scaled {ferr:.3e} "
+          f"(tol {TOL['float32']:.0e}) {card}")
+    check(bool(torch.isfinite(y).all()), "fused-RHS route not finite")
+    check(ferr < TOL["float32"], f"fused-RHS route vs whole step {ferr:.3e}")
+    del y, yb
+    norm = torch.tensor(rfn.plan.mom_norms * 2, dtype=torch.float32, device=dev)[:, None]
+    rerr, rabs = row_scaled(rfn.soa(sc["state0"]) / norm, rfn.plain(sc["state0"]) / norm)
+    print(f"phase 10 rhs kernel vs twin at the main-path shape [6, {N_POD_COLUMNS * NZ}] "
+          f"f32: row-scaled {rerr:.3e} (tol {TOL['float32']:.0e}), max abs {rabs:.3e} "
+          f"(normalized) {card}")
+    check(rerr < TOL["float32"], f"rhs kernel vs twin at the main-path shape {rerr:.3e}")
+    rhs_ms = _time_ms(lambda: rfn.soa(sc["state0"]), 5)
+    rhs_plain_ms = _time_ms(lambda: rfn.plain(sc["state0"]), 2)
+    print(f"phase 10 per call at [6, {N_POD_COLUMNS * NZ}]: rhs kernel {rhs_ms:.4f} ms, "
+          f"rhs twin {rhs_plain_ms:.4f} ms {card}")
+    kernels.append({"name": "rainshaft_rhs", "route": "cuda", "source": SOURCE,
+                    "replaces": B4_REPLACES, "launches": rhs_launches,
+                    "max_abs_err": rabs, "max_row_scaled_err": rerr,
+                    "ms": rhs_ms, "plain_ms": rhs_plain_ms})
+    del sc, rfn, rhs
+    torch.cuda.empty_cache()
+    print(f"phase 10 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 11. the moving and lognorm pod scenarios at full width -----------
+    t = time.perf_counter()
+    for variant, scenario in VARIANTS.items():
+        sc = harness.SCENARIOS[scenario](
+            n_columns=N_POD_COLUMNS, device=dev, dtype=torch.float32)
+        sc["step"].launches = 0
+        y, pod_s, clock = sc["run"]()
+        n_launch = sc["step"].launches
+        check(n_launch == sc["n_steps"],
+              f"[{variant}] whole-step kernel launched {n_launch} times, not {sc['n_steps']}")
+        rep = metrics.conservation_report(sc["spec"], rs.from_soa(y, NZ))
+        finite = bool(torch.isfinite(y).all())
+        print(f"phase 11 {scenario} {N_POD_COLUMNS} x {NZ} x {sc['n_steps']} f32: "
+              f"{pod_s:.4f} s ({clock}), {pod_s / sc['n_steps'] * 1e3:.4f} ms/step, "
+              f"{N_POD_COLUMNS * sc['n_steps'] / pod_s:.4e} column-updates/s, launches "
+              f"{n_launch}, finite {finite}, negative_fraction {rep['negative_fraction']}, "
+              f"nonfinite_fraction {rep['nonfinite_fraction']}, total_mass "
+              f"{rep['total_mass']:.6e} {card}")
+        check(finite and rep["nonfinite_fraction"] == 0.0, f"[{variant}] pod state not finite")
+        check(rep["negative_fraction"] == 0.0, f"[{variant}] pod state has negative moments")
+        yt = sc["state0"][:, :N_CMP_COLUMNS * NZ].contiguous()
+        for _ in range(sc["n_steps"]):
+            yt = sc["step"].plain(yt)
+        perr, _ = row_scaled(y[:, :N_CMP_COLUMNS * NZ], yt)
+        print(f"phase 11 [{variant}] first {N_CMP_COLUMNS} columns vs twin on the card: "
+              f"row-scaled {perr:.3e} (tol {TOL['float32']:.0e}) {card}")
+        check(perr < TOL["float32"], f"[{variant}] pod kernel vs twin {perr:.3e}")
+        del y, yt
+        norm = torch.tensor(sc["step"].plan.mom_norms, dtype=torch.float32,
+                            device=dev)[:, None]
+        err, abs_err = row_scaled(sc["step"](sc["state0"]) / norm,
+                                  sc["step"].plain(sc["state0"]) / norm)
+        check(err < TOL["float32"],
+              f"[{variant}] step kernel vs twin at the main-path shape {err:.3e}")
+        plain_ms = _time_ms(lambda: sc["step"].plain(sc["state0"]), 1)
+        print(f"phase 11 [{variant}] step kernel vs twin at [6, {N_POD_COLUMNS * NZ}] f32: "
+              f"row-scaled {err:.3e}, max abs {abs_err:.3e} (normalized); kernel "
+              f"{pod_s / sc['n_steps'] * 1e3:.4f} ms/step, twin {plain_ms:.4f} ms/step {card}")
+        kernels.append({"name": f"rainshaft_step[{variant}]", "route": "cuda",
+                        "source": SOURCE, "replaces": B1_REPLACES, "launches": n_launch,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err,
+                        "ms": pod_s / sc["n_steps"] * 1e3, "plain_ms": plain_ms})
+        del sc
+        torch.cuda.empty_cache()
+    print(f"phase 11 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 12. f64 anchor per variant: kernel vs twin over 120 steps --------
+    t = time.perf_counter()
+    for variant, scenario in VARIANTS.items():
+        sc = harness.SCENARIOS[scenario](
+            n_columns=N_ANCHOR_COLUMNS, device=dev, dtype=torch.float64)
+        y, _, _ = sc["run"]()
+        yt = sc["state0"]
+        for _ in range(sc["n_steps"]):
+            yt = sc["step"].plain(yt)
+        aerr, _ = row_scaled(y, yt)
+        print(f"phase 12 [{variant}] f64 anchor ({N_ANCHOR_COLUMNS} columns, "
+              f"{sc['n_steps']} steps): kernel vs twin row-scaled {aerr:.3e} "
+              f"(tol {TOL['float64']:.0e}) {card}")
+        check(bool(torch.isfinite(y).all()), f"[{variant}] f64 anchor not finite")
+        check(aerr < TOL["float64"], f"[{variant}] f64 anchor {aerr:.3e}")
+    print(f"phase 12 seconds {time.perf_counter() - t:.3f}")
+
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,11 +13,12 @@ autoconversion matrices. This module is the torch reference (AoS) path; the
 hand-written CUDA kernels in `ops.fused_coalescence` run the same physics on
 the flat structure-of-arrays layout.
 
-Coverage of this slice: gamma and exponential thresholded modes (the Simpson
-tier `_msh_matrix_gamma` and the exact-F2 fast tier
-`_msh_matrix_gamma_exact`), monodisperse closed form, FixedThreshold only.
-Lognormal modes (ROADMAP A.7) and MovingThreshold (ROADMAP A.7) raise
-`NotImplementedError`.
+Coverage: gamma and exponential thresholded modes (the Simpson tier
+`_msh_matrix_gamma` and the exact-F2 fast tier `_msh_matrix_gamma_exact`),
+lognormal modes (the Φ grid `_msh_matrix_lognormal` and the recentred GL
+window `_msh_matrix_lognormal_window`), the monodisperse closed form, under
+FixedThreshold and MovingThreshold (per-column percentile thresholds from
+`distributions.compute_thresholds`).
 """
 
 from __future__ import annotations
@@ -34,9 +35,6 @@ from cloudy_tpu_torch import distributions as pdists
 from cloudy_tpu_torch.kernels import CoalescenceTensor
 from cloudy_tpu_torch.ops import special
 from cloudy_tpu_torch.ops.simpson import simpson_even_fast_weights_dynamic
-
-MOVING_TODO = "MovingThreshold is not ported yet (ROADMAP A.7)"
-
 
 @dataclasses.dataclass(frozen=True)
 class CoalescenceData:
@@ -339,14 +337,111 @@ def _msh_matrix_gamma_exact(n, theta, k, thr, M: int, iters: int,
     return mp[..., :, None] * mp[..., None, :] * gpq
 
 
-def get_finite_2d_integrals(data: CoalescenceData, params, mom_matrix) -> torch.Tensor:
+def _msh_matrix_lognormal(n, mu, sig, thr, M: int, n_points_max: int,
+                          erf_iters: int = 128, erf_fast: bool = False):
+    """Lognormal autoconversion matrix on the reference log grid: the inner
+    integral is the exact partial moment n exp(qμ + q²σ²/2)
+    Φ((ln(T−x) − μ − qσ²)/σ), Φ through `special.erf_impl` (or the rational
+    `special.erf_approx` with `erf_fast`). Returns [..., M, M]."""
+    dtype = mu.dtype
+    dev = mu.device
+    x, dx, n_bins = pdists.threshold_log_grid(thr, n_points_max, dtype)
+    w = simpson_even_fast_weights_dynamic(n_points_max, n_bins, dtype)
+    j = torch.arange(1, n_points_max + 1, device=dev)
+    mask = (j <= n_bins[..., None]).to(dtype)
+
+    mu_, sig_ = mu[..., None], sig[..., None]
+    tiny = torch.finfo(dtype).tiny
+    logx = torch.log(torch.clamp(x, min=tiny))
+    dlx = logx - mu_
+    fx = special.exp(-(dlx * dlx) / (2.0 * (sig_ * sig_))) / (
+        x * sig_ * float(np.sqrt(2.0 * np.pi))
+    )
+    rem = torch.clamp(thr[..., None] - x, min=0.0)
+    logrem = torch.log(torch.clamp(rem, min=tiny))
+
+    q = torch.arange(M, dtype=dtype, device=dev)[:, None]  # [M, 1]
+    s_ = sig_[..., None, :]
+    z = (logrem[..., None, :] - mu_[..., None, :] - q * (s_ * s_)) / (
+        s_ * float(np.sqrt(2.0))
+    )
+    erf_z = (special.erf_approx(z) if erf_fast
+             else special.erf_impl(z, n_iters=erf_iters))
+    pm = special.exp(
+        q * mu_[..., None, :] + 0.5 * (q * q) * (s_ * s_)
+    ) * 0.5 * (1.0 + erf_z)
+    pm = torch.where(rem[..., None, :] > 0.0, pm, torch.zeros_like(pm))
+
+    ys = [x * fx * w * mask]
+    for _ in range(1, M):
+        ys.append(ys[-1] * x)
+    Y = torch.stack(ys, dim=-2)  # [..., M(p), G]
+    raw = torch.einsum("...pg,...qg->...pq", Y, pm) * dx[..., None, None]
+    return raw * (n * n)[..., None, None]
+
+
+#: half-width of the lognormal window rule in σ units
+LOGNORM_WINDOW_SIGMA = 6.0
+
+
+def _msh_matrix_lognormal_window(n, mu, sig, thr, M: int, gl_nodes: int):
+    """Density-recentred Gauss–Legendre evaluation of the lognormal
+    autoconversion matrix (the fast tier): in u = log x the order-p outer
+    integrand is a Gaussian of known centre and width times a bounded
+    monotone factor, integrated by GL-`gl_nodes` on the window
+    [μ − Wσ, min(log T, μ + Mσ² + Wσ)], W = 6. Returns [..., M, M]."""
+    dtype = mu.dtype
+    dev = mu.device
+    tiny = torch.finfo(dtype).tiny
+    vg_np, wg_np = np.polynomial.legendre.leggauss(gl_nodes)
+    vg = torch.as_tensor(vg_np, dtype=dtype, device=dev)
+    wg = torch.as_tensor(wg_np, dtype=dtype, device=dev)
+    W = LOGNORM_WINDOW_SIGMA
+
+    s2 = sig * sig
+    lo = mu - W * sig
+    hi = torch.minimum(torch.log(torch.clamp(thr, min=tiny)), mu + M * s2 + W * sig)
+    half = torch.clamp(hi - lo, min=0.0) * 0.5
+    center = lo + half
+
+    u = center[..., None] + half[..., None] * vg  # [..., G]
+    x = special.exp(u)
+    sig_, mu_ = sig[..., None], mu[..., None]
+    du = u - mu_
+    g0 = (
+        half[..., None]
+        * wg
+        * special.exp(-(du * du) / (2.0 * (sig_ * sig_)))
+        / (sig_ * float(np.sqrt(2.0 * np.pi)))
+    )
+    rem = torch.clamp(thr[..., None] - x, min=0.0)
+    logrem = torch.log(torch.clamp(rem, min=tiny))
+    q = torch.arange(M, dtype=dtype, device=dev)[:, None]  # [M, 1]
+    s_ = sig_[..., None, :]
+    z = (logrem[..., None, :] - mu_[..., None, :] - q * (s_ * s_)) / (
+        s_ * float(np.sqrt(2.0))
+    )
+    pm = special.exp(
+        q * mu_[..., None, :] + 0.5 * (q * q) * (s_ * s_)
+    ) * 0.5 * (1.0 + special.erf_approx(z))
+    pm = torch.where(rem[..., None, :] > 0.0, pm, torch.zeros_like(pm))
+
+    ys = [g0]
+    for _ in range(1, M):
+        ys.append(ys[-1] * x)
+    Y = torch.stack(ys, dim=-2)  # [..., M(p), G]
+    raw = torch.einsum("...pg,...qg->...pq", Y, pm)
+    return raw * (n * n)[..., None, None]
+
+
+def get_finite_2d_integrals(data: CoalescenceData, params, mom_matrix,
+                            thresholds=None) -> torch.Tensor:
     """Per-mode clamped autoconversion matrices, shape [..., N, M, M]
     (reference `get_finite_2d_integrals`, src/Sources/Coalescence.jl:200-244):
     entry (p, q) of mode i is 0 if M_p·M_q < eps or p,q ≥ N_2d_ints[i];
     M_p·M_q for the last mode or thr = ∞; min(M_p·M_q, msh(i, p', q'))
-    otherwise, (p', q') = sorted (p, q)."""
-    if data.moving:
-        raise NotImplementedError(MOVING_TODO)
+    otherwise, (p', q') = sorted (p, q). `thresholds` ([..., N]) overrides
+    the static ones: the MovingThreshold path."""
     spec = data.spec
     N, M = spec.n_modes, data.M
     dtype = params.dtype
@@ -365,12 +460,19 @@ def get_finite_2d_integrals(data: CoalescenceData, params, mom_matrix) -> torch.
         in_range = torch.as_tensor(
             (p_idx < data.n_2d_ints[i]) & (q_idx < data.n_2d_ints[i]), device=dev
         )
-        t_i = float(data.thresholds[i])
-        if i == N - 1 or not (np.isfinite(t_i) and t_i > 0.0):
-            # last mode, or no (usable) threshold: the M_p·M_q fallback
+        static_no_thr = (not data.moving) and not np.isfinite(data.thresholds[i])
+        if i == N - 1 or static_no_thr:
+            # last mode, or no threshold: the M_p·M_q fallback
             f2 = mmi
         else:
-            thr = torch.full(mmi.shape[:-2], t_i, dtype=dtype, device=dev)
+            if thresholds is not None:
+                thr = thresholds[..., i]
+            else:
+                thr = torch.full(mmi.shape[:-2], float(data.thresholds[i]),
+                                 dtype=dtype, device=dev)
+            # finite positive threshold for the integrals, masked after
+            thr_finite = torch.isfinite(thr) & (thr > 0.0)
+            thr = special.select(thr_finite, thr, 1.0)
             fam = spec.families[i]
             n, p1, p2 = (params[..., i, j] for j in range(3))
             if fam in (Family.EXPONENTIAL, Family.GAMMA):
@@ -392,10 +494,18 @@ def get_finite_2d_integrals(data: CoalescenceData, params, mom_matrix) -> torch.
                     (n[..., None, None] ** 2) * p1[..., None, None] ** pq,
                     torch.zeros((), dtype=dtype, device=dev),
                 )
-            else:
-                raise NotImplementedError(pdists.LOGNORMAL_TODO)
+            elif data.lognorm_gl_nodes:  # LOGNORMAL, the fast tier
+                msh = _msh_matrix_lognormal_window(
+                    n, p1, p2, thr, M, data.lognorm_gl_nodes)
+            else:  # LOGNORMAL on the reference grid
+                msh = _msh_matrix_lognormal(
+                    n, p1, p2, thr, M, data.n_points_max,
+                    erf_iters=data.gammainc_iters,
+                    erf_fast=data.gammainc_gl_nodes > 0,
+                )
             upper = torch.where(upper_sel, msh, msh.transpose(-1, -2))
             f2 = torch.minimum(mmi, upper)
+            f2 = torch.where(thr_finite[..., None, None], f2, mmi)
         f2 = torch.where((mmi < eps) | ~in_range, torch.zeros_like(f2), f2)
         out.append(f2)
     return torch.stack(out, dim=-3)
@@ -410,11 +520,18 @@ def get_coal_ints(data: CoalescenceData, params) -> torch.Tensor:
     """Coalescence tendencies of all prognostic moments, shape [..., n_tot],
     from the dense parameter tensor ``[..., n_modes, 3]`` (reference
     `get_coal_ints(::AnalyticalCoalStyle, …)`,
-    src/Sources/Coalescence.jl:115-150)."""
+    src/Sources/Coalescence.jl:115-150), with the MovingThreshold variant
+    (:152-185) when ``data.moving``: percentile thresholds per column."""
     spec = data.spec
     dtype = params.dtype
     mom = pdists.moments_matrix(spec, params, data.M)  # [..., N, M]
-    f2 = get_finite_2d_integrals(data, params, mom)
+    thresholds = None
+    if data.moving:
+        thresholds = pdists.compute_thresholds(
+            spec, params, tuple(data.thresholds),
+            fast_gl_nodes=data.gammainc_gl_nodes,
+        )
+    f2 = get_finite_2d_integrals(data, params, mom, thresholds)
 
     batch = mom.shape[:-2]
     D = spec.n_modes * data.M

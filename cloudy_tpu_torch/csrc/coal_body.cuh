@@ -1,10 +1,13 @@
-// Shared device physics of the two fused kernels (fused_coalescence.cu).
+// Shared device physics of the three fused kernels (fused_coalescence.cu).
 //
 // Counterpart of cloudy_tpu/ops/pallas_coalescence.py::_make_coal_body
-// (:145-622; its fixed-threshold gamma/exponential exact-F2 branch), of
+// (:145-622; its exact-F2 gamma/exponential branch, the lognormal window
+// rule, and FixedThreshold and MovingThreshold thresholds), of
 // pallas_numerical.py::_invert_rows (:79-118) and of
 // pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane: one level
-// of one column, all n_tot moments in registers.
+// of one column, all n_tot moments in registers. Special functions follow
+// cloudy_tpu/ops/special.py term for term (Lanczos `lgamma`, Acklam
+// `ndtri`, the fast GL percentile inverse, the A&S rational `erf`).
 //
 // The configuration is table-driven: the host (ops/fused_coalescence.py,
 // `pack_config`) packs families, offsets, thresholds, the nonzeros of the
@@ -16,6 +19,11 @@
 // constants. Operation order follows the Pallas body term for term; nvcc's
 // default FMA contraction differs from XLA's fusion, so results agree with
 // the plain twin to rounding (compared row-scaled, never elementwise).
+//
+// The MovingThreshold and lognormal arms are compiled only into the
+// kernels' `kArms = true` instances: the host launches the `false` instance
+// for a FixedThreshold gamma/exponential configuration (`FusedPlan.arms`),
+// which then carries neither arm's registers nor its stack.
 //
 // No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
 
@@ -35,16 +43,21 @@ constexpr int MAX_M = 5;
 constexpr int MAX_S = 2 * MAX_M - 1;  // orders s of P(2k + s, T/theta)
 constexpr int MAX_NPROG = 3;
 constexpr int CFG_MAX_BYTES = 12288;
+// per-mode F2 table: P(2k + s, T/theta) for s < MAX_S (gamma/exponential),
+// or the window rule's p <= q entries packed by `tri` (lognormal)
+constexpr int FTAB = MAX_M * (MAX_M + 1) / 2;
+static_assert(FTAB >= MAX_S, "F2 table too small for the gamma orders");
 
 constexpr int FAM_EXPONENTIAL = 0;
 constexpr int FAM_GAMMA = 1;
+constexpr int FAM_LOGNORMAL = 2;
 
-// int32 layout of the packed configuration: an 8-slot header, then
+// int32 layout of the packed configuration: a 10-slot header, then
 // per-mode ints and the wb/wf index tables; the reals start at the byte
 // offset in slot H_REAL_OFF
 constexpr int H_NMODES = 0, H_NTOT = 1, H_M = 2, H_NGL = 3, H_NWB = 4,
-              H_NWF = 5, H_NVEL = 6, H_REAL_OFF = 7;
-constexpr int I_FAM = 8;
+              H_NWF = 5, H_NVEL = 6, H_REAL_OFF = 7, H_MOVING = 8, H_NWIN = 9;
+constexpr int I_FAM = 10;
 constexpr int I_OFF = I_FAM + MAX_MODES;
 constexpr int I_NPROG = I_OFF + MAX_MODES;
 constexpr int I_THR = I_NPROG + MAX_MODES;
@@ -68,6 +81,18 @@ __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double dpow(double x, double y) { return pow(x, y); }
+
+// jnp.sign: -1, 0 or 1, and NaN for NaN
+template <typename T> __device__ __forceinline__ T vsign(T x) {
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
+}
+
+// index of (p, q), p <= q < MAX_M, in an FTAB row
+__host__ __device__ constexpr int tri(int p, int q) {
+  return p * (2 * MAX_M - p - 1) / 2 + q;
+}
 
 // jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
@@ -82,14 +107,16 @@ template <typename T> __device__ __forceinline__ T vclip(T x, T lo, T hi) {
 
 // The configuration, bound to the block's shared-memory copy.
 template <typename T> struct Config {
-  int n_modes, n_tot, M, n_gl, n_wb, n_wf, n_vel;
+  int n_modes, n_tot, M, n_gl, n_wb, n_wf, n_vel, moving, n_win;
   const int* fam;
   const int* off;
   const int* nprog;
-  const int* thr_flag;
-  const int* wb_idx;  // n_wb x (o, i, j)
-  const int* wf_idx;  // n_wf x (o, k, a, b), a <= b
-  const T* thr;       // [MAX_MODES] normalized thresholds
+  const int* thr_flag;  // mode carries an F2 integral
+  const int* wb_idx;    // n_wb x (o, i, j)
+  const int* wf_idx;    // n_wf x (o, k, a, b), a <= b
+  // [MAX_MODES] fixed: normalized thresholds; moving: gamma the percentile
+  // p, exponential -log1p(-p), lognormal ndtri(p) (host double)
+  const T* thr;
   const T* norm;      // [MAX_NTOT] moment norms
   const T* inv_norm;  // [MAX_NTOT] 1 / norm (host double)
   const T* wb_c;
@@ -97,9 +124,12 @@ template <typename T> struct Config {
   const T* vel_c;  // normalized velocity coefficients
   const T* vel_e;  // exponents
   const T* vel_g;  // Gamma(1 + e)
-  const T* vel_me; // n_vel x 3: m + e, m = 0..2 (host double)
+  const T* vel_me; // n_vel x 3: q = m + e, m = 0..2 (host double)
+  const T* vel_hq2;  // n_vel x 3: 0.5 q q (host double)
   const T* gl_y1;  // GL node + 1
   const T* gl_w;   // GL weight
+  const T* win_v;  // lognormal window GL nodes
+  const T* win_w;  // and weights
   T dt, inv_dz, two_thirds;
 
   __device__ __forceinline__ void bind(const unsigned char* buf) {
@@ -111,6 +141,8 @@ template <typename T> struct Config {
     n_wb = ip[H_NWB];
     n_wf = ip[H_NWF];
     n_vel = ip[H_NVEL];
+    moving = ip[H_MOVING];
+    n_win = ip[H_NWIN];
     fam = ip + I_FAM;
     off = ip + I_OFF;
     nprog = ip + I_NPROG;
@@ -127,11 +159,14 @@ template <typename T> struct Config {
     vel_e = vel_c + n_vel;
     vel_g = vel_e + n_vel;
     vel_me = vel_g + n_vel;
-    gl_y1 = vel_me + 3 * n_vel;
+    vel_hq2 = vel_me + 3 * n_vel;
+    gl_y1 = vel_hq2 + 3 * n_vel;
     gl_w = gl_y1 + n_gl;
-    dt = gl_w[n_gl];
-    inv_dz = gl_w[n_gl + 1];
-    two_thirds = gl_w[n_gl + 2];
+    win_v = gl_w + n_gl;
+    win_w = win_v + n_win;
+    dt = win_w[n_win];
+    inv_dz = win_w[n_win + 1];
+    two_thirds = win_w[n_win + 2];
   }
 };
 
@@ -201,6 +236,117 @@ __device__ __forceinline__ T gammainc_gl(const Config<T>& c, T a, T x, T gln) {
   return (x > T(0)) ? out : T(0);
 }
 
+// special.lgamma: Lanczos (g = 7, n = 9), lgamma(z) = lgamma(z+1) - log z
+// below 1
+template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
+  const bool shift = x < T(1);
+  const T z = shift ? x + T(1) : x;
+  const T zm1 = z - T(1);
+  T series = T(0.99999999999980993);
+  series = series + T(676.5203681218851) / (zm1 + T(1));
+  series = series + T(-1259.1392167224028) / (zm1 + T(2));
+  series = series + T(771.32342877765313) / (zm1 + T(3));
+  series = series + T(-176.61502916214059) / (zm1 + T(4));
+  series = series + T(12.507343278686905) / (zm1 + T(5));
+  series = series + T(-0.13857109526572012) / (zm1 + T(6));
+  series = series + T(9.9843695780195716e-6) / (zm1 + T(7));
+  series = series + T(1.5056327351493116e-7) / (zm1 + T(8));
+  const T t = zm1 + T(7) + T(0.5);
+  const T out =
+      T(0.9189385332046727) + (zm1 + T(0.5)) * dlog(t) - t + dlog(series);
+  return shift ? out - dlog(vmax(x, Lim<T>::tiny())) : out;
+}
+
+// special.ndtri: Acklam's inverse normal CDF, branch-free
+template <typename T> __device__ __forceinline__ T ndtri_tail(T p) {
+  const T q = dsqrt(T(-2) * dlog(p));
+  const T num = ((((T(-7.784894002430293e-03) * q + T(-3.223964580411365e-01)) *
+                       q + T(-2.400758277161838e+00)) * q +
+                  T(-2.549732539343734e+00)) * q + T(4.374664141464968e+00)) *
+                    q + T(2.938163982698783e+00);
+  const T den = (((T(7.784695709041462e-03) * q + T(3.224671290700398e-01)) * q +
+                  T(2.445134137142996e+00)) * q + T(3.754408661907416e+00)) *
+                    q + T(1);
+  return num / den;
+}
+
+template <typename T> __device__ __forceinline__ T ndtri(T p) {
+  const T p_low = T(0.02425), p_high = T(1.0 - 0.02425);
+  p = vclip(p, Lim<T>::tiny(), T(1.0 - 1e-16));
+  const T q = vclip(p, p_low, p_high) - T(0.5);
+  const T r = q * q;
+  const T num = ((((T(-3.969683028665376e+01) * r + T(2.209460984245205e+02)) *
+                       r + T(-2.759285104469687e+02)) * r +
+                  T(1.383577518672690e+02)) * r + T(-3.066479806614716e+01)) *
+                    r + T(2.506628277459239e+00);
+  const T den = ((((T(-5.447609879822406e+01) * r + T(1.615858368580409e+02)) *
+                       r + T(-1.556989798598866e+02)) * r +
+                  T(6.680131188771972e+01)) * r + T(-1.328068155288572e+01)) *
+                    r + T(1);
+  const T x_central = num * q / den;
+  const T x_low = ndtri_tail(vmin(p, p_low));
+  const T x_up = -ndtri_tail(vmin(T(1) - p, p_low));
+  return p < p_low ? x_low : (p > p_high ? x_up : x_central);
+}
+
+template <typename T> struct Eps;
+template <> struct Eps<float> {
+  static __device__ __forceinline__ float neg() { return 5.9604645e-08f; }
+};
+template <> struct Eps<double> {
+  static __device__ __forceinline__ double neg() { return 1.1102230246251565e-16; }
+};
+
+// special.gammaincinv_gl_impl: x with P(a, x) = p; max(Wilson-Hilferty,
+// small-x) start, n_iter = 3 Halley steps on the shift-4 GL P(a, x)
+template <typename T>
+__device__ __forceinline__ T gammaincinv_gl(const Config<T>& c, T a, T p) {
+  const T tiny = Lim<T>::tiny();
+  p = vclip(p, tiny, T(1) - Eps<T>::neg());
+  const T z = ndtri(p);
+  const T t = T(1) - T(1) / (T(9) * a) + z * dsqrt(T(1) / (T(9) * a));
+  const T x_wh = (t > T(0)) ? a * t * t * t : T(0);
+  const T lga1 = lgamma_lanczos(a + T(1));
+  const T x_small = dexp((dlog(p) + lga1) / a);
+  T x = vmax(vmax(x_wh, x_small), tiny);
+  const T gln4 = lga1 + dlog((a + T(1)) * (a + T(2)) * (a + T(3)));
+#pragma unroll 1
+  for (int it = 0; it < 3; ++it) {
+    const T xs = vmin(x, T(1e6));
+    const T xs_t = vmax(xs, tiny);
+    T d = dexp(a * dlog(xs_t) - xs - lga1);
+    d = (xs > T(0)) ? d : T(0);
+    const T deriv = d * a / xs_t;
+    T total = d;
+    d = d * xs / (a + T(1));
+    total = total + d;
+    d = d * xs / (a + T(2));
+    total = total + d;
+    d = d * xs / (a + T(3));
+    total = total + d;
+    const T p4 = gammainc_gl(c, a + T(4), xs, gln4);
+    const T f = vclip(p4 + total, T(0), T(1)) - p;
+    const T step_n = f / vmax(deriv, tiny);
+    const T h = T(0.5) * ((a - T(1)) / xs_t - T(1));
+    const T denom = vclip(T(1) - step_n * h, T(0.5), T(2));
+    T step = step_n / denom;
+    step = vclip(step, T(-9) * x, T(0.9) * x);
+    x = x - step;
+  }
+  return x;
+}
+
+// special.erf_approx: A&S 7.1.26, sign(x) * y (0 at x = 0, as jnp.sign)
+template <typename T> __device__ __forceinline__ T erf_approx(T x) {
+  const T ax = dabs(x);
+  const T t = T(1) / (T(1) + T(0.3275911) * ax);
+  const T poly = ((((T(1.061405429) * t + T(-1.453152027)) * t +
+                    T(1.421413741)) * t + T(-0.284496736)) * t +
+                  T(0.254829592)) * t;
+  const T y = T(1) - poly * dexp(-ax * ax);
+  return vsign(x) * y;
+}
+
 // _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2
 template <typename T>
 __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
@@ -235,11 +381,25 @@ __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
 }
 
 // Closure inversion (_invert_rows) for mode i of normalized moments `mom`.
-template <typename T>
+template <typename T, bool kArms>
 __device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
                                             T& p2) {
   const T eps = Lim<T>::eps();
   const T m0 = m[0], m1 = m[1];
+  if (kArms && fam == FAM_LOGNORMAL) {
+    const bool valid = (m0 > eps) && (m1 > eps) && (m[2] > eps);
+    const T m0s = valid ? m0 : T(1);
+    const T m1s = valid ? m1 : T(1);
+    const T m2s = valid ? m[2] : T(2);
+    const T mu = dlog(m1s * m1s / (dpow(m0s, T(1.5)) * dpow(m2s, T(0.5))));
+    const T sig2 = dlog(vmax(m0s * m2s / (m1s * m1s), T(1)));
+    const T sigma = vmax(dsqrt(sig2), eps);
+    const T nn = m1s / dexp(mu + T(0.5) * (sigma * sigma));
+    n = valid ? nn : T(0);
+    p1 = valid ? mu : T(1);
+    p2 = valid ? sigma : T(1);
+    return;
+  }
   const bool valid = (m0 > eps) && (m1 > eps);
   const T m0s = valid ? m0 : T(1);
   const T m1s = valid ? m1 : T(1);
@@ -260,34 +420,123 @@ __device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
   p2 = valid ? kk : T(1);
 }
 
+// _f2_lognormal_window: the lognormal F2 entries p <= q < M (before the
+// clamp) by the density-recentred GL window rule, written to f2[tri(p, q)].
+// The nodes are streamed: each node adds ypow_p * pm_q to p <= q
+// accumulators (the Pallas body sums its [G, TB] tile with jnp.sum), and
+// exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop.
+template <typename T>
+__device__ __forceinline__ void f2_lognormal_window(const Config<T>& c, T thr,
+                                                    T n, T mu, T sig, T* f2) {
+  const T tiny = Lim<T>::tiny();
+  const int M = c.M;
+  const T W = T(6);  // coalescence.LOGNORM_WINDOW_SIGMA
+  const T s2 = sig * sig;
+  const T lo = mu - W * sig;
+  const T hi = vmin(dlog(vmax(thr, tiny)), mu + T(M) * s2 + W * sig);
+  const T half = vmax(hi - lo, T(0)) * T(0.5);
+  const T center = lo + half;
+  const T two_s2 = T(2) * s2;
+  const T sig_c = sig * T(2.5066282746310002);  // sqrt(2 pi)
+  const T sig_r2 = sig * T(1.4142135623730951);  // sqrt(2)
+  T eq[MAX_M], qs2[MAX_M], acc[FTAB];
+#pragma unroll
+  for (int q = 0; q < MAX_M; ++q) {
+    eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
+    qs2[q] = T(q) * s2;
+  }
+#pragma unroll
+  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
+  for (int g = 0; g < c.n_win; ++g) {
+    const T u = center + half * c.win_v[g];
+    const T x = dexp(u);
+    const T du = u - mu;
+    const T g0 = half * c.win_w[g] * dexp(-(du * du) / two_s2) / sig_c;
+    const T rem = vmax(thr - x, T(0));
+    const T logrem = dlog(vmax(rem, tiny));
+    T pm[MAX_M];
+#pragma unroll
+    for (int q = 0; q < MAX_M; ++q) {
+      if (q < M) {
+        const T z = (logrem - mu - qs2[q]) / sig_r2;
+        const T v = eq[q] * T(0.5) * (T(1) + erf_approx(z));
+        pm[q] = (rem > T(0)) ? v : T(0);
+      }
+    }
+    T ypow = g0;
+#pragma unroll
+    for (int p = 0; p < MAX_M; ++p) {
+      if (p < M) {
+        if (p > 0) ypow = ypow * x;
+#pragma unroll
+        for (int q = p; q < MAX_M; ++q)
+          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * pm[q];
+      }
+    }
+  }
+  const T n2 = n * n;
+#pragma unroll
+  for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * n2;
+}
+
+// The per-lane threshold of thresholded mode i: the packed constant under
+// FixedThreshold; under MovingThreshold the Pallas body's thr_rows (gamma
+// theta * P^-1(k, p), exponential theta * (-log1p(-p)), lognormal
+// exp(mu + sigma * ndtri(p))), clamped below at 1e-18.
+template <typename T, bool kArms>
+__device__ __forceinline__ T mode_threshold(const Config<T>& c, int i, int fam,
+                                            T p1, T p2) {
+  if (!kArms || !c.moving) return c.thr[i];
+  T thr;
+  if (fam == FAM_GAMMA)
+    thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
+  else if (fam == FAM_EXPONENTIAL)
+    thr = p1 * c.thr[i];
+  else
+    thr = dexp(p1 + p2 * c.thr[i]);
+  return vmax(thr, T(1e-18));
+}
+
 // The coalescence body on one lane: normalized moments `mom` [n_tot] ->
 // tendencies `acc` [n_tot] and the closure parameters per mode.
-template <typename T>
+template <typename T, bool kArms>
 __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
                                           T* acc, T (*params)[3]) {
   const T eps = Lim<T>::eps();
   const int M = c.M;
   T mf[MAX_MODES * MAX_M];
-  T gis[MAX_MODES][MAX_S];
+  T ftab[MAX_MODES][kArms ? FTAB : MAX_S];
 #pragma unroll
   for (int i = 0; i < MAX_MODES; ++i) {
     if (i >= c.n_modes) continue;
     const int fam = c.fam[i];
+    const bool logn = kArms && fam == FAM_LOGNORMAL;
     T n, p1, p2;
-    invert_mode(fam, mom + c.off[i], n, p1, p2);
+    invert_mode<T, kArms>(fam, mom + c.off[i], n, p1, p2);
     params[i][0] = n;
     params[i][1] = p1;
     params[i][2] = p2;
     // diagnostic moment recurrence M_{o+1} = M_o * theta * (k + o) | (o + 1)
+    // | exp(mu + (2o + 1) sigma^2 / 2)
     T m = n;
     mf[i * M] = n;
     for (int o = 0; o < M - 1; ++o) {
-      m = (fam == FAM_EXPONENTIAL) ? m * p1 * T(o + 1) : m * p1 * (p2 + T(o));
+      if (logn)
+        m = m * dexp(p1 + T((2.0 * o + 1.0) * 0.5) * (p2 * p2));
+      else if (fam == FAM_EXPONENTIAL)
+        m = m * p1 * T(o + 1);
+      else
+        m = m * p1 * (p2 + T(o));
       mf[i * M + o + 1] = m;
     }
     if (c.thr_flag[i]) {
-      const T kk = (fam == FAM_GAMMA) ? p2 : T(1);
-      gis_exact(c, c.thr[i], p1, kk, gis[i]);
+      const T thr = mode_threshold<T, kArms>(c, i, fam, p1, p2);
+      if (logn) {
+        f2_lognormal_window(c, thr, n, p1, p2, ftab[i]);
+      } else {
+        const T kk = (fam == FAM_GAMMA) ? p2 : T(1);
+        gis_exact(c, thr, p1, kk, ftab[i]);
+      }
     }
   }
   // Q/R/S: sparse FMAs over the static nonzeros of wb, then wf
@@ -301,14 +550,17 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
     const int k = ix[1], a = ix[2], b = ix[3];
     const T mm = mf[k * M + a] * mf[k * M + b];
     // clamp against M_a * M_b, reference zero-structure (mm < eps)
-    T v = c.thr_flag[k] ? vmin(mm, mm * gis[k][a + b]) : mm;
+    T v = mm;
+    if (c.thr_flag[k])
+      v = (kArms && c.fam[k] == FAM_LOGNORMAL) ? vmin(mm, ftab[k][tri(a, b)])
+                                               : vmin(mm, mm * ftab[k][a + b]);
     v = (mm < eps) ? T(0) : v;
     acc[ix[0]] = acc[ix[0]] + c.wf_c[e] * v;
   }
 }
 
 // _sedi_flux_rows (fast_ratio): normalized flux -sum_k c_k M_{m+e_k}
-template <typename T>
+template <typename T, bool kArms>
 __device__ __forceinline__ void sedi_flux(const Config<T>& c,
                                           const T (*params)[3], T* flux) {
   const T tiny = Lim<T>::tiny();
@@ -316,6 +568,7 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
   for (int i = 0; i < MAX_MODES; ++i) {
     if (i >= c.n_modes) continue;
     const int fam = c.fam[i];
+    const bool logn = kArms && fam == FAM_LOGNORMAL;
     const int np = c.nprog[i];
     const T n = params[i][0], p1 = params[i][1], p2 = params[i][2];
     const T logp1 = dlog(vmax(p1, tiny));
@@ -324,14 +577,20 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
     for (int m = 0; m < MAX_NPROG; ++m) fl[m] = T(0);
     for (int v = 0; v < c.n_vel; ++v) {
       const T cv = c.vel_c[v], e = c.vel_e[v];
-      T t = (fam == FAM_GAMMA) ? n * dexp(e * logp1) * gamma_ratio(p2, e)
-                               : n * c.vel_g[v] * dexp(e * logp1);
+      T t = T(0);
+      if (fam == FAM_GAMMA)
+        t = n * dexp(e * logp1) * gamma_ratio(p2, e);
+      else if (fam == FAM_EXPONENTIAL)
+        t = n * c.vel_g[v] * dexp(e * logp1);
 #pragma unroll
       for (int m = 0; m < MAX_NPROG; ++m) {
         if (m >= np) continue;
-        if (m > 0) {
-          t = (fam == FAM_GAMMA) ? t * p1 * ((p2 + T(m - 1)) + e)
-                                 : t * p1 * c.vel_me[3 * v + m];
+        const T q = c.vel_me[3 * v + m];
+        if (logn) {
+          // direct closed form n exp(q mu + q^2 sigma^2 / 2)
+          t = n * dexp(q * p1 + c.vel_hq2[3 * v + m] * p2 * p2);
+        } else if (m > 0) {
+          t = (fam == FAM_GAMMA) ? t * p1 * ((p2 + T(m - 1)) + e) : t * p1 * q;
         }
         fl[m] = fl[m] + cv * t;
       }

@@ -1,18 +1,25 @@
 // Fused coalescence kernels for Hopper (sm_90a), bound to PyTorch by ctypes
 // (ops/_build.py builds this file, ops/fused_coalescence.py launches it).
 //
-// Replaces two Pallas TPU kernels of cloudy_tpu/ops/pallas_coalescence.py:
+// Replaces three Pallas TPU kernels of cloudy_tpu/ops/pallas_coalescence.py:
 //
 // - cloudy_coal_*  <- make_pallas_coal_fn (:662): normalized moments
 //   [n_tot, B] -> coalescence tendencies [n_tot, B] (the RHS bench.py
 //   measures);
+// - cloudy_rhs_*   <- make_pallas_rainshaft_rhs_fn (:771): the fused
+//   per-level rainshaft RHS, physical moments [n_tot, B] -> [2 n_tot, B],
+//   the physical coalescence tendencies (clip, normalize, empty-cell mask,
+//   denormalize) over the physical sedimentation fluxes; the caller applies
+//   the upwind stencil;
 // - cloudy_step_*  <- make_pallas_rainshaft_step_fn (:876, without
 //   kernel_scale): one whole SSPRK33 rainshaft step, three RHS evaluations
 //   (clip, normalize, empty-cell mask, coalescence body, sedimentation flux,
 //   denormalize, upwind stencil) and the RK combinations, state in and out.
 //
 // What bounds them on this card: transcendental and FP32/FP64 issue, not
-// bytes. Per lane and step the whole-step kernel reads 6 and writes 6 values
+// bytes (cloudy_rhs_* writes twice the rows it reads, 72 B per lane in f32,
+// still far below its arithmetic). Per lane and step the whole-step kernel
+// reads 6 and writes 6 values
 // (48 B + 48 B in f32) but evaluates three RHS of ~20 exp/log, ~15 divides
 // and a few hundred FMAs each, so it sits far to the compute side of the
 // H100's bytes-to-FLOP balance; the f64 variant runs at the card's FP64 rate.
@@ -27,12 +34,25 @@
 // row written to shared memory, one __syncthreads(), the neighbour read,
 // zero influx at each column's top. Loops over the tables are not unrolled
 // per configuration: generating the kernel per configuration is later work.
+// Each kernel has two instances: `kArms = false` for FixedThreshold
+// gamma/exponential configurations and `kArms = true` with the
+// MovingThreshold and lognormal arms (coal_body.cuh); the entry points'
+// `arms` argument picks one.
 
 #include "coal_body.cuh"
 
+// Build units: ops/_build.py compiles this file once per unit, all at once,
+// with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
+// kernel in one type. Without CLOUDY_UNIT the file builds everything.
+#ifdef CLOUDY_UNIT
+#define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
+#else
+#define CLOUDY_IN_UNIT(u) 1
+#endif
+
 namespace cloudy {
 
-template <typename T>
+template <typename T, bool kArms>
 __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
                             int cfg_bytes, long long B) {
@@ -48,15 +68,50 @@ __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) m[o] = mom[o * B + lane];
-  coal_body(c, m, acc, params);
+  coal_body<T, kArms>(c, m, acc, params);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) out[o * B + lane] = acc[o];
 }
 
+// The fused per-level RHS: one thread per lane, no stencil and no barrier
+// after the configuration copy.
+template <typename T, bool kArms>
+__global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
+                           const unsigned char* __restrict__ cfg_g,
+                           int cfg_bytes, long long B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  load_config(smem, cfg_g, cfg_bytes);
+  __syncthreads();
+  Config<T> c;
+  c.bind(smem);
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;  // no barrier follows
+
+  const T eps = Lim<T>::eps();
+  T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
+  bool empty = true;
+#pragma unroll
+  for (int o = 0; o < MAX_NTOT; ++o) {
+    if (o < c.n_tot) {
+      r[o] = vmax(mom[o * B + lane], T(0)) * c.inv_norm[o];  // clip, normalize
+      empty = empty && (r[o] < eps);
+    }
+  }
+  coal_body<T, kArms>(c, r, acc, params);
+  sedi_flux<T, kArms>(c, params, flux);
+#pragma unroll
+  for (int o = 0; o < MAX_NTOT; ++o) {
+    if (o < c.n_tot) {
+      out[o * B + lane] = (empty ? T(0) : acc[o]) * c.norm[o];
+      out[(c.n_tot + o) * B + lane] = flux[o] * c.norm[o];
+    }
+  }
+}
+
 // One RHS evaluation of the whole step on this lane's state y -> rows.
 // Every thread of the block calls it (the two barriers are block-wide).
-template <typename T>
+template <typename T, bool kArms>
 __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
                                          T* rows, T* sh_flux, bool top) {
   const T eps = Lim<T>::eps();
@@ -69,8 +124,8 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
       empty = empty && (r[o] < eps);
     }
   }
-  coal_body(c, r, acc, params);
-  sedi_flux(c, params, flux);
+  coal_body<T, kArms>(c, r, acc, params);
+  sedi_flux<T, kArms>(c, params, flux);
   const int t = threadIdx.x, nt = blockDim.x;
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o) {
@@ -91,7 +146,7 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
   __syncthreads();  // sh_flux is rewritten by the next evaluation
 }
 
-template <typename T>
+template <typename T, bool kArms>
 __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
                             int cfg_bytes, long long B, int nz) {
@@ -114,15 +169,15 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) y[o] = active ? mom[o * B + lane] : T(0);
 
-  step_rhs(c, y, f, sh_flux, top);
+  step_rhs<T, kArms>(c, y, f, sh_flux, top);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u1[o] = y[o] + dt * f[o];
-  step_rhs(c, u1, f, sh_flux, top);
+  step_rhs<T, kArms>(c, u1, f, sh_flux, top);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u1[o] + dt * f[o]);
-  step_rhs(c, u2, f, sh_flux, top);
+  step_rhs<T, kArms>(c, u2, f, sh_flux, top);
   if (!active) return;
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
@@ -135,32 +190,45 @@ constexpr int STEP_TARGET_THREADS = 256;
 
 template <typename T>
 int launch_coal(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                long long B, void* stream) {
+                long long B, int arms, void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const auto kern = arms ? coal_kernel<T, true> : coal_kernel<T, false>;
   const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
-  coal_kernel<T><<<(unsigned)blocks, COAL_THREADS, cfg_bytes,
-                   (cudaStream_t)stream>>>(
+  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rhs(const void* mom, void* out, const void* cfg, int cfg_bytes,
+               long long B, int arms, void* stream) {
+  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const auto kern = arms ? rhs_kernel<T, true> : rhs_kernel<T, false>;
+  const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
+  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                long long B, int nz, void* stream) {
+                long long B, int nz, int arms, void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
       nz < 2 || nz > 1024 || B % nz != 0)
     return (int)cudaErrorInvalidValue;
+  const auto kern = arms ? step_kernel<T, true> : step_kernel<T, false>;
   const int cols = nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz;
   const int threads = cols * nz;
   const long long blocks = (B + threads - 1) / threads;
   const size_t smem = (size_t)cfg_bytes + (size_t)MAX_NTOT * threads * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  step_kernel<T><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+  kern<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B, nz);
   return (int)cudaGetLastError();
 }
@@ -169,24 +237,10 @@ int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
 
 extern "C" {
 
+#if CLOUDY_IN_UNIT(0)
 int cloudy_coal_f32(const void* mom, void* out, const void* cfg,
-                    int cfg_bytes, long long B, void* stream) {
-  return cloudy::launch_coal<float>(mom, out, cfg, cfg_bytes, B, stream);
-}
-
-int cloudy_coal_f64(const void* mom, void* out, const void* cfg,
-                    int cfg_bytes, long long B, void* stream) {
-  return cloudy::launch_coal<double>(mom, out, cfg, cfg_bytes, B, stream);
-}
-
-int cloudy_step_f32(const void* mom, void* out, const void* cfg,
-                    int cfg_bytes, long long B, int nz, void* stream) {
-  return cloudy::launch_step<float>(mom, out, cfg, cfg_bytes, B, nz, stream);
-}
-
-int cloudy_step_f64(const void* mom, void* out, const void* cfg,
-                    int cfg_bytes, long long B, int nz, void* stream) {
-  return cloudy::launch_step<double>(mom, out, cfg, cfg_bytes, B, nz, stream);
+                    int cfg_bytes, long long B, int arms, void* stream) {
+  return cloudy::launch_coal<float>(mom, out, cfg, cfg_bytes, B, arms, stream);
 }
 
 // The packed configuration's capacities and header size, for the host to
@@ -201,5 +255,45 @@ int cloudy_layout(int* out) {
 const char* cloudy_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#endif
+
+#if CLOUDY_IN_UNIT(1)
+int cloudy_coal_f64(const void* mom, void* out, const void* cfg,
+                    int cfg_bytes, long long B, int arms, void* stream) {
+  return cloudy::launch_coal<double>(mom, out, cfg, cfg_bytes, B, arms, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(2)
+int cloudy_rhs_f32(const void* mom, void* out, const void* cfg,
+                   int cfg_bytes, long long B, int arms, void* stream) {
+  return cloudy::launch_rhs<float>(mom, out, cfg, cfg_bytes, B, arms, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(3)
+int cloudy_rhs_f64(const void* mom, void* out, const void* cfg,
+                   int cfg_bytes, long long B, int arms, void* stream) {
+  return cloudy::launch_rhs<double>(mom, out, cfg, cfg_bytes, B, arms, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(4)
+int cloudy_step_f32(const void* mom, void* out, const void* cfg,
+                    int cfg_bytes, long long B, int nz, int arms,
+                    void* stream) {
+  return cloudy::launch_step<float>(mom, out, cfg, cfg_bytes, B, nz, arms,
+                                    stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(5)
+int cloudy_step_f64(const void* mom, void* out, const void* cfg,
+                    int cfg_bytes, long long B, int nz, int arms,
+                    void* stream) {
+  return cloudy::launch_step<double>(mom, out, cfg, cfg_bytes, B, nz, arms,
+                                     stream);
+}
+#endif
 
 }  // extern "C"

@@ -1,18 +1,21 @@
 """Particle mass distributions: the moment closure (reference layer L2).
 
-Port of `cloudy_tpu.distributions` for the families the fixed-threshold
-gamma path runs (gamma, exponential, monodisperse). A spectrum is a static
+Port of `cloudy_tpu.distributions` for the four families (gamma,
+exponential, lognormal, monodisperse). A spectrum is a static
 `SpectrumSpec` plus a dense parameter tensor
 
     params : [..., n_modes, 3]
 
-whose columns mean (n, θ, k) for gamma and (n, θ, ·) for exponential /
-monodisperse. Every function is branch-free over arbitrary leading batch
-axes, with the JAX package's operation order.
+whose columns mean (n, θ, k) for gamma, (n, μ, σ) for lognormal and
+(n, θ, ·) for exponential / monodisperse. Every function is branch-free
+over arbitrary leading batch axes, with the JAX package's operation order.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Union
+
+import numpy as np
 import torch
 
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
@@ -21,9 +24,6 @@ from cloudy_tpu_torch.ops import special
 # Default shape-parameter clipping range for the gamma closure inversion
 # (reference param_range, src/ParticleDistributions/ParticleDistributions.jl:459).
 GAMMA_K_RANGE = (None, 10.0)  # (eps(dtype), 10.0)
-
-LOGNORMAL_TODO = "lognormal modes are not ported yet (ROADMAP A.7)"
-
 
 def _eps(dtype):
     return torch.finfo(dtype).eps
@@ -69,6 +69,25 @@ def _invert_gamma(m, k_range=GAMMA_K_RANGE):
     return torch.stack([n, theta, k], dim=-1)
 
 
+def _invert_lognormal(m):
+    """(M0, M1, M2) -> (n, μ, σ): μ = log(M1²/(M0^{3/2} M2^{1/2})),
+    σ = sqrt(log(M0 M2/M1²)), n = M1/exp(μ + σ²/2) (reference :479-505)."""
+    m0, m1, m2 = m[..., 0], m[..., 1], m[..., 2]
+    eps = _eps(m0.dtype)
+    valid = (m0 > eps) & (m1 > eps) & (m2 > eps)
+    m0s = special.select(valid, m0, 1.0)
+    m1s = special.select(valid, m1, 1.0)
+    m2s = special.select(valid, m2, 2.0)
+    mu = torch.log(m1s * m1s / (m0s ** 1.5 * m2s ** 0.5))
+    sig2 = torch.log(torch.clamp(m0s * m2s / (m1s * m1s), min=1.0))
+    sigma = torch.clamp(torch.sqrt(sig2), min=eps)
+    n = m1s / special.exp(mu + 0.5 * (sigma * sigma))
+    n = special.select(valid, n, 0.0)
+    mu = special.select(valid, mu, 1.0)
+    sigma = special.select(valid, sigma, 1.0)
+    return torch.stack([n, mu, sigma], dim=-1)
+
+
 def params_from_moments(
     spec: SpectrumSpec, mom_flat, gamma_k_range=GAMMA_K_RANGE
 ) -> torch.Tensor:
@@ -81,10 +100,10 @@ def params_from_moments(
         block = mom_flat[..., o : o + n]
         if fam == Family.GAMMA:
             parts.append(_invert_gamma(block, gamma_k_range))
-        elif fam in (Family.EXPONENTIAL, Family.MONODISPERSE):
-            parts.append(_invert_exponential(block))  # same algebra (:530-541)
+        elif fam == Family.LOGNORMAL:
+            parts.append(_invert_lognormal(block))
         else:
-            raise NotImplementedError(LOGNORMAL_TODO)
+            parts.append(_invert_exponential(block))  # same algebra (:530-541)
     return torch.stack(parts, dim=-2)
 
 
@@ -98,9 +117,11 @@ def get_moments(spec: SpectrumSpec, params) -> torch.Tensor:
         if fam == Family.EXPONENTIAL or fam == Family.MONODISPERSE:
             out.extend([n, n * p1])
         elif fam == Family.GAMMA:
-            out.extend([n, n * p2 * p1, n * p2 * (p2 + 1.0) * p1**2])
-        else:
-            raise NotImplementedError(LOGNORMAL_TODO)
+            out.extend([n, n * p2 * p1, n * p2 * (p2 + 1.0) * (p1 * p1)])
+        else:  # LOGNORMAL
+            s2 = p2 * p2
+            out.extend([n, n * special.exp(p1 + 0.5 * s2),
+                        n * special.exp(2.0 * p1 + 2.0 * s2)])
     return torch.stack(out, dim=-1)
 
 
@@ -112,7 +133,8 @@ def get_moments(spec: SpectrumSpec, params) -> torch.Tensor:
 def _integer_moments_one_mode(fam: Family, n, p1, p2, n_cols: int):
     """Moments of integer orders 0..n_cols-1 by multiplicative recurrence:
     exp M_{o+1} = M_o θ (o+1); gamma M_{o+1} = M_o θ (k+o); mono
-    M_{o+1} = M_o θ. Returns [..., n_cols]."""
+    M_{o+1} = M_o θ; lognormal M_{o+1} = M_o e^{μ + (2o+1)σ²/2}.
+    Returns [..., n_cols]."""
     cols = [n]
     m = n
     for o in range(n_cols - 1):
@@ -122,8 +144,8 @@ def _integer_moments_one_mode(fam: Family, n, p1, p2, n_cols: int):
             m = m * p1 * (p2 + o)
         elif fam == Family.MONODISPERSE:
             m = m * p1
-        else:
-            raise NotImplementedError(LOGNORMAL_TODO)
+        else:  # LOGNORMAL
+            m = m * special.exp(p1 + (2.0 * o + 1.0) * 0.5 * (p2 * p2))
         cols.append(m)
     return torch.stack(cols, dim=-1)
 
@@ -142,8 +164,8 @@ def moments_matrix(spec: SpectrumSpec, params, n_cols: int) -> torch.Tensor:
 
 def moment(spec: SpectrumSpec, params, q) -> torch.Tensor:
     """Real-order q-th moment per mode, ``[..., n_modes]``: exp n θ^q Γ(q+1);
-    gamma n θ^q Γ(q+k)/Γ(k); mono n θ^q (reference `moment_func`,
-    src/ParticleDistributions/ParticleDistributions.jl:177-218)."""
+    gamma n θ^q Γ(q+k)/Γ(k); mono n θ^q; lognormal n exp(qμ + q²σ²/2)
+    (reference `moment_func`, ParticleDistributions.jl:177-218)."""
     q = torch.as_tensor(q, dtype=params.dtype, device=params.device)
     out = []
     for i, fam in enumerate(spec.families):
@@ -156,9 +178,47 @@ def moment(spec: SpectrumSpec, params, q) -> torch.Tensor:
             )
         elif fam == Family.MONODISPERSE:
             m = n * special.powx(p1, q)
-        else:
-            raise NotImplementedError(LOGNORMAL_TODO)
+        else:  # LOGNORMAL
+            m = n * special.exp(q * p1 + 0.5 * (q * q) * (p2 * p2))
         out.append(m)
+    return torch.stack(out, dim=-1)
+
+
+def compute_thresholds(
+    spec: SpectrumSpec, params, percentiles: Union[float, Sequence[float]],
+    fast_gl_nodes: int = 0,
+) -> torch.Tensor:
+    """Inverse-CDF percentile thresholds per mode ``[..., n_modes]``; the
+    last mode is +inf (reference `compute_thresholds`,
+    src/ParticleDistributions/ParticleDistributions.jl:721-761).
+
+    exp −θ log(1−p); gamma θ·P⁻¹(k, p); lognormal exp(μ + σΦ⁻¹(p)); mono θ;
+    all clamped below at 1e-18. ``fast_gl_nodes`` > 0 selects the fast
+    gamma inverse (`special.gammaincinv_gl_impl`), the MovingThreshold
+    production path."""
+    dtype = params.dtype
+    if np.ndim(percentiles) == 0:
+        percentiles = [percentiles] * spec.n_modes
+    out = []
+    for i, fam in enumerate(spec.families):
+        if i == spec.n_modes - 1:
+            out.append(torch.full_like(params[..., i, 0], float("inf")))
+            continue
+        p = torch.tensor(float(percentiles[i]), dtype=dtype, device=params.device)
+        n, th, k = (params[..., i, j] for j in range(3))
+        if fam == Family.EXPONENTIAL:
+            thr = -th * torch.log1p(-p)
+        elif fam == Family.GAMMA:
+            if fast_gl_nodes:
+                thr = th * special.gammaincinv_gl_impl(
+                    k, p.expand(k.shape), n_nodes=fast_gl_nodes)
+            else:
+                thr = th * special.gammaincinv_impl(k, p)
+        elif fam == Family.LOGNORMAL:
+            thr = special.exp(th + k * special.ndtri(p))  # (μ, σ) layout
+        else:  # MONODISPERSE
+            thr = th
+        out.append(torch.clamp(thr, min=1e-18))
     return torch.stack(out, dim=-1)
 
 

@@ -1,13 +1,19 @@
 """Scenario harness: the pod column ensemble on one device.
 
 Port of `cloudy_tpu.harness` for the production workload,
-`_scenario_pod_ensemble` with variant ``fixed2gamma``: an ensemble of 1-D
-rainshaft columns (two gamma modes, Golovin kernel fitted at order 1, fixed
-threshold 5e-10 kg, 32 levels over 3000 m, v = 50·x^{1/6}, SSPRK33 at
-dt = 1 s for 120 steps, exact F2 with the GL-12 incomplete gamma) in the flat
+`_scenario_pod_ensemble` in its three variants (`POD_VARIANTS`): an
+ensemble of 1-D rainshaft columns (Golovin kernel fitted at order 1, 32
+levels over 3000 m, v = 50·x^{1/6}, SSPRK33 at dt = 1 s for 120 steps, the
+fast tier: exact F2 with the GL-12 incomplete gamma) in the flat
 structure-of-arrays layout ``[6, n_columns·32]``, advanced one whole step per
 launch of the CUDA whole-step kernel (`ops.fused_coalescence`). On a CPU
 device the same wrapper runs its plain twin.
+
+- ``pod_ensemble``: two gamma modes, fixed threshold 5e-10 kg;
+- ``pod_ensemble_moving``: two gamma modes, MovingThreshold at the 0.9
+  percentile (per-column thresholds inverted in-kernel every RK stage);
+- ``pod_ensemble_lognorm``: lognormal + gamma, fixed threshold 5e-10 kg,
+  lognormal F2 by the GL-16 recentred window.
 
 The state is built on the device. One warm-up step (on one column) builds
 the kernels and loads the module before anything is timed; the timed run is
@@ -15,6 +21,8 @@ measured with CUDA events on a CUDA device (host clock on the CPU) and the
 rate divides by the steps actually run.
 
     python -m cloudy_tpu_torch.harness pod_ensemble --columns 1048576 --device cuda
+    python -m cloudy_tpu_torch.harness pod_ensemble_moving --columns 1048576 --device cuda
+    python -m cloudy_tpu_torch.harness pod_ensemble_lognorm --columns 1048576 --device cuda
 
 prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
 """
@@ -22,6 +30,7 @@ prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -37,27 +46,39 @@ from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.utils import metrics
 
-#: pod-scenario production variants: (families, fixed thresholds). The
-#: moving and lognormal variants are ROADMAP A.7.
+#: pod-scenario production variants (cloudy_tpu/harness.py:126-137):
+#: (families, thresholds, moving, extra build_coalescence_data kwargs)
 POD_VARIANTS = {
-    "fixed2gamma": ((Family.GAMMA, Family.GAMMA), (5e-10, np.inf)),
+    "fixed2gamma": ((Family.GAMMA, Family.GAMMA), (5e-10, np.inf), False, {}),
+    "moving": ((Family.GAMMA, Family.GAMMA), (0.9, 1.0), True, {}),
+    "lognorm": ((Family.LOGNORMAL, Family.GAMMA), (5e-10, np.inf), False,
+                {"lognorm_gl_nodes": 16}),
 }
+
+
+def pod_data(variant: str = "fixed2gamma"):
+    """(spec, CoalescenceData) of one pod variant, fast tier, norms
+    (1e6, 1e-9), Golovin 5.0 fitted at order 1."""
+    fams, thresholds, moving, kw = POD_VARIANTS[variant]
+    spec = SpectrumSpec(fams)
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, thresholds, norms=(1e6, 1e-9),
+                                  moving=moving, fast_tier=True, **kw)
+    return spec, data
 
 
 def _scenario_pod_ensemble(
     n_columns: int = 1 << 20,
     device="cuda",
     dtype: torch.dtype = torch.float32,
+    variant: str = "fixed2gamma",
 ) -> Dict:
-    """The pod column ensemble (``fixed2gamma``): returns the configuration,
-    the whole-step function (built and warmed up), the initial state and
-    ``run``."""
-    fams, thresholds = POD_VARIANTS["fixed2gamma"]
+    """The pod column ensemble in one of `POD_VARIANTS`: returns the
+    configuration, the whole-step function (built and warmed up), the
+    initial state (mode 1 seeded, mode 2 empty) and ``run``."""
     device = torch.device(device)
-    spec = SpectrumSpec(fams)
+    spec, data = pod_data(variant)
     norms = (1e6, 1e-9)
-    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
-    data = build_coalescence_data(spec, ker, thresholds, norms=norms, fast_tier=True)
     nz = 32
     config = rs.RainshaftConfig(
         spec=spec, nz=nz, zmax=3000.0, norms=norms, t_end=120.0, dt=1.0
@@ -97,6 +118,7 @@ def _scenario_pod_ensemble(
 
     return {
         "spec": spec,
+        "data": data,
         "config": config,
         "step": step,
         "state0": state0,
@@ -108,6 +130,8 @@ def _scenario_pod_ensemble(
 
 SCENARIOS: Dict[str, Callable] = {
     "pod_ensemble": _scenario_pod_ensemble,
+    "pod_ensemble_moving": functools.partial(_scenario_pod_ensemble, variant="moving"),
+    "pod_ensemble_lognorm": functools.partial(_scenario_pod_ensemble, variant="lognorm"),
 }
 
 

@@ -96,6 +96,31 @@ def make_rainshaft_rhs(config: RainshaftConfig, coal_data: Optional[CoalescenceD
     return rhs
 
 
+def make_rainshaft_rhs_fused(config: RainshaftConfig, fused_fn):
+    """RHS over physical moments in the flat SoA layout ``[n_tot, B]`` (z
+    contiguous within each column) through the fused per-level RHS kernel
+    (`ops.fused_coalescence.make_rainshaft_rhs_fn`): one launch gives the
+    coalescence tendencies and the sedimentation fluxes; the upwind
+    divergence, the only z-coupling, stays in plain torch as the JAX package
+    leaves it to XLA (rainshaft_helpers.jl:80-86): level i's upstream flux
+    is the next lane, zero at each column's top. It multiplies by the
+    reciprocal 1/dz, as the whole-step kernel does, never divides by dz."""
+    n_tot = config.spec.n_tot
+    nz = config.nz
+    inv_dz = 1.0 / float(config.dz)
+
+    def rhs(mom, t):
+        del t
+        B = mom.shape[-1]
+        out = fused_fn.soa(mom)
+        coal, flux = out[:n_tot], out[n_tot:]
+        top = (torch.arange(B, device=mom.device) % nz) == (nz - 1)
+        f_up = torch.where(top, torch.zeros_like(flux), torch.roll(flux, -1, dims=-1))
+        return coal - (f_up - flux) * inv_dz
+
+    return rhs
+
+
 def to_soa(state):
     """``[..., nz, n_tot]`` → flat SoA ``[n_tot, B]`` with z contiguous
     within each column (the whole-step kernel's layout)."""

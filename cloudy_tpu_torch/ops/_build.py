@@ -1,11 +1,14 @@
 """Build and bind the CUDA kernels of csrc/ (nvcc → shared library → ctypes).
 
 The sources are compiled at first use into ``build/cloudy_tpu_torch/`` at
-the root of the checkout, with a plain C interface (no PyTorch headers, so a
-build takes seconds). The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-The compiler's per-kernel report (``-Xptxas -v``: registers, shared memory,
-spills) is written beside the library as ``<name>.log``.
+the root of the checkout, with a plain C interface (no PyTorch headers). A
+source declares build units (``CLOUDY_IN_UNIT(u)``, one kernel in one type
+each); every unit is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library, so the build takes as
+long as its slowest kernel. The library's name carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. The compiler's per-kernel report (``-Xptxas -v``: registers,
+shared memory, spills) is written beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,9 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cloudy_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -54,21 +58,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcloudy_fused_{_digest()}.so"
 
 
+def _units(src: Path):
+    """The build units a source declares (``CLOUDY_IN_UNIT(u)``), or [None]
+    for a source built whole."""
+    units = sorted({int(u) for u in re.findall(r"CLOUDY_IN_UNIT\((\d+)\)",
+                                               src.read_text())})
+    return units or [None]
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one
+    ``nvcc -c`` per build unit, all running at once, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        for u in _units(src):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.{u}.o"
+            unit = [] if u is None else [f"-DCLOUDY_UNIT={u}"]
+            cmd = [nvcc, *NVCC_FLAGS, *unit, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], None
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    tmp = so.with_name(f"{tag}.tmp")
+    if failed is None:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed = (cmd, res.returncode, res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return so
 
@@ -83,11 +116,12 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for tag in ("f32", "f64"):
-        f = getattr(lib, f"cloudy_coal_{tag}")
-        f.argtypes = [p, p, p, i, ll, p]
-        f.restype = i
+        for name in ("cloudy_coal", "cloudy_rhs"):
+            f = getattr(lib, f"{name}_{tag}")
+            f.argtypes = [p, p, p, i, ll, i, p]  # ..., B, arms, stream
+            f.restype = i
         f = getattr(lib, f"cloudy_step_{tag}")
-        f.argtypes = [p, p, p, i, ll, i, p]
+        f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, nz, arms, stream
         f.restype = i
     lib.cloudy_error_string.argtypes = [i]
     lib.cloudy_error_string.restype = ctypes.c_char_p

@@ -6,13 +6,16 @@ Counterpart of `cloudy_tpu.ops.pallas_coalescence`:
 - `make_coal_fn` (kernel ``cloudy_coal_*`` in csrc/fused_coalescence.cu)
   replaces `make_pallas_coal_fn`: normalized moments → coalescence
   tendencies, the RHS that bench.py measures;
+- `make_rainshaft_rhs_fn` (kernel ``cloudy_rhs_*``) replaces
+  `make_pallas_rainshaft_rhs_fn`: the fused per-level RHS, physical moments
+  → ``[coal; flux]`` (``[2·n_tot, B]``), the stencil left to the caller;
 - `make_rainshaft_step_fn` (kernel ``cloudy_step_*``) replaces
   `make_pallas_rainshaft_step_fn`: one whole SSPRK33 rainshaft step (three
   RHS evaluations of clip → normalize → empty mask → coalescence →
   sedimentation flux → upwind stencil, then the RK combinations), reading and
   writing the state once.
 
-Both kernels share the device physics of csrc/coal_body.cuh, the counterpart
+The kernels share the device physics of csrc/coal_body.cuh, the counterpart
 of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`. The kernels are
 table-driven: the host packs one configuration (`FusedPlan`) into a small
 byte buffer that each block copies into shared memory.
@@ -21,14 +24,20 @@ Layout: the flat structure-of-arrays ``[n_tot, B]``, one CUDA thread per
 lane (one level of one column), z contiguous within each column.
 
 Beside each kernel sits its plain twin (`coal_soa_plain`,
-`rainshaft_step_soa_plain`): the same operations in the same order on the
-same rows, in PyTorch. A wrapper runs the twin only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises. It never falls back.
+`rainshaft_rhs_soa_plain`, `rainshaft_step_soa_plain`): the same operations
+in the same order on the same rows, in PyTorch. A wrapper runs the twin
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises. It never falls back.
 
-Coverage: GAMMA and EXPONENTIAL modes, FixedThreshold, exact F2 on the
-Gauss–Legendre tier (``f2_exact=True``, ``gammainc_gl_nodes > 0``) — the
-pod ``fixed2gamma`` configuration and bench.py's. Anything else raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+Coverage: GAMMA, EXPONENTIAL and LOGNORMAL modes under FixedThreshold and
+MovingThreshold, exact gamma/exponential F2 on the Gauss–Legendre tier
+(``f2_exact=True``, ``gammainc_gl_nodes > 0``; moving gamma thresholds by
+the fast GL percentile inverse) and lognormal F2 by the recentred GL window
+(``lognorm_gl_nodes > 0``) — the pod ``fixed2gamma``, ``moving`` and
+``lognorm`` configurations and bench.py's. Anything else raises
+`NotImplementedError` naming the ROADMAP item that ports it. Each kernel is
+compiled twice, with and without the MovingThreshold and lognormal arms;
+`FusedPlan.arms` picks the instance.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import numpy as np
 import torch
 
 from cloudy_tpu_torch.spec import Family, get_moments_normalizing_factors
-from cloudy_tpu_torch.coalescence import CoalescenceData
+from cloudy_tpu_torch.coalescence import LOGNORM_WINDOW_SIGMA, CoalescenceData
 from cloudy_tpu_torch.ops import special
 
 # Capacities of csrc/coal_body.cuh and the int32 header slots of the packed
@@ -51,7 +60,7 @@ MAX_MODES = 3
 MAX_NTOT = 9
 MAX_M = 5
 CFG_MAX_BYTES = 12288
-HEADER_INTS = 8
+HEADER_INTS = 10
 LAYOUT = (MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, HEADER_INTS)
 
 
@@ -63,14 +72,22 @@ class FusedPlan:
     families: Tuple[int, ...]
     offsets: Tuple[int, ...]
     nprog: Tuple[int, ...]
-    #: per mode: normalized fixed threshold, or None (no F2 quadrature)
-    thresholds: Tuple[object, ...]
+    #: per mode: 1 where the mode carries an F2 integral (a threshold)
+    thr_flag: Tuple[int, ...]
+    #: per thresholded mode: FixedThreshold, the normalized threshold;
+    #: MovingThreshold, gamma the percentile p, exponential −log1p(−p),
+    #: lognormal Φ⁻¹(p) (host double)
+    thr_const: Tuple[float, ...]
+    #: thresholds are per-column percentiles (MovingThreshold)
+    moving: bool
     M: int
     #: (o, i, j, c): acc[o] += c · Mf[i] · Mf[j], flat index i = mode·M + p
     wb_nz: Tuple[Tuple[int, int, int, float], ...]
     #: (o, k, a, b, c): acc[o] += c · F2[k][a, b], a ≤ b, only in-range entries
     wf_nz: Tuple[Tuple[int, int, int, int, float], ...]
     gl_nodes: int
+    #: Gauss–Legendre nodes of the lognormal window rule (0: no window mode)
+    win_nodes: int = 0
     mom_norms: Tuple[float, ...] = ()
     #: normalized velocity (c · m_norm^e, e) pairs
     vel_n: Tuple[Tuple[float, float], ...] = ()
@@ -85,6 +102,12 @@ class FusedPlan:
     @property
     def n_modes(self) -> int:
         return len(self.families)
+
+    @property
+    def arms(self) -> int:
+        """1 where the kernels' MovingThreshold/lognormal instance is
+        needed, 0 for a FixedThreshold gamma/exponential configuration."""
+        return int(self.moving or Family.LOGNORMAL in self.families)
 
 
 def _wb_nonzeros(data: CoalescenceData):
@@ -113,25 +136,36 @@ def _wf_nonzeros(data: CoalescenceData):
     return out
 
 
+def _thresholded(data: CoalescenceData, i: int) -> bool:
+    """Whether mode i carries an F2 integral: every non-last mode under
+    MovingThreshold, finite thresholds under FixedThreshold."""
+    if i >= data.spec.n_modes - 1:
+        return False
+    return bool(data.moving or np.isfinite(data.thresholds[i]))
+
+
 def check_supported(data: CoalescenceData) -> None:
     """Raise `NotImplementedError` for a configuration the CUDA kernels do not
     cover yet, naming the ROADMAP item that ports it."""
     fams = data.spec.families
-    if data.moving:
-        raise NotImplementedError(
-            "MovingThreshold is not ported to the CUDA kernels yet (ROADMAP A.7, B-arms)"
-        )
-    for fam in fams:
-        if fam not in (Family.GAMMA, Family.EXPONENTIAL):
+    for i, fam in enumerate(fams):
+        if fam == Family.MONODISPERSE:
             raise NotImplementedError(
-                f"{fam.name} modes are not ported to the CUDA kernels yet "
-                "(ROADMAP A.7, B-arms)"
+                "monodisperse modes (closure and closed-form F2) are not "
+                "ported to the CUDA kernels yet (ROADMAP B-arms)"
+            )
+        if fam == Family.LOGNORMAL and _thresholded(data, i) and not data.lognorm_gl_nodes:
+            raise NotImplementedError(
+                "only the recentred GL window rule (lognorm_gl_nodes > 0) is "
+                "ported for thresholded lognormal modes; the Φ quadrature grid "
+                "is a ROADMAP B-arm"
             )
     if not (data.f2_exact and data.gammainc_gl_nodes > 0):
         raise NotImplementedError(
             "only the exact-F2 Gauss–Legendre tier (f2_exact=True, "
             "gammainc_gl_nodes > 0) is ported to the CUDA kernels; the "
-            "quadrature and series/CF tiers are ROADMAP B-arms"
+            "quadrature grids, the series/CF incomplete gamma and the Newton "
+            "percentile inverse are ROADMAP B-arms"
         )
     if len(fams) > MAX_MODES or data.spec.n_tot > MAX_NTOT or data.M > MAX_M:
         raise NotImplementedError(
@@ -139,6 +173,28 @@ def check_supported(data: CoalescenceData) -> None:
             f"n_tot ≤ {MAX_NTOT}, M ≤ {MAX_M}); per-configuration code "
             "generation is ROADMAP B-codegen"
         )
+
+
+def _threshold_constants(data: CoalescenceData):
+    """(thr_flag, thr_const) per mode; see `FusedPlan`. The lognormal
+    percentile constant Φ⁻¹(p) is evaluated in true double on the host and
+    rounded once at packing."""
+    flags, consts = [], []
+    for i, fam in enumerate(data.spec.families):
+        flag = _thresholded(data, i)
+        flags.append(int(flag))
+        t = float(data.thresholds[i])
+        if not flag:
+            consts.append(0.0)
+        elif not data.moving:
+            consts.append(t)
+        elif fam == Family.EXPONENTIAL:
+            consts.append(-float(np.log1p(-t)))
+        elif fam == Family.LOGNORMAL:
+            consts.append(float(special.ndtri(torch.tensor(t, dtype=torch.float64))))
+        else:  # GAMMA: the percentile; Φ⁻¹(p) runs in-kernel in the working type
+            consts.append(t)
+    return tuple(flags), tuple(consts)
 
 
 def build_plan(
@@ -149,16 +205,14 @@ def build_plan(
     dz: float = 1.0,
     dt: float = 0.0,
 ) -> FusedPlan:
-    """Tables of one configuration; `vel`, `norms`, `nz`, `dz`, `dt` matter
-    for the whole-step kernel only."""
+    """Tables of one configuration; `vel` and `norms` matter for the kernels
+    that compute the sedimentation flux, `nz`, `dz`, `dt` for the whole-step
+    kernel only."""
     check_supported(data)
     spec = data.spec
-    N = spec.n_modes
-    thresholds = tuple(
-        float(data.thresholds[i])
-        if i < N - 1 and np.isfinite(data.thresholds[i]) else None
-        for i in range(N)
-    )
+    thr_flag, thr_const = _threshold_constants(data)
+    win = any(f and fam == Family.LOGNORMAL
+              for f, fam in zip(thr_flag, spec.families))
     wf_nz = []
     for (o, k, p, q, c) in _wf_nonzeros(data):
         if p >= data.n_2d_ints[k] or q >= data.n_2d_ints[k]:
@@ -172,11 +226,14 @@ def build_plan(
         families=tuple(int(f) for f in spec.families),
         offsets=spec.offsets,
         nprog=spec.nprogmoms,
-        thresholds=thresholds,
+        thr_flag=thr_flag,
+        thr_const=thr_const,
+        moving=bool(data.moving),
         M=data.M,
         wb_nz=tuple(_wb_nonzeros(data)),
         wf_nz=tuple(wf_nz),
         gl_nodes=int(data.gammainc_gl_nodes),
+        win_nodes=int(data.lognorm_gl_nodes) if win else 0,
         mom_norms=mom_norms,
         vel_n=vel_n,
         nz=int(nz),
@@ -192,17 +249,19 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     N = plan.n_modes
     gl_y, gl_w = np.polynomial.legendre.leggauss(plan.gl_nodes)
+    win_v, win_w = (np.polynomial.legendre.leggauss(plan.win_nodes)
+                    if plan.win_nodes else ((), ()))
 
     def per_mode(vals, fill=0):
         return list(vals) + [fill] * (MAX_MODES - len(vals))
 
     # header; slot 7 becomes the byte offset of the reals
     ints = [N, plan.n_tot, plan.M, plan.gl_nodes, len(plan.wb_nz),
-            len(plan.wf_nz), len(plan.vel_n), 0]
+            len(plan.wf_nz), len(plan.vel_n), 0, int(plan.moving), plan.win_nodes]
     ints += per_mode(plan.families)
     ints += per_mode(plan.offsets)
     ints += per_mode(plan.nprog)
-    ints += per_mode([0 if t is None else 1 for t in plan.thresholds])
+    ints += per_mode(plan.thr_flag)
     for (o, i, j, _) in plan.wb_nz:
         ints += [o, i, j]
     for (o, k, a, b, _) in plan.wf_nz:
@@ -212,7 +271,7 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     real_offset = 4 * len(ints)
 
     norms = list(plan.mom_norms) or [1.0] * plan.n_tot
-    reals = per_mode([0.0 if t is None else t for t in plan.thresholds], 0.0)
+    reals = per_mode(plan.thr_const, 0.0)
     reals += norms + [1.0] * (MAX_NTOT - plan.n_tot)
     reals += [1.0 / v for v in norms] + [1.0] * (MAX_NTOT - plan.n_tot)
     reals += [c for (*_, c) in plan.wb_nz]
@@ -220,11 +279,16 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     reals += [c for (c, _) in plan.vel_n]
     reals += [e for (_, e) in plan.vel_n]
     reals += [math.gamma(1.0 + e) for (_, e) in plan.vel_n]
-    # m + e for the exponential flux ladder, m = 0..2 (Python-double sum)
+    # flux ladder orders q = m + e and the lognormal ½q² (Python doubles, as
+    # the Pallas body folds `m + e` and `0.5 * q * q`), m = 0..2
     for (_, e) in plan.vel_n:
         reals += [m + e for m in range(3)]
+    for (_, e) in plan.vel_n:
+        reals += [0.5 * (m + e) * (m + e) for m in range(3)]
     reals += [float(y) + 1.0 for y in gl_y]
     reals += [float(w) for w in gl_w]
+    reals += [float(v) for v in win_v]
+    reals += [float(w) for w in win_w]
     reals += [plan.dt, plan.inv_dz, 2.0 / 3.0]
 
     ints[7] = real_offset
@@ -249,10 +313,12 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
 
 def _invert_rows(fam: int, rows, eps: float):
     """Closure inversion on rows (mirrors
-    `cloudy_tpu.ops.pallas_numerical._invert_rows` for gamma and
-    exponential; k clipped to [eps, 10], distributions.GAMMA_K_RANGE)."""
+    `cloudy_tpu.ops.pallas_numerical._invert_rows`; gamma k clipped to
+    [eps, 10], distributions.GAMMA_K_RANGE)."""
     m0, m1 = rows[0], rows[1]
     valid = (m0 > eps) & (m1 > eps)
+    if fam == Family.LOGNORMAL:
+        valid = valid & (rows[2] > eps)
     m0s = special.select(valid, m0, 1.0)
     m1s = special.select(valid, m1, 1.0)
     if fam == Family.EXPONENTIAL:
@@ -260,6 +326,13 @@ def _invert_rows(fam: int, rows, eps: float):
         p1 = special.select(valid, m1s / m0s, 1.0)
         return n, p1, torch.zeros_like(p1)
     m2s = special.select(valid, rows[2], 2.0)
+    if fam == Family.LOGNORMAL:
+        mu = torch.log(m1s * m1s / (m0s ** 1.5 * m2s ** 0.5))
+        sig2 = torch.log(torch.clamp(m0s * m2s / (m1s * m1s), min=1.0))
+        sigma = torch.clamp(torch.sqrt(sig2), min=eps)
+        n = m1s / special.exp(mu + 0.5 * (sigma * sigma))
+        return (special.select(valid, n, 0.0), special.select(valid, mu, 1.0),
+                special.select(valid, sigma, 1.0))
     mean = m1s / m0s
     denom = m2s / m1s - mean
     denom = special.select(torch.abs(denom) > 0, denom, eps)
@@ -269,11 +342,30 @@ def _invert_rows(fam: int, rows, eps: float):
     return n, special.select(valid, theta, 1.0), special.select(valid, k, 1.0)
 
 
-def _gis_exact(thr: float, theta, k, M: int, gl_nodes: int):
+def _moving_threshold(plan: FusedPlan, i: int, params):
+    """Per-lane threshold of mode i under MovingThreshold (the Pallas
+    body's `thr_rows`): gamma θ·P⁻¹(k, p) by the fast GL inverse with the
+    percentile and Φ⁻¹(p) in the working type, exponential θ·(−log1p(−p)),
+    lognormal exp(μ + σ·Φ⁻¹(p)); clamped below at 1e-18."""
+    n, p1, p2 = params
+    fam, c = plan.families[i], plan.thr_const[i]
+    if fam == Family.GAMMA:
+        thr = p1 * special.gammaincinv_gl_impl(
+            p2, torch.full_like(p1, c), n_iter=3, n_nodes=plan.gl_nodes)
+    elif fam == Family.EXPONENTIAL:
+        thr = p1 * c
+    else:  # LOGNORMAL
+        thr = special.exp(p1 + p2 * c)
+    return torch.clamp(thr, min=1e-18)
+
+
+def _gis_exact(thr, theta, k, M: int, gl_nodes: int):
     """P(2k + s, T/θ), s = 0..2M−2: one GL incomplete gamma at the top order
-    and the clipped downward Poisson recurrence (`_f2_gamma_exact`)."""
+    and the clipped downward Poisson recurrence (`_f2_gamma_exact`); `thr`
+    is a constant or a per-lane row."""
     tiny = torch.finfo(theta.dtype).tiny
-    x = torch.clamp(special.rdiv(thr, theta), max=1e6)
+    ratio = special.rdiv(thr, theta) if isinstance(thr, float) else thr / theta
+    x = torch.clamp(ratio, max=1e6)
     log_x = torch.log(torch.clamp(x, min=tiny))
     a0 = 2.0 * k
     lga01 = special.lgamma_stirling(a0 + 1.0)
@@ -295,14 +387,59 @@ def _gis_exact(thr: float, theta, k, M: int, gl_nodes: int):
     return gis
 
 
+def _f2_lognormal_window(plan: FusedPlan, thr, n, mu, sig):
+    """Unclamped lognormal F2 {(p, q): row}, p ≤ q, by the recentred GL
+    window rule (`_f2_lognormal_window`), accumulated node by node as the
+    kernels do (the Pallas body sums the nodes with `jnp.sum`)."""
+    dtype = mu.dtype
+    tiny = torch.finfo(dtype).tiny
+    M = plan.M
+    if isinstance(thr, float):
+        thr = torch.tensor(thr, dtype=dtype, device=mu.device)
+    vg, wg = np.polynomial.legendre.leggauss(plan.win_nodes)
+    s2 = sig * sig
+    lo = mu - LOGNORM_WINDOW_SIGMA * sig
+    hi = torch.minimum(torch.log(torch.clamp(thr, min=tiny)),
+                       mu + M * s2 + LOGNORM_WINDOW_SIGMA * sig)
+    half = torch.clamp(hi - lo, min=0.0) * 0.5
+    center = lo + half
+    two_s2 = 2.0 * s2
+    sig_c = sig * float(np.sqrt(2.0 * np.pi))
+    sig_r2 = sig * float(np.sqrt(2.0))
+    e_q = [special.exp(q * mu + 0.5 * q ** 2 * s2) for q in range(M)]
+    acc = {}
+    for vj, wj in zip(vg.tolist(), wg.tolist()):
+        u = center + half * vj
+        x = special.exp(u)
+        du = u - mu
+        g0 = half * wj * special.exp(-(du * du) / two_s2) / sig_c
+        rem = torch.clamp(thr - x, min=0.0)
+        logrem = torch.log(torch.clamp(rem, min=tiny))
+        pm = []
+        for q in range(M):
+            z = (logrem - mu - q * s2) / sig_r2
+            v = e_q[q] * 0.5 * (1.0 + special.erf_approx(z))
+            pm.append(special.select(rem > 0.0, v, 0.0))
+        ypow = g0
+        for p in range(M):
+            if p > 0:
+                ypow = ypow * x
+            for q in range(p, M):
+                term = ypow * pm[q]
+                acc[(p, q)] = term if (p, q) not in acc else acc[(p, q)] + term
+    n2 = n * n
+    return {key: v * n2 for key, v in acc.items()}
+
+
 def _coal_body_rows(plan: FusedPlan, mom_rows):
     """The shared physics on NORMALIZED rows: closure → integer moments →
-    exact F2 → clamp → Q/R/S sparse FMAs. Returns (acc, params); acc[o] is
-    None where no term lands."""
+    thresholds → F2 (exact gamma, or the lognormal window) → clamp → Q/R/S
+    sparse FMAs. Returns (acc, params); acc[o] is None where no term
+    lands."""
     dtype = mom_rows[0].dtype
     eps = torch.finfo(dtype).eps
     M = plan.M
-    params, mf, gis = [], [], {}
+    params, mf, gis, win = [], [], {}, {}
     for i, fam in enumerate(plan.families):
         o = plan.offsets[i]
         n, p1, p2 = _invert_rows(fam, mom_rows[o:o + plan.nprog[i]], eps)
@@ -312,13 +449,21 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
         for q in range(M - 1):
             if fam == Family.EXPONENTIAL:
                 m = m * p1 * (q + 1.0)
-            else:
+            elif fam == Family.GAMMA:
                 m = m * p1 * (p2 + q)
+            else:  # LOGNORMAL
+                m = m * special.exp(p1 + (2.0 * q + 1.0) * 0.5 * (p2 * p2))
             rows.append(m)
         mf.append(rows)
-        if plan.thresholds[i] is not None:
+        if not plan.thr_flag[i]:
+            continue
+        thr = (_moving_threshold(plan, i, params[i]) if plan.moving
+               else plan.thr_const[i])
+        if fam == Family.LOGNORMAL:
+            win[i] = _f2_lognormal_window(plan, thr, n, p1, p2)
+        else:
             kk = p2 if fam == Family.GAMMA else torch.ones_like(p1)
-            gis[i] = _gis_exact(plan.thresholds[i], p1, kk, M, plan.gl_nodes)
+            gis[i] = _gis_exact(thr, p1, kk, M, plan.gl_nodes)
 
     f2_cache = {}
 
@@ -326,7 +471,12 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
         key = (k, a, b)
         if key not in f2_cache:
             mm = mf[k][a] * mf[k][b]
-            val = torch.minimum(mm, mm * gis[k][a + b]) if k in gis else mm
+            if k in gis:
+                val = torch.minimum(mm, mm * gis[k][a + b])
+            elif k in win:
+                val = torch.minimum(mm, win[k][(a, b)])
+            else:
+                val = mm
             f2_cache[key] = special.select(mm < eps, 0.0, val)
         return f2_cache[key]
 
@@ -352,19 +502,40 @@ def _sedi_flux_rows(plan: FusedPlan, params):
         for (c, e) in plan.vel_n:
             if fam == Family.GAMMA:
                 t = n * special.exp(e * logp1) * special.gamma_ratio(p2, e)
-            else:
+            elif fam == Family.EXPONENTIAL:
                 t = n * math.gamma(1.0 + e) * special.exp(e * logp1)
             for m in range(plan.nprog[i]):
-                if m > 0:
+                q = m + e
+                if fam == Family.LOGNORMAL:
+                    t = n * special.exp(q * p1 + 0.5 * q * q * p2 * p2)
+                elif m > 0:
                     if fam == Family.GAMMA:
                         t = t * p1 * (p2 + (m - 1.0) + e)
                     else:
-                        t = t * p1 * (m + e)
+                        t = t * p1 * q
                 term = c * t
                 flux[m] = term if flux[m] is None else flux[m] + term
         for m in range(plan.nprog[i]):
             out[plan.offsets[i] + m] = -flux[m]
     return out
+
+
+def _rhs_rows(plan: FusedPlan, y_rows):
+    """One per-level RHS on physical rows: clip negatives, normalize, empty
+    mask, coalescence and flux, both denormalized (B4's rows)."""
+    eps = torch.finfo(y_rows[0].dtype).eps
+    mom_rows, empty = [], None
+    for o in range(plan.n_tot):
+        r = torch.clamp(y_rows[o], min=0.0) * (1.0 / plan.mom_norms[o])
+        mom_rows.append(r)
+        lo = r < eps
+        empty = lo if empty is None else (empty & lo)
+    acc, params = _coal_body_rows(plan, mom_rows)
+    flux = _sedi_flux_rows(plan, params)
+    zero = torch.zeros_like(y_rows[0])
+    coal = [torch.where(empty, zero, zero if acc[o] is None else acc[o])
+            * plan.mom_norms[o] for o in range(plan.n_tot)]
+    return coal, [flux[o] * plan.mom_norms[o] for o in range(plan.n_tot)]
 
 
 def coal_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
@@ -375,6 +546,14 @@ def coal_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
     return torch.stack([zero if a is None else a for a in acc])
 
 
+def rainshaft_rhs_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
+    """Plain twin of the fused per-level RHS kernel: physical ``[n_tot, B]``
+    → ``[2·n_tot, B]``, the physical coalescence tendencies over the
+    physical sedimentation fluxes."""
+    coal, flux = _rhs_rows(plan, [mom[o] for o in range(plan.n_tot)])
+    return torch.stack(coal + flux)
+
+
 def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
     """Plain twin of the whole-step kernel: physical ``[n_tot, B]`` state →
     the state one SSPRK33 step of length ``plan.dt`` later."""
@@ -382,7 +561,6 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor
     B = mom.shape[1]
     if B % nz != 0:
         raise ValueError(f"B={B} is not a multiple of nz={nz}")
-    eps = torch.finfo(mom.dtype).eps
     top = (torch.arange(B, device=mom.device) % nz) == (nz - 1)
     zero = torch.zeros_like(mom[0])
 
@@ -391,21 +569,9 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor
         return torch.where(top, zero, torch.roll(row, -1))
 
     def rhs(y_rows):
-        mom_rows, empty = [], None
-        for o in range(n_tot):
-            r = torch.clamp(y_rows[o], min=0.0) * (1.0 / plan.mom_norms[o])
-            mom_rows.append(r)
-            lo = r < eps
-            empty = lo if empty is None else (empty & lo)
-        acc, params = _coal_body_rows(plan, mom_rows)
-        flux = _sedi_flux_rows(plan, params)
-        rows = []
-        for o in range(n_tot):
-            coal = zero if acc[o] is None else acc[o]
-            coal = torch.where(empty, zero, coal) * plan.mom_norms[o]
-            f = flux[o] * plan.mom_norms[o]
-            rows.append(coal - (shift_up(f) - f) * plan.inv_dz)
-        return rows
+        coal, flux = _rhs_rows(plan, y_rows)
+        return [coal[o] - (shift_up(flux[o]) - flux[o]) * plan.inv_dz
+                for o in range(n_tot)]
 
     dt = plan.dt
     y = [mom[o] for o in range(n_tot)]
@@ -425,8 +591,9 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor
 
 
 class _KernelFn:
-    """Dispatch shared by the two wrappers: the plain twin for a CPU tensor,
-    the CUDA kernel for a CUDA tensor; `launches` counts kernel launches."""
+    """Dispatch shared by the three wrappers: the plain twin for a CPU
+    tensor, the CUDA kernel for a CUDA tensor; `launches` counts kernel
+    launches."""
 
     _symbol = ""
 
@@ -456,20 +623,21 @@ class _KernelFn:
         if not mom.is_contiguous():
             raise ValueError("expected a contiguous [n_tot, B] tensor")
 
-    def _launch(self, mom: torch.Tensor, *extra) -> torch.Tensor:
+    def _launch(self, mom: torch.Tensor, n_out: int, *extra) -> torch.Tensor:
+        """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``."""
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_library()
         if self._cfg is None:
             buf = pack_config(self.plan, self.dtype)
             self._cfg = torch.from_numpy(buf).to(self.device)
-        out = torch.empty_like(mom)
+        out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
         tag = "f32" if self.dtype == torch.float32 else "f64"
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             err = getattr(lib, f"{self._symbol}_{tag}")(
                 mom.data_ptr(), out.data_ptr(), self._cfg.data_ptr(),
-                self._cfg.numel(), mom.shape[1], *extra, stream,
+                self._cfg.numel(), mom.shape[1], *extra, self.plan.arms, stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -490,7 +658,7 @@ class CoalFn(_KernelFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return coal_soa_plain(mom, self.plan)
-        return self._launch(mom)
+        return self._launch(mom, self.plan.n_tot)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T
@@ -513,17 +681,49 @@ class RainshaftStepFn(_KernelFn):
             raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={self.plan.nz}")
         if mom.device.type == "cpu":
             return rainshaft_step_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.nz)
+        return self._launch(mom, self.plan.n_tot, self.plan.nz)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
         return rainshaft_step_soa_plain(mom, self.plan)
 
 
+class RainshaftRhsFn(_KernelFn):
+    """Fused per-level rainshaft RHS (replaces
+    `make_pallas_rainshaft_rhs_fn`): ``fn.soa(mom [n_tot, B])`` on physical
+    moments → ``[2·n_tot, B]``, the physical coalescence tendencies over the
+    physical sedimentation fluxes. The caller applies the upwind stencil
+    (`models.rainshaft.make_rainshaft_rhs_fused`)."""
+
+    _symbol = "cloudy_rhs"
+
+    def soa(self, mom: torch.Tensor) -> torch.Tensor:
+        self._check(mom)
+        if mom.device.type == "cpu":
+            return rainshaft_rhs_soa_plain(mom, self.plan)
+        return self._launch(mom, 2 * self.plan.n_tot)
+
+    def plain(self, mom: torch.Tensor) -> torch.Tensor:
+        """The plain twin on any device (comparisons and timing)."""
+        return rainshaft_rhs_soa_plain(mom, self.plan)
+
+
 def make_coal_fn(data: CoalescenceData, device="cuda",
                  dtype: torch.dtype = torch.float32) -> CoalFn:
     """Coalescence RHS on `device` in `dtype`; see `CoalFn`."""
     return CoalFn(build_plan(data), device, dtype)
+
+
+def make_rainshaft_rhs_fn(
+    data: CoalescenceData,
+    vel: Sequence[Tuple[float, float]],
+    norms: Tuple[float, float],
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> RainshaftRhsFn:
+    """Fused per-level rainshaft RHS on `device` in `dtype`; see
+    `RainshaftRhsFn`. `vel` is the PHYSICAL power-law velocity."""
+    return RainshaftRhsFn(build_plan(data, vel, norms), device, dtype)
 
 
 def make_rainshaft_step_fn(

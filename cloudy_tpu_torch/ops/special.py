@@ -1,7 +1,8 @@
 """Special functions, branch-free with fixed iteration counts.
 
-Port of `cloudy_tpu.ops.special` (the subset the fixed-threshold gamma path
-runs), term for term and in the same operation order, so that the torch
+Port of `cloudy_tpu.ops.special` (the subset the pod variants run: the
+fixed-threshold and MovingThreshold gamma paths and the lognormal window
+rule), term for term and in the same operation order, so that the torch
 reference path and the plain twins of the CUDA kernels agree with the JAX
 package to rounding. Python-float constants combine with tensors in the
 tensor's dtype, as JAX's weakly typed constants do.
@@ -259,3 +260,163 @@ def gammainc_gl(a, x, n_nodes: int = 12, gln=None):
     s = s * half
     out = torch.clamp(torch.where(above, 1.0 - s, -s), 0.0, 1.0)
     return torch.where(x > 0.0, out, torch.zeros_like(out))
+
+
+# --------------------------------------------------------------------------
+# inverse of P(a, .)
+# --------------------------------------------------------------------------
+
+# Acklam's rational approximation to the inverse normal CDF (max abs error
+# ~1.15e-9): the Wilson–Hilferty start of the gamma inverses.
+_NDTRI_A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,
+            1.383577518672690e+02, -3.066479806614716e+01, 2.506628277459239e+00)
+_NDTRI_B = (-5.447609879822406e+01, 1.615858368580409e+02, -1.556989798598866e+02,
+            6.680131188771972e+01, -1.328068155288572e+01)
+_NDTRI_C = (-7.784894002430293e-03, -3.223964580411365e-01, -2.400758277161838e+00,
+            -2.549732539343734e+00, 4.374664141464968e+00, 2.938163982698783e+00)
+_NDTRI_D = (7.784695709041462e-03, 3.224671290700398e-01, 2.445134137142996e+00,
+            3.754408661907416e+00)
+
+
+def ndtri(p):
+    """Inverse standard normal CDF (Acklam), branch-free over three regions."""
+    p = torch.as_tensor(p)
+    p = torch.clamp(p, _finfo(p.dtype).tiny, 1.0 - 1e-16)
+    p_low = 0.02425
+    a, b, c, d = _NDTRI_A, _NDTRI_B, _NDTRI_C, _NDTRI_D
+
+    p_c = torch.clamp(p, p_low, 1.0 - p_low)
+    q = p_c - 0.5
+    r = q * q
+    num = ((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r + a[5]
+    den = ((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r + b[4]) * r + 1.0
+    x_central = num * q / den
+
+    def tail(pt):
+        qt = torch.sqrt(-2.0 * torch.log(pt))
+        num_t = ((((c[0] * qt + c[1]) * qt + c[2]) * qt + c[3]) * qt + c[4]) * qt + c[5]
+        den_t = (((d[0] * qt + d[1]) * qt + d[2]) * qt + d[3]) * qt + 1.0
+        return num_t / den_t
+
+    x_low = tail(torch.clamp(p, max=p_low))
+    x_up = -tail(torch.clamp(1.0 - p, max=p_low))
+    return torch.where(p < p_low, x_low,
+                       torch.where(p > 1.0 - p_low, x_up, x_central))
+
+
+def _clip_percentile(a, p):
+    a, p = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(p))
+    dtype = torch.promote_types(a.dtype, p.dtype)
+    fi = _finfo(dtype)
+    return a.to(dtype), torch.clamp(p.to(dtype), float(fi.tiny), 1.0 - float(fi.epsneg))
+
+
+def gammaincinv_impl(a, p, n_newton: int = 32, n_iters: int = 128):
+    """x with P(a, x) = p: Wilson–Hilferty start and `n_newton` damped Newton
+    steps on the series/CF incomplete gamma."""
+    a, p = _clip_percentile(a, p)
+    tiny = _finfo(a.dtype).tiny
+    z = ndtri(p)
+    t = 1.0 - 1.0 / (9.0 * a) + z * torch.sqrt(1.0 / (9.0 * a))
+    x0 = a * t * t * t
+    x_small = exp((torch.log(p) + lgamma(a + 1.0)) / a)
+    x0 = torch.where((t > 0.0) & (x0 > 1e3 * tiny), x0, x_small)
+    x = torch.clamp(x0, min=tiny)
+    lg = lgamma(a)
+    for _ in range(n_newton):
+        f = gammainc_impl(a, x, n_iters=n_iters) - p
+        logdf = (a - 1.0) * torch.log(torch.clamp(x, min=tiny)) - x - lg
+        step = f * exp(-logdf)
+        step = torch.clamp(step, -9.0 * x, 0.9 * x)
+        x = x - step
+    return x
+
+
+def gammainc_gl_shift(a, x, n_nodes: int = 12, lga1=None, log_x=None,
+                      shift: int = 4):
+    """P(a, x) for any a > 0: GL quadrature at a + shift plus `shift` exact
+    downward-recurrence terms."""
+    a = torch.as_tensor(a)
+    x = torch.as_tensor(x)
+    dtype = torch.promote_types(a.dtype, x.dtype)
+    a = a.to(dtype)
+    x = torch.clamp(x.to(dtype), max=1e6)
+    tiny = _finfo(dtype).tiny
+    if lga1 is None:
+        lga1 = lgamma(a + 1.0)
+    if log_x is None:
+        log_x = torch.log(torch.clamp(x, min=tiny))
+    d = exp(a * log_x - x - lga1)
+    d = torch.where(x > 0.0, d, torch.zeros_like(d))
+    total = d
+    prod = torch.ones_like(a)
+    for j in range(1, shift):
+        d = d * x / (a + j)
+        total = total + d
+        prod = prod * (a + j)
+    p_hi = gammainc_gl(a + float(shift), x, n_nodes=n_nodes,
+                       gln=lga1 + torch.log(prod))
+    return torch.clamp(p_hi + total, 0.0, 1.0)
+
+
+def gammaincinv_gl_impl(a, p, n_iter: int = 3, n_nodes: int = 12):
+    """Fast x with P(a, x) = p: max(Wilson–Hilferty, small-x) start and
+    `n_iter` Halley steps on the shift-4 GL incomplete gamma (the
+    MovingThreshold production inverse; < 2e-5 relative, tests pin it)."""
+    a, p = _clip_percentile(a, p)
+    tiny = _finfo(a.dtype).tiny
+    z = ndtri(p)
+    t = 1.0 - 1.0 / (9.0 * a) + z * torch.sqrt(1.0 / (9.0 * a))
+    x_wh = torch.where(t > 0.0, a * t * t * t, torch.zeros_like(t))
+    lga1 = lgamma(a + 1.0)
+    x_small = exp((torch.log(p) + lga1) / a)
+    x = torch.clamp(torch.maximum(x_wh, x_small), min=tiny)
+
+    gln4 = lga1 + torch.log((a + 1.0) * (a + 2.0) * (a + 3.0))
+    for _ in range(n_iter):
+        xs = torch.clamp(x, max=1e6)
+        xs_t = torch.clamp(xs, min=tiny)
+        d = exp(a * torch.log(xs_t) - xs - lga1)
+        d = torch.where(xs > 0.0, d, torch.zeros_like(d))
+        deriv = d * a / xs_t
+        total = d
+        for j in (1.0, 2.0, 3.0):
+            d = d * xs / (a + j)
+            total = total + d
+        p4 = gammainc_gl(a + 4.0, xs, n_nodes=n_nodes, gln=gln4)
+        f = torch.clamp(p4 + total, 0.0, 1.0) - p
+        step_n = f / torch.clamp(deriv, min=tiny)
+        h = 0.5 * ((a - 1.0) / xs_t - 1.0)
+        denom = torch.clamp(1.0 - step_n * h, 0.5, 2.0)
+        step = step_n / denom
+        step = torch.clamp(step, -9.0 * x, 0.9 * x)
+        x = x - step
+    return x
+
+
+# --------------------------------------------------------------------------
+# error function
+# --------------------------------------------------------------------------
+
+# Abramowitz & Stegun 7.1.26 (Hastings): max absolute error 1.5e-7.
+_ERF_P = 0.3275911
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+
+def erf_approx(x):
+    """Rational-approximation error function (A&S 7.1.26); ``sign(x)·y``,
+    so exactly 0 at x = 0 (as `jnp.sign`)."""
+    x = torch.as_tensor(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + _ERF_P * ax)
+    a1, a2, a3, a4, a5 = _ERF_A
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    y = 1.0 - poly * exp(-ax * ax)
+    return torch.sign(x) * y
+
+
+def erf_impl(x, n_iters: int = 128):
+    """erf(z) = sign(z) · P(1/2, z²) through the series/CF incomplete gamma."""
+    x = torch.as_tensor(x)
+    p = gammainc_impl(torch.full_like(x, 0.5), x * x, n_iters=n_iters)
+    return torch.sign(x) * p

@@ -1,17 +1,23 @@
-"""Where the device time goes: the pod whole step and bench.py's RHS chain.
+"""Where the device time goes: the pod steps and bench.py's RHS chain.
 
 Profiles, on one CUDA device,
 
-1. the pod ensemble (``fixed2gamma``, f32) at 2^20 columns × 32 levels for
-   20 whole steps through the whole-step kernel, and
-2. bench.py's Euler chain (2^20 boxes, f32) for 20 steps through the
+1. each pod variant (``pod_ensemble``, ``pod_ensemble_moving``,
+   ``pod_ensemble_lognorm``; f32) at 2^20 columns × 32 levels for 20 whole
+   steps through the whole-step kernel;
+2. ``full_step_fused``: the same ``fixed2gamma`` state advanced 20 SSPRK33
+   steps through the fused per-level RHS kernel, with the upwind stencil
+   and the RK combinations in torch (`models.rainshaft.make_rainshaft_rhs_fused`
+   + `stepper.ssprk33_step`);
+3. bench.py's Euler chain (2^20 boxes, f32) for 20 steps through the
    coalescence kernel,
 
 each under `torch.profiler` inside a window timed by CUDA events. For each
 window it prints the profiler's table, each device activity's time, and the
 busy share: the device activities' summed time over the window (the idle
-share is one minus it). While the unprofiled pod run of 120 steps goes, a
-thread samples ``nvidia-smi`` for the SM clock and the power draw.
+share is one minus it). While the unprofiled 120-step run of each pod
+variant goes, a thread samples ``nvidia-smi`` for the SM clock and the power
+draw.
 
     python -m cloudy_tpu_torch.tools.profile_step
 
@@ -25,9 +31,11 @@ import subprocess
 import threading
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from cloudy_tpu_torch import bench, harness
+from cloudy_tpu_torch import bench, harness, stepper
+from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
 
 N_COLUMNS = 1 << 20
@@ -64,9 +72,11 @@ def profile_window(fn, n: int, label: str) -> dict:
     sort_by = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
                else "self_cuda_time_total")
     print(avgs.table(sort_by=sort_by, row_limit=8))
-    # device activities: kernels, memcpy and memset (aten:: rows repeat them)
+    # device activities: kernels, memcpy and memset; host rows (aten:: ops,
+    # cudaLaunchKernel and other runtime calls) carry their children's
+    # device time and would count it twice
     acts = {e.key: (_device_us(e) / 1e3, e.count) for e in avgs
-            if _device_us(e) > 0 and not e.key.startswith("aten::")}
+            if _device_us(e) > 0 and e.device_type == DeviceType.CUDA}
     busy_ms = sum(ms for ms, _ in acts.values())
     for key, (ms, count) in sorted(acts.items(), key=lambda kv: -kv[1][0]):
         print(f"{label} device: {ms / count:.4f} ms x {count} = {ms:.4f} ms "
@@ -89,19 +99,31 @@ def main():
     card = _smi("name,power.limit")
     print(card)
 
-    sc = harness.SCENARIOS["pod_ensemble"](n_columns=N_COLUMNS, device="cuda")
-    state0, step = sc["state0"], sc["step"]
-    pod = profile_window(lambda: step(state0), N_STEPS, "pod step")
-
-    samples, stop = [], threading.Event()
-    sampler = threading.Thread(target=sample_smi, args=(stop, samples))
-    sampler.start()
-    _, seconds, _ = sc["run"]()
-    stop.set()
-    sampler.join()
-    print(f"pod run: {sc['n_steps']} steps in {seconds:.4f} s (CUDA events)")
-    print(f"nvidia-smi during the run (sm clock, power draw): {samples}")
-    del sc, state0, step
+    out = {"card": card, "columns": N_COLUMNS, "steps": N_STEPS}
+    for name in ("pod_ensemble", "pod_ensemble_moving", "pod_ensemble_lognorm"):
+        sc = harness.SCENARIOS[name](n_columns=N_COLUMNS, device="cuda")
+        state0, step, config = sc["state0"], sc["step"], sc["config"]
+        out[name] = profile_window(lambda: step(state0), N_STEPS, f"{name} step")
+        if name == "pod_ensemble":
+            fused_fn = fc.make_rainshaft_rhs_fn(sc["data"], config.vel, config.norms,
+                                                device="cuda")
+            rhs = rs.make_rainshaft_rhs_fused(config, fused_fn)
+            out["full_step_fused"] = profile_window(
+                lambda: stepper.ssprk33_step(rhs, state0, 0.0, config.dt),
+                N_STEPS, "full_step_fused")
+            del fused_fn, rhs
+        samples, stop = [], threading.Event()
+        sampler = threading.Thread(target=sample_smi, args=(stop, samples))
+        sampler.start()
+        _, seconds, _ = sc["run"]()
+        stop.set()
+        sampler.join()
+        print(f"{name} run: {sc['n_steps']} steps in {seconds:.4f} s (CUDA events), "
+              f"{N_COLUMNS * sc['n_steps'] / seconds:.4e} column-updates/s")
+        print(f"nvidia-smi during the {name} run (sm clock, power draw): {samples}")
+        out[name].update(run_s=seconds, smi_samples=samples)
+        del sc, state0, step
+        torch.cuda.empty_cache()
 
     _, data = bench.bench_data()
     coal = fc.make_coal_fn(data, device="cuda", dtype=torch.float32)
@@ -112,13 +134,9 @@ def main():
     def chain_step():
         box[0] = bench.relax_chain(coal.soa, box[0], 1)
 
-    chain = profile_window(chain_step, N_STEPS, "rhs chain")
+    out["rhs_chain"] = profile_window(chain_step, N_STEPS, "rhs chain")
     print(card)
-    print(json.dumps({
-        "card": card, "columns": N_COLUMNS, "steps": N_STEPS,
-        "pod_step": pod, "pod_run_s": seconds, "smi_samples": samples,
-        "rhs_chain": chain,
-    }))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

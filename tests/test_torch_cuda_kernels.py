@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from cloudy_tpu_torch import bench
+from cloudy_tpu_torch import bench, harness
+from cloudy_tpu_torch import distributions as pd
 from cloudy_tpu_torch import kernels as K
 from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.models import rainshaft as rs
@@ -101,3 +102,55 @@ def test_wrapper_raises_on_device_mismatch(cuda):
     fn = fc.make_coal_fn(_fast_data(), device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="cuda"):
         fn.soa(torch.ones(6, 8, device=cuda))
+
+
+def _variant_moments(variant, n, seed):
+    """Normalized moments [n_tot, n] drawn as parameters first (lognormal
+    μ ∈ [−2, 0.5], σ ∈ [0.3, 1.2]; gamma θ ∈ [0.05, 5], k ∈ [0.5, 5])."""
+    spec, _ = harness.pod_data(variant)
+    rng = np.random.default_rng(seed)
+    cols = []
+    for fam in spec.families:
+        p1, p2 = ((-2.0, 0.5), (0.3, 1.2)) if fam == Family.LOGNORMAL else ((0.05, 5.0), (0.5, 5.0))
+        cols.append(np.stack([rng.uniform(10, 200, n), rng.uniform(*p1, n),
+                              rng.uniform(*p2, n)], -1))
+    return pd.get_moments(spec, torch.tensor(np.stack(cols, 1))).T.contiguous()
+
+
+@pytest.mark.parametrize("variant", ["moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_coal_kernel_arms_match_twin(cuda, dtype, variant):
+    _, data = harness.pod_data(variant)
+    fn = fc.make_coal_fn(data, device=cuda, dtype=dtype)
+    x = _variant_moments(variant, 4099, seed=5).to(cuda, dtype)
+    got = fn.soa(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("variant", ["moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_step_kernel_arms_match_twin(cuda, dtype, variant):
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                   device=cuda, dtype=dtype)
+    x = _column_state(9, 32, seed=7).to(cuda, dtype)
+    got = fn(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_rhs_kernel_matches_twin(cuda, dtype, variant):
+    """The fused per-level RHS: [coal; flux] rows, a ragged last block."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device=cuda, dtype=dtype)
+    x = _column_state(9, 31, seed=9).to(cuda, dtype)  # 279 lanes
+    got = fn.soa(x)
+    assert fn.launches == 1 and got.shape == (12, x.shape[1])
+    assert bool(torch.isfinite(got).all())
+    norm = torch.tensor(fn.plan.mom_norms * 2, dtype=dtype, device=cuda)[:, None]
+    assert _row_scaled(got / norm, fn.plain(x) / norm) < TOL[dtype]

@@ -89,10 +89,13 @@ def test_wrapper_rejects_wrong_dtype_shape_layout():
     ["lognormal", "moving", "simpson_tier", "monodisperse"],
 )
 def test_unsupported_configuration_raises(case):
+    """The arms still to port: a thresholded lognormal mode on the Φ grid,
+    the Newton percentile inverse of MovingThreshold (series/CF incomplete
+    gamma), the quadrature-grid F2, monodisperse modes."""
     if case == "lognormal":
-        data = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=16)
+        data = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=0)
     elif case == "moving":
-        data = _data(thresholds=(0.9, 1.0), moving=True)
+        data = _data(thresholds=(0.9, 1.0), moving=True, gammainc_gl_nodes=0)
     elif case == "simpson_tier":
         data = _data(fast_tier=False)
     else:
@@ -115,6 +118,7 @@ def test_packed_config_layout():
         ints = buf.view(np.int32)
         assert list(ints[:7]) == [2, 6, 4, 12, len(plan.wb_nz),
                                   len(plan.wf_nz), 1]
+        assert list(ints[8:10]) == [0, 0]  # FixedThreshold, no window mode
         h, m = fc.HEADER_INTS, fc.MAX_MODES
         assert list(ints[h:h + 4 * m]) == [1, 1, 0, 0, 3, 0, 3, 3, 0, 1, 0, 0]
         tables = h + 4 * m
@@ -126,7 +130,63 @@ def test_packed_config_layout():
         real_t = np.float32 if size == 4 else np.float64
         reals = buf[off:].view(real_t)
         n_reals = (fc.MAX_MODES + 2 * fc.MAX_NTOT + len(plan.wb_nz)
-                   + len(plan.wf_nz) + 6 + 2 * 12 + 3)
+                   + len(plan.wf_nz) + 3 + 3 + 3 + 2 * 12 + 3)
         assert reals[n_reals - 3] == real_t(1.0)  # dt
         assert reals[n_reals - 2] == real_t(1.0 / 93.75)  # inv_dz, host double
         assert reals[0] == real_t(0.5)  # normalized threshold of mode 0
+
+
+@pytest.mark.parametrize("variant", ["moving", "lognorm"])
+def test_packed_config_variant_fields(variant):
+    """The MovingThreshold flag, the window's node count, the per-mode
+    threshold constants (the gamma percentile; the lognormal threshold) and
+    the window's GL-16 nodes sit where csrc/coal_body.cuh reads them."""
+    from cloudy_tpu_torch import harness
+
+    _, data = harness.pod_data(variant)
+    plan = fc.build_plan(data, ((50.0, 1.0 / 6.0),), NORMS, nz=32, dz=93.75, dt=1.0)
+    buf = fc.pack_config(plan, torch.float64)
+    ints = buf.view(np.int32)
+    win = 16 if variant == "lognorm" else 0
+    assert list(ints[8:10]) == [int(variant == "moving"), win]
+    h, m = fc.HEADER_INTS, fc.MAX_MODES
+    assert list(ints[h:h + m]) == [2 if variant == "lognorm" else 1, 1, 0]
+    assert list(ints[h + 3 * m:h + 4 * m]) == [1, 0, 0]  # mode 0 thresholded
+    reals = buf[int(ints[7]):].view(np.float64)
+    assert reals[0] == (0.9 if variant == "moving" else 0.5)
+    n_before = (m + 2 * fc.MAX_NTOT + len(plan.wb_nz) + len(plan.wf_nz)
+                + 3 + 3 + 3 + 2 * 12)
+    v, w = np.polynomial.legendre.leggauss(16)
+    if win:
+        np.testing.assert_array_equal(reals[n_before:n_before + 16], v)
+        np.testing.assert_array_equal(reals[n_before + 16:n_before + 32], w)
+    assert reals[n_before + 2 * win] == 1.0  # dt
+    assert plan.arms == 1  # the kernels' instance with both arms
+
+
+@pytest.mark.parametrize("fams,moving,arms", [
+    ((Family.GAMMA, Family.GAMMA), False, 0),
+    ((Family.EXPONENTIAL, Family.GAMMA), False, 0),
+    ((Family.GAMMA, Family.GAMMA), True, 1),
+    ((Family.LOGNORMAL, Family.GAMMA), False, 1),
+], ids=["fixed_gamma", "fixed_exp_gamma", "moving_gamma", "fixed_lognormal"])
+def test_plan_selects_kernel_instance(fams, moving, arms):
+    """Only a MovingThreshold or lognormal configuration launches the
+    kernels' instance compiled with those arms."""
+    thresholds = (0.9, 1.0) if moving else (0.5, np.inf)
+    plan = fc.build_plan(_data(fams, thresholds=thresholds, moving=moving,
+                               lognorm_gl_nodes=16))
+    assert plan.arms == arms
+
+
+def test_moving_lognormal_percentile_constant():
+    """Φ⁻¹(p) of a MovingThreshold lognormal mode is folded on the host in
+    true f64 and rounded once (the reference builds it from a jnp.float64
+    that truncates to f32 without x64)."""
+    plan = fc.build_plan(_data((Family.LOGNORMAL, Family.GAMMA), thresholds=(0.9, 1.0),
+                               moving=True, lognorm_gl_nodes=16))
+    from cloudy_tpu_torch.ops import special
+
+    want = float(special.ndtri(torch.tensor(0.9, dtype=torch.float64)))
+    assert plan.thr_const[0] == want and abs(want - 1.2815515655446004) < 2e-9
+    assert plan.thr_flag == (1, 0)

@@ -32,6 +32,14 @@ _K = _RNG.uniform(1e-3, 12.0, 600)  # shape parameters / lgamma arguments
 _A = _RNG.uniform(2.5, 26.0, 600)  # incomplete-gamma orders (exact-F2 domain)
 _X = np.concatenate([_RNG.uniform(0.0, 60.0, 500), _RNG.uniform(1e-6, 1.0, 100)])
 _ARG = _RNG.uniform(-120.0, 120.0, 600)  # exp arguments incl. |x| >= 85
+# ndtri incl. both tails; the upper one stops at 1 − 1e-6, since in f32 a p
+# within 6e-8 of 1 rounds to 1, where both packages return NaN
+_PCT = np.concatenate([_RNG.uniform(0.0, 1.0, 500), np.logspace(-9, -1.7, 50),
+                       1.0 - np.logspace(-6, -1.7, 50)])
+_KI = _RNG.uniform(0.02, 10.0, 600)  # percentile-inverse shapes
+_PI = _RNG.uniform(0.01, 0.995, 600)  # and percentiles
+_AS = _RNG.uniform(1e-3, 10.0, 600)  # gammainc_gl_shift orders (any a > 0)
+_Z = np.concatenate([_RNG.uniform(-8.0, 8.0, 599), [0.0]])  # erf arguments
 
 CASES = {
     "exp": (lambda m, dt: m.exp(_c(m, _ARG, dt))),
@@ -45,6 +53,19 @@ CASES = {
     "gammainc_impl_12": (
         lambda m, dt: m.gammainc_impl(_c(m, _A, dt), _c(m, _X, dt), n_iters=12)
     ),
+    "ndtri": (lambda m, dt: m.ndtri(_c(m, _PCT, dt))),
+    "gammainc_gl_shift": (
+        lambda m, dt: m.gammainc_gl_shift(_c(m, _AS, dt), _c(m, _X, dt))
+    ),
+    "gammaincinv_gl": (
+        lambda m, dt: m.gammaincinv_gl_impl(_c(m, _KI, dt), _c(m, _PI, dt))
+    ),
+    "gammaincinv_newton_8x12": (
+        lambda m, dt: m.gammaincinv_impl(_c(m, _KI, dt), _c(m, _PI, dt),
+                                         n_newton=8, n_iters=12)
+    ),
+    "erf_approx": (lambda m, dt: m.erf_approx(_c(m, _Z, dt))),
+    "erf_impl": (lambda m, dt: m.erf_impl(_c(m, _Z, dt), n_iters=128)),
 }
 
 
@@ -134,3 +155,40 @@ def test_quadrature_rules_match_jax():
         ts.integrate_simpson_even_fast(torch.tensor(y), 0.1, torch.tensor(got)).numpy(),
         np.asarray(js.integrate_simpson_even_fast(jnp.asarray(y), 0.1, jnp.asarray(want))),
         rtol=1e-14)
+
+
+def test_ndtri_scipy_bound():
+    """tests/test_special.py:51-56."""
+    p = np.array([1e-9, 1e-4, 0.01, 0.3, 0.5, 0.7, 0.99, 1 - 1e-6])
+    got = tsp.ndtri(torch.tensor(p)).numpy()
+    want = ss.ndtri(p)
+    assert np.all(np.abs(got - want) <= 1e-8 + 1e-5 * np.abs(want))
+
+
+def test_gammainc_gl_shift_scipy_bound():
+    """tests/test_special.py:148-157: 5e-7 absolute over a ∈ (0, 10] ×
+    x ∈ (0, 1e6]."""
+    a = np.logspace(-3, 1, 60)
+    x = np.concatenate([np.logspace(-6, 6, 80), np.linspace(0.5, 40.0, 160)])
+    A, X = np.meshgrid(a, x)
+    got = tsp.gammainc_gl_shift(torch.tensor(A), torch.tensor(X)).numpy()
+    assert np.abs(got - ss.gammainc(A, X)).max() < 5e-7
+
+
+def test_gammaincinv_gl_scipy_bound():
+    """tests/test_special.py:160-173: 2e-5 relative over k ∈ [0.02, 10] ×
+    p ∈ [0.01, 0.995] (f64)."""
+    k = np.logspace(np.log10(0.02), 1, 90)
+    p = np.array([0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 0.995])
+    Kk, P = np.meshgrid(k, p, indexing="ij")
+    got = tsp.gammaincinv_gl_impl(torch.tensor(Kk), torch.tensor(P)).numpy()
+    assert np.abs(got / ss.gammaincinv(Kk, P) - 1.0).max() < 2e-5
+
+
+def test_erf_approx_scipy_bound():
+    """tests/test_special.py:219-229: 1.6e-7 absolute over the real line,
+    and exactly 0 at 0 (sign, not copysign)."""
+    x = np.concatenate([np.linspace(-8, 8, 4001), np.array([-1e9, -30.0, 30.0, 1e9, 0.0])])
+    got = tsp.erf_approx(torch.tensor(x)).numpy()
+    assert np.abs(got - ss.erf(x)).max() < 1.6e-7
+    assert got[-1] == 0.0
