@@ -27,17 +27,33 @@ Drives the port's main path once on the card and fails loudly:
    fused-RHS route (that kernel + torch stencil + `stepper.ssprk33_step`)
    for 20 steps at 2^20 x 32 `fixed2gamma`, held against 20 whole steps;
 11. the `moving` and `lognorm` pod scenarios at 2^20 columns x 32 levels x
-   120 f32 steps through the whole-step kernel, the first 4,096 columns
+   40 f32 steps through the whole-step kernel, the first 4,096 columns
    held against the twin run on the card;
 12. the f64 anchor of each variant: the f64 whole-step kernel against the
-   f64 twin on the card, 128 columns, 120 steps.
+   f64 twin on the card, 128 columns, 40 steps;
+13. the direct-quadrature kernel against its twin: 128 boxes (one empty, one
+   with an empty second mode), (64, 32) nodes, f32 and f64, two gamma modes
+   with each of the four kernel functions and exponential + gamma +
+   lognormal with the Long kernel; the f32 kernel against the f64 kernel;
+14. the numerical bench: the Euler chain of 262,144 boxes, two gamma modes,
+   the Long kernel, f32, default budgets (96, 48), through the quadrature
+   kernel; the kernel against its twin (run in chunks of boxes) at the full
+   [6, 262144], and both times there;
+15. the three box scenarios through the harness on the card in f64 against
+   tests/golden/box_*.npz, and one quadrature-kernel launch at the box
+   model's (256, 96) budgets on the numerical box's initial state against
+   the einsum path `get_coal_ints_numerical` on the card.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
 arm's chain in phase 8, the fused-RHS route in phase 10, each variant's run
-in phase 11. The last two lines are a JSON object of per-kernel numbers
-(errors from the main-path-shape comparison, the steps' in normalized moment
-units) and ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
+in phase 11, the numerical chain in phase 14. The last two lines are a JSON
+object of per-kernel numbers (errors from the main-path-shape comparison, the
+steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
+over 3.35 TB/s and the twin's operation count over the card's peak rate for
+the type, `cloudy_tpu_torch.tools.opcount`; ``library_ms`` null: no single
+PyTorch call computes any of these functions) and
+``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when no CUDA device is present or the port's package is missing.
 
     python3 chip_smoke.py
@@ -57,14 +73,27 @@ NZ = 32
 N_RHS_STEPS = 100
 N_ARM_STEPS = 20  # Euler chain steps of each coalescence arm (phase 8)
 N_FUSED_STEPS = 20  # fused-RHS route vs whole step (phase 10)
+N_VARIANT_STEPS = 40  # pod steps of the moving and lognorm runs (phases 11-12)
 N_ANCHOR_COLUMNS = 128
+N_NUM_STEPS = 20  # Euler chain steps of the numerical bench (phase 14)
+N_NUM_BOXES = 128  # quadrature kernel vs twin (phase 13)
+NUM_NODES = (64, 32)
+NUM_CHUNK = 32768  # boxes per twin call at the full bench width
+BOX_SCENARIOS = ("box_single_gamma_golovin", "box_exp_gamma_mixture",
+                 "box_long_numerical")
 VARIANTS = {"moving": "pod_ensemble_moving", "lognorm": "pod_ensemble_lognorm"}
 TOL = {"float32": 1e-4, "float64": 1e-9}  # kernel vs twin, row-scaled
+# the quadrature kernel sums its nodes in another order than the twin and its
+# assembly subtracts sums of like size
+NUM_TOL = {"float32": 1e-3, "float64": 1e-9}
+BOX_TOL = 1e-6  # box scenarios vs the stored f64 trajectories (rtol)
 GOLDEN_TOL = 1e-3  # fast tier vs the stored f64 Simpson-tier trajectory
 B1_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:876"
 B3_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:662"
 B4_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:771"
+B5_REPLACES = "cloudy_tpu/ops/pallas_numerical.py:166"
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
+NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
 
 
 def check(cond, msg):
@@ -85,19 +114,29 @@ def ptxas_summary(log):
                              r"(\d+) bytes spill loads", ln)) and props == entry:
             stack = m.groups()
         elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
-            k = re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry)
-            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
-                    f"{'true' if k.group(3) == '1' else 'false'}>") if k else entry
+            name = entry
+            if k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry):
+                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
+                        f"{'true' if k.group(3) == '1' else 'false'}>")
+            elif k := re.search(r"cloudy\d+(\w+?)I([fd])Li(\d)ELi(\d)E", entry):
+                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
+                        f"{k.group(3)} modes, kernel function {k.group(4)}>")
             out.append(f"{name}: {m.group(1)} registers, {stack[0]} B stack, "
                        f"{stack[1]} B spill stores, {stack[2]} B spill loads")
             entry = None
     return out
 
 
-def row_scaled(got, want):
-    """max over rows of |got - want| / max|want| of the row, and max abs."""
+def row_scaled(got, want, cancelling=()):
+    """max over rows of |got - want| / max|want| of the row, and max abs. A
+    row in `cancelling` is zero in exact arithmetic (a lone mode's mass
+    tendency: what is left of two sums of like size), so its own values are
+    no scale: it takes the geometric mean of its neighbours', the size of
+    those sums."""
     d = (got.double() - want.double()).abs()
     scale = want.double().abs().amax(dim=1).clamp_min(1e-300)
+    for r in cancelling:
+        scale[r] = (scale[r - 1] * scale[r + 1]).sqrt()
     return float((d.amax(dim=1) / scale).max()), float(d.max())
 
 
@@ -122,7 +161,11 @@ def main():
     from cloudy_tpu_torch.coalescence import build_coalescence_data
     from cloudy_tpu_torch.models import rainshaft as rs
     from cloudy_tpu_torch.ops import _build
+    from cloudy_tpu_torch import coalescence_numerical as cn
     from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec, get_moments_normalizing_factors
+    from cloudy_tpu_torch.tools import opcount
     from cloudy_tpu_torch.utils import metrics
 
     dev = torch.device("cuda", 0)
@@ -155,6 +198,19 @@ def main():
 
     spec, bdata = bench.bench_data()
     results = {}
+
+    def bound(label, twin, x_small, lanes, rows_in, rows_out):
+        """The least time the card could take for one f32 launch on `lanes`
+        lanes: bytes (each input and output row once) over the memory rate
+        against the twin's operations, counted on `x_small` and scaled to
+        `lanes`, over the peak f32 rate."""
+        ops_per_lane = opcount.count_ops(twin, x_small) / x_small.shape[1]
+        n_bytes = (rows_in + rows_out) * lanes * 4
+        ms, by = opcount.bound_ms(n_bytes, ops_per_lane * lanes)
+        print(f"bound {label}: {ops_per_lane:.2f} twin operations per lane x {lanes} "
+              f"lanes at {opcount.H100_F32_OPS_PER_S:.3g} op/s, {n_bytes} bytes "
+              f"at {opcount.H100_BYTES_PER_S:.3g} B/s: {ms:.4f} ms, bound by {by}")
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
 
     # ---- 3. coalescence-RHS kernel vs twin --------------------------------
     t = time.perf_counter()
@@ -300,6 +356,10 @@ def main():
     coal_ms = _time_ms(lambda: coal32.soa(rhs_mom), 50)
     coal_plain_ms = _time_ms(lambda: coal32.plain(rhs_mom), 3)
     step_plain_ms = _time_ms(lambda: sc["step"].plain(sc["state0"]), 2)
+    step_bound = bound("rainshaft_step", sc["step"].plain,
+                       sc["state0"][:, :8 * NZ].contiguous(), N_POD_COLUMNS * NZ, 6, 6)
+    coal_bound = bound("coal_rhs", coal32.plain, rhs_mom[:, :256].contiguous(),
+                       bench.BENCH_COLUMNS, 6, 6)
     del sc, y, yt
     print(f"phase 7 per call at main-path shapes: coal kernel {coal_ms:.4f} ms, "
           f"coal twin {coal_plain_ms:.4f} ms; step kernel "
@@ -311,12 +371,12 @@ def main():
          "replaces": B1_REPLACES, "launches": launches["step"],
          "max_abs_err": results[("step", "main")][1],
          "max_row_scaled_err": results[("step", "main")][0],
-         "ms": pod_s / 120 * 1e3, "plain_ms": step_plain_ms},
+         "ms": pod_s / 120 * 1e3, "plain_ms": step_plain_ms, **step_bound},
         {"name": "coal_rhs", "route": "cuda", "source": SOURCE,
          "replaces": B3_REPLACES, "launches": launches["coal"],
          "max_abs_err": results[("coal", "main")][1],
          "max_row_scaled_err": results[("coal", "main")][0],
-         "ms": coal_ms, "plain_ms": coal_plain_ms},
+         "ms": coal_ms, "plain_ms": coal_plain_ms, **coal_bound},
     ]
 
     def variant_moments(variant, n, seed):
@@ -370,7 +430,9 @@ def main():
         kernels.append({"name": f"coal_rhs[{variant}]", "route": "cuda", "source": SOURCE,
                         "replaces": B3_REPLACES, "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms,
+                        **bound(f"coal_rhs[{variant}]", fn.plain, x[:, :256].contiguous(),
+                                bench.BENCH_COLUMNS, 6, 6)})
         del fn, x
     print(f"phase 8 seconds {time.perf_counter() - t:.3f}")
 
@@ -455,7 +517,9 @@ def main():
     kernels.append({"name": "rainshaft_rhs", "route": "cuda", "source": SOURCE,
                     "replaces": B4_REPLACES, "launches": rhs_launches,
                     "max_abs_err": rabs, "max_row_scaled_err": rerr,
-                    "ms": rhs_ms, "plain_ms": rhs_plain_ms})
+                    "ms": rhs_ms, "plain_ms": rhs_plain_ms,
+                    **bound("rainshaft_rhs", rfn.plain, sc["state0"][:, :8 * NZ].contiguous(),
+                            N_POD_COLUMNS * NZ, 6, 12)})
     del sc, rfn, rhs
     torch.cuda.empty_cache()
     print(f"phase 10 seconds {time.perf_counter() - t:.3f}")
@@ -465,8 +529,9 @@ def main():
     for variant, scenario in VARIANTS.items():
         sc = harness.SCENARIOS[scenario](
             n_columns=N_POD_COLUMNS, device=dev, dtype=torch.float32)
+        sc["n_steps"] = N_VARIANT_STEPS  # of the scenario's 120: the time budget
         sc["step"].launches = 0
-        y, pod_s, clock = sc["run"]()
+        y, pod_s, clock = sc["run"](N_VARIANT_STEPS)
         n_launch = sc["step"].launches
         check(n_launch == sc["n_steps"],
               f"[{variant}] whole-step kernel launched {n_launch} times, not {sc['n_steps']}")
@@ -501,7 +566,10 @@ def main():
         kernels.append({"name": f"rainshaft_step[{variant}]", "route": "cuda",
                         "source": SOURCE, "replaces": B1_REPLACES, "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
-                        "ms": pod_s / sc["n_steps"] * 1e3, "plain_ms": plain_ms})
+                        "ms": pod_s / sc["n_steps"] * 1e3, "plain_ms": plain_ms,
+                        **bound(f"rainshaft_step[{variant}]", sc["step"].plain,
+                                sc["state0"][:, :8 * NZ].contiguous(),
+                                N_POD_COLUMNS * NZ, 6, 6)})
         del sc
         torch.cuda.empty_cache()
     print(f"phase 11 seconds {time.perf_counter() - t:.3f}")
@@ -511,17 +579,151 @@ def main():
     for variant, scenario in VARIANTS.items():
         sc = harness.SCENARIOS[scenario](
             n_columns=N_ANCHOR_COLUMNS, device=dev, dtype=torch.float64)
-        y, _, _ = sc["run"]()
+        y, _, _ = sc["run"](N_VARIANT_STEPS)
         yt = sc["state0"]
-        for _ in range(sc["n_steps"]):
+        for _ in range(N_VARIANT_STEPS):
             yt = sc["step"].plain(yt)
         aerr, _ = row_scaled(y, yt)
         print(f"phase 12 [{variant}] f64 anchor ({N_ANCHOR_COLUMNS} columns, "
-              f"{sc['n_steps']} steps): kernel vs twin row-scaled {aerr:.3e} "
+              f"{N_VARIANT_STEPS} steps): kernel vs twin row-scaled {aerr:.3e} "
               f"(tol {TOL['float64']:.0e}) {card}")
         check(bool(torch.isfinite(y).all()), f"[{variant}] f64 anchor not finite")
         check(aerr < TOL["float64"], f"[{variant}] f64 anchor {aerr:.3e}")
     print(f"phase 12 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 13. the direct-quadrature kernel vs its twin ----------------------
+    t = time.perf_counter()
+    num_kernels = {
+        "linear": K.LinearKernelFunction(5e-3),
+        "constant": K.ConstantKernelFunction(1e-3),
+        "long": K.LongKernelFunction(2.0, 1e-3, 5e-3),
+        "hydro": K.HydrodynamicKernelFunction(1e-2),
+    }
+    two_gamma = (Family.GAMMA, Family.GAMMA)
+    three_mode = (Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL)
+
+    def numerical_moments(families, n, seed):
+        """Normalized moments [n_tot, n], parameters drawn first
+        (tests/test_pallas_numerical.py:16-29); box 5 empty, box 7 with an
+        empty second mode."""
+        rng = np.random.default_rng(seed)
+        cols = []
+        for fam in families:
+            p1, p2 = (((-1.0, 1.0), (0.3, 1.0)) if fam == Family.LOGNORMAL
+                      else ((0.05, 5.0), (0.5, 5.0)))
+            cols.append(np.stack([rng.uniform(10, 200, n), rng.uniform(*p1, n),
+                                  rng.uniform(*p2, n)], -1))
+        vspec = SpectrumSpec(families)
+        mom = pd.get_moments(vspec, torch.as_tensor(np.stack(cols, 1))).numpy().T.copy()
+        mom[:, 5] = 0.0
+        if vspec.n_modes > 1:
+            mom[vspec.offsets[1]:, 7] = 0.0
+        return vspec, mom
+
+    one_gamma = (Family.GAMMA,)
+    for families, kname in [(two_gamma, k) for k in sorted(num_kernels)] + [
+            (three_mode, "long"), (one_gamma, "long"), (one_gamma, "linear")]:
+        vspec, mom_np = numerical_moments(families, N_NUM_BOXES, seed=5)
+        cancelling = (1,) if len(families) == 1 else ()  # a lone mode keeps its mass
+        scale_note = " (mass row over the size of the sums it is left of)" if cancelling else ""
+        got_by_type = {}
+        for name, dt in dtypes.items():
+            fn = nc.make_numerical_fn(vspec, num_kernels[kname], *NUM_NODES, device=dev,
+                                      dtype=dt)
+            x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+            got = fn.soa(x)
+            check(fn.launches == 1, "numerical wrapper did not count one launch")
+            want = fn.plain(x)
+            torch.cuda.synchronize()
+            err, abs_err = row_scaled(got, want, cancelling)
+            finite = bool(torch.isfinite(got).all())
+            empty_zero = bool((got[:, 5] == 0).all())
+            repeat = bool(torch.equal(got, fn.soa(x)))
+            print(f"phase 13 numerical kernel [{len(families)} modes, {kname}] vs twin "
+                  f"{name}: row-scaled{scale_note} {err:.3e} (tol {NUM_TOL[name]:.0e}), max abs "
+                  f"{abs_err:.3e}, finite {finite}, empty box exactly zero {empty_zero}, "
+                  f"second launch bit-identical {repeat} {card}")
+            check(finite, f"numerical kernel [{kname}] {name} not finite")
+            check(empty_zero, f"numerical kernel [{kname}] {name}: empty box not zero")
+            check(repeat, f"numerical kernel [{kname}] {name}: two launches differ")
+            check(err < NUM_TOL[name], f"numerical kernel [{kname}] {name} vs twin {err:.3e}")
+            got_by_type[name] = got
+        err, _ = row_scaled(got_by_type["float32"], got_by_type["float64"], cancelling)
+        print(f"phase 13 numerical kernel [{len(families)} modes, {kname}] f32 kernel vs "
+              f"f64 kernel: row-scaled {err:.3e} (tol {NUM_TOL['float32']:.0e}) {card}")
+        check(err < NUM_TOL["float32"], f"numerical f32 vs f64 kernel [{kname}] {err:.3e}")
+    print(f"phase 13 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 14. the numerical bench: 262,144 boxes through the kernel ---------
+    t = time.perf_counter()
+    nfn = bench.numerical_fn(dev)
+    n_box = bench.NUMERICAL_COLUMNS
+    x = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32, device=dev)
+    nfn.soa(x[:, :64].contiguous())  # loads the module, outside the count
+    torch.cuda.synchronize()
+    nfn.launches = 0
+    s_chain = bench.time_chain(nfn.soa, x, N_NUM_STEPS)  # 3 untimed steps first
+    num_launches = nfn.launches
+    y = bench.relax_chain(nfn.soa, x, N_NUM_STEPS)  # the chain's end state
+    finite = bool(torch.isfinite(y).all())
+    print(f"phase 14 numerical RHS chain {n_box} boxes f32, Long kernel, nodes "
+          f"{nfn.plan.n_po} x {nfn.plan.g_outer} outer and {nfn.plan.n_pi} x "
+          f"{nfn.plan.g_inner} inner: {s_chain * 1e3:.4f} ms per RHS step, "
+          f"{n_box * 6 / s_chain:.4e} moment-updates/s, launches {num_launches}, "
+          f"finite {finite} {card}")
+    check(num_launches == N_NUM_STEPS + 3,
+          f"numerical kernel launched {num_launches} times, not {N_NUM_STEPS + 3}")
+    check(finite, "numerical chain state not finite")
+    got = nfn.soa(x)
+    want = nfn.plain(x, chunk=NUM_CHUNK)
+    nerr, nabs = row_scaled(got, want)
+    dm1 = float((got[1] + got[4]).abs().max() / got[1].abs().max())
+    print(f"phase 14 numerical kernel vs twin (chunks of {NUM_CHUNK} boxes) at the "
+          f"main-path shape [6, {n_box}] f32: row-scaled {nerr:.3e} (tol "
+          f"{NUM_TOL['float32']:.0e}), max abs {nabs:.3e}, finite "
+          f"{bool(torch.isfinite(got).all())}; total-mass tendency over the largest "
+          f"mass tendency {dm1:.3e} {card}")
+    check(bool(torch.isfinite(got).all()), "numerical kernel at the main-path shape not finite")
+    check(nerr < NUM_TOL["float32"], f"numerical kernel vs twin at the main-path shape {nerr:.3e}")
+    num_ms = _time_ms(lambda: nfn.soa(x), 10)
+    num_plain_ms = _time_ms(lambda: nfn.plain(x, chunk=NUM_CHUNK), 1)
+    print(f"phase 14 per call at [6, {n_box}]: numerical kernel {num_ms:.4f} ms, "
+          f"twin {num_plain_ms:.4f} ms {card}")
+    kernels.append({"name": "numerical_rhs", "route": "cuda", "source": NUM_SOURCE,
+                    "replaces": B5_REPLACES, "launches": num_launches,
+                    "max_abs_err": nabs, "max_row_scaled_err": nerr,
+                    "ms": num_ms, "plain_ms": num_plain_ms,
+                    **bound("numerical_rhs", nfn.plain, x[:, :64].contiguous(), n_box, 6, 6)})
+    del x, y, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 14 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 15. the box scenarios on the card, and the kernel at box nodes ----
+    t = time.perf_counter()
+    for scenario in BOX_SCENARIOS:
+        with np.load(ROOT / "tests" / "golden" / f"{scenario}.npz") as z:
+            ys_g = z["ys"]
+        ys, rep = harness.run_scenario(scenario, device=dev)
+        berr = float(np.abs(ys.cpu().numpy() / ys_g - 1.0).max())
+        print(f"phase 15 {scenario} f64 on {rep['device']}: {rep['n_steps']} steps in "
+              f"{rep['seconds']:.3f} s (host clock), finite {rep['finite']}, total_mass "
+              f"{rep['total_mass']:.6e}; vs the stored trajectory: max relative "
+              f"{berr:.3e} (tol {BOX_TOL:.0e}) {card}")
+        check(rep["finite"] and tuple(ys.shape) == ys_g.shape, f"{scenario} not finite")
+        check(berr < BOX_TOL, f"{scenario} vs golden {berr:.3e}")
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(bench.NORMS)
+    norm = np.asarray(get_moments_normalizing_factors(spec.nprogmoms, bench.NORMS))
+    mom0 = torch.tensor(np.array([1e7, 1e-3, 2e-13, 1e5, 1e-4, 2e-13]) / norm,
+                        device=dev)[:, None].contiguous()
+    bfn = nc.make_numerical_fn(spec, kf, 256, 96, device=dev, dtype=torch.float64)
+    got = bfn.soa(mom0)[:, 0]
+    want = cn.get_coal_ints_numerical(spec, pd.params_from_moments(spec, mom0.T), kf)[0]
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-13 * want.abs().max())).max())
+    print(f"phase 15 numerical kernel at (256, 96) nodes ({bfn.plan.g_total} threads) on "
+          f"the numerical box's initial state vs the einsum path on the card, f64: max "
+          f"relative {rel:.3e} (tol 1e-08) {card}")
+    check(rel < 1e-8, f"numerical kernel vs einsum path at box nodes {rel:.3e}")
+    print(f"phase 15 seconds {time.perf_counter() - t:.3f}")
 
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)

@@ -9,11 +9,12 @@ tests/test_torch_*.py hold the two against each other on the same inputs.
 This package imports torch and numpy only — never jax or `cloudy_tpu`. The
 CUDA kernels are built from csrc/ at first use (ops/_build.py).
 
-Ported so far (ROADMAP A.1-A.6, for the pod `fixed2gamma` configuration):
-spec, kernels, distributions, coalescence, sedimentation, stepper,
-models.rainshaft, ops.special/gauss/simpson, ops.fused_coalescence (the
-whole-step and coalescence-RHS kernels), utils.metrics, harness (the pod
-ensemble) and bench.
+Ported so far (ROADMAP A.1-A.8): spec, kernels, distributions, coalescence,
+coalescence_numerical, sedimentation, stepper, models.rainshaft, models.box,
+ops.special/gauss/simpson, ops.fused_coalescence (the whole-step,
+coalescence-RHS and fused per-level RHS kernels), ops.numerical_coalescence
+(the direct-quadrature kernel), utils.metrics, harness (the pod ensembles
+and the box scenarios) and bench.
 """
 
 from cloudy_tpu_torch.spec import (

@@ -8,14 +8,23 @@ two gamma modes, Golovin kernel 5.0 fitted at order 1, fixed threshold
 data dependency keeps every evaluation (bench.py:103-104). The RHS is the
 CUDA coalescence kernel (`ops.fused_coalescence.make_coal_fn`).
 
+``--impl numerical`` is bench.py's ``BENCH_IMPL=pallas_numerical``
+(bench.py:106-117): the same seeded state cut to its first 262,144 boxes,
+and the RHS by direct quadrature of the Smoluchowski equation with the Long
+kernel 5.236e-10 / 9.44e9 / 5.78 (normalized), default node budgets (96, 48),
+through the CUDA quadrature kernel
+(`ops.numerical_coalescence.make_numerical_fn`).
+
 Timed with CUDA events after a warm-up; the build is outside the timed
 window. Needs a CUDA device:
 
     python -m cloudy_tpu_torch.bench
+    python -m cloudy_tpu_torch.bench --impl numerical
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -25,21 +34,23 @@ from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch import kernels as K
 from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.ops import fused_coalescence as fc
+from cloudy_tpu_torch.ops import numerical_coalescence as nc
 
 BENCH_F2_EXACT = True
 BENCH_GAMMAINC_ITERS = 12
 BENCH_GL_NODES = 12
 BENCH_COLUMNS = 1 << 20
 BENCH_RELAX = 1e-9
+NUMERICAL_COLUMNS = 1 << 18
+NORMS = (1e6, 1e-9)
 
 
 def bench_data():
     """(spec, CoalescenceData) of bench.py's configuration."""
     spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
-    norms = (1e6, 1e-9)
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     data = build_coalescence_data(
-        spec, ker, (5e-10, np.inf), norms=norms,
+        spec, ker, (5e-10, np.inf), norms=NORMS,
         gammainc_iters=BENCH_GAMMAINC_ITERS, f2_exact=BENCH_F2_EXACT,
         gammainc_gl_nodes=BENCH_GL_NODES,
     )
@@ -59,6 +70,20 @@ def bench_moments(n_columns: int, seed: int = 0) -> np.ndarray:
         np.arange(3.0), 2
     )
     return base[None, :] * amp * msc
+
+
+def numerical_fn(device="cuda") -> nc.NumericalFn:
+    """The quadrature RHS of the numerical bench: two gamma modes, the Long
+    kernel normalized by `NORMS`, default node budgets, f32."""
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(NORMS)
+    return nc.make_numerical_fn(SpectrumSpec((Family.GAMMA, Family.GAMMA)), kf,
+                                device=device, dtype=torch.float32)
+
+
+def numerical_moments(n_columns: int = NUMERICAL_COLUMNS) -> np.ndarray:
+    """The numerical bench's state ``[n_columns, 6]``: the first `n_columns`
+    boxes of the 2^20-box seeded state (bench.py:112)."""
+    return bench_moments(BENCH_COLUMNS)[:n_columns]
 
 
 def relax_chain(rhs_soa, mom: torch.Tensor, n: int) -> torch.Tensor:
@@ -81,21 +106,31 @@ def time_chain(rhs_soa, mom: torch.Tensor, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / 1e3 / n
 
 
-def main(n_columns: int = BENCH_COLUMNS, n_steps: int = 100):
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--impl", choices=("coal", "numerical"), default="coal")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench needs a CUDA device: torch.cuda.is_available() is False")
-    spec, data = bench_data()
-    fn = fc.make_coal_fn(data, device="cuda", dtype=torch.float32)
-    mom = torch.as_tensor(bench_moments(n_columns).T.copy(), dtype=torch.float32,
-                          device="cuda")
+    if args.impl == "numerical":
+        n_columns, n_steps = NUMERICAL_COLUMNS, 20
+        fn = numerical_fn()
+        mom_np = numerical_moments(n_columns)
+    else:
+        n_columns, n_steps = BENCH_COLUMNS, 100
+        fn = fc.make_coal_fn(bench_data()[1], device="cuda", dtype=torch.float32)
+        mom_np = bench_moments(n_columns)
+    mom = torch.as_tensor(mom_np.T.copy(), dtype=torch.float32, device="cuda")
     s = time_chain(fn.soa, mom, n_steps)
     print(json.dumps({
         "metric": "coalescence_moment_updates_per_s",
-        "value": n_columns * spec.n_tot / s,
+        "impl": args.impl,
+        "value": n_columns * fn.plan.n_tot / s,
         "unit": "moment-updates/s",
         "device": torch.cuda.get_device_name(0),
         "n_columns": n_columns,
         "s_per_step": s,
+        "launches": fn.launches,
     }))
 
 

@@ -2,12 +2,13 @@
 //
 // Counterpart of cloudy_tpu/ops/pallas_coalescence.py::_make_coal_body
 // (:145-622; its exact-F2 gamma/exponential branch, the lognormal window
-// rule, and FixedThreshold and MovingThreshold thresholds), of
-// pallas_numerical.py::_invert_rows (:79-118) and of
+// rule, and FixedThreshold and MovingThreshold thresholds) and of
 // pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane: one level
 // of one column, all n_tot moments in registers. Special functions follow
-// cloudy_tpu/ops/special.py term for term (Lanczos `lgamma`, Acklam
-// `ndtri`, the fast GL percentile inverse, the A&S rational `erf`).
+// cloudy_tpu/ops/special.py term for term (Acklam `ndtri`, the fast GL
+// percentile inverse, the A&S rational `erf`); the closure inversion
+// (pallas_numerical.py::_invert_rows) and the Lanczos `lgamma` are in
+// common.cuh, shared with the quadrature kernel.
 //
 // The configuration is table-driven: the host (ops/fused_coalescence.py,
 // `pack_config`) packs families, offsets, thresholds, the nonzeros of the
@@ -29,28 +30,21 @@
 
 #pragma once
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace cloudy {
 
-// capacities; the library exports them with the header size
-// (`cloudy_layout`) and the host checks its own copy against them on load
-constexpr int MAX_MODES = 3;
+// capacities (MAX_MODES and CFG_MAX_BYTES: common.cuh); the library exports
+// them with the header size (`cloudy_layout`) and the host checks its own
+// copy against them on load
 constexpr int MAX_NTOT = 9;
 constexpr int MAX_M = 5;
 constexpr int MAX_S = 2 * MAX_M - 1;  // orders s of P(2k + s, T/theta)
 constexpr int MAX_NPROG = 3;
-constexpr int CFG_MAX_BYTES = 12288;
 // per-mode F2 table: P(2k + s, T/theta) for s < MAX_S (gamma/exponential),
 // or the window rule's p <= q entries packed by `tri` (lognormal)
 constexpr int FTAB = MAX_M * (MAX_M + 1) / 2;
 static_assert(FTAB >= MAX_S, "F2 table too small for the gamma orders");
-
-constexpr int FAM_EXPONENTIAL = 0;
-constexpr int FAM_GAMMA = 1;
-constexpr int FAM_LOGNORMAL = 2;
 
 // int32 layout of the packed configuration: a 10-slot header, then
 // per-mode ints and the wb/wf index tables; the reals start at the byte
@@ -63,27 +57,6 @@ constexpr int I_NPROG = I_OFF + MAX_MODES;
 constexpr int I_THR = I_NPROG + MAX_MODES;
 constexpr int I_TABLES = I_THR + MAX_MODES;
 
-template <typename T> struct Lim;
-template <> struct Lim<float> {
-  static __device__ __forceinline__ float eps() { return FLT_EPSILON; }
-  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
-};
-template <> struct Lim<double> {
-  static __device__ __forceinline__ double eps() { return DBL_EPSILON; }
-  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
-};
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double dpow(double x, double y) { return pow(x, y); }
-
 // jnp.sign: -1, 0 or 1, and NaN for NaN
 template <typename T> __device__ __forceinline__ T vsign(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
@@ -92,17 +65,6 @@ template <typename T> __device__ __forceinline__ T vsign(T x) {
 // index of (p, q), p <= q < MAX_M, in an FTAB row
 __host__ __device__ constexpr int tri(int p, int q) {
   return p * (2 * MAX_M - p - 1) / 2 + q;
-}
-
-// jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates
-template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
-  return (a < b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T vclip(T x, T lo, T hi) {
-  return vmin(vmax(x, lo), hi);
 }
 
 // The configuration, bound to the block's shared-memory copy.
@@ -170,15 +132,6 @@ template <typename T> struct Config {
   }
 };
 
-// Copy the packed configuration (16-byte padded) into shared memory.
-__device__ __forceinline__ void load_config(unsigned char* smem,
-                                            const unsigned char* cfg,
-                                            int cfg_bytes) {
-  const int4* src = reinterpret_cast<const int4*>(cfg);
-  int4* dst = reinterpret_cast<int4*>(smem);
-  for (int w = threadIdx.x; w < cfg_bytes / 16; w += blockDim.x) dst[w] = src[w];
-}
-
 // special.lgamma_stirling: Stirling at z = x + 4, shift removed exactly
 template <typename T> __device__ __forceinline__ T lgamma_stirling(T x) {
   const T z = x + T(4);
@@ -234,27 +187,6 @@ __device__ __forceinline__ T gammainc_gl(const Config<T>& c, T a, T x, T gln) {
   s = s * half;
   const T out = vclip(above ? T(1) - s : -s, T(0), T(1));
   return (x > T(0)) ? out : T(0);
-}
-
-// special.lgamma: Lanczos (g = 7, n = 9), lgamma(z) = lgamma(z+1) - log z
-// below 1
-template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
-  const bool shift = x < T(1);
-  const T z = shift ? x + T(1) : x;
-  const T zm1 = z - T(1);
-  T series = T(0.99999999999980993);
-  series = series + T(676.5203681218851) / (zm1 + T(1));
-  series = series + T(-1259.1392167224028) / (zm1 + T(2));
-  series = series + T(771.32342877765313) / (zm1 + T(3));
-  series = series + T(-176.61502916214059) / (zm1 + T(4));
-  series = series + T(12.507343278686905) / (zm1 + T(5));
-  series = series + T(-0.13857109526572012) / (zm1 + T(6));
-  series = series + T(9.9843695780195716e-6) / (zm1 + T(7));
-  series = series + T(1.5056327351493116e-7) / (zm1 + T(8));
-  const T t = zm1 + T(7) + T(0.5);
-  const T out =
-      T(0.9189385332046727) + (zm1 + T(0.5)) * dlog(t) - t + dlog(series);
-  return shift ? out - dlog(vmax(x, Lim<T>::tiny())) : out;
 }
 
 // special.ndtri: Acklam's inverse normal CDF, branch-free
@@ -378,46 +310,6 @@ __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
       gis[j] = gi;
     }
   }
-}
-
-// Closure inversion (_invert_rows) for mode i of normalized moments `mom`.
-template <typename T, bool kArms>
-__device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
-                                            T& p2) {
-  const T eps = Lim<T>::eps();
-  const T m0 = m[0], m1 = m[1];
-  if (kArms && fam == FAM_LOGNORMAL) {
-    const bool valid = (m0 > eps) && (m1 > eps) && (m[2] > eps);
-    const T m0s = valid ? m0 : T(1);
-    const T m1s = valid ? m1 : T(1);
-    const T m2s = valid ? m[2] : T(2);
-    const T mu = dlog(m1s * m1s / (dpow(m0s, T(1.5)) * dpow(m2s, T(0.5))));
-    const T sig2 = dlog(vmax(m0s * m2s / (m1s * m1s), T(1)));
-    const T sigma = vmax(dsqrt(sig2), eps);
-    const T nn = m1s / dexp(mu + T(0.5) * (sigma * sigma));
-    n = valid ? nn : T(0);
-    p1 = valid ? mu : T(1);
-    p2 = valid ? sigma : T(1);
-    return;
-  }
-  const bool valid = (m0 > eps) && (m1 > eps);
-  const T m0s = valid ? m0 : T(1);
-  const T m1s = valid ? m1 : T(1);
-  if (fam == FAM_EXPONENTIAL) {
-    n = valid ? m0 : T(0);
-    p1 = valid ? m1s / m0s : T(1);
-    p2 = T(0);
-    return;
-  }
-  const T m2s = valid ? m[2] : T(2);
-  const T mean = m1s / m0s;
-  T denom = m2s / m1s - mean;
-  denom = (dabs(denom) > T(0)) ? denom : eps;
-  const T kk = vclip(mean / denom, eps, T(10));
-  const T theta = mean / kk;
-  n = valid ? m0 : T(0);
-  p1 = valid ? theta : T(1);
-  p2 = valid ? kk : T(1);
 }
 
 // _f2_lognormal_window: the lognormal F2 entries p <= q < M (before the

@@ -1,0 +1,129 @@
+// What every kernel of this package shares: numeric limits, the math
+// wrappers that pick the float or double routine, jnp's min/max/clip
+// semantics, the Lanczos lgamma of cloudy_tpu/ops/special.py, the closure
+// inversion, the family tags and the copy of a packed configuration into shared memory.
+//
+// No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
+
+#pragma once
+
+#include <cfloat>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace cloudy {
+
+constexpr int MAX_MODES = 3;
+constexpr int CFG_MAX_BYTES = 12288;
+
+// spec.Family
+constexpr int FAM_EXPONENTIAL = 0;
+constexpr int FAM_GAMMA = 1;
+constexpr int FAM_LOGNORMAL = 2;
+constexpr int FAM_MONODISPERSE = 3;
+
+template <typename T> struct Lim;
+template <> struct Lim<float> {
+  static __device__ __forceinline__ float eps() { return FLT_EPSILON; }
+  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
+};
+template <> struct Lim<double> {
+  static __device__ __forceinline__ double eps() { return DBL_EPSILON; }
+  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
+};
+
+__device__ __forceinline__ float dexp(float x) { return expf(x); }
+__device__ __forceinline__ double dexp(double x) { return exp(x); }
+__device__ __forceinline__ float dlog(float x) { return logf(x); }
+__device__ __forceinline__ double dlog(double x) { return log(x); }
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double dpow(double x, double y) { return pow(x, y); }
+
+// jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates
+template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T vclip(T x, T lo, T hi) {
+  return vmin(vmax(x, lo), hi);
+}
+
+// Copy the packed configuration (16-byte padded) into shared memory.
+__device__ __forceinline__ void load_config(unsigned char* smem,
+                                            const unsigned char* cfg,
+                                            int cfg_bytes) {
+  const int4* src = reinterpret_cast<const int4*>(cfg);
+  int4* dst = reinterpret_cast<int4*>(smem);
+  for (int w = threadIdx.x; w < cfg_bytes / 16; w += blockDim.x) dst[w] = src[w];
+}
+
+// special.lgamma: Lanczos (g = 7, n = 9), lgamma(z) = lgamma(z+1) - log z
+// below 1
+template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
+  const bool shift = x < T(1);
+  const T z = shift ? x + T(1) : x;
+  const T zm1 = z - T(1);
+  T series = T(0.99999999999980993);
+  series = series + T(676.5203681218851) / (zm1 + T(1));
+  series = series + T(-1259.1392167224028) / (zm1 + T(2));
+  series = series + T(771.32342877765313) / (zm1 + T(3));
+  series = series + T(-176.61502916214059) / (zm1 + T(4));
+  series = series + T(12.507343278686905) / (zm1 + T(5));
+  series = series + T(-0.13857109526572012) / (zm1 + T(6));
+  series = series + T(9.9843695780195716e-6) / (zm1 + T(7));
+  series = series + T(1.5056327351493116e-7) / (zm1 + T(8));
+  const T t = zm1 + T(7) + T(0.5);
+  const T out =
+      T(0.9189385332046727) + (zm1 + T(0.5)) * dlog(t) - t + dlog(series);
+  return shift ? out - dlog(vmax(x, Lim<T>::tiny())) : out;
+}
+
+// Closure inversion (pallas_numerical.py::_invert_rows, :79-118) of one mode
+// from its normalized moments `m`; a monodisperse mode inverts as an
+// exponential one. The lognormal branch exists only with kArms.
+template <typename T, bool kArms>
+__device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
+                                            T& p2) {
+  const T eps = Lim<T>::eps();
+  const T m0 = m[0], m1 = m[1];
+  if (kArms && fam == FAM_LOGNORMAL) {
+    const bool valid = (m0 > eps) && (m1 > eps) && (m[2] > eps);
+    const T m0s = valid ? m0 : T(1);
+    const T m1s = valid ? m1 : T(1);
+    const T m2s = valid ? m[2] : T(2);
+    const T mu = dlog(m1s * m1s / (dpow(m0s, T(1.5)) * dpow(m2s, T(0.5))));
+    const T sig2 = dlog(vmax(m0s * m2s / (m1s * m1s), T(1)));
+    const T sigma = vmax(dsqrt(sig2), eps);
+    const T nn = m1s / dexp(mu + T(0.5) * (sigma * sigma));
+    n = valid ? nn : T(0);
+    p1 = valid ? mu : T(1);
+    p2 = valid ? sigma : T(1);
+    return;
+  }
+  const bool valid = (m0 > eps) && (m1 > eps);
+  const T m0s = valid ? m0 : T(1);
+  const T m1s = valid ? m1 : T(1);
+  if (fam == FAM_EXPONENTIAL || fam == FAM_MONODISPERSE) {
+    n = valid ? m0 : T(0);
+    p1 = valid ? m1s / m0s : T(1);
+    p2 = T(0);
+    return;
+  }
+  const T m2s = valid ? m[2] : T(2);
+  const T mean = m1s / m0s;
+  T denom = m2s / m1s - mean;
+  denom = (dabs(denom) > T(0)) ? denom : eps;
+  const T kk = vclip(mean / denom, eps, T(10));
+  const T theta = mean / kk;
+  n = valid ? m0 : T(0);
+  p1 = valid ? theta : T(1);
+  p2 = valid ? kk : T(1);
+}
+
+}  // namespace cloudy

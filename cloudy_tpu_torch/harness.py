@@ -1,4 +1,5 @@
-"""Scenario harness: the pod column ensemble on one device.
+"""Scenario harness: the pod column ensemble and the box scenarios on one
+device.
 
 Port of `cloudy_tpu.harness` for the production workload,
 `_scenario_pod_ensemble` in its three variants (`POD_VARIANTS`): an
@@ -24,7 +25,20 @@ rate divides by the steps actually run.
     python -m cloudy_tpu_torch.harness pod_ensemble_moving --columns 1048576 --device cuda
     python -m cloudy_tpu_torch.harness pod_ensemble_lognorm --columns 1048576 --device cuda
 
-prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
+The three 0-D box scenarios (cloudy_tpu/harness.py:28-91) are single boxes
+integrated in f64 through the torch reference path (`models.box`), each held
+by tests against its stored trajectory under tests/golden/:
+
+- ``box_single_gamma_golovin``: one gamma mode, Golovin kernel, 3 moments;
+- ``box_exp_gamma_mixture``: exponential + gamma, constant + linear kernel
+  tensor, threshold 5e-10 kg;
+- ``box_long_numerical``: two gamma modes, the Long kernel by numerical
+  quadrature (`coalescence_numerical.get_coal_ints_numerical`, the einsum
+  path at (256, 96) nodes, as the JAX package runs it).
+
+    python -m cloudy_tpu_torch.harness box_long_numerical --device cuda
+
+Each run prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import torch
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch import kernels as K
 from cloudy_tpu_torch.coalescence import build_coalescence_data
+from cloudy_tpu_torch.models import box
 from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.utils import metrics
@@ -125,62 +140,137 @@ def _scenario_pod_ensemble(
         "n_columns": n_columns,
         "n_steps": n_steps,
         "run": run,
+        "kind": "ensemble",
     }
 
 
+def _box_scenario(spec, config, rhs, mom0, device) -> Dict:
+    """A box scenario in its stated precision, f64."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); ask for "
+            "device='cpu' to run the box on the host"
+        )
+    state0 = torch.tensor(mom0, dtype=torch.float64, device=device)
+
+    def run():
+        """Integrate; returns (ys [n_steps + 1, n_tot], seconds, clock)."""
+        t0 = time.perf_counter()
+        _, ys = box.run_box(config, rhs, state0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return ys, time.perf_counter() - t0, "host"
+
+    return {"spec": spec, "config": config, "rhs": rhs, "state0": state0,
+            "run": run, "kind": "box",
+            "n_steps": int(round(config.t_end / config.dt))}
+
+
+def _scenario_box_single_gamma(device="cuda") -> Dict:
+    """0-D box, single gamma, Golovin kernel, 3 moments."""
+    spec = SpectrumSpec((Family.GAMMA,))
+    norms = (1e6, 1e-9)
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, (np.inf,), norms=norms)
+    config = box.BoxConfig(spec=spec, norms=norms, t_end=120.0, dt=1.0)
+    rhs = box.make_box_rhs(config, coal_data=data)
+    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 2e-12], device)
+
+
+def _scenario_box_exp_gamma_mixture(device="cuda") -> Dict:
+    """0-D box, exponential+gamma mixture, 5 prognostic moments, constant +
+    linear kernel (summed tensor), finite threshold."""
+    spec = SpectrumSpec((Family.EXPONENTIAL, Family.GAMMA))
+    norms = (1e6, 1e-9)
+    # constant rate chosen so 1/(B·M0) ≈ 50 s — stable at dt = 1 s
+    const = K.CoalescenceTensor.from_function(K.ConstantKernelFunction(2e-10), 1, 1e-6)
+    lin = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    combined = K.CoalescenceTensor(const.array + lin.array)
+    data = build_coalescence_data(spec, combined, (5e-10, np.inf), norms=norms)
+    config = box.BoxConfig(spec=spec, norms=norms, t_end=120.0, dt=1.0)
+    rhs = box.make_box_rhs(config, coal_data=data)
+    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 1.0, 1e-8, 2e-16], device)
+
+
+def _scenario_box_long_numerical(device="cuda") -> Dict:
+    """0-D box, Long kernel via numerical quadrature, two-mode closure with
+    parameter inversion."""
+    spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+    norms = (1e6, 1e-9)
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
+    config = box.BoxConfig(spec=spec, norms=norms, t_end=60.0, dt=2.0)
+    rhs = box.make_box_rhs(config, kernel_func=kf, numerical=True)
+    return _box_scenario(spec, config, rhs, [1e7, 1e-3, 2e-13, 1e5, 1e-4, 2e-13], device)
+
+
 SCENARIOS: Dict[str, Callable] = {
+    "box_single_gamma_golovin": _scenario_box_single_gamma,
+    "box_exp_gamma_mixture": _scenario_box_exp_gamma_mixture,
+    "box_long_numerical": _scenario_box_long_numerical,
     "pod_ensemble": _scenario_pod_ensemble,
     "pod_ensemble_moving": functools.partial(_scenario_pod_ensemble, variant="moving"),
     "pod_ensemble_lognorm": functools.partial(_scenario_pod_ensemble, variant="lognorm"),
 }
 
 
-def run_scenario(
-    name: str,
-    n_columns: int = 1 << 20,
-    device="cuda",
-    outdir: Optional[str] = None,
-):
-    """Build, run and report one named scenario in its stated precision (f32).
-    Returns (state, report); the report is appended to ``outdir/runs.jsonl``
-    only with `outdir`."""
-    sc = SCENARIOS[name](n_columns=n_columns, device=device)
-    sc["step"].launches = 0
+def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
+                 **scenario_args):
+    """Build, run and report one named scenario in its stated precision (the
+    pod ensembles f32, the boxes f64). `scenario_args` go to the scenario's
+    builder (`n_columns` for a pod ensemble; a box takes none). Returns
+    (state, report): the final ``[n_columns, nz, n_tot]`` state of an
+    ensemble, the saved trajectory of a box. The report is appended to
+    ``outdir/runs.jsonl`` only with `outdir`."""
+    sc = SCENARIOS[name](device=device, **scenario_args)
+    ensemble = sc["kind"] == "ensemble"
+    if ensemble:
+        sc["step"].launches = 0
     y, seconds, clock = sc["run"]()
-    nz = sc["config"].nz
-    state = rs.from_soa(y, nz)  # [n_columns, nz, n_tot] view
     report = {
         "scenario": name,
         "device": (torch.cuda.get_device_name(y.device)
                    if y.device.type == "cuda" else y.device.type),
         "dtype": str(y.dtype).replace("torch.", ""),
-        "n_columns": sc["n_columns"],
-        "nz": nz,
         "n_steps": sc["n_steps"],
-        "launches": sc["step"].launches,
         "seconds": seconds,
         "clock": clock,
         "finite": bool(torch.all(torch.isfinite(y))),
     }
-    report.update(metrics.conservation_report(sc["spec"], state))
-    report["column_updates_per_s"] = sc["n_columns"] * sc["n_steps"] / seconds
+    if ensemble:
+        nz = sc["config"].nz
+        state = final = rs.from_soa(y, nz)  # [n_columns, nz, n_tot] view
+        report.update({
+            "n_columns": sc["n_columns"],
+            "nz": nz,
+            "launches": sc["step"].launches,
+            "column_updates_per_s": sc["n_columns"] * sc["n_steps"] / seconds,
+        })
+    else:
+        state, final = y, y[-1]
+    report.update(metrics.conservation_report(sc["spec"], final))
+    _log_report(report, outdir)
+    return state, report
+
+
+def _log_report(report: Dict, outdir: Optional[str]) -> None:
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         with open(os.path.join(outdir, "runs.jsonl"), "a") as f:
             f.write(json.dumps(report) + "\n")
-    return state, report
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("scenario", choices=sorted(SCENARIOS))
-    ap.add_argument("--columns", type=int, default=1 << 20)
+    ap.add_argument("--columns", type=int, default=None,
+                    help="width of a pod ensemble (default 2^20); a box takes none")
     ap.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     ap.add_argument("--outdir", default=None)
     args = ap.parse_args(argv)
+    scenario_args = {} if args.columns is None else {"n_columns": args.columns}
     _, report = run_scenario(
-        args.scenario, n_columns=args.columns, device=args.device,
-        outdir=args.outdir,
+        args.scenario, device=args.device, outdir=args.outdir, **scenario_args
     )
     print(json.dumps(report))
 

@@ -2,8 +2,10 @@
 
 Port of `cloudy_tpu.kernels` (reference src/Kernels/KernelFunctions.jl,
 src/Kernels/KernelTensors.jl). Kernel *functions* K(x, y) are frozen
-dataclasses callable on numpy arrays and Python floats (host side; the
-numerical-quadrature path that evaluates them on the device is ROADMAP A.8).
+dataclasses callable on numpy arrays, Python floats and torch tensors (the
+numerical-quadrature path, `coalescence_numerical`, evaluates them on the
+device; the CUDA quadrature kernel reads them as a tag and parameters,
+`ops.numerical_coalescence.kernel_descriptor`).
 Kernel *tensors* approximate K by a symmetric polynomial
 ``K(x,y) ≈ Σ c[a,b] x^a y^b`` fitted at init time by linear least squares,
 exactly as the JAX package fits them.
@@ -15,6 +17,7 @@ import dataclasses
 from typing import Callable, Tuple, Union
 
 import numpy as np
+import torch
 
 DEFAULT_NORMS = (1e6, 1e-9)  # number scale 1/m^3, mass scale kg
 
@@ -22,6 +25,10 @@ DEFAULT_NORMS = (1e6, 1e-9)  # number scale 1/m^3, mass scale kg
 # --------------------------------------------------------------------------
 # kernel functions (reference src/Kernels/KernelFunctions.jl:39-116)
 # --------------------------------------------------------------------------
+
+
+def _is_tensor(x, y) -> bool:
+    return isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +56,9 @@ class ConstantKernelFunction(KernelFunction):
     coll_coal_rate: float
 
     def __call__(self, x, y):
+        if _is_tensor(x, y):
+            x, y = torch.broadcast_tensors(torch.as_tensor(x), torch.as_tensor(y))
+            return torch.full_like(x, self.coll_coal_rate)
         return np.broadcast_to(
             np.asarray(self.coll_coal_rate),
             np.broadcast_shapes(np.shape(x), np.shape(y)),
@@ -83,7 +93,8 @@ class HydrodynamicKernelFunction(KernelFunction):
         r2 = (3.0 / 4.0 / np.pi * y) ** (1.0 / 3.0)
         a1 = np.pi * r1**2
         a2 = np.pi * r2**2
-        return self.coal_eff * (r1 + r2) ** 2 * np.abs(a1 - a2)
+        absdiff = torch.abs(a1 - a2) if _is_tensor(x, y) else np.abs(a1 - a2)
+        return self.coal_eff * (r1 + r2) ** 2 * absdiff
 
     def normalized(self, norms):
         return HydrodynamicKernelFunction(
@@ -102,7 +113,8 @@ class LongKernelFunction(KernelFunction):
 
     def __call__(self, x, y):
         below = (x < self.x_threshold) & (y < self.x_threshold)
-        return np.where(
+        where = torch.where if _is_tensor(x, y) else np.where
+        return where(
             below,
             self.coal_rate_below_threshold * (x**2 + y**2),
             self.coal_rate_above_threshold * (x + y),

@@ -111,7 +111,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, declare every entry point's signature
     (pointers and the stream as ``c_void_p``: 64 bits), and check that the
     library's configuration layout is the one the host packs."""
-    from cloudy_tpu_torch.ops.fused_coalescence import LAYOUT
+    from cloudy_tpu_torch.ops import fused_coalescence, numerical_coalescence
 
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -123,14 +123,23 @@ def load_library() -> ctypes.CDLL:
         f = getattr(lib, f"cloudy_step_{tag}")
         f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, nz, arms, stream
         f.restype = i
+        for n_modes in range(1, numerical_coalescence.MAX_MODES + 1):
+            f = getattr(lib, f"cloudy_numerical_{tag}_n{n_modes}")
+            f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, G, ktag, stream
+            f.restype = i
     lib.cloudy_error_string.argtypes = [i]
     lib.cloudy_error_string.restype = ctypes.c_char_p
     got = (ctypes.c_int * 8)()
-    n = lib.cloudy_layout(got)
-    if tuple(got[:n]) != LAYOUT:
-        raise RuntimeError(
-            f"{lib._name}: configuration layout {tuple(got[:n])} (MAX_MODES, "
-            f"MAX_NTOT, MAX_M, CFG_MAX_BYTES, header ints) differs from the "
-            f"host's {LAYOUT}"
-        )
+    for export, module, names in (
+        (lib.cloudy_layout, fused_coalescence,
+         "MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, header ints"),
+        (lib.cloudy_numerical_layout, numerical_coalescence,
+         "MAX_MODES, MAX_G, MAX_NMOM, CFG_MAX_BYTES, header ints"),
+    ):
+        n = export(got)
+        if tuple(got[:n]) != module.LAYOUT:
+            raise RuntimeError(
+                f"{lib._name}: configuration layout {tuple(got[:n])} ({names}) "
+                f"differs from the host's {module.LAYOUT}"
+            )
     return lib

@@ -591,25 +591,44 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor
 
 
 class _KernelFn:
-    """Dispatch shared by the three wrappers: the plain twin for a CPU
+    """Dispatch shared by the kernel wrappers: the plain twin for a CPU
     tensor, the CUDA kernel for a CUDA tensor; `launches` counts kernel
-    launches."""
+    launches. A subclass names its entry point (`_name`) and may pack its own
+    configuration (`_pack`)."""
 
-    _symbol = ""
+    _name = ""
 
-    def __init__(self, plan: FusedPlan, device, dtype: torch.dtype):
+    def __init__(self, plan, device, dtype: torch.dtype):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, not {dtype}")
         device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device (torch.cuda.is_available() is False): the "
+                    "kernel runs on the card only; ask for device='cpu' to run "
+                    "its plain twin"
+                )
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
         self.plan = plan
         self.device = device
         self.dtype = dtype
         self.launches = 0
         self._cfg = None
+
+    @property
+    def _tag(self) -> str:
+        return "f32" if self.dtype == torch.float32 else "f64"
+
+    @property
+    def _symbol(self) -> str:
+        return f"{self._name}_{self._tag}"
+
+    def _pack(self) -> np.ndarray:
+        return pack_config(self.plan, self.dtype)
 
     def _check(self, mom: torch.Tensor) -> None:
         if mom.device != self.device:
@@ -624,24 +643,23 @@ class _KernelFn:
             raise ValueError("expected a contiguous [n_tot, B] tensor")
 
     def _launch(self, mom: torch.Tensor, n_out: int, *extra) -> torch.Tensor:
-        """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``."""
+        """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``;
+        `extra` are the entry point's ints between B and the stream."""
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_library()
         if self._cfg is None:
-            buf = pack_config(self.plan, self.dtype)
-            self._cfg = torch.from_numpy(buf).to(self.device)
+            self._cfg = torch.from_numpy(self._pack()).to(self.device)
         out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
-        tag = "f32" if self.dtype == torch.float32 else "f64"
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = getattr(lib, f"{self._symbol}_{tag}")(
+            err = getattr(lib, self._symbol)(
                 mom.data_ptr(), out.data_ptr(), self._cfg.data_ptr(),
-                self._cfg.numel(), mom.shape[1], *extra, self.plan.arms, stream,
+                self._cfg.numel(), mom.shape[1], *extra, stream,
             )
         if err != 0:
             raise RuntimeError(
-                f"{self._symbol}_{tag} launch failed: cudaError {err} "
+                f"{self._symbol} launch failed: cudaError {err} "
                 f"({lib.cloudy_error_string(err).decode()})"
             )
         self.launches += 1
@@ -652,13 +670,13 @@ class CoalFn(_KernelFn):
     """Coalescence RHS (replaces `make_pallas_coal_fn`): ``fn(mom [B, n_tot])``
     and ``fn.soa(mom [n_tot, B])`` on normalized moments."""
 
-    _symbol = "cloudy_coal"
+    _name = "cloudy_coal"
 
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":
             return coal_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.n_tot)
+        return self._launch(mom, self.plan.n_tot, self.plan.arms)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T
@@ -673,7 +691,7 @@ class RainshaftStepFn(_KernelFn):
     `make_pallas_rainshaft_step_fn`): ``fn(mom [n_tot, B])``, physical
     moments, ``B % nz == 0``."""
 
-    _symbol = "cloudy_step"
+    _name = "cloudy_step"
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
@@ -681,7 +699,7 @@ class RainshaftStepFn(_KernelFn):
             raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={self.plan.nz}")
         if mom.device.type == "cpu":
             return rainshaft_step_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.n_tot, self.plan.nz)
+        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.arms)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
@@ -695,13 +713,13 @@ class RainshaftRhsFn(_KernelFn):
     physical sedimentation fluxes. The caller applies the upwind stencil
     (`models.rainshaft.make_rainshaft_rhs_fused`)."""
 
-    _symbol = "cloudy_rhs"
+    _name = "cloudy_rhs"
 
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":
             return rainshaft_rhs_soa_plain(mom, self.plan)
-        return self._launch(mom, 2 * self.plan.n_tot)
+        return self._launch(mom, 2 * self.plan.n_tot, self.plan.arms)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""

@@ -1,0 +1,423 @@
+"""Hand-written CUDA kernel for the direct-quadrature coalescence RHS, with
+its plain PyTorch twin.
+
+Counterpart of `cloudy_tpu.ops.pallas_numerical`: `make_numerical_fn`
+(kernel ``cloudy_numerical_*`` in csrc/numerical_coalescence.cu) replaces
+`make_pallas_numerical_fn`: normalized moments → coalescence tendencies by
+fixed-node Gauss–Legendre quadrature of the Smoluchowski equation with a
+kernel *function* K(x, y), fusing
+
+    closure inversion → per-box support bounds → kink-aware outer log grid →
+    densities → R inner integral → triangular Q/S inner integrals → gated
+    moment assembly
+
+so that a box reads ``n_tot`` values and writes ``n_tot``. The einsum path
+(`coalescence_numerical.get_coal_ints_numerical`) is quadrature-identical but
+holds its ``[B, G_outer, G_inner]`` intermediates in device memory. The path
+needs only density evaluations, so it covers all four families and the four
+kernel functions of `kernels` (constant, linear, hydrodynamic, Long).
+
+Layout: the structure-of-arrays ``[n_tot, B]``; on the card one thread block
+per box and one thread per outer node. The kernel reads one packed
+configuration (`NumericalPlan` → `pack_config`): the spectrum, the node
+counts, the Gauss–Legendre rules, the panel cuts and the kernel function as a
+tag with up to three parameters (`kernel_descriptor`).
+
+Beside the kernel sits its plain twin `numerical_soa_plain`: the same
+operations in the Pallas body's order on ``[G, B]`` tiles (the y-loop for R,
+the node loop for Q/S), in PyTorch. The wrapper runs the twin only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises. It
+never falls back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from cloudy_tpu_torch import kernels as K
+from cloudy_tpu_torch.spec import Family, SpectrumSpec
+from cloudy_tpu_torch.ops import special
+from cloudy_tpu_torch.ops.fused_coalescence import _KernelFn, _invert_rows
+from cloudy_tpu_torch.ops.gauss import gauss_legendre
+
+_SQRT2PI = float(np.sqrt(2.0 * np.pi))
+
+# Capacities of csrc/numerical_coalescence.cu and the int32 header slots of
+# the packed configuration; the library exports its own
+# (`cloudy_numerical_layout`) and `_build.load_library` refuses a library
+# whose values differ from `LAYOUT`.
+MAX_MODES = 3
+MAX_G = 256
+MAX_NMOM = 3
+CFG_MAX_BYTES = 12288
+HEADER_INTS = 10
+LAYOUT = (MAX_MODES, MAX_G, MAX_NMOM, CFG_MAX_BYTES, HEADER_INTS)
+
+#: kernel-function classes the CUDA kernel evaluates, by tag (the kernel's
+#: KT_* constants), with the dataclass fields it reads as k0..k2
+KERNEL_TAGS = (
+    (K.ConstantKernelFunction, ("coll_coal_rate",)),
+    (K.LinearKernelFunction, ("coll_coal_rate",)),
+    (K.HydrodynamicKernelFunction, ("coal_eff",)),
+    (K.LongKernelFunction, ("x_threshold", "coal_rate_below_threshold",
+                            "coal_rate_above_threshold")),
+)
+
+
+def kernel_descriptor(kernel_func) -> Tuple[int, Tuple[float, float, float]]:
+    """(tag, (k0, k1, k2)) of an already normalized kernel function. Any
+    callable outside `KERNEL_TAGS` (a `CoalescenceTensor`, a lambda) raises:
+    the CUDA kernel cannot call back into Python (ROADMAP B5-callable)."""
+    for tag, (cls, fields) in enumerate(KERNEL_TAGS):
+        if type(kernel_func) is cls:
+            vals = [float(getattr(kernel_func, f)) for f in fields]
+            return tag, tuple(vals + [0.0] * (3 - len(vals)))
+    raise NotImplementedError(
+        f"B5-callable: the CUDA quadrature kernel evaluates only "
+        f"{', '.join(cls.__name__ for cls, _ in KERNEL_TAGS)}; "
+        f"{type(kernel_func).__name__} is not one of them (ROADMAP B-arms)"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class NumericalPlan:
+    """Host-side tables of one configuration, shared by the CUDA kernel
+    (packed by `pack_config`) and the plain twin."""
+
+    families: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    nprog: Tuple[int, ...]
+    #: the normalized kernel function, its tag and parameters
+    kernel_func: K.KernelFunction
+    ktag: int
+    kpar: Tuple[float, float, float]
+    #: the kernel's kink (at most one), or ()
+    kinks: Tuple[float, ...]
+    #: outer panels and GL nodes per panel; inner panels and nodes per panel
+    n_po: int
+    g_outer: int
+    n_pi: int
+    g_inner: int
+
+    @property
+    def n_tot(self) -> int:
+        return sum(self.nprog)
+
+    @property
+    def n_modes(self) -> int:
+        return len(self.families)
+
+    @property
+    def n_mom(self) -> int:
+        return max(self.nprog)
+
+    @property
+    def g_total(self) -> int:
+        return self.n_po * self.g_outer
+
+    @property
+    def outer_cuts(self) -> Tuple[float, ...]:
+        return tuple(sorted({c for t in self.kinks for c in (t, 2.0 * t)}))
+
+
+def build_plan(spec: SpectrumSpec, kernel_func, n_outer: int = 96,
+               n_inner: int = 48) -> NumericalPlan:
+    """Tables of one configuration. ``n_outer``/``n_inner`` are total node
+    budgets, divided evenly among the kink-aware panels: a kinked kernel
+    (Long) splits the outer budget into 3 panels and the inner into 3, at
+    least 8 nodes each."""
+    kinks = tuple(float(t) for t in getattr(kernel_func, "x_kinks", ()))
+    if len(kinks) > 1:
+        raise NotImplementedError("the quadrature kernel supports <=1 kink")
+    ktag, kpar = kernel_descriptor(kernel_func)
+    n_po = 2 * len(kinks) + 1
+    n_pi = 2 * len(kinks) + 1
+    g_outer = max(n_outer // n_po, 8) if kinks else n_outer
+    g_inner = max(n_inner // n_pi, 8) if kinks else n_inner
+    if spec.n_modes > MAX_MODES or n_po * g_outer > MAX_G:
+        raise NotImplementedError(
+            f"configuration exceeds the kernel's capacities (modes <= {MAX_MODES}, "
+            f"outer nodes <= {MAX_G}: one thread each)"
+        )
+    return NumericalPlan(
+        families=tuple(int(f) for f in spec.families),
+        offsets=spec.offsets,
+        nprog=spec.nprogmoms,
+        kernel_func=kernel_func,
+        ktag=ktag,
+        kpar=kpar,
+        kinks=kinks,
+        n_po=n_po,
+        g_outer=g_outer,
+        n_pi=n_pi,
+        g_inner=g_inner,
+    )
+
+
+def _rules(plan: NumericalPlan):
+    """(xu, wu, s01, w01, log_cuts) in double: the outer rule on [−1, 1], the
+    inner rule mapped to (0, 1), and the logs of the outer cuts, each rounded
+    once to the working type by its user."""
+    xu, wu = gauss_legendre(plan.g_outer)
+    su, ws = gauss_legendre(plan.g_inner)
+    return (np.asarray(xu), np.asarray(wu), 0.5 * (np.asarray(su) + 1.0),
+            0.5 * np.asarray(ws), np.log(np.asarray(plan.outer_cuts, np.float64)))
+
+
+def pack_config(plan: NumericalPlan, dtype: torch.dtype) -> np.ndarray:
+    """The byte buffer the kernel reads (layout:
+    csrc/numerical_coalescence.cu, `NumConfig::bind`)."""
+    real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    xu, wu, s01, w01, log_cuts = _rules(plan)
+
+    def per_mode(vals):
+        return list(vals) + [0] * (MAX_MODES - len(vals))
+
+    ints = [plan.n_modes, plan.n_tot, plan.n_mom, plan.n_po, plan.g_outer,
+            plan.n_pi, plan.g_inner, plan.ktag, 0, 0]  # slot 8: real offset
+    ints += per_mode(plan.families) + per_mode(plan.offsets) + per_mode(plan.nprog)
+    if len(ints) % 2:
+        ints.append(0)  # 8-byte align the real section
+    real_offset = 4 * len(ints)
+    ints[8] = real_offset
+
+    reals = list(plan.kpar) + [plan.kinks[0] if plan.kinks else 0.0]
+    reals += list(log_cuts) + [0.0] * (2 - len(log_cuts))
+    reals += list(xu) + list(wu) + list(s01) + list(w01)
+    total = real_offset + np.dtype(real_t).itemsize * len(reals)
+    total += (-total) % 16
+    if total > CFG_MAX_BYTES:
+        raise NotImplementedError(
+            f"configuration tables need {total} bytes > {CFG_MAX_BYTES}: "
+            "fewer quadrature nodes fit the kernel's shared memory copy"
+        )
+    buf = np.zeros(total, np.uint8)
+    buf[:real_offset] = np.asarray(ints, np.int32).view(np.uint8)
+    rb = np.asarray(reals, np.float64).astype(real_t).view(np.uint8)
+    buf[real_offset:real_offset + rb.size] = rb
+    return buf
+
+
+# --------------------------------------------------------------------------
+# plain twin (the Pallas body's arithmetic on [G, B] tiles)
+# --------------------------------------------------------------------------
+
+
+def _bounds_rows(fam: int, n, p1, p2):
+    """Per-mode support bounds on rows (`_bounds_rows`; mirrors
+    `coalescence_numerical.support_bounds`)."""
+    if fam == Family.EXPONENTIAL:
+        lo, hi = p1 * 1e-8, p1 * 40.0
+    elif fam == Family.GAMMA:
+        log_eps = torch.log(torch.tensor(1e-12, dtype=p1.dtype, device=p1.device))
+        lo = p1 * torch.exp(log_eps / torch.clamp(p2, min=0.05))
+        lo = torch.maximum(lo, p1 * 1e-12)
+        hi = p1 * (p2 + 30.0 * torch.sqrt(p2) + 40.0)
+    elif fam == Family.LOGNORMAL:
+        lo, hi = torch.exp(p1 - 8.0 * p2), torch.exp(p1 + 8.0 * p2)
+    else:  # MONODISPERSE
+        lo, hi = p1 * 0.5, p1 * 2.5
+    active = n > 0.0
+    return special.select(active, lo, float("inf")), special.select(active, hi, 0.0)
+
+
+def _density_rows(fam: int, amp, p1, p2, cst, x, logx):
+    """Mass density at node tile x (log x given) with amplitude `amp` (n, or
+    1 for the normed density); `cst` is the gamma constant
+    k·log θ + lgamma(k), hoisted out of the node loops as the kernel does."""
+    if fam == Family.EXPONENTIAL:
+        return amp / p1 * torch.exp(-x / p1)
+    if fam == Family.GAMMA:
+        logf = (p2 - 1.0) * logx - cst - x / p1
+        return amp * special.exp(logf)
+    if fam == Family.LOGNORMAL:
+        d = logx - p1
+        return (amp * special.exp(-(d * d) / (2.0 * (p2 * p2)))
+                / (torch.clamp(x, min=torch.finfo(x.dtype).tiny) * p2 * _SQRT2PI))
+    # MONODISPERSE
+    return special.select(torch.abs(x - p1) < p1 / 10.0, amp / (2.0 * p1 / 10.0), 0.0)
+
+
+def numerical_soa_plain(mom: torch.Tensor, plan: NumericalPlan) -> torch.Tensor:
+    """Plain twin of the quadrature kernel: normalized ``[n_tot, B]`` →
+    tendencies ``[n_tot, B]``. Its ``[G, B]`` tiles make it a small-batch
+    routine; `NumericalFn.plain` runs it in chunks of boxes."""
+    dtype, dev = mom.dtype, mom.device
+    eps, tiny = torch.finfo(dtype).eps, torch.finfo(dtype).tiny
+    N, n_mom = plan.n_modes, plan.n_mom
+    G = plan.g_total
+    kf = plan.kernel_func
+    xu_np, wu_np, s01_np, w01_np, log_cuts = _rules(plan)
+
+    def const(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    # ---- closure inversion per mode, on [1, B] rows ------------------------
+    params, cst = [], []
+    for i, fam in enumerate(plan.families):
+        o = plan.offsets[i]
+        rows = [mom[o + j:o + j + 1] for j in range(plan.nprog[i])]
+        inv_fam = Family.EXPONENTIAL if fam == Family.MONODISPERSE else fam
+        n, p1, p2 = _invert_rows(inv_fam, rows, eps)
+        params.append((n, p1, p2))
+        cst.append(p2 * torch.log(p1) + special.lgamma(p2)
+                   if fam == Family.GAMMA else None)
+
+    # ---- per-box support bounds --------------------------------------------
+    x_lo = torch.full_like(mom[:1], float("inf"))
+    x_hi = torch.zeros_like(mom[:1])
+    for fam, (n, p1, p2) in zip(plan.families, params):
+        lo, hi = _bounds_rows(fam, n, p1, p2)
+        x_lo = torch.minimum(x_lo, lo)
+        x_hi = torch.maximum(x_hi, hi)
+    x_lo = torch.clamp(x_lo, max=1e30)
+    x_hi = torch.clamp(x_hi, min=1e-30)
+    x_lo = torch.clamp(torch.minimum(x_lo, x_hi * 1e-12), min=tiny)
+    x_hi = torch.clamp(2.0 * x_hi, min=4.0 * tiny)
+
+    # ---- outer log grid: x = exp(u) with GL nodes in u, one panel per
+    # smooth kernel piece (empty panels collapse to zero weight) ------------
+    lo_l, hi_l = torch.log(x_lo), torch.log(x_hi)
+    xu, wu = const(xu_np)[:, None], const(wu_np)[:, None]
+    edges = ([lo_l]
+             + [torch.minimum(torch.maximum(const(lc), lo_l), hi_l) for lc in log_cuts]
+             + [hi_l])
+    Xp, Wp = [], []
+    for a, b in zip(edges[:-1], edges[1:]):
+        u = torch.exp(a + 0.5 * (b - a) * (xu + 1.0))
+        Xp.append(u)
+        Wp.append(0.5 * (b - a) * wu * u)
+    X = torch.cat(Xp, dim=0)  # [G, B]
+    WX = torch.cat(Wp, dim=0)
+    logX = torch.log(torch.clamp(X, min=tiny))
+
+    # ---- densities at the outer nodes --------------------------------------
+    def densities(x, logx, normed=False):
+        return [_density_rows(fam, torch.ones_like(n) if normed else n, p1, p2, c, x, logx)
+                for fam, (n, p1, p2), c in zip(plan.families, params, cst)]
+
+    F = densities(X, logX)
+    NF = densities(X, logX, normed=True)
+    denom = NF[0]
+    for v in NF[1:]:
+        denom = denom + v
+    wfrac, run = [], torch.zeros_like(denom)
+    for v in NF:
+        run = run + v
+        wfrac.append(special.select(denom == 0.0, 0.0, run / denom))
+
+    # moment weights B_m = WX·x^m and C_m = B_m·x (inner Jacobian)
+    Bm, xp = [], torch.ones_like(X)
+    for m in range(n_mom):
+        if m > 0:
+            xp = xp * X
+        Bm.append(WX * xp)
+    Cm = [b * X for b in Bm]
+
+    # ---- R: inner ∫ K(x,y) f_j(y) dy on the same grid ----------------------
+    A = [torch.zeros_like(X) for _ in range(N)]
+    for y in range(G):
+        Ky = kf(X, X[y:y + 1])
+        Wy = WX[y:y + 1]
+        for j in range(N):
+            A[j] = A[j] + (Wy * F[j][y:y + 1]) * Ky
+
+    def reduce(mat):
+        return torch.sum(mat, dim=0, keepdim=True)
+
+    R = [[[reduce(Bm[m] * F[k] * A[j]) for k in range(N)] for j in range(N)]
+         for m in range(n_mom)]
+
+    # ---- Q and S: triangular inner integrals y = s·x; with a kink t the
+    # per-x inner panels split at s = t/x and 1 − t/x ------------------------
+    if plan.kinks:
+        t = plan.kinks[0]
+        b1 = torch.clamp(special.rdiv(t, X), 0.0, 1.0)
+        b2 = torch.clamp(1.0 - special.rdiv(t, X), 0.0, 1.0)
+        s_edges = [torch.zeros_like(X), torch.minimum(b1, b2),
+                   torch.maximum(b1, b2), torch.ones_like(X)]
+    else:
+        s_edges = [torch.zeros_like(X), torch.ones_like(X)]
+
+    Gq = {(j, k): torch.zeros_like(X) for j in range(N) for k in range(j + 1, N)}
+    Gkk = [torch.zeros_like(X) for _ in range(N)]
+    for pidx in range(plan.n_pi):
+        a, b = s_edges[pidx], s_edges[pidx + 1]
+        for s01, w01 in zip(const(s01_np), const(w01_np)):
+            s = a + (b - a) * s01
+            w = (b - a) * w01
+            XR, XS = X * (1.0 - s), X * s
+            D = densities(XR, torch.log(torch.clamp(XR, min=tiny)))
+            E = densities(XS, torch.log(torch.clamp(XS, min=tiny)))
+            KW = 0.5 * w * kf(XR, XS)
+            for j in range(N):
+                Gkk[j] = Gkk[j] + KW * D[j] * E[j]
+                for k in range(j + 1, N):
+                    Gq[(j, k)] = Gq[(j, k)] + KW * (D[j] * E[k] + D[k] * E[j])
+
+    S1 = [[reduce(Cm[m] * wfrac[k] * Gkk[k]) for k in range(N)] for m in range(n_mom)]
+    S2 = [[reduce(Cm[m] * Gkk[k]) - S1[m][k] for k in range(N)] for m in range(n_mom)]
+
+    # ---- gated assembly (reference Coalescence.jl:479-488) -----------------
+    out = []
+    for k in range(N):
+        for m in range(plan.nprog[k]):
+            acc = S1[m][k]
+            for j in range(N):
+                acc = acc - R[m][j][k]
+            for j in range(k):
+                acc = acc + reduce(Cm[m] * Gq[(j, k)])
+            if k > 0:
+                acc = acc + S2[m][k - 1]
+            out.append(acc[0])
+    return torch.stack(out)
+
+
+# --------------------------------------------------------------------------
+# wrapper
+# --------------------------------------------------------------------------
+
+
+class NumericalFn(_KernelFn):
+    """Direct-quadrature coalescence RHS (replaces
+    `make_pallas_numerical_fn`): ``fn(mom [B, n_tot])`` and
+    ``fn.soa(mom [n_tot, B])`` on normalized moments."""
+
+    def _pack(self) -> np.ndarray:
+        return pack_config(self.plan, self.dtype)
+
+    @property
+    def _symbol(self) -> str:
+        return f"cloudy_numerical_{self._tag}_n{self.plan.n_modes}"
+
+    def soa(self, mom: torch.Tensor) -> torch.Tensor:
+        self._check(mom)
+        if mom.device.type == "cpu":
+            return numerical_soa_plain(mom, self.plan)
+        return self._launch(mom, self.plan.n_tot, self.plan.g_total, self.plan.ktag)
+
+    def __call__(self, mom: torch.Tensor) -> torch.Tensor:
+        return self.soa(mom.T.contiguous()).T
+
+    def plain(self, mom: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+        """The plain twin on any device (comparisons and timing), `chunk`
+        boxes at a time: its ``[G, B]`` tiles outgrow the memory if a wide
+        state is taken whole."""
+        if chunk is None or mom.shape[1] <= chunk:
+            return numerical_soa_plain(mom, self.plan)
+        return torch.cat([numerical_soa_plain(mom[:, i:i + chunk], self.plan)
+                          for i in range(0, mom.shape[1], chunk)], dim=1)
+
+
+def make_numerical_fn(spec: SpectrumSpec, kernel_func, n_outer: int = 96,
+                      n_inner: int = 48, device="cuda",
+                      dtype: torch.dtype = torch.float32) -> NumericalFn:
+    """Direct-quadrature coalescence RHS on `device` in `dtype` for an
+    already normalized kernel function (cf. `models.box.make_box_rhs`); see
+    `NumericalFn` and `build_plan`. The (96, 48) defaults are the bench
+    configuration's budgets."""
+    return NumericalFn(build_plan(spec, kernel_func, n_outer, n_inner), device, dtype)

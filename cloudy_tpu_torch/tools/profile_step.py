@@ -1,4 +1,4 @@
-"""Where the device time goes: the pod steps and bench.py's RHS chain.
+"""Where the device time goes: the pod steps and bench.py's RHS chains.
 
 Profiles, on one CUDA device,
 
@@ -10,7 +10,10 @@ Profiles, on one CUDA device,
    and the RK combinations in torch (`models.rainshaft.make_rainshaft_rhs_fused`
    + `stepper.ssprk33_step`);
 3. bench.py's Euler chain (2^20 boxes, f32) for 20 steps through the
-   coalescence kernel,
+   coalescence kernel;
+4. the numerical bench's Euler chain (262,144 boxes, Long kernel, f32) for
+   20 steps through the direct-quadrature kernel, with ``nvidia-smi``
+   samples beside it,
 
 each under `torch.profiler` inside a window timed by CUDA events. For each
 window it prints the profiler's table, each device activity's time, and the
@@ -135,6 +138,22 @@ def main():
         box[0] = bench.relax_chain(coal.soa, box[0], 1)
 
     out["rhs_chain"] = profile_window(chain_step, N_STEPS, "rhs chain")
+
+    num = bench.numerical_fn("cuda")
+    box[0] = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32,
+                             device="cuda")
+
+    def numerical_step():
+        box[0] = bench.relax_chain(num.soa, box[0], 1)
+
+    samples, stop = [], threading.Event()
+    sampler = threading.Thread(target=sample_smi, args=(stop, samples))
+    sampler.start()
+    out["numerical_chain"] = profile_window(numerical_step, N_STEPS, "numerical chain")
+    stop.set()
+    sampler.join()
+    print(f"nvidia-smi during the numerical chain (sm clock, power draw): {samples}")
+    out["numerical_chain"]["smi_samples"] = samples
     print(card)
     print(json.dumps(out))
 

@@ -7,7 +7,9 @@ These tests need a CUDA device and the CUDA toolkit; without them they skip
 
 Tolerances (row-scaled, as chip_smoke.py): f32 1e-4 and f64 1e-9 — the
 kernels and the twins run the same operations in the same order; nvcc's FMA
-contraction and CUDA's exp/log differ from torch's in the last bits.
+contraction and CUDA's exp/log differ from torch's in the last bits. The
+quadrature kernel sums its nodes in another order than the twin's
+`torch.sum` and its assembly subtracts sums of like size: f32 1e-3 there.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from cloudy_tpu_torch import kernels as K
 from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
+from cloudy_tpu_torch.ops import numerical_coalescence as nc
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 
 pytestmark = pytest.mark.cuda
@@ -43,9 +46,16 @@ def _fast_data(families=(Family.GAMMA, Family.GAMMA)):
                                   norms=NORMS, fast_tier=True)
 
 
-def _row_scaled(got, want):
+def _row_scaled(got, want, cancelling=()):
+    """max over rows of |got - want| over the row's max |want|. A row in
+    `cancelling` is zero in exact arithmetic (a lone mode's mass tendency:
+    what is left of two sums of like size), so its own values are no scale:
+    it takes the geometric mean of its neighbours', the size of those sums."""
     d = (got.double() - want.double()).abs().amax(dim=1)
-    return float((d / want.double().abs().amax(dim=1).clamp_min(1e-300)).max())
+    scale = want.double().abs().amax(dim=1).clamp_min(1e-300)
+    for r in cancelling:
+        scale[r] = (scale[r - 1] * scale[r + 1]).sqrt()
+    return float((d / scale).max())
 
 
 def _column_state(n_cols, nz, seed):
@@ -154,3 +164,86 @@ def test_rhs_kernel_matches_twin(cuda, dtype, variant):
     assert bool(torch.isfinite(got).all())
     norm = torch.tensor(fn.plan.mom_norms * 2, dtype=dtype, device=cuda)[:, None]
     assert _row_scaled(got / norm, fn.plain(x) / norm) < TOL[dtype]
+
+
+# --------------------------------------------------------------------------
+# the direct-quadrature kernel
+# --------------------------------------------------------------------------
+
+NUM_TOL = {torch.float32: 1e-3, torch.float64: 1e-9}
+NUM_KERNELS = {
+    "linear": K.LinearKernelFunction(5e-3),
+    "constant": K.ConstantKernelFunction(1e-3),
+    "long": K.LongKernelFunction(2.0, 1e-3, 5e-3),
+    "hydro": K.HydrodynamicKernelFunction(1e-2),
+}
+TWO_GAMMA = (Family.GAMMA, Family.GAMMA)
+THREE_MODE = (Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL)
+
+
+def _numerical_moments(families, n, seed):
+    """Normalized moments [n_tot, n], parameters drawn first
+    (tests/test_pallas_numerical.py:16-29)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for fam in families:
+        p1, p2 = ((-1.0, 1.0), (0.3, 1.0)) if fam == Family.LOGNORMAL else ((0.05, 5.0), (0.5, 5.0))
+        cols.append(np.stack([rng.uniform(10, 200, n), rng.uniform(*p1, n),
+                              rng.uniform(*p2, n)], -1))
+    spec = SpectrumSpec(families)
+    return pd.get_moments(spec, torch.tensor(np.stack(cols, 1))).T.contiguous()
+
+
+@pytest.mark.parametrize("families,kname", [
+    (TWO_GAMMA, "linear"), (TWO_GAMMA, "constant"), (TWO_GAMMA, "long"),
+    (TWO_GAMMA, "hydro"), (THREE_MODE, "long"),
+    ((Family.MONODISPERSE, Family.GAMMA), "linear"),
+    ((Family.GAMMA,), "long"), ((Family.GAMMA,), "linear")],
+    ids=["linear", "constant", "long", "hydro", "three_mode_long", "mono_gamma",
+         "one_mode_long", "one_mode_linear"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_numerical_kernel_matches_twin(cuda, dtype, families, kname):
+    spec = SpectrumSpec(families)
+    fn = nc.make_numerical_fn(spec, NUM_KERNELS[kname], 64, 32, device=cuda, dtype=dtype)
+    x = _numerical_moments(families, 131, seed=5).to(cuda, dtype)
+    x[:, 7] = 0.0  # an empty box
+    if spec.n_modes > 1:
+        x[spec.offsets[1]:, 9] = 0.0  # a box with only its first mode
+    got = fn.soa(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 7] == 0).all())
+    cancelling = (1,) if spec.n_modes == 1 else ()  # a lone mode keeps its mass
+    assert _row_scaled(got, fn.plain(x), cancelling) < NUM_TOL[dtype]
+    assert torch.equal(got, fn.soa(x))  # fixed summation order: bit for bit
+    assert torch.equal(fn(x.T.contiguous()), got.T)
+
+
+def test_numerical_kernel_matches_einsum_path_at_box_nodes(cuda):
+    """One launch at the box model's (256, 96) budgets (3 x 85 outer nodes,
+    256 threads) on the numerical box's initial state, against the einsum
+    path on the card."""
+    from cloudy_tpu_torch import coalescence_numerical as cn
+    from cloudy_tpu_torch.spec import get_moments_normalizing_factors
+
+    spec = SpectrumSpec(TWO_GAMMA)
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(NORMS)
+    norm = np.asarray(get_moments_normalizing_factors(spec.nprogmoms, NORMS))
+    mom = torch.tensor(np.array([1e7, 1e-3, 2e-13, 1e5, 1e-4, 2e-13]) / norm,
+                       device=cuda)[:, None].contiguous()
+    fn = nc.make_numerical_fn(spec, kf, 256, 96, device=cuda, dtype=torch.float64)
+    assert fn.plan.g_total == 255
+    got = fn.soa(mom)[:, 0]
+    want = cn.get_coal_ints_numerical(spec, pd.params_from_moments(spec, mom.T), kf)[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-8,
+                               atol=1e-13 * float(want.abs().max()))
+
+
+def test_numerical_bench_shape_matches_twin(cuda):
+    """The bench configuration (Long kernel, 3 x 32 and 3 x 16 nodes, f32) on
+    a slice of the bench state, the twin in chunks."""
+    fn = bench.numerical_fn(cuda)
+    x = torch.as_tensor(bench.numerical_moments(4099).T.copy(), dtype=torch.float32,
+                        device=cuda)
+    got = fn.soa(x)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x, chunk=1024)) < NUM_TOL[torch.float32]

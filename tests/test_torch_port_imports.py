@@ -40,7 +40,9 @@ def test_import_without_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import cloudy_tpu_torch, cloudy_tpu_torch.harness, cloudy_tpu_torch.bench\n"
         "import cloudy_tpu_torch.ops._build, cloudy_tpu_torch.ops.gauss\n"
-        "import cloudy_tpu_torch.tools.profile_step\n"
+        "import cloudy_tpu_torch.tools.profile_step, cloudy_tpu_torch.tools.opcount\n"
+        "import cloudy_tpu_torch.coalescence_numerical, cloudy_tpu_torch.models.box\n"
+        "import cloudy_tpu_torch.ops.numerical_coalescence\n"
         "assert not any(m.split('.')[0] in ('jax', 'cloudy_tpu') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -49,6 +51,22 @@ def test_import_without_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    """No module of the port, and not chip_smoke.py, names jax or cloudy_tpu
+    in an import statement."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|cloudy_tpu)(\.|\s|$)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for folder, _, names in os.walk(os.path.join(ROOT, "cloudy_tpu_torch")):
+        files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            bad = [ln for ln in f if pattern.match(ln)]
+        assert not bad, (path, bad)
 
 
 def test_cpu_tensor_runs_twin_without_launch():
