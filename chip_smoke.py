@@ -42,12 +42,23 @@ Drives the port's main path once on the card and fails loudly:
 15. the three box scenarios through the harness on the card in f64 against
    tests/golden/box_*.npz, and one quadrature-kernel launch at the box
    model's (256, 96) budgets on the numerical box's initial state against
-   the einsum path `get_coal_ints_numerical` on the card.
+   the einsum path `get_coal_ints_numerical` on the card;
+16. calibration: the whole-step kernel with its per-lane kernel scale (B1s)
+   against its twin (4,096 columns x 32 levels, a different scale per
+   column, f32 and f64, all three variants: both kernel instances), and at
+   s = 1.7 against the unscaled kernel built from the 1.7-scaled kernel
+   tensor (f64); then the main path, `tools.calibration_bench.pod_main`: EKI
+   at 64 and 256 members x 32 columns x 32 levels x 60 f32 steps through
+   B1s, its 8-iteration run at 256 members checked for 540 launches, finite
+   observables and s within 2 % of 1.7; B1s against its twin at that run's
+   shape [6, 262144], and the unscaled B1 time of phase 6 beside it.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
 arm's chain in phase 8, the fused-RHS route in phase 10, each variant's run
-in phase 11, the numerical chain in phase 14. The last two lines are a JSON
+in phase 11, the numerical chain in phase 14, and in phase 16 `pod_main`'s
+8-iteration EKI run at 256 members (`pod_main` zeroes the scaled step's
+count just before that run and reports it just after). The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
@@ -60,6 +71,7 @@ result, when no CUDA device is present or the port's package is missing.
 """
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -92,6 +104,9 @@ B1_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:876"
 B3_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:662"
 B4_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:771"
 B5_REPLACES = "cloudy_tpu/ops/pallas_numerical.py:166"
+B1S_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:1022"
+CAL_MEMBERS = (64, 256)  # EKI ensemble sizes of phase 16
+CAL_STEPS = 60  # forward steps per member (tools/calibration_bench.py:102)
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
 NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
 
@@ -115,7 +130,11 @@ def ptxas_summary(log):
             stack = m.groups()
         elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
             name = entry
-            if k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry):
+            if k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])ELb([01])E", entry):
+                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
+                        f"{'true' if k.group(3) == '1' else 'false'}, "
+                        f"{'scaled' if k.group(4) == '1' else 'unscaled'}>")
+            elif k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry):
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
                         f"{'true' if k.group(3) == '1' else 'false'}>")
             elif k := re.search(r"cloudy\d+(\w+?)I([fd])Li(\d)ELi(\d)E", entry):
@@ -306,6 +325,7 @@ def main():
           f"{rep['nonfinite_fraction']}, total_mass {rep['total_mass']:.6e} {card}")
     check(finite and rep["nonfinite_fraction"] == 0.0, "pod state not finite")
     check(rep["negative_fraction"] == 0.0, "pod state has negative moments")
+    b1_ms = pod_s / sc["n_steps"] * 1e3  # unscaled B1 fixed2gamma, phase 16 prints it again
     n_cmp = N_CMP_COLUMNS * NZ
     yt = sc["state0"][:, :n_cmp].contiguous()
     twin_start = torch.cuda.Event(enable_timing=True)
@@ -724,6 +744,101 @@ def main():
           f"relative {rel:.3e} (tol 1e-08) {card}")
     check(rel < 1e-8, f"numerical kernel vs einsum path at box nodes {rel:.3e}")
     print(f"phase 15 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 16. calibration: EKI through the scaled whole step (B1s) ---------
+    t = time.perf_counter()
+    from cloudy_tpu_torch.tools import calibration_bench as cb
+
+    for variant in ("fixed2gamma", *VARIANTS):
+        _, vdata = harness.pod_data(variant)
+        for name, dt in dtypes.items():
+            step = fc.make_rainshaft_step_fn(
+                vdata, sc_cfg.vel, sc_cfg.norms, nz=NZ, dz=sc_cfg.dz, dt=1.0,
+                device=dev, dtype=dt, kernel_scale=True)
+            x = torch.as_tensor(state_np, dtype=dt, device=dev)
+            srow = torch.linspace(0.4, 2.5, N_CMP_COLUMNS, dtype=dt,
+                                  device=dev).repeat_interleave(NZ)
+            got = step(x, srow)
+            check(step.launches == 1, "scaled step wrapper did not count one launch")
+            want = step.plain(x, srow)
+            torch.cuda.synchronize()
+            norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+            err, abs_err = row_scaled(got / norm, want / norm)
+            print(f"phase 16 scaled step kernel [{variant}, arms {step.plan.arms}] vs twin "
+                  f"{name}, scale 0.4-2.5 per column: row-scaled {err:.3e} (tol "
+                  f"{TOL[name]:.0e}), max abs {abs_err:.3e} (normalized) {card}")
+            check(bool(torch.isfinite(got).all()), f"scaled step [{variant}] {name} not finite")
+            check(err < TOL[name], f"scaled step [{variant}] {name} vs twin {err:.3e}")
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data_s = build_coalescence_data(spec, K.CoalescenceTensor(1.7 * ker.array),
+                                    (5e-10, np.inf), norms=(1e6, 1e-9), fast_tier=True)
+    kw = dict(nz=NZ, dz=sc_cfg.dz, dt=1.0, device=dev, dtype=torch.float64)
+    x = torch.as_tensor(state_np, dtype=torch.float64, device=dev)
+    got = fc.make_rainshaft_step_fn(fdata, sc_cfg.vel, sc_cfg.norms, kernel_scale=True,
+                                    **kw)(x, 1.7)
+    want = fc.make_rainshaft_step_fn(data_s, sc_cfg.vel, sc_cfg.norms, **kw)(x)
+    ierr, _ = row_scaled(got, want)
+    print(f"phase 16 scaled step kernel at s = 1.7 vs the unscaled kernel from the "
+          f"1.7-scaled kernel tensor, f64: row-scaled {ierr:.3e} (tol {TOL['float64']:.0e}) "
+          f"{card}")
+    check(ierr < TOL["float64"], f"scaled step vs scaled tensor {ierr:.3e}")
+
+    records = {}
+    for rec in cb.pod_main(dev, members=CAL_MEMBERS, n_steps=CAL_STEPS):
+        records[rec["ensemble_members"]] = rec
+        print(f"phase 16 EKI J={rec['ensemble_members']} x {rec['member_columns']} columns "
+              f"x {rec['nz']} levels x {rec['forward_steps']} steps f32 through B1s: "
+              f"{rec['seconds_per_iter'] * 1e3:.4f} ms per iteration (n1 {rec['n1']}, n2 "
+              f"{rec['n2']}, median of 5, CUDA events), {rec['eki_iters_per_s']:.4f} "
+              f"iterations/s, {rec['member_forwards_per_s']:.4e} member forwards/s, "
+              f"{rec['member_model_steps_per_s']:.4e} member model steps/s, "
+              f"{rec['member_column_steps_per_s']:.4e} member column-steps/s; one forward "
+              f"{rec['forward_seconds'] * 1e3:.4f} ms; 8 iterations: s "
+              f"{rec['s_recovered_8iters']:.6f} (true 1.7), {rec['b1s_launches_8iters']} "
+              f"launches, observables finite {rec['observables_finite']}, misfit "
+              f"{rec['misfit_8iters'][0]:.4e} -> {rec['misfit_8iters'][-1]:.4e} {card}")
+        print(json.dumps({**rec, "card": smi.splitlines()[0]}))
+    rec = records[CAL_MEMBERS[-1]]
+    want_launches = 9 * CAL_STEPS
+    check(rec["b1s_launches_8iters"] == want_launches,
+          f"B1s launched {rec['b1s_launches_8iters']} times in the 8-iteration EKI run, "
+          f"not {want_launches}")
+    check(all(r["observables_finite"] for r in records.values()), "EKI observables not finite")
+    check(abs(rec["s_recovered_8iters"] - 1.7) / 1.7 < 0.02,
+          f"EKI recovered s = {rec['s_recovered_8iters']:.6f}, not within 2 % of 1.7")
+
+    # B1s against its twin at the main path's shape, and the times there
+    n_ens = CAL_MEMBERS[-1]
+    forward, _ = cb.make_pod_forward(n_ens, device=dev)
+    state = forward.state0
+    theta = torch.linspace(math.log(0.5), math.log(3.0), n_ens, device=dev)
+    srow = torch.exp(theta).repeat_interleave(state.shape[1] // n_ens)
+    step = forward.step
+    norm = torch.tensor(step.plan.mom_norms, dtype=torch.float32, device=dev)[:, None]
+    y = state
+    for _ in range(10):  # a state with both modes populated
+        y = step(y, srow)
+    serr, sabs = row_scaled(step(y, srow) / norm, step.plain(y, srow) / norm)
+    print(f"phase 16 scaled step kernel vs twin at the main-path shape [6, {state.shape[1]}] "
+          f"f32 (after 10 steps, scale 0.5-3.0 by member): row-scaled {serr:.3e} (tol "
+          f"{TOL['float32']:.0e}), max abs {sabs:.3e} (normalized) {card}")
+    check(serr < TOL["float32"], f"scaled step vs twin at the main-path shape {serr:.3e}")
+    b1s_ms = _time_ms(lambda: step(y, srow), 100)
+    b1s_plain_ms = _time_ms(lambda: step.plain(y, srow), 5)
+    print(f"phase 16 per call at [6, {state.shape[1]}]: B1s kernel {b1s_ms:.4f} ms, B1s twin "
+          f"{b1s_plain_ms:.4f} ms; unscaled B1 fixed2gamma at [6, {N_POD_COLUMNS * NZ}] in "
+          f"this call (phase 6) {b1_ms:.4f} ms/step (recorded spread 27.15-27.50) {card}")
+    small = 8 * NZ
+    kernels.append({"name": "rainshaft_step[scaled]", "route": "cuda", "source": SOURCE,
+                    "replaces": B1S_REPLACES, "launches": rec["b1s_launches_8iters"],
+                    "max_abs_err": sabs, "max_row_scaled_err": serr,
+                    "ms": b1s_ms, "plain_ms": b1s_plain_ms,
+                    **bound("rainshaft_step[scaled]",
+                            lambda v: step.plain(v, srow[:small]),
+                            y[:, :small].contiguous(), state.shape[1], 7, 6)})
+    del forward, state, y, step
+    torch.cuda.empty_cache()
+    print(f"phase 16 seconds {time.perf_counter() - t:.3f}")
 
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)

@@ -516,12 +516,16 @@ def get_finite_2d_integrals(data: CoalescenceData, params, mom_matrix,
 # --------------------------------------------------------------------------
 
 
-def get_coal_ints(data: CoalescenceData, params) -> torch.Tensor:
+def get_coal_ints(data: CoalescenceData, params, wb=None, wf=None) -> torch.Tensor:
     """Coalescence tendencies of all prognostic moments, shape [..., n_tot],
     from the dense parameter tensor ``[..., n_modes, 3]`` (reference
     `get_coal_ints(::AnalyticalCoalStyle, …)`,
     src/Sources/Coalescence.jl:115-150), with the MovingThreshold variant
-    (:152-185) when ``data.moving``: percentile thresholds per column."""
+    (:152-185) when ``data.moving``: percentile thresholds per column.
+
+    `wb`/`wf` optionally override the static assembly weights with tensors
+    of the same shapes, which may carry autograd: the hook
+    `make_kernel_diff_coal_fn` differentiates through."""
     spec = data.spec
     dtype = params.dtype
     mom = pdists.moments_matrix(spec, params, data.M)  # [..., N, M]
@@ -537,10 +541,44 @@ def get_coal_ints(data: CoalescenceData, params) -> torch.Tensor:
     D = spec.n_modes * data.M
     mf = mom.reshape(batch + (D,))
     outer = mf[..., :, None] * mf[..., None, :]
-    wb = torch.as_tensor(data.wb, dtype=dtype, device=params.device)
-    wf = torch.as_tensor(data.wf, dtype=dtype, device=params.device)
+    wb = torch.as_tensor(data.wb if wb is None else wb, dtype=dtype, device=params.device)
+    wf = torch.as_tensor(data.wf if wf is None else wf, dtype=dtype, device=params.device)
     wb = wb.reshape(spec.n_tot, D * D).T
     wf = wf.reshape(spec.n_tot, spec.n_modes * data.M * data.M).T
     out = outer.reshape(batch + (D * D,)) @ wb
     out = out + f2.reshape(batch + (-1,)) @ wf
     return out
+
+
+def make_kernel_diff_coal_fn(data: CoalescenceData):
+    """Coalescence tendencies differentiable in the kernel coefficients (the
+    calibration surface; `cloudy_tpu.coalescence.make_kernel_diff_coal_fn`).
+
+    `_build_assembly_weights` is linear in the normalized per-pair kernel
+    coefficients ``kernels [N, N, P, P]``, so the folded weights are
+    re-contracted from a one-hot basis built here once (numpy):
+
+        wb(kernels) = Σ_{jkab} kernels[j,k,a,b] · WB_basis[j,k,a,b]
+
+    Returns ``fn(params, kernels) -> [..., n_tot]``; `kernels` is a tensor in
+    NORMALIZED units (what `CoalescenceData.kernels` stores) and autograd
+    reaches every coefficient."""
+    spec = data.spec
+    N, P, M = spec.n_modes, data.P, data.M
+    wb_basis = np.zeros((N, N, P, P) + data.wb.shape)
+    wf_basis = np.zeros((N, N, P, P) + data.wf.shape)
+    for idx in np.ndindex(N, N, P, P):
+        onehot = np.zeros((N, N, P, P))
+        onehot[idx] = 1.0
+        wb_basis[idx], wf_basis[idx] = _build_assembly_weights(spec, onehot, M)
+    wb_basis = wb_basis.reshape(N * N * P * P, -1)
+    wf_basis = wf_basis.reshape(N * N * P * P, -1)
+
+    def fn(params, kernels):
+        kflat = torch.as_tensor(kernels).reshape(-1)
+        basis = dict(dtype=kflat.dtype, device=kflat.device)
+        wb = (kflat @ torch.as_tensor(wb_basis, **basis)).reshape(data.wb.shape)
+        wf = (kflat @ torch.as_tensor(wf_basis, **basis)).reshape(data.wf.shape)
+        return get_coal_ints(data, params, wb=wb, wf=wf)
+
+    return fn

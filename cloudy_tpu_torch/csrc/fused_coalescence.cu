@@ -11,10 +11,21 @@
 //   the physical coalescence tendencies (clip, normalize, empty-cell mask,
 //   denormalize) over the physical sedimentation fluxes; the caller applies
 //   the upwind stencil;
-// - cloudy_step_*  <- make_pallas_rainshaft_step_fn (:876, without
-//   kernel_scale): one whole SSPRK33 rainshaft step, three RHS evaluations
-//   (clip, normalize, empty-cell mask, coalescence body, sedimentation flux,
-//   denormalize, upwind stencil) and the RK combinations, state in and out.
+// - cloudy_step_*  <- make_pallas_rainshaft_step_fn (:876): one whole
+//   SSPRK33 rainshaft step, three RHS evaluations (clip, normalize,
+//   empty-cell mask, coalescence body, sedimentation flux, denormalize,
+//   upwind stencil) and the RK combinations, state in and out;
+// - cloudy_step_scaled_* <- the same function with kernel_scale=True
+//   (`fn_scaled`, :1022-1059): every RHS evaluation multiplies the lane's
+//   coalescence tendency by scale[lane] after the empty mask and the
+//   denormalisation and before the flux divergence (:994-1001); the flux is
+//   never scaled. The scale is a template flag (`kScale`), so the unscaled
+//   instances carry none of it; the scaled ones are built in units of their
+//   own. A null-or-row pointer tested once per row and RHS evaluation in
+//   one binary cost the unscaled `fixed2gamma` step two registers and 1.4 %
+//   at 2^25 lanes on an H100 80GB HBM3 at 700 W (3.3007 s per 120 steps in
+//   both its runs against 3.2552 and 3.2598 s without the test, alternated
+//   on one card; PERF.md).
 //
 // What bounds them on this card: transcendental and FP32/FP64 issue, not
 // bytes (cloudy_rhs_* writes twice the rows it reads, 72 B per lane in f32,
@@ -43,7 +54,8 @@
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
-// kernel in one type. Without CLOUDY_UNIT the file builds everything.
+// kernel (the whole step: scaled or not) in one type. Without CLOUDY_UNIT the
+// file builds everything.
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else
@@ -111,9 +123,9 @@ __global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
 
 // One RHS evaluation of the whole step on this lane's state y -> rows.
 // Every thread of the block calls it (the two barriers are block-wide).
-template <typename T, bool kArms>
+template <typename T, bool kArms, bool kScale>
 __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
-                                         T* rows, T* sh_flux, bool top) {
+                                         T* rows, T* sh_flux, bool top, T s) {
   const T eps = Lim<T>::eps();
   T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
   bool empty = true;
@@ -138,7 +150,8 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o) {
     if (o < c.n_tot) {
-      const T coal = (empty ? T(0) : acc[o]) * c.norm[o];
+      T coal = (empty ? T(0) : acc[o]) * c.norm[o];
+      if (kScale) coal = coal * s;
       const T f_up = top ? T(0) : sh_flux[o * nt + t + 1];
       rows[o] = coal - (f_up - flux[o]) * c.inv_dz;
     }
@@ -146,10 +159,11 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
   __syncthreads();  // sh_flux is rewritten by the next evaluation
 }
 
-template <typename T, bool kArms>
+template <typename T, bool kArms, bool kScale>
 __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
-                            int cfg_bytes, long long B, int nz) {
+                            int cfg_bytes, long long B, int nz,
+                            const T* __restrict__ scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   load_config(smem, cfg_g, cfg_bytes);
   __syncthreads();
@@ -163,21 +177,24 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
   const bool active = lane < B;
   const bool top = (threadIdx.x % nz) == (nz - 1);
   const T dt = c.dt;
+  // the kernel_scale row; a padding lane reads nothing (its state is zero
+  // and its result dropped)
+  const T s = (kScale && active) ? scale[lane] : T(1);
 
   T y[MAX_NTOT], u1[MAX_NTOT], u2[MAX_NTOT], f[MAX_NTOT];
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) y[o] = active ? mom[o * B + lane] : T(0);
 
-  step_rhs<T, kArms>(c, y, f, sh_flux, top);
+  step_rhs<T, kArms, kScale>(c, y, f, sh_flux, top, s);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u1[o] = y[o] + dt * f[o];
-  step_rhs<T, kArms>(c, u1, f, sh_flux, top);
+  step_rhs<T, kArms, kScale>(c, u1, f, sh_flux, top, s);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u1[o] + dt * f[o]);
-  step_rhs<T, kArms>(c, u2, f, sh_flux, top);
+  step_rhs<T, kArms, kScale>(c, u2, f, sh_flux, top, s);
   if (!active) return;
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
@@ -212,13 +229,15 @@ int launch_rhs(const void* mom, void* out, const void* cfg, int cfg_bytes,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kScale>
 int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                long long B, int nz, int arms, void* stream) {
+                long long B, int nz, int arms, const void* scale,
+                void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
-      nz < 2 || nz > 1024 || B % nz != 0)
+      nz < 2 || nz > 1024 || B % nz != 0 || (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const auto kern = arms ? step_kernel<T, true> : step_kernel<T, false>;
+  const auto kern =
+      arms ? step_kernel<T, true, kScale> : step_kernel<T, false, kScale>;
   const int cols = nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz;
   const int threads = cols * nz;
   const long long blocks = (B + threads - 1) / threads;
@@ -229,7 +248,8 @@ int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B, nz);
+      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B, nz,
+      (const T*)scale);
   return (int)cudaGetLastError();
 }
 
@@ -282,8 +302,8 @@ int cloudy_rhs_f64(const void* mom, void* out, const void* cfg,
 int cloudy_step_f32(const void* mom, void* out, const void* cfg,
                     int cfg_bytes, long long B, int nz, int arms,
                     void* stream) {
-  return cloudy::launch_step<float>(mom, out, cfg, cfg_bytes, B, nz, arms,
-                                    stream);
+  return cloudy::launch_step<float, false>(mom, out, cfg, cfg_bytes, B, nz,
+                                           arms, nullptr, stream);
 }
 #endif
 
@@ -291,8 +311,27 @@ int cloudy_step_f32(const void* mom, void* out, const void* cfg,
 int cloudy_step_f64(const void* mom, void* out, const void* cfg,
                     int cfg_bytes, long long B, int nz, int arms,
                     void* stream) {
-  return cloudy::launch_step<double>(mom, out, cfg, cfg_bytes, B, nz, arms,
-                                     stream);
+  return cloudy::launch_step<double, false>(mom, out, cfg, cfg_bytes, B, nz,
+                                            arms, nullptr, stream);
+}
+#endif
+
+// `scale`: a [B] row of the state's type
+#if CLOUDY_IN_UNIT(6)
+int cloudy_step_scaled_f32(const void* mom, void* out, const void* cfg,
+                           int cfg_bytes, long long B, int nz, int arms,
+                           const void* scale, void* stream) {
+  return cloudy::launch_step<float, true>(mom, out, cfg, cfg_bytes, B, nz,
+                                          arms, scale, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(7)
+int cloudy_step_scaled_f64(const void* mom, void* out, const void* cfg,
+                           int cfg_bytes, long long B, int nz, int arms,
+                           const void* scale, void* stream) {
+  return cloudy::launch_step<double, true>(mom, out, cfg, cfg_bytes, B, nz,
+                                           arms, scale, stream);
 }
 #endif
 

@@ -123,6 +123,9 @@ def load_library() -> ctypes.CDLL:
         f = getattr(lib, f"cloudy_step_{tag}")
         f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, nz, arms, stream
         f.restype = i
+        f = getattr(lib, f"cloudy_step_scaled_{tag}")
+        f.argtypes = [p, p, p, i, ll, i, i, p, p]  # ..., B, nz, arms, scale, stream
+        f.restype = i
         for n_modes in range(1, numerical_coalescence.MAX_MODES + 1):
             f = getattr(lib, f"cloudy_numerical_{tag}_n{n_modes}")
             f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, G, ktag, stream

@@ -13,7 +13,10 @@ Counterpart of `cloudy_tpu.ops.pallas_coalescence`:
   `make_pallas_rainshaft_step_fn`: one whole SSPRK33 rainshaft step (three
   RHS evaluations of clip → normalize → empty mask → coalescence →
   sedimentation flux → upwind stencil, then the RK combinations), reading and
-  writing the state once.
+  writing the state once; with ``kernel_scale=True`` (its ``fn_scaled``,
+  kernel ``cloudy_step_scaled_*``) the call is ``fn(mom, scale)`` and each
+  lane's coalescence tendency is multiplied by its entry of the `scale` row,
+  the calibration hook.
 
 The kernels share the device physics of csrc/coal_body.cuh, the counterpart
 of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`. The kernels are
@@ -554,9 +557,12 @@ def rainshaft_rhs_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
     return torch.stack(coal + flux)
 
 
-def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor:
+def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan,
+                             scale: torch.Tensor = None) -> torch.Tensor:
     """Plain twin of the whole-step kernel: physical ``[n_tot, B]`` state →
-    the state one SSPRK33 step of length ``plan.dt`` later."""
+    the state one SSPRK33 step of length ``plan.dt`` later. A ``[B]`` `scale`
+    row multiplies each RHS evaluation's coalescence rows after the empty
+    mask and the denormalisation, before the flux divergence."""
     n_tot, nz = plan.n_tot, plan.nz
     B = mom.shape[1]
     if B % nz != 0:
@@ -570,6 +576,8 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan) -> torch.Tensor
 
     def rhs(y_rows):
         coal, flux = _rhs_rows(plan, y_rows)
+        if scale is not None:
+            coal = [c * scale for c in coal]
         return [coal[o] - (shift_up(flux[o]) - flux[o]) * plan.inv_dz
                 for o in range(n_tot)]
 
@@ -644,7 +652,7 @@ class _KernelFn:
 
     def _launch(self, mom: torch.Tensor, n_out: int, *extra) -> torch.Tensor:
         """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``;
-        `extra` are the entry point's ints between B and the stream."""
+        `extra` are the entry point's arguments between B and the stream."""
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_library()
@@ -694,16 +702,47 @@ class RainshaftStepFn(_KernelFn):
     _name = "cloudy_step"
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
-        self._check(mom)
-        if mom.shape[1] % self.plan.nz != 0:
-            raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={self.plan.nz}")
-        if mom.device.type == "cpu":
-            return rainshaft_step_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.arms)
+        return self._step(mom, None)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
         return rainshaft_step_soa_plain(mom, self.plan)
+
+    def _step(self, mom: torch.Tensor, scale) -> torch.Tensor:
+        self._check(mom)
+        if mom.shape[1] % self.plan.nz != 0:
+            raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={self.plan.nz}")
+        if mom.device.type == "cpu":
+            return rainshaft_step_soa_plain(mom, self.plan, scale)
+        extra = () if scale is None else (scale.data_ptr(),)
+        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.arms, *extra)
+
+
+class ScaledRainshaftStepFn(RainshaftStepFn):
+    """The whole step with a per-lane kernel scale (replaces
+    `make_pallas_rainshaft_step_fn(kernel_scale=True)`, its ``fn_scaled``):
+    ``fn(mom [n_tot, B], scale)``. `scale` is a number, a ``[B]`` or a
+    ``[1, B]`` row; each lane's coalescence tendency is multiplied by its
+    entry in every RHS evaluation. Scaling by ``s`` equals building the
+    configuration from the kernel tensor scaled by ``s``. Kernel
+    ``cloudy_step_scaled_*``."""
+
+    _name = "cloudy_step_scaled"
+
+    def __call__(self, mom: torch.Tensor, scale) -> torch.Tensor:
+        return self._step(mom, self.scale_row(mom, scale))
+
+    def plain(self, mom: torch.Tensor, scale) -> torch.Tensor:
+        """The plain twin on any device (comparisons and timing)."""
+        return rainshaft_step_soa_plain(mom, self.plan, self.scale_row(mom, scale))
+
+    @staticmethod
+    def scale_row(mom: torch.Tensor, scale) -> torch.Tensor:
+        """`scale` broadcast to a contiguous ``[B]`` row in the state's type
+        on the state's device (pallas_coalescence.py:1026-1028)."""
+        B = mom.shape[-1]
+        row = torch.as_tensor(scale, dtype=mom.dtype, device=mom.device)
+        return row.reshape(1, -1).expand(1, B).reshape(B).contiguous()
 
 
 class RainshaftRhsFn(_KernelFn):
@@ -753,9 +792,12 @@ def make_rainshaft_step_fn(
     dt: float,
     device="cuda",
     dtype: torch.dtype = torch.float32,
+    kernel_scale: bool = False,
 ) -> RainshaftStepFn:
     """Whole SSPRK33 rainshaft step on `device` in `dtype`; see
-    `RainshaftStepFn`. `vel` is the PHYSICAL power-law velocity."""
+    `RainshaftStepFn`, and `ScaledRainshaftStepFn` for ``kernel_scale=True``.
+    `vel` is the PHYSICAL power-law velocity."""
     if nz < 2 or nz > 1024:
         raise ValueError(f"nz={nz} must lie in [2, 1024] (one block holds a column)")
-    return RainshaftStepFn(build_plan(data, vel, norms, nz, dz, dt), device, dtype)
+    cls = ScaledRainshaftStepFn if kernel_scale else RainshaftStepFn
+    return cls(build_plan(data, vel, norms, nz, dz, dt), device, dtype)

@@ -1,7 +1,8 @@
 """Explicit fixed-step time integration.
 
 Port of `cloudy_tpu.stepper` (`ssprk33_step`, `integrate`); the scan becomes
-a Python loop over steps. The reference integrates with OrdinaryDiffEq's
+a Python loop over steps, `jax.checkpoint` becomes
+`torch.utils.checkpoint`. The reference integrates with OrdinaryDiffEq's
 SSPRK33 at fixed dt (e.g. test/examples/Analytical/box_single_gamma.jl:36).
 The remaining steppers (`euler`, `rk4`, `integrate_adaptive`) come with the
 parcel model (ROADMAP A.9).
@@ -9,6 +10,7 @@ parcel model (ROADMAP A.9).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -33,14 +35,22 @@ def integrate(
     n_steps: int,
     method: str = "ssprk33",
     save_every: int = 1,
+    remat: bool = False,
 ):
     """Fixed-dt integration of dy/dt = f(y, t).
 
     Returns (ts [n_saved + 1], ys [n_saved + 1, ...]) including the initial
-    state; ``save_every`` thins the saved trajectory."""
+    state; ``save_every`` thins the saved trajectory. ``remat=True`` wraps
+    each step in `torch.utils.checkpoint.checkpoint` (non-reentrant, so
+    gradients reach tensors `f` closes over): autograd keeps only the step
+    inputs and recomputes the stages in the backward pass."""
     if n_steps % save_every != 0:
         raise ValueError("n_steps must be divisible by save_every")
     step = STEPPERS[method]
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        step = functools.partial(checkpoint, step, use_reentrant=False)
     y = y0
     t = t0
     ys = [y0]

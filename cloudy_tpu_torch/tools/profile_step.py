@@ -13,7 +13,10 @@ Profiles, on one CUDA device,
    coalescence kernel;
 4. the numerical bench's Euler chain (262,144 boxes, Long kernel, f32) for
    20 steps through the direct-quadrature kernel, with ``nvidia-smi``
-   samples beside it,
+   samples beside it;
+5. ``eki_pod``: EKI at 256 members through the scaled whole-step kernel
+   (`tools.calibration_bench.make_pod_forward`), two runs of 4 iterations
+   (5 forwards of 60 steps and 4 Kalman updates each),
 
 each under `torch.profiler` inside a window timed by CUDA events. For each
 window it prints the profiler's table, each device activity's time, and the
@@ -23,12 +26,14 @@ variant goes, a thread samples ``nvidia-smi`` for the SM clock and the power
 draw.
 
     python -m cloudy_tpu_torch.tools.profile_step
+    python -m cloudy_tpu_torch.tools.profile_step --eki-only
 
 The last line is one JSON object with every number printed before it.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import threading
@@ -96,13 +101,37 @@ def sample_smi(stop: threading.Event, out: list) -> None:
         out.append(_smi("clocks.sm,power.draw"))
 
 
-def main():
+def profile_eki(n_ens: int = 256, n_iters: int = 4) -> dict:
+    """EKI through the scaled whole step at `n_ens` members: the kernel's
+    share of the window and what the Kalman update adds."""
+    from cloudy_tpu_torch import calibrate
+    from cloudy_tpu_torch.tools import calibration_bench as cb
+
+    forward1, truth = cb.make_pod_forward(1)
+    forward, _ = cb.make_pod_forward(n_ens)
+    y = forward1(truth[None])[0]
+    theta0 = calibrate.ensemble_init(torch.Generator("cuda").manual_seed(0), [0.0], [0.7],
+                                     n_ens, dtype=torch.float32)
+    gen = torch.Generator("cuda").manual_seed(1)
+    return profile_window(lambda: calibrate.run_eki(forward, theta0, y, 1e-4, n_iters, gen),
+                          2, f"eki_pod J={n_ens}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--eki-only", action="store_true", help="profile the EKI loop alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device: torch.cuda.is_available() is False")
     card = _smi("name,power.limit")
     print(card)
 
     out = {"card": card, "columns": N_COLUMNS, "steps": N_STEPS}
+    if args.eki_only:
+        out["eki_pod"] = profile_eki()
+        print(card)
+        print(json.dumps(out))
+        return
     for name in ("pod_ensemble", "pod_ensemble_moving", "pod_ensemble_lognorm"):
         sc = harness.SCENARIOS[name](n_columns=N_COLUMNS, device="cuda")
         state0, step, config = sc["state0"], sc["step"], sc["config"]
@@ -154,6 +183,9 @@ def main():
     sampler.join()
     print(f"nvidia-smi during the numerical chain (sm clock, power draw): {samples}")
     out["numerical_chain"]["smi_samples"] = samples
+    del num, box
+    torch.cuda.empty_cache()
+    out["eki_pod"] = profile_eki()
     print(card)
     print(json.dumps(out))
 

@@ -154,6 +154,39 @@ def test_step_kernel_arms_match_twin(cuda, dtype, variant):
 
 @pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_scaled_step_kernel_matches_twin(cuda, dtype, variant):
+    """B1s: a different kernel scale per column (and a partial last block),
+    both kernel instances (`fixed2gamma` kArms = false, the others true)."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                   device=cuda, dtype=dtype, kernel_scale=True)
+    x = _column_state(9, 32, seed=11).to(cuda, dtype)
+    s = torch.linspace(0.4, 2.5, 9, dtype=dtype, device=cuda).repeat_interleave(32)
+    got = fn(x, s)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x, s)) < TOL[dtype]
+    unscaled = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                         device=cuda, dtype=dtype)(x)
+    assert _row_scaled(unscaled, got) > 1e-3  # the scale acts
+
+
+def test_scaled_step_kernel_equals_scaled_tensor(cuda):
+    """B1s at s = 1.7 (a number, broadcast) against B1 built from the
+    1.7-scaled kernel tensor, f64 (tests/test_pallas.py:659-703)."""
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data_s = build_coalescence_data(SpectrumSpec((Family.GAMMA, Family.GAMMA)),
+                                    K.CoalescenceTensor(1.7 * ker.array), (5e-10, np.inf),
+                                    norms=NORMS, fast_tier=True)
+    kw = dict(nz=32, dz=93.75, dt=1.0, device=cuda, dtype=torch.float64)
+    scaled = fc.make_rainshaft_step_fn(_fast_data(), VEL, NORMS, kernel_scale=True, **kw)
+    x = _column_state(9, 32, seed=12).to(cuda, torch.float64)
+    want = fc.make_rainshaft_step_fn(data_s, VEL, NORMS, **kw)(x)
+    assert _row_scaled(scaled(x, 1.7), want) < TOL[torch.float64]
+
+
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_rhs_kernel_matches_twin(cuda, dtype, variant):
     """The fused per-level RHS: [coal; flux] rows, a ragged last block."""
     _, data = harness.pod_data(variant)

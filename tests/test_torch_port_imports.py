@@ -42,7 +42,8 @@ def test_import_without_jax():
         "import cloudy_tpu_torch.ops._build, cloudy_tpu_torch.ops.gauss\n"
         "import cloudy_tpu_torch.tools.profile_step, cloudy_tpu_torch.tools.opcount\n"
         "import cloudy_tpu_torch.coalescence_numerical, cloudy_tpu_torch.models.box\n"
-        "import cloudy_tpu_torch.ops.numerical_coalescence\n"
+        "import cloudy_tpu_torch.ops.numerical_coalescence, cloudy_tpu_torch.calibrate\n"
+        "import cloudy_tpu_torch.tools.calibration_bench\n"
         "assert not any(m.split('.')[0] in ('jax', 'cloudy_tpu') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -81,7 +82,13 @@ def test_cpu_tensor_runs_twin_without_launch():
                                      dtype=torch.float64)
     state = torch.rand(6, 64, dtype=torch.float64)
     np.testing.assert_array_equal(step(state).numpy(), step.plain(state).numpy())
-    assert coal.launches == 0 and step.launches == 0
+    scaled = fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=16,
+                                       dz=100.0, dt=1.0, device="cpu",
+                                       dtype=torch.float64, kernel_scale=True)
+    np.testing.assert_array_equal(scaled(state, 1.5).numpy(),
+                                  scaled.plain(state, 1.5).numpy())
+    np.testing.assert_array_equal(scaled(state, 1.0).numpy(), step(state).numpy())
+    assert coal.launches == 0 and step.launches == 0 and scaled.launches == 0
 
 
 def test_step_rejects_partial_columns():
