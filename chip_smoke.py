@@ -51,14 +51,35 @@ Drives the port's main path once on the card and fails loudly:
    at 64 and 256 members x 32 columns x 32 levels x 60 f32 steps through
    B1s, its 8-iteration run at 256 members checked for 540 launches, finite
    observables and s within 2 % of 1.7; B1s against its twin at that run's
-   shape [6, 262144], and the unscaled B1 time of phase 6 beside it.
+   shape [6, 262144], and the unscaled B1 time of phase 6 beside it;
+17. the reference tier (quadrature-grid F2, series/CF incomplete gamma,
+   Newton percentile inverse, Lanczos-pair flux): the `ptxas` lines of its
+   instances beside phase 6's unscaled B1 time; the coalescence kernel's
+   reference instance against its twin at 65,536 boxes, f32 and f64, for
+   the fixed Simpson and Gauss grids, the moving Simpson grid (lanes with
+   T < 1 and T > 1, the twin's bin counts printed) and Gauss grid, exact F2
+   on series/CF and an exponential mode; the whole-step and fused-RHS
+   kernels' reference instances against their twins at 4,096 columns x 32
+   levels, one step, f32 and f64, and their times at that shape;
+18. the goldens at their own tier: `rainshaft_128` through the coalescence
+   kernel's `coal_fn` hook for 300 s, f64 at the reference tier (< 1e-6)
+   and f32 at tests/test_golden.py's bench overrides (< 1e-3);
+   `rainshaft_small` through the reference whole-step kernel and through
+   the fused-RHS route, 128 columns x 120 steps, f64 (< 1e-6) and f32
+   (< 1e-3); `box_exp_gamma_mixture` through the coalescence kernel, f64 at
+   the reference tier (< 1e-6) and f32 at bench.py's quadrature fallback
+   (< 1e-3);
+19. the bench chain at 2^20 boxes, f32, at bench.py's four switch settings
+   (f2_exact, gl_nodes) = (1, 12), (0, 12), (1, 0), (0, 0): moment-updates/s
+   and launches, the kernel against its twin and both times there.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
 arm's chain in phase 8, the fused-RHS route in phase 10, each variant's run
 in phase 11, the numerical chain in phase 14, and in phase 16 `pod_main`'s
 8-iteration EKI run at 256 members (`pod_main` zeroes the scaled step's
-count just before that run and reports it just after). The last two lines are a JSON
+count just before that run and reports it just after), each golden run in
+phase 18 and each switch setting's chain in phase 19. The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
@@ -106,6 +127,13 @@ B4_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:771"
 B5_REPLACES = "cloudy_tpu/ops/pallas_numerical.py:166"
 B1S_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:1022"
 CAL_MEMBERS = (64, 256)  # EKI ensemble sizes of phase 16
+N_REF_BOXES = 65536  # reference-tier coalescence kernel vs twin (phase 17)
+REF_GOLDEN_TOL = 1e-6  # reference-tier f64 kernels vs the goldens at their own tier
+#: tests/test_golden.py's bench overrides (bench.py's configuration, quad_rule gauss)
+BENCH_OVERRIDES = dict(quad_rule="gauss", gauss_nodes=12, gammainc_iters=12, f2_exact=True,
+                       gammainc_gl_nodes=12)
+BENCH_SWITCHES = ((1, 12), (0, 12), (1, 0), (0, 0))  # (f2_exact, gl_nodes), phase 19
+N_BENCH_STEPS = 20  # Euler chain steps per switch setting (phase 19)
 CAL_STEPS = 60  # forward steps per member (tools/calibration_bench.py:102)
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
 NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
@@ -130,13 +158,16 @@ def ptxas_summary(log):
             stack = m.groups()
         elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
             name = entry
-            if k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])ELb([01])E", entry):
-                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
-                        f"{'true' if k.group(3) == '1' else 'false'}, "
-                        f"{'scaled' if k.group(4) == '1' else 'unscaled'}>")
-            elif k := re.search(r"cloudy\d+(\w+?)I([fd])Lb([01])E", entry):
-                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
-                        f"{'true' if k.group(3) == '1' else 'false'}>")
+            if k := re.search(r"cloudy\d+(\w+?)I([fd])((?:Lb[01]E)+)", entry):
+                # coal/rhs_kernel<T, kArms, kRef>, step_kernel<T, kArms, kScale, kRef>
+                flags = [f == "1" for f in re.findall(r"Lb([01])E", k.group(3))]
+                args = ["float" if k.group(2) == "f" else "double",
+                        "true" if flags[0] else "false"]
+                if len(flags) == 3:
+                    args.append("scaled" if flags[1] else "unscaled")
+                if flags[-1]:
+                    args.append("reference")
+                name = f"{k.group(1)}<{', '.join(args)}>"
             elif k := re.search(r"cloudy\d+(\w+?)I([fd])Li(\d)ELi(\d)E", entry):
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
                         f"{k.group(3)} modes, kernel function {k.group(4)}>")
@@ -218,16 +249,17 @@ def main():
     spec, bdata = bench.bench_data()
     results = {}
 
-    def bound(label, twin, x_small, lanes, rows_in, rows_out):
-        """The least time the card could take for one f32 launch on `lanes`
+    def bound(label, twin, x_small, lanes, rows_in, rows_out, f64=False):
+        """The least time the card could take for one launch on `lanes`
         lanes: bytes (each input and output row once) over the memory rate
         against the twin's operations, counted on `x_small` and scaled to
-        `lanes`, over the peak f32 rate."""
+        `lanes`, over the peak rate of the type (f32, or `f64`)."""
         ops_per_lane = opcount.count_ops(twin, x_small) / x_small.shape[1]
-        n_bytes = (rows_in + rows_out) * lanes * 4
-        ms, by = opcount.bound_ms(n_bytes, ops_per_lane * lanes)
+        n_bytes = (rows_in + rows_out) * lanes * (8 if f64 else 4)
+        ms, by = opcount.bound_ms(n_bytes, ops_per_lane * lanes, f64=f64)
+        rate = opcount.H100_F64_OPS_PER_S if f64 else opcount.H100_F32_OPS_PER_S
         print(f"bound {label}: {ops_per_lane:.2f} twin operations per lane x {lanes} "
-              f"lanes at {opcount.H100_F32_OPS_PER_S:.3g} op/s, {n_bytes} bytes "
+              f"lanes at {rate:.3g} op/s, {n_bytes} bytes "
               f"at {opcount.H100_BYTES_PER_S:.3g} B/s: {ms:.4f} ms, bound by {by}")
         return {"bound_ms": ms, "bound_by": by, "library_ms": None}
 
@@ -839,6 +871,284 @@ def main():
     del forward, state, y, step
     torch.cuda.empty_cache()
     print(f"phase 16 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 17. the reference tier: each new instance against its twin -------
+    t = time.perf_counter()
+    for ln in ptxas_summary(log):
+        if "reference" in ln or ln.startswith("step_kernel<float, false, unscaled>"):
+            print(f"phase 17 ptxas (phase 2): {ln}")
+    print(f"phase 17 unscaled B1 fixed2gamma in this call (phase 6): {b1_ms:.4f} ms/step "
+          f"(recorded spread 27.15-27.50) {card}")
+
+    def ref_data(families=(Family.GAMMA, Family.GAMMA), moving=False, **kw):
+        """The default (reference) tier, Golovin 5.0 at order 1."""
+        return build_coalescence_data(SpectrumSpec(families), ker,
+                                      (0.9, 1.0) if moving else (5e-10, np.inf),
+                                      norms=(1e6, 1e-9), moving=moving, **kw)
+
+    def param_moments(families, n, seed):
+        """Normalized moments [n_tot, n], parameters drawn first: moving
+        thresholds on both sides of T = 1."""
+        rng = np.random.default_rng(seed)
+        par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(0.05, 5.0, n),
+                                  rng.uniform(0.5, 5.0, n)], -1) for _ in families], axis=1)
+        return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).numpy().T.copy()
+
+    ref_cases = {
+        "fixed Simpson": ({}, {}),
+        "fixed Gauss": ({}, {"quad_rule": "gauss"}),
+        "moving Simpson": ({"moving": True}, {}),
+        "moving Gauss": ({"moving": True}, {"quad_rule": "gauss"}),
+        "exact F2, series/CF": ({"f2_exact": True}, {}),
+        "exponential + gamma": ({"families": (Family.EXPONENTIAL, Family.GAMMA)}, {}),
+    }
+    for case, (bkw, ckw) in ref_cases.items():
+        data = ref_data(**bkw)
+        mom_np = param_moments(data.spec.families, N_REF_BOXES, seed=11)
+        for name, dt in dtypes.items():
+            fn = fc.make_coal_fn(data, device=dev, dtype=dt, **ckw)
+            check(fn.plan.instance == 2, f"[{case}] does not select the reference tier")
+            x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+            got = fn.soa(x)
+            check(fn.launches == 1, "coal wrapper did not count one launch")
+            want = fn.plain(x)
+            torch.cuda.synchronize()
+            err, abs_err = row_scaled(got, want)
+            finite = bool(torch.isfinite(got).all())
+            bins = ""
+            if fn.plan.moving and fn.plan.quad_rule == "reference":
+                thr = fc.moving_thresholds(fn.plan, x)[0]
+                nb = fc.moving_bins(thr)
+                lo, hi = thr < 1.0, thr > 1.0
+                check(bool(lo.any()) and bool(hi.any()), "moving lanes not on both sides of T = 1")
+                bins = (f"; twin nb: {int(lo.sum())} lanes T < 1 all at "
+                        f"{sorted(set(nb[lo].tolist()))}, {int(hi.sum())} lanes T > 1 at "
+                        f"{int(nb[hi].min())}-{int(nb[hi].max())}")
+            ms = _time_ms(lambda: fn.soa(x), 5)
+            print(f"phase 17 coal kernel [reference, {case}] vs twin {name} at [{data.spec.n_tot}, "
+                  f"{N_REF_BOXES}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max abs "
+                  f"{abs_err:.3e}, finite {finite}; kernel {ms:.4f} ms{bins} {card}")
+            check(finite, f"reference coal kernel [{case}] {name} not finite")
+            check(err < TOL[name], f"reference coal kernel [{case}] {name} vs twin {err:.3e}")
+    step_cases = {k: ref_cases[k] for k in ("fixed Simpson", "moving Simpson", "moving Gauss",
+                                             "exact F2, series/CF")}
+    ref_times = {}
+    for case, (bkw, ckw) in step_cases.items():
+        data = ref_data(**bkw)
+        for name, dt in dtypes.items():
+            x = torch.as_tensor(state_np, dtype=dt, device=dev)
+            step = fc.make_rainshaft_step_fn(data, sc_cfg.vel, sc_cfg.norms, nz=NZ,
+                                             dz=sc_cfg.dz, dt=1.0, device=dev, dtype=dt, **ckw)
+            rfn = fc.make_rainshaft_rhs_fn(data, sc_cfg.vel, sc_cfg.norms, device=dev,
+                                           dtype=dt, **ckw)
+            check(step.plan.instance == 2 and rfn.plan.instance == 2,
+                  f"[{case}] does not select the reference tier")
+            norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+            for kind, fn, nrm in (("step", step, norm), ("rhs", rfn, torch.cat([norm, norm]))):
+                call = fn if kind == "step" else fn.soa
+                got = call(x)
+                check(fn.launches == 1, f"{kind} wrapper did not count one launch")
+                want = fn.plain(x)
+                torch.cuda.synchronize()
+                err, abs_err = row_scaled(got / nrm, want / nrm)
+                finite = bool(torch.isfinite(got).all())
+                print(f"phase 17 {kind} kernel [reference, {case}] vs twin {name} at [6, "
+                      f"{N_CMP_COLUMNS * NZ}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max abs "
+                      f"{abs_err:.3e} (normalized), finite {finite} {card}")
+                check(finite, f"reference {kind} kernel [{case}] {name} not finite")
+                check(err < TOL[name], f"reference {kind} kernel [{case}] {name} vs twin {err:.3e}")
+                if case == "fixed Simpson":
+                    ms = _time_ms(lambda: call(x), 5)
+                    plain_ms = _time_ms(lambda: fn.plain(x), 1)
+                    rows_out = 6 if kind == "step" else 12
+                    ref_times[(kind, name)] = (
+                        err, abs_err, ms, plain_ms,
+                        bound(f"{kind}[reference, {name}]", fn.plain, x[:, :8 * NZ].contiguous(),
+                              N_CMP_COLUMNS * NZ, 6, rows_out, f64=name == "float64"))
+                    print(f"phase 17 per call at [6, {N_CMP_COLUMNS * NZ}] {name}: {kind} kernel "
+                          f"[reference, fixed Simpson] {ms:.4f} ms, twin {plain_ms:.4f} ms {card}")
+            del step, rfn, x
+    torch.cuda.empty_cache()
+    print(f"phase 17 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 18. the golden runs through the reference-tier kernels -----------
+    t = time.perf_counter()
+    with np.load(ROOT / "tests" / "golden" / "rainshaft_128.npz") as z:
+        ys128 = z["ys"]  # [11, 128, 6]: every 30th of 300 f64 Simpson-tier steps
+    scale128 = np.abs(ys128).max(axis=(0, 1))
+    # tests/test_golden.py:168-191 runs the bench overrides with x64 on (f64);
+    # in f32 the reference's own trajectory leaves 1e-3 of the golden at
+    # t = 180 s (tests/test_torch_rainshaft.py), so the f32 run is held
+    # against the torch-ops route in f32 at the same configuration
+    hook_runs = {
+        "reference, f64": (torch.float64, {}, REF_GOLDEN_TOL),
+        "bench overrides (quad_rule gauss), f64": (torch.float64, BENCH_OVERRIDES, GOLDEN_TOL),
+        "bench overrides (quad_rule gauss), f32": (torch.float32, BENCH_OVERRIDES, None),
+    }
+    golden_launches = {}
+    for label, (dt, kw, tol) in hook_runs.items():
+        sc = harness.SCENARIOS["rainshaft_128"](device=dev, dtype=dt, hook=True, **kw)
+        sc["coal_fn"].launches = 0
+        ys, secs, _ = sc["run"]()
+        n_launch = sc["coal_fn"].launches
+        check(n_launch == 3 * sc["n_steps"],
+              f"rainshaft_128 hook launched {n_launch} times, not {3 * sc['n_steps']}")
+        ys = ys.double().cpu().numpy()
+        check(ys.shape == ys128.shape and bool(np.isfinite(ys).all()),
+              f"rainshaft_128 [{label}] not finite or of shape {ys.shape}")
+        frames = (np.abs(ys - ys128) / scale128).max(axis=(1, 2))
+        gerr = float(frames.max())
+        print(f"phase 18 rainshaft_128 through the coal kernel hook [{label}, instance "
+              f"{sc['coal_fn'].plan.instance}], 128 levels x 300 s: per-moment-scaled "
+              f"{gerr:.3e} vs its golden (largest at t = {30 * int(frames.argmax())} s"
+              f"{f', tol {tol:.0e}' if tol else ''}), launches {n_launch}, {secs:.3f} s "
+              f"(host clock) {card}")
+        if tol is not None:
+            check(gerr < tol, f"rainshaft_128 [{label}] vs golden {gerr:.3e}")
+        else:
+            fast = build_coalescence_data(spec, ker, (5e-10, np.inf), norms=(1e6, 1e-9),
+                                          gammainc_iters=12, f2_exact=True,
+                                          gammainc_gl_nodes=12)
+            _, yo = rs.run_rainshaft(sc["config"], rs.make_rainshaft_rhs(sc["config"], fast),
+                                     sc["ic"], dtype=dt, device=dev)
+            yo = yo.double().cpu().numpy()
+            oerr = float((np.abs(yo - ys128) / scale128).max())
+            rerr = float((np.abs(ys - yo) / scale128).max())
+            print(f"phase 18 rainshaft_128 [{label}] through the kernel hook vs through torch "
+                  f"ops (the same fast-tier configuration, f32, on the card): per-moment-scaled "
+                  f"{rerr:.3e} (tol {GOLDEN_TOL:.0e}); torch ops vs the golden {oerr:.3e} {card}")
+            check(rerr < GOLDEN_TOL, f"rainshaft_128 [{label}] hook vs torch ops {rerr:.3e}")
+        golden_launches[("hook", dt, bool(kw))] = n_launch
+        if dt == torch.float64 and not kw:
+            hook_fn = sc["coal_fn"]
+            mn = get_moments_normalizing_factors(spec.nprogmoms, sc["config"].norms)
+            x128 = (torch.as_tensor(ys[1]) / torch.as_tensor(mn)).T.contiguous().to(dev)
+        del sc
+    with np.load(ROOT / "tests" / "golden" / "rainshaft_small.npz") as z:
+        ys_small = z["ys"]
+    scale_small = np.abs(ys_small).max(axis=(0, 1))
+    sdata = ref_data()
+    for name, dt in dtypes.items():
+        tol = REF_GOLDEN_TOL if name == "float64" else GOLDEN_TOL
+        step = fc.make_rainshaft_step_fn(sdata, sc_cfg.vel, sc_cfg.norms, nz=NZ, dz=sc_cfg.dz,
+                                         dt=1.0, device=dev, dtype=dt)
+        rfn = fc.make_rainshaft_rhs_fn(sdata, sc_cfg.vel, sc_cfg.norms, device=dev, dtype=dt)
+        fused = rs.make_rainshaft_rhs_fused(sc_cfg, rfn)
+        y0 = rs.to_soa(torch.as_tensor(np.tile(ys_small[0][None], (N_ANCHOR_COLUMNS, 1, 1)))
+                       ).to(dev, dt)
+        for kind in ("step", "rhs"):
+            fn = step if kind == "step" else rfn
+            fn.launches = 0
+            y, gerr = y0, 0.0
+            for s_ in range(1, 121):
+                y = step(y) if kind == "step" else stepper.ssprk33_step(fused, y, 0.0, 1.0)
+                if s_ % 20 == 0:
+                    got = rs.from_soa(y, NZ).double().cpu().numpy()
+                    gerr = max(gerr, float((np.abs(got - ys_small[s_ // 20][None])
+                                            / scale_small).max()))
+            n_launch = fn.launches
+            want_launch = 120 if kind == "step" else 360
+            route = "whole-step kernel" if kind == "step" else "fused-RHS route (rhs kernel)"
+            print(f"phase 18 rainshaft_small through the reference-tier {route} {name}, "
+                  f"{N_ANCHOR_COLUMNS} columns x 120 steps: per-moment-scaled {gerr:.3e} vs its "
+                  f"golden (tol {tol:.0e}), launches {n_launch} {card}")
+            check(n_launch == want_launch, f"{kind} kernel launched {n_launch}, not {want_launch}")
+            check(bool(torch.isfinite(y).all()) and gerr < tol,
+                  f"rainshaft_small through the reference {kind} kernel {name}: {gerr:.3e}")
+            golden_launches[(kind, dt)] = n_launch
+        del step, rfn, fused
+    box = harness.SCENARIOS["box_exp_gamma_mixture"](device=dev)
+    with np.load(ROOT / "tests" / "golden" / "box_exp_gamma_mixture.npz") as z:
+        ys_box = z["ys"]  # [121, 5]
+    box_norms = torch.tensor(get_moments_normalizing_factors(box["spec"].nprogmoms,
+                                                             box["config"].norms), device=dev)
+    for label, dt, kw, tol in (("reference, f64", torch.float64, {}, REF_GOLDEN_TOL),
+                               ("gauss-fallback, f32", torch.float32,
+                                dict(BENCH_OVERRIDES, f2_exact=False), GOLDEN_TOL)):
+        fn = fc.make_coal_fn(box["data"], device=dev, dtype=dt, **kw)
+        nrm = box_norms.to(dt)
+
+        def box_rhs(mom, _t, fn=fn, nrm=nrm):
+            return fn(mom / nrm) * nrm
+
+        y0 = box["state0"].to(dt)[None].repeat(8, 1)
+        fn.launches = 0
+        _, ys = stepper.integrate(box_rhs, y0, 0.0, box["config"].dt, box["n_steps"])
+        n_launch = fn.launches
+        ys = ys[:, 0, :].double().cpu().numpy()
+        berr = float((np.abs(ys - ys_box) / np.abs(ys_box).max(axis=0)).max())
+        print(f"phase 18 box_exp_gamma_mixture through the coal kernel [{label}, instance "
+              f"{fn.plan.instance}], 120 steps: per-moment-scaled {berr:.3e} vs its golden "
+              f"(tol {tol:.0e}), launches {n_launch} {card}")
+        check(n_launch == 3 * box["n_steps"], f"box coal kernel launched {n_launch} times")
+        check(bool(np.isfinite(ys).all()) and berr < tol,
+              f"box_exp_gamma_mixture [{label}] vs golden {berr:.3e}")
+    # B3's f64 reference instance at its path's shape, after the counts were read
+    herr, habs = row_scaled(hook_fn.soa(x128), hook_fn.plain(x128))
+    check(herr < TOL["float64"], f"reference coal kernel at [6, 128] f64 vs twin {herr:.3e}")
+    hook_ms = _time_ms(lambda: hook_fn.soa(x128), 50)
+    hook_plain_ms = _time_ms(lambda: hook_fn.plain(x128), 5)
+    print(f"phase 18 coal kernel [reference, f64] at its path's shape [6, 128] (a rainshaft_128 "
+          f"state): row-scaled {herr:.3e}, max abs {habs:.3e}; kernel {hook_ms:.4f} ms, twin "
+          f"{hook_plain_ms:.4f} ms {card}")
+    kernels.append({"name": "coal_rhs[reference, f64, rainshaft_128 hook]", "route": "cuda",
+                    "source": SOURCE, "replaces": B3_REPLACES,
+                    "launches": golden_launches[("hook", torch.float64, False)],
+                    "max_abs_err": habs, "max_row_scaled_err": herr, "ms": hook_ms,
+                    "plain_ms": hook_plain_ms,
+                    **bound("coal_rhs[reference, f64]", hook_fn.plain, x128, 128, 6, 6,
+                            f64=True)})
+    for (kind, name), (err, abs_err, ms, plain_ms, bnd) in ref_times.items():
+        dt = dtypes[name]
+        kernels.append({"name": f"{'rainshaft_step' if kind == 'step' else 'rainshaft_rhs'}"
+                                f"[reference, {'f32' if name == 'float32' else 'f64'}]",
+                        "route": "cuda", "source": SOURCE,
+                        "replaces": B1_REPLACES if kind == "step" else B4_REPLACES,
+                        "launches": golden_launches[(kind, dt)], "max_abs_err": abs_err,
+                        "max_row_scaled_err": err, "ms": ms, "plain_ms": plain_ms, **bnd})
+    del hook_fn, box
+    print(f"phase 18 seconds {time.perf_counter() - t:.3f}")
+
+    # ---- 19. the bench chain at bench.py's four switch settings -----------
+    t = time.perf_counter()
+    x = torch.as_tensor(bench.bench_moments(bench.BENCH_COLUMNS).T.copy(), dtype=torch.float32,
+                        device=dev)
+    for f2_exact, gl in BENCH_SWITCHES:
+        fn = bench.coal_fn(dev, f2_exact=bool(f2_exact), gl_nodes=gl)
+        fn.soa(x[:, :256].contiguous())  # warm-up outside the count
+        torch.cuda.synchronize()
+        fn.launches = 0
+        s_chain = bench.time_chain(fn.soa, x, N_BENCH_STEPS)
+        n_launch = fn.launches
+        check(n_launch == N_BENCH_STEPS + 3,
+              f"bench chain ({f2_exact}, {gl}) launched {n_launch} times, not {N_BENCH_STEPS + 3}")
+        rate = bench.BENCH_COLUMNS * 6 / s_chain
+        err, abs_err = row_scaled(fn.soa(x), fn.plain(x))
+        check(err < TOL["float32"], f"bench ({f2_exact}, {gl}) kernel vs twin {err:.3e}")
+        ms = _time_ms(lambda: fn.soa(x), 10)
+        plain_ms = _time_ms(lambda: fn.plain(x), 1)
+        inst = "reference tier" if fn.plan.ref else "fast tier"
+        print(f"phase 19 bench chain f2_exact={f2_exact} gl_nodes={gl} ({inst}) "
+              f"{bench.BENCH_COLUMNS} boxes f32: {s_chain * 1e3:.4f} ms/step, {rate:.4e} "
+              f"moment-updates/s, launches {n_launch}; kernel vs twin at [6, "
+              f"{bench.BENCH_COLUMNS}] row-scaled {err:.3e}, max abs {abs_err:.3e}; kernel "
+              f"{ms:.4f} ms, twin {plain_ms:.4f} ms {card}")
+        print(json.dumps({"metric": "coalescence_moment_updates_per_s", "value": rate,
+                          "f2_exact": bool(f2_exact), "gl_nodes": gl, "instance": inst,
+                          "launches": n_launch, "device": torch.cuda.get_device_name(0),
+                          "card": smi.splitlines()[0]}))
+        if fn.plan.ref:
+            kernels.append({"name": f"coal_rhs[reference, f32, bench f2_exact={f2_exact} "
+                                    f"gl_nodes={gl}]", "route": "cuda", "source": SOURCE,
+                            "replaces": B3_REPLACES, "launches": n_launch,
+                            "max_abs_err": abs_err, "max_row_scaled_err": err, "ms": ms,
+                            "plain_ms": plain_ms,
+                            **bound(f"coal_rhs[reference, bench {f2_exact}/{gl}]", fn.plain,
+                                    x[:, :256].contiguous(), bench.BENCH_COLUMNS, 6, 6)})
+        del fn
+    del x
+    torch.cuda.empty_cache()
+    print(f"phase 19 seconds {time.perf_counter() - t:.3f}")
 
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)

@@ -15,10 +15,20 @@ kernel 5.236e-10 / 9.44e9 / 5.78 (normalized), default node budgets (96, 48),
 through the CUDA quadrature kernel
 (`ops.numerical_coalescence.make_numerical_fn`).
 
+bench.py's switches (bench.py:37-46, 66-100) are options here:
+``--f2-exact {0,1}`` (BENCH_F2_EXACT), ``--gl-nodes N`` (BENCH_GL_NODES; 0
+is the series/continued-fraction incomplete gamma), ``--gauss-nodes N``
+(BENCH_GAUSS_NODES, the Gauss grid of the quadrature fallback) and
+``--gammainc-iters N`` (BENCH_GAMMAINC_ITERS); the kernel is built with
+``quad_rule="gauss"`` as bench.py builds it. The defaults are bench.py's:
+the fast tier. Any other setting launches the kernel's reference-tier
+instance (the JSON line names the instance).
+
 Timed with CUDA events after a warm-up; the build is outside the timed
-window. Needs a CUDA device:
+window. Needs a CUDA device; prints one JSON line per run:
 
     python -m cloudy_tpu_torch.bench
+    python -m cloudy_tpu_torch.bench --f2-exact 0 --gl-nodes 0
     python -m cloudy_tpu_torch.bench --impl numerical
 """
 
@@ -37,6 +47,7 @@ from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.ops import numerical_coalescence as nc
 
 BENCH_F2_EXACT = True
+BENCH_GAUSS_NODES = 12
 BENCH_GAMMAINC_ITERS = 12
 BENCH_GL_NODES = 12
 BENCH_COLUMNS = 1 << 20
@@ -45,16 +56,28 @@ NUMERICAL_COLUMNS = 1 << 18
 NORMS = (1e6, 1e-9)
 
 
-def bench_data():
-    """(spec, CoalescenceData) of bench.py's configuration."""
+def bench_data(f2_exact: bool = BENCH_F2_EXACT, gl_nodes: int = BENCH_GL_NODES):
+    """(spec, CoalescenceData) of bench.py's configuration at its switches
+    BENCH_F2_EXACT and BENCH_GL_NODES."""
     spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     data = build_coalescence_data(
         spec, ker, (5e-10, np.inf), norms=NORMS,
-        gammainc_iters=BENCH_GAMMAINC_ITERS, f2_exact=BENCH_F2_EXACT,
-        gammainc_gl_nodes=BENCH_GL_NODES,
+        gammainc_iters=BENCH_GAMMAINC_ITERS, f2_exact=bool(f2_exact),
+        gammainc_gl_nodes=int(gl_nodes),
     )
     return spec, data
+
+
+def coal_fn(device="cuda", f2_exact: bool = BENCH_F2_EXACT,
+            gl_nodes: int = BENCH_GL_NODES, gauss_nodes: int = BENCH_GAUSS_NODES,
+            gammainc_iters: int = BENCH_GAMMAINC_ITERS,
+            dtype: torch.dtype = torch.float32) -> fc.CoalFn:
+    """The bench RHS at bench.py's switches: its data and the per-call
+    overrides it passes to `make_pallas_coal_fn` (quad_rule "gauss")."""
+    _, data = bench_data(f2_exact, gl_nodes)
+    return fc.make_coal_fn(data, device=device, dtype=dtype, quad_rule="gauss",
+                           gauss_nodes=gauss_nodes, gammainc_iters=gammainc_iters)
 
 
 def bench_moments(n_columns: int, seed: int = 0) -> np.ndarray:
@@ -109,6 +132,10 @@ def time_chain(rhs_soa, mom: torch.Tensor, n: int, warmup: int = 3) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--impl", choices=("coal", "numerical"), default="coal")
+    ap.add_argument("--f2-exact", type=int, choices=(0, 1), default=int(BENCH_F2_EXACT))
+    ap.add_argument("--gl-nodes", type=int, default=BENCH_GL_NODES)
+    ap.add_argument("--gauss-nodes", type=int, default=BENCH_GAUSS_NODES)
+    ap.add_argument("--gammainc-iters", type=int, default=BENCH_GAMMAINC_ITERS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench needs a CUDA device: torch.cuda.is_available() is False")
@@ -118,10 +145,17 @@ def main(argv=None):
         mom_np = numerical_moments(n_columns)
     else:
         n_columns, n_steps = BENCH_COLUMNS, 100
-        fn = fc.make_coal_fn(bench_data()[1], device="cuda", dtype=torch.float32)
+        fn = coal_fn("cuda", bool(args.f2_exact), args.gl_nodes, args.gauss_nodes,
+                     args.gammainc_iters)
         mom_np = bench_moments(n_columns)
     mom = torch.as_tensor(mom_np.T.copy(), dtype=torch.float32, device="cuda")
+    fn.launches = 0
     s = time_chain(fn.soa, mom, n_steps)
+    switches = {} if args.impl == "numerical" else {
+        "f2_exact": bool(args.f2_exact), "gl_nodes": args.gl_nodes,
+        "gauss_nodes": args.gauss_nodes, "gammainc_iters": args.gammainc_iters,
+        "instance": "reference tier" if fn.plan.ref else "fast tier",
+    }
     print(json.dumps({
         "metric": "coalescence_moment_updates_per_s",
         "impl": args.impl,
@@ -131,6 +165,7 @@ def main(argv=None):
         "n_columns": n_columns,
         "s_per_step": s,
         "launches": fn.launches,
+        **switches,
     }))
 
 

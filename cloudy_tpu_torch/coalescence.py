@@ -582,3 +582,20 @@ def make_kernel_diff_coal_fn(data: CoalescenceData):
         return get_coal_ints(data, params, wb=wb, wf=wf)
 
     return fn
+
+
+def make_coal_rhs(data: CoalescenceData, norms: Tuple[float, float] = (1.0, 1.0)):
+    """RHS over *physical* flat moments ``[..., n_tot]``: normalize → invert
+    the closure → tendencies → denormalize (reference box driver
+    `rhs_coal!`, test/examples/utils/box_model_helpers.jl:29-53)."""
+    from cloudy_tpu_torch.spec import get_moments_normalizing_factors
+
+    mom_norms = get_moments_normalizing_factors(data.spec.nprogmoms, norms)
+
+    def rhs(mom_flat):
+        mom_flat = torch.as_tensor(mom_flat)
+        norm = torch.as_tensor(mom_norms, dtype=mom_flat.dtype, device=mom_flat.device)
+        params = pdists.params_from_moments(data.spec, mom_flat / norm)
+        return get_coal_ints(data, params) * norm
+
+    return rhs

@@ -1,14 +1,14 @@
 // Shared device physics of the three fused kernels (fused_coalescence.cu).
 //
 // Counterpart of cloudy_tpu/ops/pallas_coalescence.py::_make_coal_body
-// (:145-622; its exact-F2 gamma/exponential branch, the lognormal window
-// rule, and FixedThreshold and MovingThreshold thresholds) and of
-// pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane: one level
-// of one column, all n_tot moments in registers. Special functions follow
-// cloudy_tpu/ops/special.py term for term (Acklam `ndtri`, the fast GL
-// percentile inverse, the A&S rational `erf`); the closure inversion
-// (pallas_numerical.py::_invert_rows) and the Lanczos `lgamma` are in
-// common.cuh, shared with the quadrature kernel.
+// (:145-622; its gamma/exponential F2, exact or on a quadrature grid, the
+// lognormal window rule, and FixedThreshold and MovingThreshold thresholds)
+// and of pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane:
+// one level of one column, all n_tot moments in registers. Special functions
+// follow cloudy_tpu/ops/special.py term for term (Acklam `ndtri`, the fast
+// GL percentile inverse and the damped-Newton one, the A&S rational `erf`);
+// the closure inversion (pallas_numerical.py::_invert_rows), the Lanczos
+// `lgamma` and the series/CF incomplete gamma are in common.cuh.
 //
 // The configuration is table-driven: the host (ops/fused_coalescence.py,
 // `pack_config`) packs families, offsets, thresholds, the nonzeros of the
@@ -24,7 +24,14 @@
 // The MovingThreshold and lognormal arms are compiled only into the
 // kernels' `kArms = true` instances: the host launches the `false` instance
 // for a FixedThreshold gamma/exponential configuration (`FusedPlan.arms`),
-// which then carries neither arm's registers nor its stack.
+// which then carries neither arm's registers nor its stack. The reference
+// tier (`kRef = true`, always with kArms) adds the gamma/exponential F2 on a
+// quadrature grid (fixed grids packed by the host, moving Simpson and Gauss
+// grids built per lane), the series/continued-fraction incomplete gamma,
+// the damped-Newton percentile inverse and the Lanczos-pair flux; inside it
+// the rule, the grid, GL or series/CF and exact or grid F2 are runtime
+// switches of the configuration. The fast instances compile to the code
+// they had without it.
 //
 // No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
 
@@ -51,7 +58,15 @@ static_assert(FTAB >= MAX_S, "F2 table too small for the gamma orders");
 // offset in slot H_REAL_OFF
 constexpr int H_NMODES = 0, H_NTOT = 1, H_M = 2, H_NGL = 3, H_NWB = 4,
               H_NWF = 5, H_NVEL = 6, H_REAL_OFF = 7, H_MOVING = 8, H_NWIN = 9;
-constexpr int I_FAM = 10;
+// reference tier: quadrature rule (1 Gauss), series/CF iterations of the F2
+// incomplete gamma, Newton steps and their series/CF iterations, points of
+// a moving Simpson grid, GL base nodes of a moving Gauss grid, then per
+// mode the F2 kind and the length of its fixed grid
+constexpr int H_QUAD = 10, H_GI_ITERS = 11, H_NEWTON = 12, H_THR_ITERS = 13,
+              H_NPTS = 14, H_NGAUSS = 15;
+constexpr int I_F2KIND = 16;
+constexpr int I_GRIDN = I_F2KIND + MAX_MODES;
+constexpr int I_FAM = I_GRIDN + MAX_MODES;
 constexpr int I_OFF = I_FAM + MAX_MODES;
 constexpr int I_NPROG = I_OFF + MAX_MODES;
 constexpr int I_THR = I_NPROG + MAX_MODES;
@@ -62,6 +77,9 @@ template <typename T> __device__ __forceinline__ T vsign(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
 }
 
+// per-mode F2 (ops/fused_coalescence.py F2_*)
+constexpr int F2_NONE = 0, F2_EXACT = 1, F2_WINDOW = 2, F2_GRID = 3;
+
 // index of (p, q), p <= q < MAX_M, in an FTAB row
 __host__ __device__ constexpr int tri(int p, int q) {
   return p * (2 * MAX_M - p - 1) / 2 + q;
@@ -70,6 +88,9 @@ __host__ __device__ constexpr int tri(int p, int q) {
 // The configuration, bound to the block's shared-memory copy.
 template <typename T> struct Config {
   int n_modes, n_tot, M, n_gl, n_wb, n_wf, n_vel, moving, n_win;
+  int quad, gi_iters, newton_iters, thr_gi_iters, n_pts, n_gauss;
+  const int* f2kind;
+  const int* grid_n;
   const int* fam;
   const int* off;
   const int* nprog;
@@ -93,6 +114,10 @@ template <typename T> struct Config {
   const T* win_v;  // lognormal window GL nodes
   const T* win_w;  // and weights
   T dt, inv_dz, two_thirds;
+  const T* grid_dx;  // [MAX_MODES] dx of each fixed grid
+  const T* gauss_u;  // n_gauss GL base nodes of a moving Gauss grid
+  const T* gauss_w;  // and weights
+  const T* grids;    // per fixed-grid mode: x[grid_n], w[grid_n]
 
   __device__ __forceinline__ void bind(const unsigned char* buf) {
     const int* ip = reinterpret_cast<const int*>(buf);
@@ -105,6 +130,14 @@ template <typename T> struct Config {
     n_vel = ip[H_NVEL];
     moving = ip[H_MOVING];
     n_win = ip[H_NWIN];
+    quad = ip[H_QUAD];
+    gi_iters = ip[H_GI_ITERS];
+    newton_iters = ip[H_NEWTON];
+    thr_gi_iters = ip[H_THR_ITERS];
+    n_pts = ip[H_NPTS];
+    n_gauss = ip[H_NGAUSS];
+    f2kind = ip + I_F2KIND;
+    grid_n = ip + I_GRIDN;
     fam = ip + I_FAM;
     off = ip + I_OFF;
     nprog = ip + I_NPROG;
@@ -129,6 +162,17 @@ template <typename T> struct Config {
     dt = win_w[n_win];
     inv_dz = win_w[n_win + 1];
     two_thirds = win_w[n_win + 2];
+    grid_dx = win_w + n_win + 3;
+    gauss_u = grid_dx + MAX_MODES;
+    gauss_w = gauss_u + n_gauss;
+    grids = gauss_w + n_gauss;
+  }
+
+  // the fixed grid of mode i: x[grid_n[i]], then w[grid_n[i]]
+  __device__ __forceinline__ const T* grid(int i) const {
+    const T* g = grids;
+    for (int m = 0; m < i; ++m) g += 2 * grid_n[m];
+    return g;
   }
 };
 
@@ -268,6 +312,33 @@ __device__ __forceinline__ T gammaincinv_gl(const Config<T>& c, T a, T p) {
   return x;
 }
 
+// special.gammaincinv_impl: x with P(a, x) = p; Wilson-Hilferty start with
+// the small-a fallback, n_newton damped Newton steps on the series/CF
+// P(a, x) of n_iters iterations
+template <typename T>
+__device__ __forceinline__ T gammaincinv_newton(T a, T p, int n_newton,
+                                                int n_iters) {
+  const T tiny = Lim<T>::tiny();
+  p = vclip(p, tiny, T(1) - Eps<T>::neg());
+  const T z = ndtri(p);
+  const T t = T(1) - T(1) / (T(9) * a) + z * dsqrt(T(1) / (T(9) * a));
+  const T x0 = a * t * t * t;
+  const T x_small = dexp((dlog(p) + lgamma_lanczos(a + T(1))) / a);
+  T x = vmax((t > T(0) && x0 > T(1e3) * tiny) ? x0 : x_small, tiny);
+  const T lg = lgamma_lanczos(a);
+  for (int it = 0; it < n_newton; ++it) {
+    const T lx = dlog(vmax(x, tiny));
+    // gammainc_impl's own log, of x clamped at 1e6
+    const T lxc = (x > T(1e6)) ? dlog(T(1e6)) : lx;
+    const T f = gammainc_sc(a, x, n_iters, lg, lxc) - p;
+    const T logdf = (a - T(1)) * lx - x - lg;
+    T step = f * dexp(-logdf);
+    step = vclip(step, T(-9) * x, T(0.9) * x);
+    x = x - step;
+  }
+  return x;
+}
+
 // special.erf_approx: A&S 7.1.26, sign(x) * y (0 at x = 0, as jnp.sign)
 template <typename T> __device__ __forceinline__ T erf_approx(T x) {
   const T ax = dabs(x);
@@ -279,16 +350,19 @@ template <typename T> __device__ __forceinline__ T erf_approx(T x) {
   return vsign(x) * y;
 }
 
-// _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2
-template <typename T>
+// _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2; the top order
+// by GL with the Stirling lgamma, or (reference tier, n_gl = 0) by series/CF
+// with the Lanczos one
+template <typename T, bool kRef>
 __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
                                           T k, T* gis) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
+  const bool sc = kRef && c.n_gl == 0;
   const T x = vmin(thr / theta, T(1e6));
   const T log_x = dlog(vmax(x, tiny));
   const T a0 = T(2) * k;
-  const T lga01 = lgamma_stirling(a0 + T(1));
+  const T lga01 = sc ? lgamma_lanczos(a0 + T(1)) : lgamma_stirling(a0 + T(1));
   T d = dexp(a0 * log_x - x - lga01);
   d = (x > T(0)) ? d : T(0);
   T ds[MAX_S];
@@ -301,7 +375,13 @@ __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
       prod = (j == 1) ? (a0 + T(j)) : prod * (a0 + T(j));
     }
   }
-  T gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
+  T gi;
+  if (sc) {
+    const T a_top = a0 + T(2 * M - 2);
+    gi = gammainc_sc(a_top, x, c.gi_iters, lgamma_lanczos(a_top), log_x);
+  } else {
+    gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
+  }
   gis[2 * M - 2] = gi;
 #pragma unroll
   for (int j = MAX_S - 2; j >= 0; --j) {
@@ -371,16 +451,147 @@ __device__ __forceinline__ void f2_lognormal_window(const Config<T>& c, T thr,
   for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * n2;
 }
 
+// simpson_even_fast_weights_dynamic at the 1-based node j of a grid of nb
+// bins, the terms added in the reference's order (j <= nb: the mask is the
+// caller's loop bound)
+template <typename T> __device__ __forceinline__ T simpson_weight(T j, T nb) {
+  T w = (j >= T(5) && j <= nb - T(3)) ? T(1) : T(0);
+  w = w + ((j == T(1)) ? T(17.0 / 48.0) : T(0));
+  w = w + ((j == T(2)) ? T(59.0 / 48.0) : T(0));
+  w = w + ((j == T(3)) ? T(43.0 / 48.0) : T(0));
+  w = w + ((j == T(4)) ? T(49.0 / 48.0) : T(0));
+  const T e = nb + T(1);
+  w = w + ((j == e) ? T(17.0 / 48.0) : T(0));
+  w = w + ((j == e - T(1)) ? T(59.0 / 48.0) : T(0));
+  w = w + ((j == e - T(2)) ? T(43.0 / 48.0) : T(0));
+  w = w + ((j == e - T(3)) ? T(49.0 / 48.0) : T(0));
+  return w;
+}
+
+// _f2_gamma (:369-411): the gamma/exponential F2 entries p <= q < M (before
+// the clamp) on a quadrature grid, written to f2[tri(p, q)]. The grid is the
+// mode's fixed one (host-built, packed), or per lane from the threshold
+// (_moving_grid, :332-366): Gauss-Legendre base nodes mapped onto
+// [log(1e-5 min(T, 1)), log T], or the masked Simpson grid of n_pts points
+// over [log min(1e-5, 1e-5 T), log T] with nb = min(floor(15 log10(T /
+// x_lo)), n_pts - 1) bins (log10 as jnp.log10: log times 1/ln 10 in T; the
+// division, the log, the product by 15 and the floor in the twin's order).
+// Per node: the Poisson deltas from the Lanczos lgamma(k + 1), the top-order
+// incomplete gamma (GL, or series/CF at gi_iters), the clipped downward
+// recurrence and the integrand rows exp(k log x - x (1/theta)) w x^p, summed
+// node by node (the Pallas body sums its [G, TB] tile with jnp.sum); nodes
+// past the mask or at rem = 0 add exact zeros and are skipped. Then times dx
+// and the multiplicative prefactors n^2 theta^(q-k) Gamma(q+k) / Gamma(k)^2.
+template <typename T>
+__device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
+                                              T n, T theta, T k, T* f2) {
+  const T tiny = Lim<T>::tiny();
+  const int M = c.M;
+  const T inv_theta = T(1) / theta;
+  const T lgk1 = lgamma_lanczos(k + T(1));
+  const T a_top = k + T(M - 1);
+  const T lg_top = lgamma_lanczos(a_top);
+  const T lgk = lgamma_lanczos(k);
+  const T logth = dlog(theta);
+  T prefs[MAX_M];
+  prefs[0] = (n * n) * dexp(-k * logth - lgk);
+#pragma unroll
+  for (int q = 1; q < MAX_M; ++q)
+    if (q < M) prefs[q] = prefs[q - 1] * theta * ((k + T(q)) - T(1));
+
+  // the grid: fixed (packed), moving Gauss or moving Simpson
+  int G;
+  T dx = T(1), ga = T(0), ghalf = T(0), x_min = T(0), nb = T(0);
+  const T* gx = nullptr;
+  const bool gauss = c.quad != 0;
+  if (!c.moving) {
+    G = c.grid_n[i];
+    gx = c.grid(i);
+    dx = c.grid_dx[i];
+  } else if (gauss) {
+    G = c.n_gauss;
+    const T x_lo = T(1e-5) * vmin(thr, T(1));
+    ga = dlog(x_lo);
+    ghalf = T(0.5) * (dlog(thr) - ga);
+  } else {
+    G = c.n_pts;
+    const T x_lo = vmin(T(1e-5), T(1e-5) * thr);
+    const T ratio = dlog(thr / x_lo) * T(0.4342944819032518);
+    nb = vmin(dfloor(T(15) * ratio), T(G - 1));
+    x_min = dlog(x_lo);
+    dx = (dlog(thr) - x_min) / nb;
+  }
+
+  T acc[FTAB];
+#pragma unroll
+  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
+  for (int g = 0; g < G; ++g) {
+    T x, w;
+    if (!c.moving) {
+      x = gx[g];
+      w = gx[G + g];
+    } else if (gauss) {
+      x = dexp(ga + ghalf * (c.gauss_u[g] + T(1)));
+      w = ghalf * c.gauss_w[g];
+    } else {
+      const T j = T(g + 1);
+      if (!(j <= nb)) break;  // masked: weight zero from here on
+      x = dexp(x_min + (j - T(1)) * dx);
+      w = simpson_weight(j, nb);
+    }
+    const T rem = vmax(thr - x, T(0)) * inv_theta;
+    if (!(rem > T(0))) continue;  // every gis is zero
+    const T logx = dlog(x);
+    const T log_rem = dlog(vmax(rem, tiny));
+    T deltas[MAX_M];
+    deltas[0] = dexp(k * log_rem - rem - lgk1);
+#pragma unroll
+    for (int q = 1; q < MAX_M - 1; ++q)
+      if (q < M - 1) deltas[q] = deltas[q - 1] * rem / (k + T(q));
+    T gi = (c.n_gl > 0) ? gammainc_gl(c, a_top, rem, lg_top)
+                        : gammainc_sc(a_top, rem, c.gi_iters, lg_top, log_rem);
+    T gis[MAX_M];  // the top order, then downward (unrolled: registers)
+#pragma unroll
+    for (int q = MAX_M - 1; q >= 0; --q) {
+      if (q == M - 1) {
+        gis[q] = gi;
+      } else if (q < M - 1) {
+        gi = vclip(gi + deltas[q], T(0), T(1));
+        gis[q] = gi;
+      }
+    }
+    const T base = dexp(k * logx - x * inv_theta) * w;
+    T ypow = base;
+#pragma unroll
+    for (int p = 0; p < MAX_M; ++p) {
+      if (p < M) {
+        if (p > 0) ypow = ypow * x;
+#pragma unroll
+        for (int q = p; q < MAX_M; ++q)
+          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * gis[q];
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < MAX_M; ++p)
+#pragma unroll
+    for (int q = p; q < MAX_M; ++q)
+      if (q < M) f2[tri(p, q)] = acc[tri(p, q)] * dx * prefs[q];
+}
+
 // The per-lane threshold of thresholded mode i: the packed constant under
 // FixedThreshold; under MovingThreshold the Pallas body's thr_rows (gamma
 // theta * P^-1(k, p), exponential theta * (-log1p(-p)), lognormal
-// exp(mu + sigma * ndtri(p))), clamped below at 1e-18.
-template <typename T, bool kArms>
+// exp(mu + sigma * ndtri(p))), clamped below at 1e-18. The gamma inverse is
+// the GL Halley one, or Newton on series/CF in the reference tier at n_gl = 0.
+template <typename T, bool kArms, bool kRef>
 __device__ __forceinline__ T mode_threshold(const Config<T>& c, int i, int fam,
                                             T p1, T p2) {
   if (!kArms || !c.moving) return c.thr[i];
   T thr;
-  if (fam == FAM_GAMMA)
+  if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
+    thr = p1 * gammaincinv_newton(p2, c.thr[i], c.newton_iters, c.thr_gi_iters);
+  else if (fam == FAM_GAMMA)
     thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
   else if (fam == FAM_EXPONENTIAL)
     thr = p1 * c.thr[i];
@@ -391,7 +602,7 @@ __device__ __forceinline__ T mode_threshold(const Config<T>& c, int i, int fam,
 
 // The coalescence body on one lane: normalized moments `mom` [n_tot] ->
 // tendencies `acc` [n_tot] and the closure parameters per mode.
-template <typename T, bool kArms>
+template <typename T, bool kArms, bool kRef>
 __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
                                           T* acc, T (*params)[3]) {
   const T eps = Lim<T>::eps();
@@ -422,12 +633,15 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
       mf[i * M + o + 1] = m;
     }
     if (c.thr_flag[i]) {
-      const T thr = mode_threshold<T, kArms>(c, i, fam, p1, p2);
+      const T thr = mode_threshold<T, kArms, kRef>(c, i, fam, p1, p2);
       if (logn) {
         f2_lognormal_window(c, thr, n, p1, p2, ftab[i]);
       } else {
         const T kk = (fam == FAM_GAMMA) ? p2 : T(1);
-        gis_exact(c, thr, p1, kk, ftab[i]);
+        if (kRef && c.f2kind[i] == F2_GRID)
+          f2_gamma_grid(c, i, thr, n, p1, kk, ftab[i]);
+        else
+          gis_exact<T, kRef>(c, thr, p1, kk, ftab[i]);
       }
     }
   }
@@ -444,15 +658,19 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
     // clamp against M_a * M_b, reference zero-structure (mm < eps)
     T v = mm;
     if (c.thr_flag[k])
-      v = (kArms && c.fam[k] == FAM_LOGNORMAL) ? vmin(mm, ftab[k][tri(a, b)])
-                                               : vmin(mm, mm * ftab[k][a + b]);
+      v = (kArms && (c.fam[k] == FAM_LOGNORMAL ||
+                     (kRef && c.f2kind[k] == F2_GRID)))
+              ? vmin(mm, ftab[k][tri(a, b)])
+              : vmin(mm, mm * ftab[k][a + b]);
     v = (mm < eps) ? T(0) : v;
     acc[ix[0]] = acc[ix[0]] + c.wf_c[e] * v;
   }
 }
 
-// _sedi_flux_rows (fast_ratio): normalized flux -sum_k c_k M_{m+e_k}
-template <typename T, bool kArms>
+// _sedi_flux_rows: normalized flux -sum_k c_k M_{m+e_k}; the gamma base by
+// gamma_ratio (fast_ratio), or in the reference tier at n_gl = 0 by the
+// Lanczos-lgamma pair
+template <typename T, bool kArms, bool kRef>
 __device__ __forceinline__ void sedi_flux(const Config<T>& c,
                                           const T (*params)[3], T* flux) {
   const T tiny = Lim<T>::tiny();
@@ -470,7 +688,9 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
     for (int v = 0; v < c.n_vel; ++v) {
       const T cv = c.vel_c[v], e = c.vel_e[v];
       T t = T(0);
-      if (fam == FAM_GAMMA)
+      if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
+        t = n * dexp(e * logp1 + lgamma_lanczos(p2 + e) - lgamma_lanczos(p2));
+      else if (fam == FAM_GAMMA)
         t = n * dexp(e * logp1) * gamma_ratio(p2, e);
       else if (fam == FAM_EXPONENTIAL)
         t = n * c.vel_g[v] * dexp(e * logp1);

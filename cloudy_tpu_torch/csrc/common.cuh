@@ -1,7 +1,8 @@
 // What every kernel of this package shares: numeric limits, the math
 // wrappers that pick the float or double routine, jnp's min/max/clip
-// semantics, the Lanczos lgamma of cloudy_tpu/ops/special.py, the closure
-// inversion, the family tags and the copy of a packed configuration into shared memory.
+// semantics, the Lanczos lgamma and the series/continued-fraction
+// incomplete gamma of cloudy_tpu/ops/special.py, the closure inversion, the
+// family tags and the copy of a packed configuration into shared memory.
 //
 // No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
 
@@ -41,6 +42,8 @@ __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
 __device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ float dfloor(float x) { return floorf(x); }
+__device__ __forceinline__ double dfloor(double x) { return ::floor(x); }
 __device__ __forceinline__ double dpow(double x, double y) { return pow(x, y); }
 
 // jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates
@@ -82,6 +85,49 @@ template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
   const T out =
       T(0.9189385332046727) + (zm1 + T(0.5)) * dlog(t) - t + dlog(series);
   return shift ? out - dlog(vmax(x, Lim<T>::tiny())) : out;
+}
+
+// special.gammainc_impl (cloudy_tpu/ops/special.py:200-291): P(a, x) by the
+// lower series below a + 1 and by the modified-Lentz continued fraction
+// above it, n_iters terms each, clipped to [0, 1], zero at x <= 0. Only the
+// branch the lane selects is evaluated (gammainc_impl evaluates both at safe
+// arguments and keeps one). lga = lgamma(a); log_x is the caller's log of x
+// (the prefactor's), x itself is clamped at 1e6.
+template <typename T>
+__device__ __forceinline__ T gammainc_sc(T a, T x, int n_iters, T lga,
+                                         T log_x) {
+  x = vmin(x, T(1e6));
+  if (!(x > T(0))) return T(0);
+  T out;
+  if (x < a + T(1)) {
+    const T term0 = T(1) / a;
+    T total = term0, term = term0, ap = a;
+    for (int i = 0; i < n_iters; ++i) {
+      ap = ap + T(1);
+      term = term * x / ap;
+      total = total + term;
+    }
+    out = total * dexp(a * log_x - x - lga);
+  } else {
+    const T tiny = Lim<T>::tiny() * T(1e10);
+    T b = x + T(1) - a;
+    T c = T(1) / tiny;
+    T d = T(1) / ((dabs(b) < tiny) ? tiny : b);
+    T h = d;
+    for (int i = 0; i < n_iters; ++i) {
+      const T fi = T(i) + T(1);
+      const T an = -fi * (fi - a);
+      b = b + T(2);
+      d = an * d + b;
+      d = (dabs(d) < tiny) ? tiny : d;
+      c = b + an / c;
+      c = (dabs(c) < tiny) ? tiny : c;
+      d = T(1) / d;
+      h = h * d * c;
+    }
+    out = T(1) - h * dexp(a * log_x - x - lga);
+  }
+  return vclip(out, T(0), T(1));
 }
 
 // Closure inversion (pallas_numerical.py::_invert_rows, :79-118) of one mode

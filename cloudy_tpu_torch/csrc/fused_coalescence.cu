@@ -45,17 +45,20 @@
 // row written to shared memory, one __syncthreads(), the neighbour read,
 // zero influx at each column's top. Loops over the tables are not unrolled
 // per configuration: generating the kernel per configuration is later work.
-// Each kernel has two instances: `kArms = false` for FixedThreshold
-// gamma/exponential configurations and `kArms = true` with the
-// MovingThreshold and lognormal arms (coal_body.cuh); the entry points'
-// `arms` argument picks one.
+// Each kernel has three instances: `kArms = false` for FixedThreshold
+// gamma/exponential configurations at the fast tier, `kArms = true` with the
+// MovingThreshold and lognormal arms (coal_body.cuh), and the reference tier
+// (`kArms = kRef = true`: quadrature-grid F2, series/CF incomplete gamma,
+// Newton percentile inverse, Lanczos-pair flux) built in units of its own;
+// the entry points' `arms` argument (0, 1, 2: `FusedPlan.instance`) picks
+// one. The scaled whole step has the two fast instances only.
 
 #include "coal_body.cuh"
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
-// kernel (the whole step: scaled or not) in one type. Without CLOUDY_UNIT the
-// file builds everything.
+// kernel (the whole step: scaled or not; units 8-13: the reference tier) in
+// one type. Without CLOUDY_UNIT the file builds everything.
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else
@@ -64,7 +67,7 @@
 
 namespace cloudy {
 
-template <typename T, bool kArms>
+template <typename T, bool kArms, bool kRef>
 __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
                             int cfg_bytes, long long B) {
@@ -80,7 +83,7 @@ __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) m[o] = mom[o * B + lane];
-  coal_body<T, kArms>(c, m, acc, params);
+  coal_body<T, kArms, kRef>(c, m, acc, params);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) out[o * B + lane] = acc[o];
@@ -88,7 +91,7 @@ __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
 
 // The fused per-level RHS: one thread per lane, no stencil and no barrier
 // after the configuration copy.
-template <typename T, bool kArms>
+template <typename T, bool kArms, bool kRef>
 __global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
                            const unsigned char* __restrict__ cfg_g,
                            int cfg_bytes, long long B) {
@@ -110,8 +113,8 @@ __global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
       empty = empty && (r[o] < eps);
     }
   }
-  coal_body<T, kArms>(c, r, acc, params);
-  sedi_flux<T, kArms>(c, params, flux);
+  coal_body<T, kArms, kRef>(c, r, acc, params);
+  sedi_flux<T, kArms, kRef>(c, params, flux);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o) {
     if (o < c.n_tot) {
@@ -123,7 +126,7 @@ __global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
 
 // One RHS evaluation of the whole step on this lane's state y -> rows.
 // Every thread of the block calls it (the two barriers are block-wide).
-template <typename T, bool kArms, bool kScale>
+template <typename T, bool kArms, bool kScale, bool kRef>
 __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
                                          T* rows, T* sh_flux, bool top, T s) {
   const T eps = Lim<T>::eps();
@@ -136,8 +139,8 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
       empty = empty && (r[o] < eps);
     }
   }
-  coal_body<T, kArms>(c, r, acc, params);
-  sedi_flux<T, kArms>(c, params, flux);
+  coal_body<T, kArms, kRef>(c, r, acc, params);
+  sedi_flux<T, kArms, kRef>(c, params, flux);
   const int t = threadIdx.x, nt = blockDim.x;
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o) {
@@ -159,7 +162,7 @@ __device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
   __syncthreads();  // sh_flux is rewritten by the next evaluation
 }
 
-template <typename T, bool kArms, bool kScale>
+template <typename T, bool kArms, bool kScale, bool kRef>
 __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
                             int cfg_bytes, long long B, int nz,
@@ -186,15 +189,15 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) y[o] = active ? mom[o * B + lane] : T(0);
 
-  step_rhs<T, kArms, kScale>(c, y, f, sh_flux, top, s);
+  step_rhs<T, kArms, kScale, kRef>(c, y, f, sh_flux, top, s);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u1[o] = y[o] + dt * f[o];
-  step_rhs<T, kArms, kScale>(c, u1, f, sh_flux, top, s);
+  step_rhs<T, kArms, kScale, kRef>(c, u1, f, sh_flux, top, s);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u1[o] + dt * f[o]);
-  step_rhs<T, kArms, kScale>(c, u2, f, sh_flux, top, s);
+  step_rhs<T, kArms, kScale, kRef>(c, u2, f, sh_flux, top, s);
   if (!active) return;
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
@@ -205,39 +208,38 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
 constexpr int COAL_THREADS = 256;
 constexpr int STEP_TARGET_THREADS = 256;
 
-template <typename T>
-int launch_coal(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                long long B, int arms, void* stream) {
+// One instance's launch (kernel sizes and the configuration check).
+template <typename T, bool kArms, bool kRef>
+int launch_coal_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                     long long B, void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto kern = arms ? coal_kernel<T, true> : coal_kernel<T, false>;
   const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
-  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
-      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
+  coal_kernel<T, kArms, kRef>
+      <<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+          (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_rhs(const void* mom, void* out, const void* cfg, int cfg_bytes,
-               long long B, int arms, void* stream) {
+template <typename T, bool kArms, bool kRef>
+int launch_rhs_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto kern = arms ? rhs_kernel<T, true> : rhs_kernel<T, false>;
   const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
-  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
-      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
+  rhs_kernel<T, kArms, kRef>
+      <<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+          (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kScale>
-int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                long long B, int nz, int arms, const void* scale,
-                void* stream) {
+template <typename T, bool kArms, bool kScale, bool kRef>
+int launch_step_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                     long long B, int nz, const void* scale, void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
       nz < 2 || nz > 1024 || B % nz != 0 || (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const auto kern =
-      arms ? step_kernel<T, true, kScale> : step_kernel<T, false, kScale>;
+  const auto kern = step_kernel<T, kArms, kScale, kRef>;
   const int cols = nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz;
   const int threads = cols * nz;
   const long long blocks = (B + threads - 1) / threads;
@@ -251,6 +253,97 @@ int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B, nz,
       (const T*)scale);
   return (int)cudaGetLastError();
+}
+
+// The reference-tier instances, defined in their own build units (8-13)
+// and called from the entry points' units.
+template <typename T>
+int launch_coal_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, void* stream);
+template <typename T>
+int launch_rhs_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                   long long B, void* stream);
+template <typename T>
+int launch_step_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, int nz, void* stream);
+
+#if CLOUDY_IN_UNIT(8) || CLOUDY_IN_UNIT(9)
+template <typename T>
+int launch_coal_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, void* stream) {
+  return launch_coal_inst<T, true, true>(mom, out, cfg, cfg_bytes, B, stream);
+}
+#endif
+#if CLOUDY_IN_UNIT(10) || CLOUDY_IN_UNIT(11)
+template <typename T>
+int launch_rhs_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                   long long B, void* stream) {
+  return launch_rhs_inst<T, true, true>(mom, out, cfg, cfg_bytes, B, stream);
+}
+#endif
+#if CLOUDY_IN_UNIT(12) || CLOUDY_IN_UNIT(13)
+template <typename T>
+int launch_step_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, int nz, void* stream) {
+  return launch_step_inst<T, true, false, true>(mom, out, cfg, cfg_bytes, B, nz,
+                                                nullptr, stream);
+}
+#endif
+#if CLOUDY_IN_UNIT(8)
+template int launch_coal_ref<float>(const void*, void*, const void*, int,
+                                    long long, void*);
+#endif
+#if CLOUDY_IN_UNIT(9)
+template int launch_coal_ref<double>(const void*, void*, const void*, int,
+                                     long long, void*);
+#endif
+#if CLOUDY_IN_UNIT(10)
+template int launch_rhs_ref<float>(const void*, void*, const void*, int,
+                                   long long, void*);
+#endif
+#if CLOUDY_IN_UNIT(11)
+template int launch_rhs_ref<double>(const void*, void*, const void*, int,
+                                    long long, void*);
+#endif
+#if CLOUDY_IN_UNIT(12)
+template int launch_step_ref<float>(const void*, void*, const void*, int,
+                                    long long, int, void*);
+#endif
+#if CLOUDY_IN_UNIT(13)
+template int launch_step_ref<double>(const void*, void*, const void*, int,
+                                     long long, int, void*);
+#endif
+
+// `arms`: the instance (FusedPlan.instance): 0 fast tier, 1 fast tier with
+// the arms, 2 reference tier
+template <typename T>
+int launch_coal(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                long long B, int arms, void* stream) {
+  if (arms == 2) return launch_coal_ref<T>(mom, out, cfg, cfg_bytes, B, stream);
+  return arms ? launch_coal_inst<T, true, false>(mom, out, cfg, cfg_bytes, B, stream)
+              : launch_coal_inst<T, false, false>(mom, out, cfg, cfg_bytes, B, stream);
+}
+
+template <typename T>
+int launch_rhs(const void* mom, void* out, const void* cfg, int cfg_bytes,
+               long long B, int arms, void* stream) {
+  if (arms == 2) return launch_rhs_ref<T>(mom, out, cfg, cfg_bytes, B, stream);
+  return arms ? launch_rhs_inst<T, true, false>(mom, out, cfg, cfg_bytes, B, stream)
+              : launch_rhs_inst<T, false, false>(mom, out, cfg, cfg_bytes, B, stream);
+}
+
+template <typename T, bool kScale>
+int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                long long B, int nz, int arms, const void* scale,
+                void* stream) {
+  if (arms == 2) {
+    if (kScale) return (int)cudaErrorInvalidValue;  // no scaled reference tier
+    return launch_step_ref<T>(mom, out, cfg, cfg_bytes, B, nz, stream);
+  }
+  return arms ? launch_step_inst<T, true, kScale, false>(mom, out, cfg, cfg_bytes,
+                                                         B, nz, scale, stream)
+              : launch_step_inst<T, false, kScale, false>(mom, out, cfg, cfg_bytes,
+                                                          B, nz, scale, stream);
 }
 
 }  // namespace cloudy

@@ -1,5 +1,5 @@
-"""Scenario harness: the pod column ensemble and the box scenarios on one
-device.
+"""Scenario harness: the pod column ensemble, the box scenarios and the
+128-level rainshaft on one device.
 
 Port of `cloudy_tpu.harness` for the production workload,
 `_scenario_pod_ensemble` in its three variants (`POD_VARIANTS`): an
@@ -37,6 +37,18 @@ by tests against its stored trajectory under tests/golden/:
   path at (256, 96) nodes, as the JAX package runs it).
 
     python -m cloudy_tpu_torch.harness box_long_numerical --device cuda
+
+``rainshaft_128`` (cloudy_tpu/harness.py:94-120) is one 1-D rainshaft
+column of 128 levels over 3000 m, two gamma modes, Golovin 5.0 fitted at
+order 1, fixed threshold 5e-10 kg, the default (reference, Simpson) tier,
+SSPRK33 at dt = 1 s for 300 s, saved every 30 steps, in f64: the stored
+golden tests/golden/rainshaft_128.npz. Its coalescence runs through torch
+ops (`coalescence.get_coal_ints`) as in JAX, or with ``--hook`` through the
+coalescence kernel's wrapper (`make_rainshaft_rhs(coal_fn=...)`, the plain
+twin on the CPU):
+
+    python -m cloudy_tpu_torch.harness rainshaft_128 --device cpu
+    python -m cloudy_tpu_torch.harness rainshaft_128 --hook --device cuda
 
 Each run prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
 """
@@ -144,8 +156,9 @@ def _scenario_pod_ensemble(
     }
 
 
-def _box_scenario(spec, config, rhs, mom0, device) -> Dict:
-    """A box scenario in its stated precision, f64."""
+def _box_scenario(spec, config, rhs, mom0, device, data=None) -> Dict:
+    """A box scenario in its stated precision, f64; `data` the analytical
+    coalescence data where the box has it."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -163,7 +176,7 @@ def _box_scenario(spec, config, rhs, mom0, device) -> Dict:
         return ys, time.perf_counter() - t0, "host"
 
     return {"spec": spec, "config": config, "rhs": rhs, "state0": state0,
-            "run": run, "kind": "box",
+            "data": data, "run": run, "kind": "box",
             "n_steps": int(round(config.t_end / config.dt))}
 
 
@@ -175,7 +188,7 @@ def _scenario_box_single_gamma(device="cuda") -> Dict:
     data = build_coalescence_data(spec, ker, (np.inf,), norms=norms)
     config = box.BoxConfig(spec=spec, norms=norms, t_end=120.0, dt=1.0)
     rhs = box.make_box_rhs(config, coal_data=data)
-    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 2e-12], device)
+    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 2e-12], device, data)
 
 
 def _scenario_box_exp_gamma_mixture(device="cuda") -> Dict:
@@ -190,7 +203,7 @@ def _scenario_box_exp_gamma_mixture(device="cuda") -> Dict:
     data = build_coalescence_data(spec, combined, (5e-10, np.inf), norms=norms)
     config = box.BoxConfig(spec=spec, norms=norms, t_end=120.0, dt=1.0)
     rhs = box.make_box_rhs(config, coal_data=data)
-    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 1.0, 1e-8, 2e-16], device)
+    return _box_scenario(spec, config, rhs, [1e8, 1e-2, 1.0, 1e-8, 2e-16], device, data)
 
 
 def _scenario_box_long_numerical(device="cuda") -> Dict:
@@ -204,10 +217,49 @@ def _scenario_box_long_numerical(device="cuda") -> Dict:
     return _box_scenario(spec, config, rhs, [1e7, 1e-3, 2e-13, 1e5, 1e-4, 2e-13], device)
 
 
+def _scenario_rainshaft_128(device="cuda", dtype: torch.dtype = torch.float64,
+                            hook: bool = False, t_end: float = 300.0,
+                            **coal_kwargs) -> Dict:
+    """1-D rainshaft, 128 levels, coalescence + upwind sedimentation, the
+    default tier, f64. ``hook=True`` routes the coalescence through the
+    coalescence kernel's wrapper on `device` (`coal_kwargs`: its per-call
+    overrides); `t_end` shortens the run (saves stay every 30 steps)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); ask for "
+            "device='cpu' to run the rainshaft on the host"
+        )
+    spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+    norms = (1e6, 1e-9)
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, (5e-10, np.inf), norms=norms)
+    config = rs.RainshaftConfig(spec=spec, nz=128, zmax=3000.0, norms=norms,
+                                t_end=t_end, dt=1.0, save_every=30)
+    coal_fn = (fc.make_coal_fn(data, device=device, dtype=dtype, **coal_kwargs)
+               if hook else None)
+    rhs = rs.make_rainshaft_rhs(config, data, coal_fn=coal_fn)
+    ic1 = rs.initial_condition(config.z, [1e8, 1e-2, 2e-12])
+    ic = np.concatenate([ic1, np.zeros_like(ic1)], axis=-1)
+
+    def run():
+        """Integrate; returns (ys [n_saves, nz, n_tot], seconds, clock)."""
+        t0 = time.perf_counter()
+        _, ys = rs.run_rainshaft(config, rhs, ic, dtype=dtype, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return ys, time.perf_counter() - t0, "host"
+
+    return {"spec": spec, "data": data, "config": config, "coal_fn": coal_fn,
+            "ic": ic, "run": run, "kind": "rainshaft",
+            "n_steps": int(round(config.t_end / config.dt))}
+
+
 SCENARIOS: Dict[str, Callable] = {
     "box_single_gamma_golovin": _scenario_box_single_gamma,
     "box_exp_gamma_mixture": _scenario_box_exp_gamma_mixture,
     "box_long_numerical": _scenario_box_long_numerical,
+    "rainshaft_128": _scenario_rainshaft_128,
     "pod_ensemble": _scenario_pod_ensemble,
     "pod_ensemble_moving": functools.partial(_scenario_pod_ensemble, variant="moving"),
     "pod_ensemble_lognorm": functools.partial(_scenario_pod_ensemble, variant="lognorm"),
@@ -217,15 +269,20 @@ SCENARIOS: Dict[str, Callable] = {
 def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
                  **scenario_args):
     """Build, run and report one named scenario in its stated precision (the
-    pod ensembles f32, the boxes f64). `scenario_args` go to the scenario's
-    builder (`n_columns` for a pod ensemble; a box takes none). Returns
-    (state, report): the final ``[n_columns, nz, n_tot]`` state of an
-    ensemble, the saved trajectory of a box. The report is appended to
+    pod ensembles f32, the boxes and the rainshaft f64). `scenario_args` go
+    to the scenario's builder (`n_columns` for a pod ensemble; `hook`,
+    `t_end` and the coalescence overrides for the rainshaft; a box takes
+    none). Returns (state, report): the final ``[n_columns, nz, n_tot]``
+    state of an ensemble, the saved trajectory of a box or of the rainshaft
+    (``[n_saves, nz, n_tot]``). The report is appended to
     ``outdir/runs.jsonl`` only with `outdir`."""
     sc = SCENARIOS[name](device=device, **scenario_args)
     ensemble = sc["kind"] == "ensemble"
+    hooked = sc.get("coal_fn") is not None
     if ensemble:
         sc["step"].launches = 0
+    if hooked:
+        sc["coal_fn"].launches = 0
     y, seconds, clock = sc["run"]()
     report = {
         "scenario": name,
@@ -248,6 +305,11 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
         })
     else:
         state, final = y, y[-1]
+    if sc["kind"] == "rainshaft":
+        report.update({"nz": sc["config"].nz, "save_every": sc["config"].save_every,
+                       "coalescence": "kernel hook" if hooked else "torch ops"})
+        if hooked:
+            report["launches"] = sc["coal_fn"].launches
     report.update(metrics.conservation_report(sc["spec"], final))
     _log_report(report, outdir)
     return state, report
@@ -265,10 +327,14 @@ def main(argv=None):
     ap.add_argument("scenario", choices=sorted(SCENARIOS))
     ap.add_argument("--columns", type=int, default=None,
                     help="width of a pod ensemble (default 2^20); a box takes none")
+    ap.add_argument("--hook", action="store_true",
+                    help="rainshaft_128: coalescence through the kernel's wrapper")
     ap.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     ap.add_argument("--outdir", default=None)
     args = ap.parse_args(argv)
     scenario_args = {} if args.columns is None else {"n_columns": args.columns}
+    if args.hook:
+        scenario_args["hook"] = True
     _, report = run_scenario(
         args.scenario, device=args.device, outdir=args.outdir, **scenario_args
     )

@@ -58,12 +58,19 @@ def initial_condition(z, mom_amp):
     return at[:, None] * np.asarray(mom_amp)[None, :]
 
 
-def make_rainshaft_rhs(config: RainshaftConfig, coal_data: Optional[CoalescenceData]):
+def make_rainshaft_rhs(config: RainshaftConfig, coal_data: Optional[CoalescenceData],
+                       coal_fn=None):
     """RHS over physical moments ``[..., nz, n_tot]``: clip negative moments
     to zero, skip coalescence where all normalized moments < eps, per-level
     sedimentation flux, upwind divergence with zero influx at the top
     (rainshaft_helpers.jl:45-89). ``coal_data=None`` gives pure
-    sedimentation."""
+    sedimentation.
+
+    ``coal_fn`` replaces the torch-ops coalescence with a batched function
+    of normalized moments ``[B, n_tot] -> [B, n_tot]``, such as the CUDA
+    coalescence kernel's wrapper (`ops.fused_coalescence.make_coal_fn`): it
+    gets the levels of every column flattened, and its tendencies are
+    denormalized and masked at empty levels as the torch path's are."""
     spec = config.spec
     mom_norms = get_moments_normalizing_factors(spec.nprogmoms, config.norms)
     vel_n = normalized_velocity(config.vel, config.norms)
@@ -78,7 +85,12 @@ def make_rainshaft_rhs(config: RainshaftConfig, coal_data: Optional[CoalescenceD
         mom_n = mom / norm
         params = pdists.params_from_moments(spec, mom_n)
 
-        if coal_data is not None:
+        if coal_fn is not None:
+            flat = mom_n.reshape(-1, spec.n_tot)
+            coal = coal_fn(flat).reshape(mom_n.shape) * norm
+            empty = torch.all(mom_n < eps, dim=-1, keepdim=True)
+            coal = torch.where(empty, torch.zeros_like(coal), coal)
+        elif coal_data is not None:
             coal = get_coal_ints(coal_data, params) * norm
             # empty-cell skip (:67-68)
             empty = torch.all(mom_n < eps, dim=-1, keepdim=True)
@@ -135,12 +147,74 @@ def from_soa(state, nz: int):
 
 
 def run_rainshaft(config: RainshaftConfig, rhs, mom_init, dtype=torch.float64,
-                  device="cpu"):
+                  device="cuda"):
     """Integrate `rhs` from `mom_init` over ``t_end`` with the configured
-    stepper; returns (ts, ys) with ``ys[s]`` every ``save_every`` steps."""
+    stepper on `device` (the card unless the caller asks for the CPU);
+    returns (ts, ys) with ``ys[s]`` every ``save_every`` steps."""
     n_steps = int(round(config.t_end / config.dt))
     y0 = torch.as_tensor(np.asarray(mom_init), dtype=dtype, device=device)
     return stepper.integrate(
         rhs, y0, 0.0, config.dt, n_steps,
         method=config.method, save_every=config.save_every,
     )
+
+
+def analytical_sol_sedimentation(config: RainshaftConfig, spec_family, ic, coeff, t):
+    """Semi-analytic pure-sedimentation moment profiles at time t
+    (reference `analytical_sol`, rainshaft_helpers.jl:102-125; a copy of
+    `cloudy_tpu.models.rainshaft.analytical_sol_sedimentation`): each
+    particle mass m falls at v(m) = c0 + c1·m^{1/6}; the solution advects the
+    initial moment profile along characteristics z0 = z + v(m)·t and
+    re-integrates the moments over a mass grid of 10,000 points. Pure numpy
+    on the host (exponential and gamma closures inlined).
+
+    - `ic`: [nz, n_mom] initial moments of a single mode
+    - `coeff`: (c0, c1)
+    """
+    import math
+
+    from cloudy_tpu_torch.spec import Family
+
+    z = config.z
+    nz, nmom = ic.shape
+    nm = 10000
+    m_ = np.logspace(-5, 4, nm)
+    eps = np.finfo(np.float64).eps
+
+    def density_np(mom_z0, m):
+        m0, m1 = mom_z0[0], mom_z0[1]
+        if m0 <= eps or m1 <= eps:
+            return 0.0
+        if spec_family == Family.EXPONENTIAL:
+            n, th = m0, m1 / m0
+            return n / th * math.exp(-m / th)
+        if spec_family == Family.GAMMA:
+            m2 = mom_z0[2]
+            mean = m1 / m0
+            denom = m2 / m1 - mean
+            k = min(max(mean / max(denom, eps), eps), 10.0)
+            th = mean / k
+            return m0 * m ** (k - 1.0) / th**k / math.gamma(k) * math.exp(-m / th)
+        raise ValueError(spec_family)
+
+    def interp_ic(z0):
+        # linear interpolation with linear extrapolation (reference uses
+        # Line() extrapolation)
+        return np.array([np.interp(z0, z, ic[:, k]) for k in range(nmom)])
+
+    mom = np.zeros((nz, nmom))
+    for i, z_ in enumerate(z):
+        for j in range(1, nm - 1):
+            m = m_[j]
+            dm = (m_[j + 1] - m_[j - 1]) / 2
+            v = coeff[0] + coeff[1] * m ** (1.0 / 6.0)
+            z0 = z_ + v * t
+            if z0 > z.max():
+                continue
+            mom_z0 = np.maximum(interp_ic(z0), 0.0)
+            dens = density_np(mom_z0, m)
+            if dens == 0.0:
+                continue
+            for k in range(nmom):
+                mom[i, k] += m**k * dens * dm
+    return mom

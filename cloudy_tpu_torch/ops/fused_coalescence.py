@@ -33,14 +33,27 @@ only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises. It never falls back.
 
 Coverage: GAMMA, EXPONENTIAL and LOGNORMAL modes under FixedThreshold and
-MovingThreshold, exact gamma/exponential F2 on the Gauss–Legendre tier
-(``f2_exact=True``, ``gammainc_gl_nodes > 0``; moving gamma thresholds by
-the fast GL percentile inverse) and lognormal F2 by the recentred GL window
-(``lognorm_gl_nodes > 0``) — the pod ``fixed2gamma``, ``moving`` and
-``lognorm`` configurations and bench.py's. Anything else raises
-`NotImplementedError` naming the ROADMAP item that ports it. Each kernel is
-compiled twice, with and without the MovingThreshold and lognormal arms;
-`FusedPlan.arms` picks the instance.
+MovingThreshold, with the per-call overrides of `make_pallas_coal_fn`
+(`quad_rule`, `gauss_nodes`, `gammainc_iters`, `thr_newton_iters`,
+`thr_gammainc_iters`, `f2_exact`, `gammainc_gl_nodes`; the same defaults):
+
+- the fast tier: exact gamma/exponential F2 with the Gauss–Legendre
+  incomplete gamma (``f2_exact=True``, ``gammainc_gl_nodes > 0``; moving
+  gamma thresholds by the GL Halley inverse), lognormal F2 by the recentred
+  GL window (``lognorm_gl_nodes > 0``): the pod ``fixed2gamma``, ``moving``
+  and ``lognorm`` configurations and bench.py's;
+- the reference tier: gamma/exponential F2 on a quadrature grid (the masked
+  log-grid Simpson rule of ``quad_rule="reference"`` or Gauss–Legendre on
+  the same interval, fixed grids built on the host, moving ones per lane),
+  the series/continued-fraction incomplete gamma (``gammainc_gl_nodes=0``),
+  the damped-Newton percentile inverse and the Lanczos-pair flux — the
+  default of every JAX kernel factory and the tier of every golden.
+
+Anything else (monodisperse modes, the lognormal Φ grid, more modes or
+moments than the capacities) raises `NotImplementedError` naming the ROADMAP
+item that ports it. Each kernel is compiled three times: without the
+MovingThreshold and lognormal arms, with them, and with the reference tier
+besides; `FusedPlan.instance` picks one.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ import torch
 from cloudy_tpu_torch.spec import Family, get_moments_normalizing_factors
 from cloudy_tpu_torch.coalescence import LOGNORM_WINDOW_SIGMA, CoalescenceData
 from cloudy_tpu_torch.ops import special
+from cloudy_tpu_torch.ops.simpson import simpson_even_fast_weights
 
 # Capacities of csrc/coal_body.cuh and the int32 header slots of the packed
 # configuration; the library exports its own (`cloudy_layout`) and
@@ -63,8 +77,23 @@ MAX_MODES = 3
 MAX_NTOT = 9
 MAX_M = 5
 CFG_MAX_BYTES = 12288
-HEADER_INTS = 10
+HEADER_INTS = 22
 LAYOUT = (MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, HEADER_INTS)
+
+#: per-mode F2 evaluation (`FusedPlan.f2_kind`; csrc/coal_body.cuh F2_*)
+F2_NONE, F2_EXACT, F2_WINDOW, F2_GRID = 0, 1, 2, 3
+QUAD_RULES = ("reference", "gauss")
+#: the per-call overrides of `make_pallas_coal_fn` (pallas_coalescence.py:
+#: 662-673) and their defaults; None takes the value from the data
+COAL_OVERRIDES = {
+    "quad_rule": "reference",
+    "gauss_nodes": 24,
+    "gammainc_iters": None,
+    "thr_newton_iters": 32,
+    "thr_gammainc_iters": 128,
+    "f2_exact": None,
+    "gammainc_gl_nodes": None,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +117,7 @@ class FusedPlan:
     wb_nz: Tuple[Tuple[int, int, int, float], ...]
     #: (o, k, a, b, c): acc[o] += c · F2[k][a, b], a ≤ b, only in-range entries
     wf_nz: Tuple[Tuple[int, int, int, int, float], ...]
+    #: Gauss–Legendre nodes of the incomplete gamma; 0: series/CF
     gl_nodes: int
     #: Gauss–Legendre nodes of the lognormal window rule (0: no window mode)
     win_nodes: int = 0
@@ -97,6 +127,23 @@ class FusedPlan:
     nz: int = 1
     inv_dz: float = 0.0
     dt: float = 0.0
+    #: per mode: F2_NONE, F2_EXACT, F2_WINDOW or F2_GRID
+    f2_kind: Tuple[int, ...] = ()
+    #: quadrature rule of the F2 grids: "reference" (masked Simpson) or "gauss"
+    quad_rule: str = "reference"
+    #: Gauss–Legendre nodes of a "gauss" grid
+    gauss_nodes: int = 24
+    #: series/CF iterations of the F2 incomplete gamma
+    gammainc_iters: int = 128
+    #: MovingThreshold gamma percentile by Newton (gl_nodes = 0): steps and
+    #: the series/CF iterations of each step
+    thr_newton_iters: int = 32
+    thr_gammainc_iters: int = 128
+    #: points of a moving Simpson grid (`CoalescenceData.n_points_max`)
+    n_points_max: int = 128
+    #: per mode: None, or a FixedThreshold grid (x nodes, weights, dx) in
+    #: host double (`_static_grid` / `_static_grid_gauss`)
+    grids: Tuple = ()
 
     @property
     def n_tot(self) -> int:
@@ -111,6 +158,20 @@ class FusedPlan:
         """1 where the kernels' MovingThreshold/lognormal instance is
         needed, 0 for a FixedThreshold gamma/exponential configuration."""
         return int(self.moving or Family.LOGNORMAL in self.families)
+
+    @property
+    def ref(self) -> bool:
+        """Whether the configuration runs reference-tier code: a quadrature
+        grid or the series/CF incomplete gamma (with it the Newton inverse
+        and the Lanczos-pair flux)."""
+        return self.gl_nodes == 0 or F2_GRID in self.f2_kind
+
+    @property
+    def instance(self) -> int:
+        """The kernel instance the entry points launch: 0 fast tier without
+        arms, 1 fast tier with the MovingThreshold and lognormal arms, 2 the
+        reference tier (every arm)."""
+        return 2 if self.ref else self.arms
 
 
 def _wb_nonzeros(data: CoalescenceData):
@@ -155,21 +216,14 @@ def check_supported(data: CoalescenceData) -> None:
         if fam == Family.MONODISPERSE:
             raise NotImplementedError(
                 "monodisperse modes (closure and closed-form F2) are not "
-                "ported to the CUDA kernels yet (ROADMAP B-arms)"
+                "ported to the CUDA kernels yet (ROADMAP B-arms.3)"
             )
         if fam == Family.LOGNORMAL and _thresholded(data, i) and not data.lognorm_gl_nodes:
             raise NotImplementedError(
                 "only the recentred GL window rule (lognorm_gl_nodes > 0) is "
                 "ported for thresholded lognormal modes; the Φ quadrature grid "
-                "is a ROADMAP B-arm"
+                "is ROADMAP B-arms.4"
             )
-    if not (data.f2_exact and data.gammainc_gl_nodes > 0):
-        raise NotImplementedError(
-            "only the exact-F2 Gauss–Legendre tier (f2_exact=True, "
-            "gammainc_gl_nodes > 0) is ported to the CUDA kernels; the "
-            "quadrature grids, the series/CF incomplete gamma and the Newton "
-            "percentile inverse are ROADMAP B-arms"
-        )
     if len(fams) > MAX_MODES or data.spec.n_tot > MAX_NTOT or data.M > MAX_M:
         raise NotImplementedError(
             f"configuration exceeds the kernels' capacities (modes ≤ {MAX_MODES}, "
@@ -200,6 +254,51 @@ def _threshold_constants(data: CoalescenceData):
     return tuple(flags), tuple(consts)
 
 
+def _static_grid(threshold: float, n_bins_per_log_unit: int = 15):
+    """Reference log grid and masked Simpson weights for a fixed threshold
+    (pallas_coalescence.py::_static_grid; ParticleDistributions.jl:579-585
+    semantics, the last point masked): (x, w, dx) in host double."""
+    t = float(threshold)
+    x_lo = min(1e-5, 1e-5 * t)
+    n_bins = int(np.floor(n_bins_per_log_unit * np.log10(t / x_lo)))
+    x_min = np.log(x_lo)
+    dx = (np.log(t) - x_min) / n_bins
+    j = np.arange(1, n_bins + 2)
+    x = np.exp(x_min + (j - 1) * dx)
+    w = simpson_even_fast_weights(n_bins)
+    mask = (j <= n_bins).astype(np.float64)
+    return x, w * mask, float(dx)
+
+
+def _static_grid_gauss(threshold: float, n_nodes: int = 24):
+    """Gauss–Legendre nodes in log x on the reference grid's interval, the
+    interval scale folded into the weights, dx = 1
+    (pallas_coalescence.py::_static_grid_gauss)."""
+    t = float(threshold)
+    x_lo = min(1e-5, 1e-5 * t)
+    u, wu = np.polynomial.legendre.leggauss(n_nodes)
+    a, b = np.log(x_lo), np.log(t)
+    x = np.exp(a + 0.5 * (b - a) * (u + 1.0))
+    return x, 0.5 * (b - a) * wu, 1.0
+
+
+def _overrides(data: CoalescenceData, coal_kwargs: dict) -> dict:
+    """The effective per-call overrides; an unknown key raises `TypeError`
+    as the JAX factories do."""
+    unknown = sorted(set(coal_kwargs) - set(COAL_OVERRIDES))
+    if unknown:
+        raise TypeError(f"unknown kwargs: {unknown}")
+    kw = {**COAL_OVERRIDES, **coal_kwargs}
+    if kw["quad_rule"] not in QUAD_RULES:
+        raise ValueError(f"quad_rule must be one of {QUAD_RULES}, not {kw['quad_rule']!r}")
+    kw["gammainc_iters"] = int(kw["gammainc_iters"] or data.gammainc_iters)
+    if kw["f2_exact"] is None:
+        kw["f2_exact"] = data.f2_exact
+    if kw["gammainc_gl_nodes"] is None:
+        kw["gammainc_gl_nodes"] = data.gammainc_gl_nodes
+    return kw
+
+
 def build_plan(
     data: CoalescenceData,
     vel: Sequence[Tuple[float, float]] = (),
@@ -207,15 +306,34 @@ def build_plan(
     nz: int = 1,
     dz: float = 1.0,
     dt: float = 0.0,
+    **coal_kwargs,
 ) -> FusedPlan:
     """Tables of one configuration; `vel` and `norms` matter for the kernels
     that compute the sedimentation flux, `nz`, `dz`, `dt` for the whole-step
-    kernel only."""
+    kernel only. `coal_kwargs` are the per-call overrides of
+    `make_pallas_coal_fn` (`COAL_OVERRIDES`)."""
     check_supported(data)
+    kw = _overrides(data, coal_kwargs)
     spec = data.spec
     thr_flag, thr_const = _threshold_constants(data)
-    win = any(f and fam == Family.LOGNORMAL
-              for f, fam in zip(thr_flag, spec.families))
+    f2_kind, grids = [], []
+    for i, fam in enumerate(spec.families):
+        grid = None
+        if not thr_flag[i]:
+            kind = F2_NONE
+        elif fam == Family.LOGNORMAL:
+            kind = F2_WINDOW
+        elif kw["f2_exact"]:
+            kind = F2_EXACT
+        else:
+            kind = F2_GRID
+            if not data.moving and kw["quad_rule"] == "gauss":
+                grid = _static_grid_gauss(data.thresholds[i], kw["gauss_nodes"])
+            elif not data.moving:
+                grid = _static_grid(data.thresholds[i])
+        f2_kind.append(kind)
+        grids.append(None if grid is None else
+                     (tuple(grid[0].tolist()), tuple(grid[1].tolist()), grid[2]))
     wf_nz = []
     for (o, k, p, q, c) in _wf_nonzeros(data):
         if p >= data.n_2d_ints[k] or q >= data.n_2d_ints[k]:
@@ -235,32 +353,61 @@ def build_plan(
         M=data.M,
         wb_nz=tuple(_wb_nonzeros(data)),
         wf_nz=tuple(wf_nz),
-        gl_nodes=int(data.gammainc_gl_nodes),
-        win_nodes=int(data.lognorm_gl_nodes) if win else 0,
+        gl_nodes=int(kw["gammainc_gl_nodes"]),
+        win_nodes=int(data.lognorm_gl_nodes) if F2_WINDOW in f2_kind else 0,
         mom_norms=mom_norms,
         vel_n=vel_n,
         nz=int(nz),
         inv_dz=1.0 / float(dz),
         dt=float(dt),
+        f2_kind=tuple(f2_kind),
+        quad_rule=kw["quad_rule"],
+        gauss_nodes=int(kw["gauss_nodes"]),
+        gammainc_iters=kw["gammainc_iters"],
+        thr_newton_iters=int(kw["thr_newton_iters"]),
+        thr_gammainc_iters=int(kw["thr_gammainc_iters"]),
+        n_points_max=int(data.n_points_max),
+        grids=tuple(grids),
     )
 
 
 def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     """The byte buffer the kernels read (layout: csrc/coal_body.cuh,
     `Config::bind`). Real constants are computed in double on the host and
-    rounded once to the kernel's type, as JAX folds Python floats."""
+    rounded once to the kernel's type, as JAX folds Python floats. The
+    FixedThreshold quadrature grids (the Pallas kernels' `grid_inputs`) ride
+    at its end, so each block reads them from shared memory: a three-mode
+    configuration with two Simpson grids (76 and 86 points) takes 6,032
+    bytes in f32 and 8,480 in f64 of the 12,288."""
     real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     N = plan.n_modes
-    gl_y, gl_w = np.polynomial.legendre.leggauss(plan.gl_nodes)
+    gl_y, gl_w = (np.polynomial.legendre.leggauss(plan.gl_nodes) if plan.gl_nodes
+                  else ((), ()))
     win_v, win_w = (np.polynomial.legendre.leggauss(plan.win_nodes)
                     if plan.win_nodes else ((), ()))
 
     def per_mode(vals, fill=0):
         return list(vals) + [fill] * (MAX_MODES - len(vals))
 
+    # the GL base nodes of a moving "gauss" grid (`_moving_grid`), rounded
+    # to the kernel's type as the Pallas grid input is
+    n_gauss = (plan.gauss_nodes if plan.moving and plan.quad_rule == "gauss"
+               and F2_GRID in plan.f2_kind else 0)
+    gauss_u, gauss_w = (np.polynomial.legendre.leggauss(n_gauss) if n_gauss
+                        else ((), ()))
+    grids = [g or ((), (), 0.0) for g in plan.grids]
+
     # header; slot 7 becomes the byte offset of the reals
     ints = [N, plan.n_tot, plan.M, plan.gl_nodes, len(plan.wb_nz),
             len(plan.wf_nz), len(plan.vel_n), 0, int(plan.moving), plan.win_nodes]
+    # reference tier: quadrature rule, iteration counts, moving grid sizes,
+    # per-mode F2 kind and fixed-grid length
+    ints += [int(plan.quad_rule == "gauss"), plan.gammainc_iters,
+             plan.thr_newton_iters, plan.thr_gammainc_iters, plan.n_points_max,
+             n_gauss]
+    ints += per_mode(plan.f2_kind)
+    ints += per_mode([len(g[0]) for g in grids])
+    assert len(ints) == HEADER_INTS
     ints += per_mode(plan.families)
     ints += per_mode(plan.offsets)
     ints += per_mode(plan.nprog)
@@ -293,6 +440,11 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     reals += [float(v) for v in win_v]
     reals += [float(w) for w in win_w]
     reals += [plan.dt, plan.inv_dz, 2.0 / 3.0]
+    reals += per_mode([g[2] for g in grids], 0.0)
+    reals += [float(u) for u in gauss_u]
+    reals += [float(w) for w in gauss_w]
+    for x, w, _ in grids:
+        reals += list(x) + list(w)
 
     ints[7] = real_offset
     total = real_offset + np.dtype(real_t).itemsize * len(reals)
@@ -345,16 +497,70 @@ def _invert_rows(fam: int, rows, eps: float):
     return n, special.select(valid, theta, 1.0), special.select(valid, k, 1.0)
 
 
+def _gammainc_sel(a, x, n_iters: int, log_x):
+    """P(a, x) of `special.gammainc_impl` (``log_x`` the caller's log of x)
+    with each lane's series or continued fraction evaluated only where it
+    is selected, as the kernels do: `gammainc_impl` evaluates both at safe
+    arguments and keeps one, so the kept values are the same. Zero where
+    x ≤ 0. ``lgamma(a)`` and ``log(a + 1)`` are taken at a's own shape."""
+    lga = special.lgamma(a)
+    log_ap1 = torch.log(a + 1.0)
+    shape = torch.broadcast_shapes(a.shape, x.shape)
+    a, lga, log_ap1, log_x = (t.expand(shape) for t in (a, lga, log_ap1, log_x))
+    x = torch.clamp(x.expand(shape), max=1e6)
+    use_series = x < a + 1.0
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for series in (True, False):
+        idx = ((use_series if series else ~use_series) & (x > 0.0)).nonzero(as_tuple=True)
+        if idx[0].numel() == 0:
+            continue
+        aa, xx = a[idx], x[idx]
+        pre = special.exp(aa * log_x[idx] - xx - lga[idx])
+        if series:
+            v = special._gammainc_series_sum(aa, xx, n_iters) * pre
+        else:
+            v = 1.0 - special._gammainc_contfrac_h(aa, xx, n_iters) * pre
+        out[idx] = torch.clamp(v, 0.0, 1.0)
+    return out
+
+
+def _gammaincinv_newton(a, p: float, n_newton: int, n_iters: int):
+    """x with P(a, x) = p by `special.gammaincinv_impl` (Wilson–Hilferty
+    start, `n_newton` damped Newton steps), its incomplete gamma by
+    `_gammainc_sel`."""
+    a, p = special._clip_percentile(a, torch.full_like(a, p))
+    tiny = special._finfo(a.dtype).tiny
+    z = special.ndtri(p)
+    t = 1.0 - 1.0 / (9.0 * a) + z * torch.sqrt(1.0 / (9.0 * a))
+    x0 = a * t * t * t
+    x_small = special.exp((torch.log(p) + special.lgamma(a + 1.0)) / a)
+    x0 = torch.where((t > 0.0) & (x0 > 1e3 * tiny), x0, x_small)
+    x = torch.clamp(x0, min=tiny)
+    lg = special.lgamma(a)
+    for _ in range(n_newton):
+        log_xc = torch.log(torch.clamp(torch.clamp(x, max=1e6), min=tiny))
+        f = _gammainc_sel(a, x, n_iters, log_xc) - p
+        logdf = (a - 1.0) * torch.log(torch.clamp(x, min=tiny)) - x - lg
+        step = f * special.exp(-logdf)
+        step = torch.clamp(step, -9.0 * x, 0.9 * x)
+        x = x - step
+    return x
+
+
 def _moving_threshold(plan: FusedPlan, i: int, params):
     """Per-lane threshold of mode i under MovingThreshold (the Pallas
-    body's `thr_rows`): gamma θ·P⁻¹(k, p) by the fast GL inverse with the
-    percentile and Φ⁻¹(p) in the working type, exponential θ·(−log1p(−p)),
+    body's `thr_rows`): gamma θ·P⁻¹(k, p), by the fast GL inverse
+    (gl_nodes > 0) or by Newton on the series/CF P (gl_nodes = 0), with the
+    percentile and Φ⁻¹(p) in the working type; exponential θ·(−log1p(−p)),
     lognormal exp(μ + σ·Φ⁻¹(p)); clamped below at 1e-18."""
     n, p1, p2 = params
     fam, c = plan.families[i], plan.thr_const[i]
-    if fam == Family.GAMMA:
+    if fam == Family.GAMMA and plan.gl_nodes:
         thr = p1 * special.gammaincinv_gl_impl(
             p2, torch.full_like(p1, c), n_iter=3, n_nodes=plan.gl_nodes)
+    elif fam == Family.GAMMA:
+        thr = p1 * _gammaincinv_newton(p2, c, plan.thr_newton_iters,
+                                       plan.thr_gammainc_iters)
     elif fam == Family.EXPONENTIAL:
         thr = p1 * c
     else:  # LOGNORMAL
@@ -362,16 +568,19 @@ def _moving_threshold(plan: FusedPlan, i: int, params):
     return torch.clamp(thr, min=1e-18)
 
 
-def _gis_exact(thr, theta, k, M: int, gl_nodes: int):
-    """P(2k + s, T/θ), s = 0..2M−2: one GL incomplete gamma at the top order
-    and the clipped downward Poisson recurrence (`_f2_gamma_exact`); `thr`
-    is a constant or a per-lane row."""
+def _gis_exact(plan: FusedPlan, thr, theta, k):
+    """P(2k + s, T/θ), s = 0..2M−2 (`_f2_gamma_exact`): one incomplete gamma
+    at the top order — GL with the Stirling lgamma, or series/CF with the
+    Lanczos one (gl_nodes = 0) — and the clipped downward Poisson
+    recurrence; `thr` is a constant or a per-lane row."""
+    M = plan.M
     tiny = torch.finfo(theta.dtype).tiny
     ratio = special.rdiv(thr, theta) if isinstance(thr, float) else thr / theta
     x = torch.clamp(ratio, max=1e6)
     log_x = torch.log(torch.clamp(x, min=tiny))
     a0 = 2.0 * k
-    lga01 = special.lgamma_stirling(a0 + 1.0)
+    lga01 = (special.lgamma_stirling(a0 + 1.0) if plan.gl_nodes
+             else special.lgamma(a0 + 1.0))
     d = special.exp(a0 * log_x - x - lga01)
     d = special.select(x > 0.0, d, 0.0)
     ds = [d]
@@ -379,15 +588,124 @@ def _gis_exact(thr, theta, k, M: int, gl_nodes: int):
     for j in range(1, 2 * M - 2):
         ds.append(ds[-1] * x / (a0 + j))
         prod = (a0 + j) if prod is None else prod * (a0 + j)
-    gi = special.gammainc_gl(
-        a0 + (2.0 * M - 2.0), x, n_nodes=gl_nodes, gln=lga01 + torch.log(prod)
-    )
+    if plan.gl_nodes:
+        gi = special.gammainc_gl(a0 + (2.0 * M - 2.0), x, n_nodes=plan.gl_nodes,
+                                 gln=lga01 + torch.log(prod))
+    else:
+        gi = _gammainc_sel(a0 + (2.0 * M - 2.0), x, plan.gammainc_iters, log_x)
     gis = [gi]
     for j in range(2 * M - 3, -1, -1):
         gi = torch.clamp(gi + ds[j], 0.0, 1.0)
         gis.append(gi)
     gis.reverse()
     return gis
+
+
+def _moving_grid(plan: FusedPlan, thr):
+    """Per-lane quadrature grid of a MovingThreshold mode (`_moving_grid`):
+    ([G, B] nodes, [G, B] weights, dx). "gauss": the GL base nodes mapped
+    onto [log(1e-5·min(T, 1)), log T], dx = 1; "reference": the masked
+    Simpson grid of `n_points_max` points over [log min(1e-5, 1e-5·T),
+    log T] with nb = min(⌊15·log10(T/x_lo)⌋, G − 1) bins (log10 as
+    `jnp.log10`: log times 1/ln 10 in the working type), dx a row."""
+    dtype, dev = thr.dtype, thr.device
+    if plan.quad_rule == "gauss":
+        u, wu = np.polynomial.legendre.leggauss(plan.gauss_nodes)
+        u = torch.as_tensor(u, dtype=dtype, device=dev)[:, None]
+        wu = torch.as_tensor(wu, dtype=dtype, device=dev)[:, None]
+        x_lo = 1e-5 * torch.clamp(thr, max=1.0)
+        a, b = torch.log(x_lo), torch.log(thr)
+        x = special.exp(a + 0.5 * (b - a) * (u + 1.0))
+        return x, 0.5 * (b - a) * wu, 1.0
+    G = plan.n_points_max
+    j = torch.arange(G, dtype=dtype, device=dev)[:, None] + 1.0
+    x_lo = torch.minimum(torch.tensor(1e-5, dtype=dtype, device=dev), 1e-5 * thr)
+    ratio = torch.log(thr / x_lo) * 0.4342944819032518
+    nb = torch.clamp(torch.floor(15.0 * ratio), max=float(G - 1))
+    x_min = torch.log(x_lo)
+    dx = (torch.log(thr) - x_min) / nb
+    x = special.exp(x_min + (j - 1.0) * dx)
+    w = ((j >= 5.0) & (j <= nb - 3.0)).to(dtype)
+    for jj, c in ((1.0, 17.0), (2.0, 59.0), (3.0, 43.0), (4.0, 49.0)):
+        w = w + special.select(j == jj, c / 48.0, torch.zeros_like(w))
+    e = nb + 1.0
+    for off, c in ((0.0, 17.0), (1.0, 59.0), (2.0, 43.0), (3.0, 49.0)):
+        w = w + special.select(j == e - off, c / 48.0, torch.zeros_like(w))
+    return x, w * (j <= nb).to(dtype), dx
+
+
+def moving_thresholds(plan: FusedPlan, mom: torch.Tensor) -> dict:
+    """The twin's per-lane threshold of each thresholded mode under
+    MovingThreshold, {mode: [B] row}, from normalized moments ``[n_tot, B]``
+    (for reports: the kernels compute their own)."""
+    eps = torch.finfo(mom.dtype).eps
+    out = {}
+    for i, fam in enumerate(plan.families):
+        if plan.moving and plan.thr_flag[i]:
+            o = plan.offsets[i]
+            params = _invert_rows(fam, list(mom[o:o + plan.nprog[i]]), eps)
+            out[i] = _moving_threshold(plan, i, params)
+    return out
+
+
+def moving_bins(thr: torch.Tensor) -> torch.Tensor:
+    """The moving Simpson grid's bin count per lane, nb (before the cap at
+    G − 1), in the order the twin and the kernels compute it."""
+    x_lo = torch.minimum(torch.tensor(1e-5, dtype=thr.dtype, device=thr.device),
+                         1e-5 * thr)
+    return torch.floor(15.0 * (torch.log(thr / x_lo) * 0.4342944819032518))
+
+
+def _f2_gamma_grid(plan: FusedPlan, i: int, thr, n, theta, k):
+    """Unclamped gamma/exponential F2 {(p, q): row}, p ≤ q < M, on a
+    quadrature grid (`_f2_gamma`): Poisson deltas from the Lanczos
+    lgamma(k + 1), the top-order incomplete gamma (GL, or series/CF at
+    `gammainc_iters`) and the clipped downward recurrence, integrand rows
+    exp(k·log x − x·(1/θ))·w, multiplicative prefactors n²θ^{q−k}Γ(q+k)/Γ(k)²,
+    the sums over the nodes (`torch.sum` over [G, B] tiles, as `jnp.sum`)
+    times dx."""
+    dtype, dev = theta.dtype, theta.device
+    tiny = torch.finfo(dtype).tiny
+    M = plan.M
+    if plan.moving:
+        x, w, dx = _moving_grid(plan, thr)
+    else:
+        xg, wg, dx = plan.grids[i]
+        x = torch.tensor(xg, dtype=dtype, device=dev)[:, None]
+        w = torch.tensor(wg, dtype=dtype, device=dev)[:, None]
+        thr = torch.tensor(thr, dtype=dtype, device=dev)
+    logx = torch.log(x)
+    inv_theta = 1.0 / theta
+    rem = torch.clamp(thr - x, min=0.0) * inv_theta
+    log_rem = torch.log(torch.clamp(rem, min=tiny))
+    delta = special.exp(k * log_rem - rem - special.lgamma(k + 1.0))
+    delta = special.select(rem > 0.0, delta, 0.0)
+    deltas = [delta]
+    for q in range(1, M - 1):
+        deltas.append(deltas[-1] * rem / (k + q))
+    if plan.gl_nodes:
+        gi = special.gammainc_gl(k + (M - 1.0), rem, n_nodes=plan.gl_nodes)
+    else:
+        gi = _gammainc_sel(k + (M - 1.0), rem, plan.gammainc_iters, log_rem)
+    gis = [gi]
+    for q in range(M - 2, -1, -1):
+        gi = torch.clamp(gi + deltas[q], 0.0, 1.0)
+        gis.append(gi)
+    gis.reverse()
+    base = special.exp(k * logx - x * inv_theta) * w
+    lgk = special.lgamma(k)
+    logth = torch.log(theta)
+    prefs = [(n * n) * special.exp(-k * logth - lgk)]
+    for q in range(1, M):
+        prefs.append(prefs[-1] * theta * (k + q - 1.0))
+    out = {}
+    ypow = base
+    for p in range(M):
+        if p > 0:
+            ypow = ypow * x
+        for q in range(p, M):
+            out[(p, q)] = torch.sum(ypow * gis[q], dim=0) * dx * prefs[q]
+    return out
 
 
 def _f2_lognormal_window(plan: FusedPlan, thr, n, mu, sig):
@@ -436,13 +754,13 @@ def _f2_lognormal_window(plan: FusedPlan, thr, n, mu, sig):
 
 def _coal_body_rows(plan: FusedPlan, mom_rows):
     """The shared physics on NORMALIZED rows: closure → integer moments →
-    thresholds → F2 (exact gamma, or the lognormal window) → clamp → Q/R/S
-    sparse FMAs. Returns (acc, params); acc[o] is None where no term
-    lands."""
+    thresholds → F2 (exact gamma, a quadrature grid, or the lognormal
+    window) → clamp → Q/R/S sparse FMAs. Returns (acc, params); acc[o] is
+    None where no term lands."""
     dtype = mom_rows[0].dtype
     eps = torch.finfo(dtype).eps
     M = plan.M
-    params, mf, gis, win = [], [], {}, {}
+    params, mf, gis, tab = [], [], {}, {}
     for i, fam in enumerate(plan.families):
         o = plan.offsets[i]
         n, p1, p2 = _invert_rows(fam, mom_rows[o:o + plan.nprog[i]], eps)
@@ -462,11 +780,13 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
             continue
         thr = (_moving_threshold(plan, i, params[i]) if plan.moving
                else plan.thr_const[i])
-        if fam == Family.LOGNORMAL:
-            win[i] = _f2_lognormal_window(plan, thr, n, p1, p2)
+        kk = p2 if fam == Family.GAMMA else torch.ones_like(p1)
+        if plan.f2_kind[i] == F2_WINDOW:
+            tab[i] = _f2_lognormal_window(plan, thr, n, p1, p2)
+        elif plan.f2_kind[i] == F2_GRID:
+            tab[i] = _f2_gamma_grid(plan, i, thr, n, p1, kk)
         else:
-            kk = p2 if fam == Family.GAMMA else torch.ones_like(p1)
-            gis[i] = _gis_exact(thr, p1, kk, M, plan.gl_nodes)
+            gis[i] = _gis_exact(plan, thr, p1, kk)
 
     f2_cache = {}
 
@@ -476,8 +796,8 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
             mm = mf[k][a] * mf[k][b]
             if k in gis:
                 val = torch.minimum(mm, mm * gis[k][a + b])
-            elif k in win:
-                val = torch.minimum(mm, win[k][(a, b)])
+            elif k in tab:
+                val = torch.minimum(mm, tab[k][(a, b)])
             else:
                 val = mm
             f2_cache[key] = special.select(mm < eps, 0.0, val)
@@ -496,15 +816,19 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
 
 def _sedi_flux_rows(plan: FusedPlan, params):
     """Normalized sedimentation flux rows ``−Σ_k c_k·M_{m+e_k}`` from the
-    closure parameters (`_sedi_flux_rows` with ``fast_ratio=True``)."""
+    closure parameters (`_sedi_flux_rows`; ``fast_ratio`` where gl_nodes >
+    0, the Lanczos-lgamma pair where gl_nodes = 0)."""
     out = [None] * plan.n_tot
     for i, fam in enumerate(plan.families):
         n, p1, p2 = params[i]
         logp1 = torch.log(torch.clamp(p1, min=torch.finfo(p1.dtype).tiny))
         flux = [None] * plan.nprog[i]
         for (c, e) in plan.vel_n:
-            if fam == Family.GAMMA:
+            if fam == Family.GAMMA and plan.gl_nodes:
                 t = n * special.exp(e * logp1) * special.gamma_ratio(p2, e)
+            elif fam == Family.GAMMA:
+                t = n * special.exp(e * logp1 + special.lgamma(p2 + e)
+                                    - special.lgamma(p2))
             elif fam == Family.EXPONENTIAL:
                 t = n * math.gamma(1.0 + e) * special.exp(e * logp1)
             for m in range(plan.nprog[i]):
@@ -684,7 +1008,7 @@ class CoalFn(_KernelFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return coal_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.n_tot, self.plan.arms)
+        return self._launch(mom, self.plan.n_tot, self.plan.instance)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T
@@ -715,7 +1039,8 @@ class RainshaftStepFn(_KernelFn):
         if mom.device.type == "cpu":
             return rainshaft_step_soa_plain(mom, self.plan, scale)
         extra = () if scale is None else (scale.data_ptr(),)
-        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.arms, *extra)
+        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.instance,
+                            *extra)
 
 
 class ScaledRainshaftStepFn(RainshaftStepFn):
@@ -758,7 +1083,7 @@ class RainshaftRhsFn(_KernelFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return rainshaft_rhs_soa_plain(mom, self.plan)
-        return self._launch(mom, 2 * self.plan.n_tot, self.plan.arms)
+        return self._launch(mom, 2 * self.plan.n_tot, self.plan.instance)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
@@ -766,9 +1091,10 @@ class RainshaftRhsFn(_KernelFn):
 
 
 def make_coal_fn(data: CoalescenceData, device="cuda",
-                 dtype: torch.dtype = torch.float32) -> CoalFn:
-    """Coalescence RHS on `device` in `dtype`; see `CoalFn`."""
-    return CoalFn(build_plan(data), device, dtype)
+                 dtype: torch.dtype = torch.float32, **coal_kwargs) -> CoalFn:
+    """Coalescence RHS on `device` in `dtype`; see `CoalFn`. `coal_kwargs`
+    are `make_pallas_coal_fn`'s per-call overrides (`COAL_OVERRIDES`)."""
+    return CoalFn(build_plan(data, **coal_kwargs), device, dtype)
 
 
 def make_rainshaft_rhs_fn(
@@ -777,10 +1103,12 @@ def make_rainshaft_rhs_fn(
     norms: Tuple[float, float],
     device="cuda",
     dtype: torch.dtype = torch.float32,
+    **coal_kwargs,
 ) -> RainshaftRhsFn:
     """Fused per-level rainshaft RHS on `device` in `dtype`; see
-    `RainshaftRhsFn`. `vel` is the PHYSICAL power-law velocity."""
-    return RainshaftRhsFn(build_plan(data, vel, norms), device, dtype)
+    `RainshaftRhsFn`. `vel` is the PHYSICAL power-law velocity; `coal_kwargs`
+    as for `make_coal_fn`."""
+    return RainshaftRhsFn(build_plan(data, vel, norms, **coal_kwargs), device, dtype)
 
 
 def make_rainshaft_step_fn(
@@ -793,11 +1121,20 @@ def make_rainshaft_step_fn(
     device="cuda",
     dtype: torch.dtype = torch.float32,
     kernel_scale: bool = False,
+    **coal_kwargs,
 ) -> RainshaftStepFn:
     """Whole SSPRK33 rainshaft step on `device` in `dtype`; see
-    `RainshaftStepFn`, and `ScaledRainshaftStepFn` for ``kernel_scale=True``.
-    `vel` is the PHYSICAL power-law velocity."""
+    `RainshaftStepFn`, and `ScaledRainshaftStepFn` for ``kernel_scale=True``
+    (fast tier only: the scaled kernel has no reference-tier instance, as
+    JAX's scaled kernel runs only at the fast tier). `vel` is the PHYSICAL
+    power-law velocity; `coal_kwargs` as for `make_coal_fn`."""
     if nz < 2 or nz > 1024:
         raise ValueError(f"nz={nz} must lie in [2, 1024] (one block holds a column)")
+    plan = build_plan(data, vel, norms, nz, dz, dt, **coal_kwargs)
+    if kernel_scale and plan.ref:
+        raise NotImplementedError(
+            "the scaled whole step is ported at the fast tier only "
+            "(f2_exact=True, gammainc_gl_nodes > 0)"
+        )
     cls = ScaledRainshaftStepFn if kernel_scale else RainshaftStepFn
-    return cls(build_plan(data, vel, norms, nz, dz, dt), device, dtype)
+    return cls(plan, device, dtype)

@@ -35,6 +35,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 #: operations/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+#: the float64 rate outside the tensor cores (the same data sheet)
+H100_F64_OPS_PER_S = 34e12
 
 #: operations that move or reinterpret data without arithmetic
 _NO_ARITHMETIC = (
@@ -69,11 +71,12 @@ def count_ops(fn, *args) -> int:
     return counter.ops
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, f64: bool = False):
     """(bound in ms, "bytes" or "operations"): the least time one H100 could
-    take to move `n_bytes` or to do `n_ops` float32 operations."""
+    take to move `n_bytes` or to do `n_ops` float32 (`f64`: float64)
+    operations."""
     t_bytes = n_bytes / H100_BYTES_PER_S
-    t_ops = n_ops / H100_F32_OPS_PER_S
+    t_ops = n_ops / (H100_F64_OPS_PER_S if f64 else H100_F32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 

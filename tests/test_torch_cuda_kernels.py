@@ -280,3 +280,93 @@ def test_numerical_bench_shape_matches_twin(cuda):
     got = fn.soa(x)
     assert bool(torch.isfinite(got).all())
     assert _row_scaled(got, fn.plain(x, chunk=1024)) < NUM_TOL[torch.float32]
+
+
+# --------------------------------------------------------------------------
+# the reference tier (quadrature-grid F2, series/CF, Newton inverse)
+# --------------------------------------------------------------------------
+
+
+def _ref_data(families=(Family.GAMMA, Family.GAMMA), moving=False, **kw):
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    thresholds = (0.9, 1.0) if moving else (5e-10, np.inf)
+    return build_coalescence_data(SpectrumSpec(families), ker, thresholds, norms=NORMS,
+                                  moving=moving, **kw)
+
+
+def _param_moments(families, n, seed):
+    """Normalized moments [n_tot, n] from parameters drawn first: moving
+    thresholds on both sides of T = 1."""
+    rng = np.random.default_rng(seed)
+    par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(0.05, 5.0, n),
+                              rng.uniform(0.5, 5.0, n)], -1) for _ in families], axis=1)
+    return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).T.contiguous()
+
+
+REF_CASES = {
+    "fixed_simpson": ({}, {}),
+    "fixed_gauss": ({}, {"quad_rule": "gauss"}),
+    "moving_simpson": ({"moving": True}, {}),
+    "moving_gauss": ({"moving": True}, {"quad_rule": "gauss"}),
+    "exact_series_cf": ({"f2_exact": True}, {}),
+    "exp_gamma": ({"families": (Family.EXPONENTIAL, Family.GAMMA)}, {}),
+    "bench_grid_gl": ({"gammainc_iters": 12, "gammainc_gl_nodes": 12},
+                      {"quad_rule": "gauss", "gauss_nodes": 12, "gammainc_iters": 12}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REF_CASES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_reference_coal_kernel_matches_twin(cuda, dtype, case):
+    """B3's reference-tier instance against its twin, 4,099 boxes."""
+    bkw, ckw = REF_CASES[case]
+    data = _ref_data(**bkw)
+    fn = fc.make_coal_fn(data, device=cuda, dtype=dtype, **ckw)
+    assert fn.plan.instance == 2
+    x = _param_moments(data.spec.families, 4099, seed=7).to(cuda, dtype)
+    got = fn.soa(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["fixed", "moving"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_reference_step_and_rhs_kernels_match_twins(cuda, dtype, moving):
+    """B1's and B4's reference-tier instances (series/CF, Lanczos flux)
+    against their twins, 9 columns × 32 levels."""
+    data = _ref_data(moving=moving)
+    step = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                     device=cuda, dtype=dtype)
+    rhs = fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device=cuda, dtype=dtype)
+    assert step.plan.instance == 2 and rhs.plan.instance == 2
+    x = _column_state(9, 32, seed=4).to(cuda, dtype)
+    norm = torch.tensor(step.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
+    got = step(x)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm, step.plain(x) / norm) < TOL[dtype]
+    norm2 = torch.cat([norm, norm])
+    got = rhs.soa(x)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm2, rhs.plain(x) / norm2) < TOL[dtype]
+
+
+def test_moving_bins_on_the_card_match_the_twin(cuda):
+    """The moving Simpson grid's bin count sits on an integer (75 for every
+    T ≤ 1): the card's division, log and floor give the twin's count at the
+    ratios next to 1e5."""
+    for dtype in DTYPES:
+        t = torch.logspace(-6, 0, 20001, dtype=torch.float64).to(dtype)
+        assert bool((fc.moving_bins(t.to(cuda)).cpu() == fc.moving_bins(t)).all())
+
+
+def test_rainshaft_128_hook_through_kernel_matches_golden(cuda):
+    """`rainshaft_128` through B3's reference-tier instance on the card
+    (f64, 30 steps) against its golden's first saved frame."""
+    from _golden_cases import load_golden
+
+    ys, report = harness.run_scenario("rainshaft_128", device=cuda, hook=True, t_end=30.0)
+    assert report["launches"] == 90
+    _, ys_g = load_golden("rainshaft_128")
+    scale = np.abs(ys_g).max(axis=(0, 1))
+    assert (np.abs(ys.cpu().numpy() - ys_g[:2]) / scale).max() < 1e-6

@@ -28,22 +28,32 @@ def _data(families=(Family.GAMMA, Family.GAMMA), thresholds=(5e-10, np.inf), **k
                                   norms=NORMS, **kw)
 
 
+def _port_modules():
+    """Every module of the port, by dotted name."""
+    import pkgutil
+
+    import cloudy_tpu_torch
+
+    return ["cloudy_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(cloudy_tpu_torch.__path__, "cloudy_tpu_torch."))
+
+
 def test_import_without_jax():
     """Every module of the port imports in a process where importing jax or
     cloudy_tpu fails."""
+    modules = _port_modules()
+    assert {"cloudy_tpu_torch.models.rainshaft", "cloudy_tpu_torch.ops.fused_coalescence",
+            "cloudy_tpu_torch.harness", "cloudy_tpu_torch.bench",
+            "cloudy_tpu_torch.coalescence"} <= set(modules)
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'cloudy_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "import cloudy_tpu_torch, cloudy_tpu_torch.harness, cloudy_tpu_torch.bench\n"
-        "import cloudy_tpu_torch.ops._build, cloudy_tpu_torch.ops.gauss\n"
-        "import cloudy_tpu_torch.tools.profile_step, cloudy_tpu_torch.tools.opcount\n"
-        "import cloudy_tpu_torch.coalescence_numerical, cloudy_tpu_torch.models.box\n"
-        "import cloudy_tpu_torch.ops.numerical_coalescence, cloudy_tpu_torch.calibrate\n"
-        "import cloudy_tpu_torch.tools.calibration_bench\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
         "assert not any(m.split('.')[0] in ('jax', 'cloudy_tpu') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -68,6 +78,32 @@ def test_no_source_line_imports_jax_or_the_jax_package():
         with open(path) as f:
             bad = [ln for ln in f if pattern.match(ln)]
         assert not bad, (path, bad)
+
+
+def test_entry_points_default_to_the_card():
+    """No public `run_*` or `make_*` function of the port, nor a scenario
+    builder, defaults to the CPU: a caller asks for the host (the JAX entry
+    points run on the default backend)."""
+    import importlib
+    import inspect
+
+    checked = []
+    for name in _port_modules():
+        module = importlib.import_module(name)
+        for fname, fn in inspect.getmembers(module, inspect.isfunction):
+            if fn.__module__ != name or not (
+                    fname.startswith(("run_", "make_", "_scenario_"))):
+                continue
+            param = inspect.signature(fn).parameters.get("device")
+            if param is None:
+                continue
+            checked.append(f"{name}.{fname}")
+            assert param.default is not inspect.Parameter.empty, (name, fname)
+            assert torch.device(param.default).type == "cuda", (name, fname, param.default)
+    assert "cloudy_tpu_torch.models.rainshaft.run_rainshaft" in checked
+    assert "cloudy_tpu_torch.harness.run_scenario" in checked
+    assert "cloudy_tpu_torch.harness._scenario_rainshaft_128" in checked
+    assert "cloudy_tpu_torch.ops.fused_coalescence.make_coal_fn" in checked
 
 
 def test_cpu_tensor_runs_twin_without_launch():
@@ -111,25 +147,114 @@ def test_wrapper_rejects_wrong_dtype_shape_layout():
 
 @pytest.mark.parametrize(
     "case",
-    ["lognormal", "moving", "simpson_tier", "monodisperse"],
+    ["lognormal", "monodisperse", "capacity"],
 )
 def test_unsupported_configuration_raises(case):
-    """The arms still to port: a thresholded lognormal mode on the Φ grid,
-    the Newton percentile inverse of MovingThreshold (series/CF incomplete
-    gamma), the quadrature-grid F2, monodisperse modes."""
+    """What is still to port raises, naming its ROADMAP item: a thresholded
+    lognormal mode on the Φ grid (B-arms.4), monodisperse modes (B-arms.3),
+    configurations past the kernels' capacities (B-codegen)."""
     if case == "lognormal":
-        data = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=0)
-    elif case == "moving":
+        data, label = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=0), "B-arms.4"
+    elif case == "monodisperse":
+        data, label = _data((Family.MONODISPERSE, Family.GAMMA)), "B-arms.3"
+    else:
+        data, label = _data((Family.GAMMA,) * 4, (5e-10,) * 3 + (np.inf,)), "B-codegen"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {label}"):
+        fc.make_coal_fn(data, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {label}"):
+        fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=32,
+                                  dz=93.75, dt=1.0, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["moving_newton", "simpson_tier", "gauss_grid", "exact_series", "exp_gamma_simpson",
+     "moving_gauss_gl", "lognormal_window_series"],
+)
+def test_reference_tier_configuration_accepted(case):
+    """Gamma and exponential modes at quad_rule "reference" and "gauss",
+    f2_exact True and False, gammainc_gl_nodes 0 and > 0, fixed and moving,
+    build and select the kernels' reference-tier instance."""
+    kw = {}
+    if case == "moving_newton":
         data = _data(thresholds=(0.9, 1.0), moving=True, gammainc_gl_nodes=0)
     elif case == "simpson_tier":
         data = _data(fast_tier=False)
+    elif case == "gauss_grid":
+        data, kw = _data(fast_tier=False), {"quad_rule": "gauss", "gammainc_gl_nodes": 12}
+    elif case == "exact_series":
+        data = _data(fast_tier=False, f2_exact=True)
+    elif case == "exp_gamma_simpson":
+        data = _data((Family.EXPONENTIAL, Family.GAMMA), fast_tier=False)
+    elif case == "moving_gauss_gl":
+        data, kw = _data(thresholds=(0.9, 1.0), moving=True), {"quad_rule": "gauss",
+                                                             "f2_exact": False}
     else:
-        data = _data((Family.MONODISPERSE, Family.GAMMA))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fc.make_coal_fn(data, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=32,
-                                  dz=93.75, dt=1.0, device="cpu")
+        data = _data((Family.LOGNORMAL, Family.GAMMA), gammainc_gl_nodes=0)
+    coal = fc.make_coal_fn(data, device="cpu", **kw)
+    step = fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=32,
+                                     dz=93.75, dt=1.0, device="cpu", **kw)
+    for fn in (coal, step):
+        assert fn.plan.ref and fn.plan.instance == 2
+        assert fc.pack_config(fn.plan, torch.float64).size <= fc.CFG_MAX_BYTES
+    from cloudy_tpu_torch import distributions as pd
+
+    params = torch.tensor([[100.0, 0.5, 2.0], [10.0, 2.0, 3.0]]).expand(16, 2, 3)
+    mom = pd.get_moments(data.spec, params).T.contiguous()
+    assert bool(torch.isfinite(coal.soa(mom)).all())
+
+
+def test_packed_config_reference_tier():
+    """The reference tier's header slots, per-mode F2 kinds and grid
+    lengths, and the tail of reals (grid dx, moving Gauss base nodes, the
+    fixed grids' nodes and weights) sit where csrc/coal_body.cuh reads them;
+    a three-mode configuration with two Simpson grids fits the buffer."""
+    plan = fc.build_plan(_data(fast_tier=False, gammainc_iters=40),
+                         ((50.0, 1.0 / 6.0),), NORMS, nz=32, dz=93.75, dt=1.0,
+                         thr_newton_iters=7)
+    buf = fc.pack_config(plan, torch.float64)
+    ints = buf.view(np.int32)
+    assert list(ints[:4]) == [2, 6, 4, 0]  # series/CF: no GL nodes
+    assert list(ints[10:16]) == [0, 40, 7, 128, plan.n_points_max, 0]
+    assert list(ints[16:22]) == [fc.F2_GRID, fc.F2_NONE, 0, 76, 0, 0]
+    reals = buf[int(ints[7]):].view(np.float64)
+    h = fc.MAX_MODES + 2 * fc.MAX_NTOT + len(plan.wb_nz) + len(plan.wf_nz) + 3 * 3
+    assert list(reals[h:h + 3]) == [1.0, 1.0 / 93.75, 2.0 / 3.0]  # dt, inv_dz, 2/3
+    x, w, dx = fc._static_grid(0.5)
+    assert reals[h + 3] == dx and list(reals[h + 4:h + 6]) == [0.0, 0.0]
+    np.testing.assert_array_equal(reals[h + 6:h + 6 + 76], x)
+    np.testing.assert_array_equal(reals[h + 6 + 76:h + 6 + 152], w)
+    assert w[-1] == 0.0  # the masked last point
+    # MovingThreshold "gauss": the GL base nodes, rounded once to the type
+    plan = fc.build_plan(_data(thresholds=(0.9, 1.0), moving=True, fast_tier=False),
+                         quad_rule="gauss", gauss_nodes=16)
+    buf = fc.pack_config(plan, torch.float32)
+    ints = buf.view(np.int32)
+    assert list(ints[14:20]) == [128, 16, fc.F2_GRID, fc.F2_NONE, 0, 0]
+    reals = buf[int(ints[7]):].view(np.float32)
+    u, _ = np.polynomial.legendre.leggauss(16)
+    n_before = (fc.MAX_MODES + 2 * fc.MAX_NTOT + len(plan.wb_nz) + len(plan.wf_nz)
+                + 3 + fc.MAX_MODES)
+    np.testing.assert_array_equal(reals[n_before:n_before + 16], u.astype(np.float32))
+    # three modes, Simpson grids of 76 and 86 points: the bytes the buffer needs
+    three = fc.build_plan(_data((Family.GAMMA,) * 3, (5e-10, 5e-9, np.inf), fast_tier=False))
+    assert [len(g[0]) if g else 0 for g in three.grids] == [76, 86, 0]
+    assert fc.pack_config(three, torch.float64).size <= fc.CFG_MAX_BYTES
+
+
+def test_cpu_tensor_runs_twin_without_launch_reference_tier():
+    """The reference tier's wrappers on CPU tensors run their twins and
+    count no launch, as the fast tier's do."""
+    data = _data(fast_tier=False)
+    coal = fc.make_coal_fn(data, device="cpu", dtype=torch.float64)
+    mom = torch.rand(6, 64, dtype=torch.float64) + 0.5
+    np.testing.assert_array_equal(coal.soa(mom).numpy(),
+                                  fc.coal_soa_plain(mom, coal.plan).numpy())
+    step = fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=16,
+                                     dz=100.0, dt=1.0, device="cpu", dtype=torch.float64)
+    state = torch.rand(6, 64, dtype=torch.float64)
+    np.testing.assert_array_equal(step(state).numpy(), step.plain(state).numpy())
+    assert coal.launches == 0 and step.launches == 0
 
 
 def test_packed_config_layout():
