@@ -71,7 +71,22 @@ Drives the port's main path once on the card and fails loudly:
    (< 1e-3);
 19. the bench chain at 2^20 boxes, f32, at bench.py's four switch settings
    (f2_exact, gl_nodes) = (1, 12), (0, 12), (1, 0), (0, 0): moment-updates/s
-   and launches, the kernel against its twin and both times there.
+   and launches, the kernel against its twin and both times there;
+20. the monodisperse and lognormal Φ-grid arms (reference-tier instance):
+   every instance's `ptxas` line beside phase 6's unscaled B1 time; the
+   coalescence kernel against its twin at 65,536 boxes, f32 and f64, for
+   mono + gamma (fixed, lanes on both sides of θ = T/2; moving), gamma +
+   mono, lognormal + gamma on the fixed Simpson grid (series erf) and Gauss
+   grid (12, rational erf), on the moving Simpson and Gauss grids, and
+   exponential + lognormal + gamma; each arm's Euler chain at 2^20 boxes and
+   a comparison there; the whole-step and fused-RHS kernels against their
+   twins at 4,096 columns x 32 levels, one step, f32 and f64, for the family
+   matrix's `mono-gamma-closed` and `lognorm-gamma-grid`, and the f64
+   anchor of each (128 columns x 40 steps); then the family matrix
+   (`tools.whole_step_ablation`, all nine cases at 2^20 columns x 32 levels,
+   f32), each case's first 4,096 columns after its timed chain held against
+   the twin run on the card, beside the twin's own spread from a start one
+   ulp away.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -79,7 +94,9 @@ arm's chain in phase 8, the fused-RHS route in phase 10, each variant's run
 in phase 11, the numerical chain in phase 14, and in phase 16 `pod_main`'s
 8-iteration EKI run at 256 members (`pod_main` zeroes the scaled step's
 count just before that run and reports it just after), each golden run in
-phase 18 and each switch setting's chain in phase 19. The last two lines are a JSON
+phase 18, each switch setting's chain in phase 19, and in phase 20 each arm's
+chain and each family-matrix case (`whole_step_ablation.run_case` zeroes the
+step's count after its warm-up and reports it with the record). The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
@@ -135,6 +152,8 @@ BENCH_OVERRIDES = dict(quad_rule="gauss", gauss_nodes=12, gammainc_iters=12, f2_
 BENCH_SWITCHES = ((1, 12), (0, 12), (1, 0), (0, 0))  # (f2_exact, gl_nodes), phase 19
 N_BENCH_STEPS = 20  # Euler chain steps per switch setting (phase 19)
 CAL_STEPS = 60  # forward steps per member (tools/calibration_bench.py:102)
+FM_REPS = 3  # timed runs of each family-matrix chain (the tool's default is 5)
+N_FM_ANCHOR_STEPS = 40  # the arms' f64 anchor (phase 20)
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
 NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
 
@@ -1150,12 +1169,236 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 19 seconds {time.perf_counter() - t:.3f}")
 
+    # ---- 20. the monodisperse and lognormal Φ-grid arms, the family matrix --
+    phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg)
+
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
+    """Phase 20: the monodisperse and lognormal Φ-grid arms of the
+    coalescence, whole-step and fused-RHS kernels against their twins, each
+    arm's chain, and the whole-step family matrix; appends its entries to
+    `kernels`. `bound` and `sc_cfg` are main's: the roofline helper and the
+    32-level rainshaft configuration."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch import bench
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    t = time.perf_counter()
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    for ln in ptxas_summary(log):
+        print(f"phase 20 ptxas (phase 2): {ln}")
+    print(f"phase 20 unscaled B1 fixed2gamma in this call (phase 6): {b1_ms:.4f} ms/step "
+          f"(recorded spread 27.15-27.50) {card}")
+    arm_ranges = {Family.GAMMA: ((0.05, 5.0), (0.5, 5.0)),
+                  Family.LOGNORMAL: ((-2.0, 0.5), (0.3, 1.2)),
+                  Family.MONODISPERSE: ((0.05, 0.6), (0.0, 0.0)),  # θ about T/2 = 0.25
+                  Family.EXPONENTIAL: ((0.02, 0.5), (0.0, 0.0))}
+
+    def arm_moments(families, n, seed):
+        """Normalized moments [n_tot, n], parameters drawn first."""
+        rng = np.random.default_rng(seed)
+        par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(*arm_ranges[f][0], n),
+                                  rng.uniform(*arm_ranges[f][1], n)], -1) for f in families],
+                       axis=1)
+        return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).numpy().T.copy()
+
+    M_, L_, E_, G_ = Family.MONODISPERSE, Family.LOGNORMAL, Family.EXPONENTIAL, Family.GAMMA
+    gauss12 = ({"gammainc_gl_nodes": 12}, {"quad_rule": "gauss", "gauss_nodes": 12})
+    arm_cases = {
+        "mono + gamma, fixed": ((M_, G_), False, {}, {}),
+        "mono + gamma, moving": ((M_, G_), True, {}, {}),
+        "gamma + mono (mono last)": ((G_, M_), False, {}, {}),
+        "lognormal + gamma, fixed Simpson, series erf": ((L_, G_), False, {}, {}),
+        "lognormal + gamma, fixed Gauss 12, erf_approx": ((L_, G_), False, *gauss12),
+        "lognormal + gamma, moving Simpson, series erf": ((L_, G_), True, {}, {}),
+        "lognormal + gamma, moving Gauss 12, erf_approx": ((L_, G_), True, *gauss12),
+        "exponential + lognormal + gamma": ((E_, L_, G_), False, {}, {}),
+    }
+    for case, (fams, moving, bkw, ckw) in arm_cases.items():
+        thr = (0.9, 1.0, 1.0)[:len(fams)] if moving else (2e-10, 5e-10, np.inf)[-len(fams):]
+        data = build_coalescence_data(SpectrumSpec(fams), ker, thr, norms=(1e6, 1e-9),
+                                      moving=moving, **bkw)
+        mom_np = arm_moments(fams, N_REF_BOXES, seed=13)
+        sides = ""
+        if fams[0] == M_ and not moving:
+            theta = mom_np[1] / mom_np[0]
+            half = np.float32(data.thresholds[0]) / 2
+            sides = f"; mono θ < T/2 in {int((theta < half).sum())} lanes, not in " \
+                    f"{int((theta >= half).sum())}"
+            check((theta < half).any() and (theta >= half).any(), "mono lanes on one side of T/2")
+        for name, dt in dtypes.items():
+            fn = fc.make_coal_fn(data, device=dev, dtype=dt, **ckw)
+            check(fn.plan.instance == 2, f"[{case}] does not select the reference tier")
+            x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+            got = fn.soa(x)
+            check(fn.launches == 1, "coal wrapper did not count one launch")
+            want = fn.plain(x)
+            torch.cuda.synchronize()
+            err, abs_err = row_scaled(got, want)
+            finite = bool(torch.isfinite(got).all())
+            print(f"phase 20 coal kernel [{case}] vs twin {name} at [{data.spec.n_tot}, "
+                  f"{N_REF_BOXES}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max abs "
+                  f"{abs_err:.3e}, finite {finite}{sides} {card}")
+            check(finite, f"arm coal kernel [{case}] {name} not finite")
+            check(err < TOL[name], f"arm coal kernel [{case}] {name} vs twin {err:.3e}")
+
+    # each arm's Euler chain at 2^20 boxes through the coalescence kernel, at
+    # the family matrix's configurations
+    for arm, case in (("mono", "mono-gamma-closed"), ("lognorm_grid", "lognorm-gamma-grid")):
+        data, kw = wsa.case_data(case)
+        fn = fc.make_coal_fn(data, device=dev, dtype=torch.float32, **kw)
+        x = torch.as_tensor(arm_moments(data.spec.families, bench.BENCH_COLUMNS, seed=0),
+                            dtype=torch.float32, device=dev)
+        fn.soa(x[:, :256].contiguous())  # warm-up outside the count
+        torch.cuda.synchronize()
+        fn.launches = 0
+        s_chain = bench.time_chain(fn.soa, x, N_ARM_STEPS)
+        n_launch = fn.launches
+        check(n_launch == N_ARM_STEPS + 3,
+              f"coal kernel [{arm}] launched {n_launch} times, not {N_ARM_STEPS + 3}")
+        err, abs_err = row_scaled(fn.soa(x), fn.plain(x))
+        check(err < TOL["float32"], f"coal kernel [{arm}] vs twin at [n_tot, 2^20] {err:.3e}")
+        ms, plain_ms = _time_ms(lambda: fn.soa(x), 20), _time_ms(lambda: fn.plain(x), 2)
+        n_tot = data.spec.n_tot
+        print(f"phase 20 coal RHS chain [{arm}] {bench.BENCH_COLUMNS} boxes f32: "
+              f"{s_chain * 1e3:.4f} ms/step, {bench.BENCH_COLUMNS * n_tot / s_chain:.4e} "
+              f"moment-updates/s, launches {n_launch}; at [{n_tot}, {bench.BENCH_COLUMNS}] "
+              f"row-scaled {err:.3e}, max abs {abs_err:.3e}; kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms {card}")
+        kernels.append({"name": f"coal_rhs[{arm}]", "route": "cuda", "source": SOURCE,
+                        "replaces": B3_REPLACES, "launches": n_launch,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err,
+                        "ms": ms, "plain_ms": plain_ms,
+                        **bound(f"coal_rhs[{arm}]", fn.plain, x[:, :256].contiguous(),
+                                bench.BENCH_COLUMNS, n_tot, n_tot)})
+        del fn, x
+
+    def mono_flips(a, b, data):
+        """Lanes whose mono θ = m1/m0 lies on different sides of T/2 in two
+        normalized states (the closed form's knife edge)."""
+        half = float(np.float32(data.thresholds[0])) / 2
+        ta, tb = a[1] / a[0], b[1] / b[0]
+        return int(((ta < half) != (tb < half)).sum())
+
+    def arm_state(spec, n_cols, seed):
+        """[n_tot, n_cols·nz] physical states: the mode-1 pulse (first nprog
+        moments), a seeded gamma mode 2, per-column amplitudes, a negative
+        moment and a whole negative level."""
+        n1 = spec.nprogmoms[0]
+        ic = np.concatenate([rs.initial_condition(sc_cfg.z, [1e8, 1e-2, 2e-12])[:, :n1],
+                             rs.initial_condition(sc_cfg.z, [1e7, 1e-3, 2e-13])], axis=-1)
+        amp = np.random.default_rng(seed).uniform(0.5, 1.5, (n_cols, 1, 1))
+        st = np.tile(ic[None], (n_cols, 1, 1)) * amp
+        st[0, NZ // 2, 0] *= -1.0
+        st[1, NZ // 2 + 1, :] = -1e-3
+        return rs.to_soa(torch.as_tensor(st))
+
+    for case in ("mono-gamma-closed", "lognorm-gamma-grid"):
+        data, kw = wsa.case_data(case)
+        st = arm_state(data.spec, N_CMP_COLUMNS, seed=2)
+        for name, dt in dtypes.items():
+            step = fc.make_rainshaft_step_fn(data, sc_cfg.vel, sc_cfg.norms, nz=NZ,
+                                             dz=sc_cfg.dz, dt=1.0, device=dev, dtype=dt, **kw)
+            rfn = fc.make_rainshaft_rhs_fn(data, sc_cfg.vel, sc_cfg.norms, device=dev,
+                                           dtype=dt, **kw)
+            check(step.plan.instance == 2 and rfn.plan.instance == 2,
+                  f"[{case}] does not select the reference tier")
+            x = st.to(dev, dt)
+            norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+            for kind, fn, nrm in (("step", step, norm), ("rhs", rfn, torch.cat([norm, norm]))):
+                got = fn(x) if kind == "step" else fn.soa(x)
+                check(fn.launches == 1, f"{kind} wrapper did not count one launch")
+                want = fn.plain(x)
+                torch.cuda.synchronize()
+                err, abs_err = row_scaled(got / nrm, want / nrm)
+                finite = bool(torch.isfinite(got).all())
+                print(f"phase 20 {kind} kernel [{case}] vs twin {name} at [{data.spec.n_tot}, "
+                      f"{N_CMP_COLUMNS * NZ}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max "
+                      f"abs {abs_err:.3e} (normalized), finite {finite} {card}")
+                check(finite, f"arm {kind} kernel [{case}] {name} not finite")
+                check(err < TOL[name], f"arm {kind} kernel [{case}] {name} vs twin {err:.3e}")
+        # the f64 anchor: the kernel against the twin over 40 steps from the pulse
+        config, step = wsa.build_case(case, NZ, dev, torch.float64)
+        y = yt = wsa.initial_state(config, N_ANCHOR_COLUMNS, dev, torch.float64)
+        for _ in range(N_FM_ANCHOR_STEPS):
+            y, yt = step(y), step.plain(yt)
+        aerr, _ = row_scaled(y, yt)
+        flips = ""
+        if data.spec.families[0] == M_:
+            mn = torch.tensor(step.plan.mom_norms, dtype=torch.float64, device=dev)[:, None]
+            flips = f", mono lanes across T/2 between them {mono_flips(y / mn, yt / mn, data)}"
+        print(f"phase 20 [{case}] f64 anchor ({N_ANCHOR_COLUMNS} columns, {N_FM_ANCHOR_STEPS} "
+              f"steps): kernel vs twin row-scaled {aerr:.3e} (tol {TOL['float64']:.0e}), "
+              f"bit-identical {bool(torch.equal(y, yt))}{flips} {card}")
+        check(bool(torch.isfinite(y).all()), f"[{case}] f64 anchor not finite")
+        check(aerr < TOL["float64"], f"[{case}] f64 anchor {aerr:.3e}")
+        del step
+    torch.cuda.empty_cache()
+
+    # the family matrix at 2^20 columns x 32 levels, f32
+    smi_line = smi.splitlines()[0]
+    n_cmp = N_CMP_COLUMNS * NZ
+    for case in wsa.CASE_NAMES:
+        rec, step, state0, timing = wsa.run_case(case, N_POD_COLUMNS, NZ, dev, FM_REPS, smi_line)
+        n_launch = rec["launches"]
+        check(n_launch == rec["steps_run"],
+              f"[{case}] whole-step kernel launched {n_launch} times in {rec['steps_run']} steps")
+        check(rec["finite"], f"[{case}] family-matrix state not finite")
+        yk = timing["state"][:, :n_cmp]
+        yt = state0[:, :n_cmp].contiguous()
+        # the comparison's resolving power: the twin from a start one ulp away
+        # (each entry times 1 - eps, 1 or 1 + eps, seeded)
+        g = torch.Generator(device=dev).manual_seed(0)
+        yp = yt * (1 + torch.finfo(torch.float32).eps * torch.randint(
+            -1, 2, yt.shape, generator=g, device=dev).float())
+        for _ in range(rec["n2"]):
+            yt, yp = step.plain(yt), step.plain(yp)
+        norm = torch.tensor(step.plan.mom_norms, dtype=torch.float32, device=dev)[:, None]
+        err, abs_err = row_scaled(yk / norm, yt / norm)
+        floor, _ = row_scaled(yp / norm, yt / norm)
+        flips = ""
+        if rec["families"][0] == "MONODISPERSE":
+            flips = (f", mono lanes across T/2 between them "
+                     f"{mono_flips(yk / norm, yt / norm, wsa.case_data(case)[0])}")
+        plain_ms = _time_ms(lambda: step.plain(state0), 1)
+        print(f"phase 20 family matrix [{case}] {N_POD_COLUMNS} x {NZ} f32 ({rec['instance']}): "
+              f"{rec['ms_per_step']:.4f} ms/step, {rec['column_updates_per_s']:.4e} "
+              f"column-updates/s (n1 {rec['n1']}, n2 {rec['n2']}, median of {FM_REPS}), "
+              f"launches {n_launch} in {rec['steps_run']} steps; first {N_CMP_COLUMNS} columns "
+              f"after {rec['n2']} steps vs twin on the card: row-scaled {err:.3e} (tol "
+              f"{TOL['float32']:.0e}), max abs {abs_err:.3e} (normalized), bit-identical "
+              f"{bool(torch.equal(yk, yt))}{flips}; twin vs twin from a start one ulp "
+              f"away {floor:.3e}; twin "
+              f"{plain_ms:.4f} ms/step at [{step.plan.n_tot}, {N_POD_COLUMNS * NZ}]; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['ops_per_lane']:.2f} twin "
+              f"operations per lane), share {rec['bound_share']} {card}")
+        print(json.dumps(rec))
+        check(err < TOL["float32"], f"[{case}] family matrix vs twin {err:.3e}")
+        kernels.append({"name": f"rainshaft_step[{case}]", "route": "cuda", "source": SOURCE,
+                        "replaces": B1_REPLACES, "launches": n_launch,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err,
+                        "ms": rec["ms_per_step"], "plain_ms": plain_ms,
+                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                        "library_ms": None})
+        del step, state0, timing, yk, yt, yp
+        torch.cuda.empty_cache()
+    print(f"phase 20 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

@@ -1,12 +1,14 @@
 // Shared device physics of the three fused kernels (fused_coalescence.cu).
 //
 // Counterpart of cloudy_tpu/ops/pallas_coalescence.py::_make_coal_body
-// (:145-622; its gamma/exponential F2, exact or on a quadrature grid, the
-// lognormal window rule, and FixedThreshold and MovingThreshold thresholds)
-// and of pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane:
+// (:145-622; all four families: gamma/exponential F2, exact or on a
+// quadrature grid, lognormal F2 by the window rule or on the Phi grid, the
+// monodisperse closed form, under FixedThreshold and MovingThreshold) and of
+// pallas_coalescence.py::_sedi_flux_rows (:718-768), for ONE lane:
 // one level of one column, all n_tot moments in registers. Special functions
 // follow cloudy_tpu/ops/special.py term for term (Acklam `ndtri`, the fast
-// GL percentile inverse and the damped-Newton one, the A&S rational `erf`);
+// GL percentile inverse and the damped-Newton one, the A&S rational `erf`
+// and the series erf through P(1/2, z^2));
 // the closure inversion (pallas_numerical.py::_invert_rows), the Lanczos
 // `lgamma` and the series/CF incomplete gamma are in common.cuh.
 //
@@ -19,19 +21,24 @@
 // and rounded once to T, as JAX folds Python floats into weakly typed
 // constants. Operation order follows the Pallas body term for term; nvcc's
 // default FMA contraction differs from XLA's fusion, so results agree with
-// the plain twin to rounding (compared row-scaled, never elementwise).
+// the plain twin to rounding (compared row-scaled, never elementwise); the
+// reference whole step is built without contraction
+// (fused_coalescence.cu), so its gridless arms match the twin bit for bit.
 //
 // The MovingThreshold and lognormal arms are compiled only into the
 // kernels' `kArms = true` instances: the host launches the `false` instance
 // for a FixedThreshold gamma/exponential configuration (`FusedPlan.arms`),
 // which then carries neither arm's registers nor its stack. The reference
-// tier (`kRef = true`, always with kArms) adds the gamma/exponential F2 on a
-// quadrature grid (fixed grids packed by the host, moving Simpson and Gauss
-// grids built per lane), the series/continued-fraction incomplete gamma,
-// the damped-Newton percentile inverse and the Lanczos-pair flux; inside it
-// the rule, the grid, GL or series/CF and exact or grid F2 are runtime
-// switches of the configuration. The fast instances compile to the code
-// they had without it.
+// tier (`kRef = true`, always with kArms) adds the gamma/exponential and the
+// lognormal (Phi) F2 on a quadrature grid (fixed grids packed by the host,
+// moving Simpson and Gauss grids built per lane, QuadGrid), the
+// series/continued-fraction incomplete gamma and erf, the damped-Newton
+// percentile inverse, the Lanczos-pair flux and monodisperse modes (the
+// recurrence M theta, the moving threshold theta, the closed-form F2 where
+// theta < T/2, the flux n theta^e); inside it the rule, the grid, GL or
+// series/CF, the erf and the F2 kind are runtime switches of the
+// configuration. The fast instances compile to the code they had without
+// it.
 //
 // No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
 
@@ -48,8 +55,9 @@ constexpr int MAX_NTOT = 9;
 constexpr int MAX_M = 5;
 constexpr int MAX_S = 2 * MAX_M - 1;  // orders s of P(2k + s, T/theta)
 constexpr int MAX_NPROG = 3;
-// per-mode F2 table: P(2k + s, T/theta) for s < MAX_S (gamma/exponential),
-// or the window rule's p <= q entries packed by `tri` (lognormal)
+// per-mode F2 table: P(2k + s, T/theta) for s < MAX_S (exact
+// gamma/exponential), the p <= q entries packed by `tri` (a window or grid
+// rule), or the monodisperse flag theta < T/2 in entry 0
 constexpr int FTAB = MAX_M * (MAX_M + 1) / 2;
 static_assert(FTAB >= MAX_S, "F2 table too small for the gamma orders");
 
@@ -78,7 +86,8 @@ template <typename T> __device__ __forceinline__ T vsign(T x) {
 }
 
 // per-mode F2 (ops/fused_coalescence.py F2_*)
-constexpr int F2_NONE = 0, F2_EXACT = 1, F2_WINDOW = 2, F2_GRID = 3;
+constexpr int F2_NONE = 0, F2_EXACT = 1, F2_WINDOW = 2, F2_GRID = 3,
+              F2_MONO = 4;
 
 // index of (p, q), p <= q < MAX_M, in an FTAB row
 __host__ __device__ constexpr int tri(int p, int q) {
@@ -350,6 +359,16 @@ template <typename T> __device__ __forceinline__ T erf_approx(T x) {
   return vsign(x) * y;
 }
 
+// special.erf_impl: sign(z) * P(1/2, z^2) by the series/CF incomplete gamma
+// at n_iters (its log of z^2 taken after the clamp at 1e6, as gammainc_impl
+// takes it); lg_half = lgamma(1/2), hoisted by the caller
+template <typename T>
+__device__ __forceinline__ T erf_series(T z, int n_iters, T lg_half) {
+  const T x = z * z;
+  const T log_x = dlog(vmax(vmin(x, T(1e6)), Lim<T>::tiny()));
+  return vsign(z) * gammainc_sc(T(0.5), x, n_iters, lg_half, log_x);
+}
+
 // _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2; the top order
 // by GL with the Stirling lgamma, or (reference tier, n_gl = 0) by series/CF
 // with the Lanczos one
@@ -468,14 +487,63 @@ template <typename T> __device__ __forceinline__ T simpson_weight(T j, T nb) {
   return w;
 }
 
+// The F2 quadrature grid of thresholded mode i: the mode's fixed one
+// (host-built, packed), or per lane from the threshold (_moving_grid,
+// :332-366): Gauss-Legendre base nodes mapped onto [log(1e-5 min(T, 1)),
+// log T], or the masked Simpson grid of n_pts points over [log min(1e-5,
+// 1e-5 T), log T] with nb = min(floor(15 log10(T / x_lo)), n_pts - 1) bins
+// (log10 as jnp.log10: log times 1/ln 10 in T; the division, the log, the
+// product by 15 and the floor in the twin's order). Shared by the gamma and
+// the lognormal grid F2.
+template <typename T> struct QuadGrid {
+  int G;
+  T dx = T(1), ga = T(0), ghalf = T(0), x_min = T(0), nb = T(0);
+  const T* gx = nullptr;
+  bool gauss;
+
+  __device__ __forceinline__ QuadGrid(const Config<T>& c, int i, T thr) {
+    gauss = c.quad != 0;
+    if (!c.moving) {
+      G = c.grid_n[i];
+      gx = c.grid(i);
+      dx = c.grid_dx[i];
+    } else if (gauss) {
+      G = c.n_gauss;
+      const T x_lo = T(1e-5) * vmin(thr, T(1));
+      ga = dlog(x_lo);
+      ghalf = T(0.5) * (dlog(thr) - ga);
+    } else {
+      G = c.n_pts;
+      const T x_lo = vmin(T(1e-5), T(1e-5) * thr);
+      const T ratio = dlog(thr / x_lo) * T(0.4342944819032518);
+      nb = vmin(dfloor(T(15) * ratio), T(G - 1));
+      x_min = dlog(x_lo);
+      dx = (dlog(thr) - x_min) / nb;
+    }
+  }
+
+  // node g's abscissa and weight; false past the moving Simpson mask (every
+  // later node has weight zero)
+  __device__ __forceinline__ bool node(const Config<T>& c, int g, T& x,
+                                       T& w) const {
+    if (!c.moving) {
+      x = gx[g];
+      w = gx[G + g];
+    } else if (gauss) {
+      x = dexp(ga + ghalf * (c.gauss_u[g] + T(1)));
+      w = ghalf * c.gauss_w[g];
+    } else {
+      const T j = T(g + 1);
+      if (!(j <= nb)) return false;
+      x = dexp(x_min + (j - T(1)) * dx);
+      w = simpson_weight(j, nb);
+    }
+    return true;
+  }
+};
+
 // _f2_gamma (:369-411): the gamma/exponential F2 entries p <= q < M (before
-// the clamp) on a quadrature grid, written to f2[tri(p, q)]. The grid is the
-// mode's fixed one (host-built, packed), or per lane from the threshold
-// (_moving_grid, :332-366): Gauss-Legendre base nodes mapped onto
-// [log(1e-5 min(T, 1)), log T], or the masked Simpson grid of n_pts points
-// over [log min(1e-5, 1e-5 T), log T] with nb = min(floor(15 log10(T /
-// x_lo)), n_pts - 1) bins (log10 as jnp.log10: log times 1/ln 10 in T; the
-// division, the log, the product by 15 and the floor in the twin's order).
+// the clamp) on a quadrature grid (QuadGrid), written to f2[tri(p, q)].
 // Per node: the Poisson deltas from the Lanczos lgamma(k + 1), the top-order
 // incomplete gamma (GL, or series/CF at gi_iters), the clipped downward
 // recurrence and the integrand rows exp(k log x - x (1/theta)) w x^p, summed
@@ -499,46 +567,13 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
   for (int q = 1; q < MAX_M; ++q)
     if (q < M) prefs[q] = prefs[q - 1] * theta * ((k + T(q)) - T(1));
 
-  // the grid: fixed (packed), moving Gauss or moving Simpson
-  int G;
-  T dx = T(1), ga = T(0), ghalf = T(0), x_min = T(0), nb = T(0);
-  const T* gx = nullptr;
-  const bool gauss = c.quad != 0;
-  if (!c.moving) {
-    G = c.grid_n[i];
-    gx = c.grid(i);
-    dx = c.grid_dx[i];
-  } else if (gauss) {
-    G = c.n_gauss;
-    const T x_lo = T(1e-5) * vmin(thr, T(1));
-    ga = dlog(x_lo);
-    ghalf = T(0.5) * (dlog(thr) - ga);
-  } else {
-    G = c.n_pts;
-    const T x_lo = vmin(T(1e-5), T(1e-5) * thr);
-    const T ratio = dlog(thr / x_lo) * T(0.4342944819032518);
-    nb = vmin(dfloor(T(15) * ratio), T(G - 1));
-    x_min = dlog(x_lo);
-    dx = (dlog(thr) - x_min) / nb;
-  }
-
+  const QuadGrid<T> grid(c, i, thr);
   T acc[FTAB];
 #pragma unroll
   for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < grid.G; ++g) {
     T x, w;
-    if (!c.moving) {
-      x = gx[g];
-      w = gx[G + g];
-    } else if (gauss) {
-      x = dexp(ga + ghalf * (c.gauss_u[g] + T(1)));
-      w = ghalf * c.gauss_w[g];
-    } else {
-      const T j = T(g + 1);
-      if (!(j <= nb)) break;  // masked: weight zero from here on
-      x = dexp(x_min + (j - T(1)) * dx);
-      w = simpson_weight(j, nb);
-    }
+    if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
     const T rem = vmax(thr - x, T(0)) * inv_theta;
     if (!(rem > T(0))) continue;  // every gis is zero
     const T logx = dlog(x);
@@ -576,20 +611,82 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
   for (int p = 0; p < MAX_M; ++p)
 #pragma unroll
     for (int q = p; q < MAX_M; ++q)
-      if (q < M) f2[tri(p, q)] = acc[tri(p, q)] * dx * prefs[q];
+      if (q < M) f2[tri(p, q)] = acc[tri(p, q)] * grid.dx * prefs[q];
+}
+
+// _f2_lognormal (:458-496): the lognormal F2 entries p <= q < M (before the
+// clamp) on a quadrature grid (QuadGrid) by the exact Phi partial moments,
+// written to f2[tri(p, q)]. Per node: the density fx = exp(-(log x - mu)^2 /
+// (2 sigma^2)) / (x sigma sqrt(2 pi)), the partial moments exp(q mu + q^2
+// sigma^2 / 2) (1 + erf(z)) / 2 at z = (log(T - x) - mu - q sigma^2) /
+// (sigma sqrt 2), erf by the series/CF P(1/2, z^2) at gi_iters (n_gl = 0) or
+// erf_approx, and the integrand x fx w x^p, summed node by node; nodes at
+// rem = 0 add exact zeros and are skipped. Then times dx and n^2.
+// exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop.
+template <typename T>
+__device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
+                                                  T thr, T n, T mu, T sig,
+                                                  T* f2) {
+  const T tiny = Lim<T>::tiny();
+  const int M = c.M;
+  const T s2 = sig * sig;
+  const T two_s2 = T(2) * s2;
+  const T sig_r2 = sig * T(1.4142135623730951);  // sqrt(2)
+  const T lg_half = lgamma_lanczos(T(0.5));
+  const bool approx = c.n_gl > 0;
+  T eq[MAX_M], acc[FTAB];
+#pragma unroll
+  for (int q = 0; q < MAX_M; ++q) eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
+#pragma unroll
+  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
+  const QuadGrid<T> grid(c, i, thr);
+  for (int g = 0; g < grid.G; ++g) {
+    T x, w;
+    if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
+    const T rem = vmax(thr - x, T(0));
+    if (!(rem > T(0))) continue;  // every partial moment is zero
+    const T du = dlog(vmax(x, tiny)) - mu;
+    const T fx = dexp(-(du * du) / two_s2) / (x * sig * T(2.5066282746310002));
+    const T logrem = dlog(vmax(rem, tiny));
+    T pm[MAX_M];
+#pragma unroll
+    for (int q = 0; q < MAX_M; ++q) {
+      if (q < M) {
+        const T z = (logrem - mu - T(q) * s2) / sig_r2;
+        const T erf_z = approx ? erf_approx(z) : erf_series(z, c.gi_iters, lg_half);
+        pm[q] = eq[q] * T(0.5) * (T(1) + erf_z);
+      }
+    }
+    T ypow = x * fx * w;
+#pragma unroll
+    for (int p = 0; p < MAX_M; ++p) {
+      if (p < M) {
+        if (p > 0) ypow = ypow * x;
+#pragma unroll
+        for (int q = p; q < MAX_M; ++q)
+          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * pm[q];
+      }
+    }
+  }
+  const T n2 = n * n;
+#pragma unroll
+  for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * grid.dx * n2;
 }
 
 // The per-lane threshold of thresholded mode i: the packed constant under
 // FixedThreshold; under MovingThreshold the Pallas body's thr_rows (gamma
 // theta * P^-1(k, p), exponential theta * (-log1p(-p)), lognormal
-// exp(mu + sigma * ndtri(p))), clamped below at 1e-18. The gamma inverse is
-// the GL Halley one, or Newton on series/CF in the reference tier at n_gl = 0.
+// exp(mu + sigma * ndtri(p)), monodisperse theta: reference tier only),
+// clamped below at 1e-18. The gamma inverse is the GL Halley one, or Newton
+// on series/CF in the reference tier at n_gl = 0.
 template <typename T, bool kArms, bool kRef>
 __device__ __forceinline__ T mode_threshold(const Config<T>& c, int i, int fam,
                                             T p1, T p2) {
   if (!kArms || !c.moving) return c.thr[i];
   T thr;
-  if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
+  if (kRef && fam == FAM_MONODISPERSE)
+    thr = p1;
+  else if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
     thr = p1 * gammaincinv_newton(p2, c.thr[i], c.newton_iters, c.thr_gi_iters);
   else if (fam == FAM_GAMMA)
     thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
@@ -620,7 +717,7 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
     params[i][1] = p1;
     params[i][2] = p2;
     // diagnostic moment recurrence M_{o+1} = M_o * theta * (k + o) | (o + 1)
-    // | exp(mu + (2o + 1) sigma^2 / 2)
+    // | exp(mu + (2o + 1) sigma^2 / 2) | theta (monodisperse: reference tier)
     T m = n;
     mf[i * M] = n;
     for (int o = 0; o < M - 1; ++o) {
@@ -628,14 +725,22 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
         m = m * dexp(p1 + T((2.0 * o + 1.0) * 0.5) * (p2 * p2));
       else if (fam == FAM_EXPONENTIAL)
         m = m * p1 * T(o + 1);
+      else if (kRef && fam == FAM_MONODISPERSE)
+        m = m * p1;
       else
         m = m * p1 * (p2 + T(o));
       mf[i * M + o + 1] = m;
     }
     if (c.thr_flag[i]) {
       const T thr = mode_threshold<T, kArms, kRef>(c, i, fam, p1, p2);
-      if (logn) {
-        f2_lognormal_window(c, thr, n, p1, p2, ftab[i]);
+      if (kRef && c.f2kind[i] == F2_MONO) {
+        // closed form (:556-568): M_p M_q where theta < T/2, else 0
+        ftab[i][0] = (p1 < thr / T(2)) ? T(1) : T(0);
+      } else if (logn) {
+        if (kRef && c.f2kind[i] == F2_GRID)
+          f2_lognormal_grid(c, i, thr, n, p1, p2, ftab[i]);
+        else
+          f2_lognormal_window(c, thr, n, p1, p2, ftab[i]);
       } else {
         const T kk = (fam == FAM_GAMMA) ? p2 : T(1);
         if (kRef && c.f2kind[i] == F2_GRID)
@@ -657,7 +762,9 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
     const T mm = mf[k * M + a] * mf[k * M + b];
     // clamp against M_a * M_b, reference zero-structure (mm < eps)
     T v = mm;
-    if (c.thr_flag[k])
+    if (kRef && c.thr_flag[k] && c.f2kind[k] == F2_MONO)
+      v = vmin(mm, (ftab[k][0] != T(0)) ? mm : T(0));
+    else if (c.thr_flag[k])
       v = (kArms && (c.fam[k] == FAM_LOGNORMAL ||
                      (kRef && c.f2kind[k] == F2_GRID)))
               ? vmin(mm, ftab[k][tri(a, b)])
@@ -669,7 +776,8 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
 
 // _sedi_flux_rows: normalized flux -sum_k c_k M_{m+e_k}; the gamma base by
 // gamma_ratio (fast_ratio), or in the reference tier at n_gl = 0 by the
-// Lanczos-lgamma pair
+// Lanczos-lgamma pair; the monodisperse ladder n theta^e, t theta (reference
+// tier)
 template <typename T, bool kArms, bool kRef>
 __device__ __forceinline__ void sedi_flux(const Config<T>& c,
                                           const T (*params)[3], T* flux) {
@@ -694,6 +802,8 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
         t = n * dexp(e * logp1) * gamma_ratio(p2, e);
       else if (fam == FAM_EXPONENTIAL)
         t = n * c.vel_g[v] * dexp(e * logp1);
+      else if (kRef && fam == FAM_MONODISPERSE)
+        t = n * dexp(e * logp1);
 #pragma unroll
       for (int m = 0; m < MAX_NPROG; ++m) {
         if (m >= np) continue;
@@ -701,6 +811,8 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
         if (logn) {
           // direct closed form n exp(q mu + q^2 sigma^2 / 2)
           t = n * dexp(q * p1 + c.vel_hq2[3 * v + m] * p2 * p2);
+        } else if (kRef && fam == FAM_MONODISPERSE && m > 0) {
+          t = t * p1;
         } else if (m > 0) {
           t = (fam == FAM_GAMMA) ? t * p1 * ((p2 + T(m - 1)) + e) : t * p1 * q;
         }

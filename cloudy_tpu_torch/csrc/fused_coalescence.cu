@@ -48,8 +48,9 @@
 // Each kernel has three instances: `kArms = false` for FixedThreshold
 // gamma/exponential configurations at the fast tier, `kArms = true` with the
 // MovingThreshold and lognormal arms (coal_body.cuh), and the reference tier
-// (`kArms = kRef = true`: quadrature-grid F2, series/CF incomplete gamma,
-// Newton percentile inverse, Lanczos-pair flux) built in units of its own;
+// (`kArms = kRef = true`: quadrature-grid F2, gamma/exponential or
+// lognormal, series/CF incomplete gamma, Newton percentile inverse,
+// Lanczos-pair flux, monodisperse modes) built in units of its own;
 // the entry points' `arms` argument (0, 1, 2: `FusedPlan.instance`) picks
 // one. The scaled whole step has the two fast instances only.
 
@@ -59,6 +60,16 @@
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
 // kernel (the whole step: scaled or not; units 8-13: the reference tier) in
 // one type. Without CLOUDY_UNIT the file builds everything.
+//
+// The reference whole step (units 12, 13) is compiled without FMA
+// contraction: every product and sum is rounded on its own, as the plain
+// twin's torch ops round them, so that the step rounds as its twin does
+// wherever its arithmetic has no reduction order of its own (the
+// monodisperse closed form, exact F2: bit for bit on the card). A trajectory
+// whose rounding noise grows by orders of magnitude per step (monodisperse +
+// gamma from an empty second mode, PERF.md) can then be held against the
+// twin over many steps. Every other unit keeps nvcc's contraction.
+// CLOUDY_NO_FMA_UNITS: 12 13
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else

@@ -3,8 +3,9 @@
 The sources are compiled at first use into ``build/cloudy_tpu_torch/`` at
 the root of the checkout, with a plain C interface (no PyTorch headers). A
 source declares build units (``CLOUDY_IN_UNIT(u)``, one kernel in one type
-each); every unit is compiled by its own ``nvcc``, all started together,
-and the objects are linked into one shared library, so the build takes as
+each, some declared to build without FMA contraction); every unit is
+compiled by its own ``nvcc``, all started together, and the objects are
+linked into one shared library, so the build takes as
 long as its slowest kernel. The library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. The compiler's per-kernel report (``-Xptxas -v``: registers,
@@ -66,6 +67,13 @@ def _units(src: Path):
     return units or [None]
 
 
+def _no_fma_units(src: Path) -> set:
+    """The units a source builds without FMA contraction (``-fmad=false``),
+    declared once as ``CLOUDY_NO_FMA_UNITS: u ...``."""
+    m = re.search(r"CLOUDY_NO_FMA_UNITS:([ \t\d]*)", src.read_text())
+    return {int(u) for u in m.group(1).split()} if m else set()
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists: one
     ``nvcc -c`` per build unit, all running at once, then one link."""
@@ -77,9 +85,11 @@ def build() -> Path:
     nvcc = _nvcc()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
+        no_fma = _no_fma_units(src)
         for u in _units(src):
             obj = BUILD_DIR / f"{tag}.{src.stem}.{u}.o"
             unit = [] if u is None else [f"-DCLOUDY_UNIT={u}"]
+            unit += ["-fmad=false"] if u in no_fma else []
             cmd = [nvcc, *NVCC_FLAGS, *unit, "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))

@@ -32,10 +32,11 @@ in the same order on the same rows, in PyTorch. A wrapper runs the twin
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises. It never falls back.
 
-Coverage: GAMMA, EXPONENTIAL and LOGNORMAL modes under FixedThreshold and
-MovingThreshold, with the per-call overrides of `make_pallas_coal_fn`
-(`quad_rule`, `gauss_nodes`, `gammainc_iters`, `thr_newton_iters`,
-`thr_gammainc_iters`, `f2_exact`, `gammainc_gl_nodes`; the same defaults):
+Coverage: all four families (GAMMA, EXPONENTIAL, LOGNORMAL, MONODISPERSE)
+under FixedThreshold and MovingThreshold, with the per-call overrides of
+`make_pallas_coal_fn` (`quad_rule`, `gauss_nodes`, `gammainc_iters`,
+`thr_newton_iters`, `thr_gammainc_iters`, `f2_exact`, `gammainc_gl_nodes`;
+the same defaults):
 
 - the fast tier: exact gamma/exponential F2 with the Gauss–Legendre
   incomplete gamma (``f2_exact=True``, ``gammainc_gl_nodes > 0``; moving
@@ -45,15 +46,18 @@ MovingThreshold, with the per-call overrides of `make_pallas_coal_fn`
 - the reference tier: gamma/exponential F2 on a quadrature grid (the masked
   log-grid Simpson rule of ``quad_rule="reference"`` or Gauss–Legendre on
   the same interval, fixed grids built on the host, moving ones per lane),
-  the series/continued-fraction incomplete gamma (``gammainc_gl_nodes=0``),
-  the damped-Newton percentile inverse and the Lanczos-pair flux — the
-  default of every JAX kernel factory and the tier of every golden.
+  lognormal F2 on the same grids by the exact Φ partial moments (erf by the
+  series/CF P(½, z²), or the rational `erf_approx` at ``gammainc_gl_nodes >
+  0``; ``lognorm_gl_nodes=0``), the series/continued-fraction incomplete
+  gamma (``gammainc_gl_nodes=0``), the damped-Newton percentile inverse, the
+  Lanczos-pair flux, and monodisperse modes (closure, recurrence M·θ, moving
+  threshold θ, the closed-form F2 where θ < T/2, flux n·θ^e) — the default
+  of every JAX kernel factory and the tier of every golden.
 
-Anything else (monodisperse modes, the lognormal Φ grid, more modes or
-moments than the capacities) raises `NotImplementedError` naming the ROADMAP
-item that ports it. Each kernel is compiled three times: without the
-MovingThreshold and lognormal arms, with them, and with the reference tier
-besides; `FusedPlan.instance` picks one.
+More modes or moments than the capacities raise `NotImplementedError`
+naming the ROADMAP item that lifts them. Each kernel is compiled three
+times: without the MovingThreshold and lognormal arms, with them, and with
+the reference tier besides; `FusedPlan.instance` picks one.
 """
 
 from __future__ import annotations
@@ -80,8 +84,11 @@ CFG_MAX_BYTES = 12288
 HEADER_INTS = 22
 LAYOUT = (MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, HEADER_INTS)
 
-#: per-mode F2 evaluation (`FusedPlan.f2_kind`; csrc/coal_body.cuh F2_*)
-F2_NONE, F2_EXACT, F2_WINDOW, F2_GRID = 0, 1, 2, 3
+#: per-mode F2 evaluation (`FusedPlan.f2_kind`; csrc/coal_body.cuh F2_*):
+#: none, exact gamma/exponential, the lognormal window rule, a quadrature
+#: grid (gamma/exponential or the lognormal Φ grid), the monodisperse
+#: closed form
+F2_NONE, F2_EXACT, F2_WINDOW, F2_GRID, F2_MONO = 0, 1, 2, 3, 4
 QUAD_RULES = ("reference", "gauss")
 #: the per-call overrides of `make_pallas_coal_fn` (pallas_coalescence.py:
 #: 662-673) and their defaults; None takes the value from the data
@@ -127,7 +134,7 @@ class FusedPlan:
     nz: int = 1
     inv_dz: float = 0.0
     dt: float = 0.0
-    #: per mode: F2_NONE, F2_EXACT, F2_WINDOW or F2_GRID
+    #: per mode: F2_NONE, F2_EXACT, F2_WINDOW, F2_GRID or F2_MONO
     f2_kind: Tuple[int, ...] = ()
     #: quadrature rule of the F2 grids: "reference" (masked Simpson) or "gauss"
     quad_rule: str = "reference"
@@ -162,9 +169,11 @@ class FusedPlan:
     @property
     def ref(self) -> bool:
         """Whether the configuration runs reference-tier code: a quadrature
-        grid or the series/CF incomplete gamma (with it the Newton inverse
-        and the Lanczos-pair flux)."""
-        return self.gl_nodes == 0 or F2_GRID in self.f2_kind
+        grid (gamma/exponential, or the lognormal Φ grid), the series/CF
+        incomplete gamma (with it the Newton inverse and the Lanczos-pair
+        flux), or a monodisperse mode."""
+        return (self.gl_nodes == 0 or F2_GRID in self.f2_kind
+                or Family.MONODISPERSE in self.families)
 
     @property
     def instance(self) -> int:
@@ -209,21 +218,9 @@ def _thresholded(data: CoalescenceData, i: int) -> bool:
 
 
 def check_supported(data: CoalescenceData) -> None:
-    """Raise `NotImplementedError` for a configuration the CUDA kernels do not
-    cover yet, naming the ROADMAP item that ports it."""
+    """Raise `NotImplementedError` for a configuration past the CUDA kernels'
+    capacities, naming the ROADMAP item that lifts them."""
     fams = data.spec.families
-    for i, fam in enumerate(fams):
-        if fam == Family.MONODISPERSE:
-            raise NotImplementedError(
-                "monodisperse modes (closure and closed-form F2) are not "
-                "ported to the CUDA kernels yet (ROADMAP B-arms.3)"
-            )
-        if fam == Family.LOGNORMAL and _thresholded(data, i) and not data.lognorm_gl_nodes:
-            raise NotImplementedError(
-                "only the recentred GL window rule (lognorm_gl_nodes > 0) is "
-                "ported for thresholded lognormal modes; the Φ quadrature grid "
-                "is ROADMAP B-arms.4"
-            )
     if len(fams) > MAX_MODES or data.spec.n_tot > MAX_NTOT or data.M > MAX_M:
         raise NotImplementedError(
             f"configuration exceeds the kernels' capacities (modes ≤ {MAX_MODES}, "
@@ -319,11 +316,14 @@ def build_plan(
     f2_kind, grids = [], []
     for i, fam in enumerate(spec.families):
         grid = None
+        # the Pallas body's rule (pallas_coalescence.py:199-219, :556-586)
         if not thr_flag[i]:
             kind = F2_NONE
-        elif fam == Family.LOGNORMAL:
+        elif fam == Family.MONODISPERSE:
+            kind = F2_MONO
+        elif fam == Family.LOGNORMAL and data.lognorm_gl_nodes:
             kind = F2_WINDOW
-        elif kw["f2_exact"]:
+        elif kw["f2_exact"] and fam != Family.LOGNORMAL:
             kind = F2_EXACT
         else:
             kind = F2_GRID
@@ -468,15 +468,16 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
 
 def _invert_rows(fam: int, rows, eps: float):
     """Closure inversion on rows (mirrors
-    `cloudy_tpu.ops.pallas_numerical._invert_rows`; gamma k clipped to
-    [eps, 10], distributions.GAMMA_K_RANGE)."""
+    `cloudy_tpu.ops.pallas_numerical._invert_rows`; a monodisperse mode
+    inverts as an exponential one; gamma k clipped to [eps, 10],
+    distributions.GAMMA_K_RANGE)."""
     m0, m1 = rows[0], rows[1]
     valid = (m0 > eps) & (m1 > eps)
     if fam == Family.LOGNORMAL:
         valid = valid & (rows[2] > eps)
     m0s = special.select(valid, m0, 1.0)
     m1s = special.select(valid, m1, 1.0)
-    if fam == Family.EXPONENTIAL:
+    if fam in (Family.EXPONENTIAL, Family.MONODISPERSE):
         n = special.select(valid, m0, 0.0)
         p1 = special.select(valid, m1s / m0s, 1.0)
         return n, p1, torch.zeros_like(p1)
@@ -552,10 +553,12 @@ def _moving_threshold(plan: FusedPlan, i: int, params):
     body's `thr_rows`): gamma θ·P⁻¹(k, p), by the fast GL inverse
     (gl_nodes > 0) or by Newton on the series/CF P (gl_nodes = 0), with the
     percentile and Φ⁻¹(p) in the working type; exponential θ·(−log1p(−p)),
-    lognormal exp(μ + σ·Φ⁻¹(p)); clamped below at 1e-18."""
+    lognormal exp(μ + σ·Φ⁻¹(p)), monodisperse θ; clamped below at 1e-18."""
     n, p1, p2 = params
     fam, c = plan.families[i], plan.thr_const[i]
-    if fam == Family.GAMMA and plan.gl_nodes:
+    if fam == Family.MONODISPERSE:
+        thr = p1
+    elif fam == Family.GAMMA and plan.gl_nodes:
         thr = p1 * special.gammaincinv_gl_impl(
             p2, torch.full_like(p1, c), n_iter=3, n_nodes=plan.gl_nodes)
     elif fam == Family.GAMMA:
@@ -656,6 +659,26 @@ def moving_bins(thr: torch.Tensor) -> torch.Tensor:
     return torch.floor(15.0 * (torch.log(thr / x_lo) * 0.4342944819032518))
 
 
+def _quad_grid(plan: FusedPlan, i: int, thr, like):
+    """(x, w, dx, T) of thresholded mode i's F2 grid in `like`'s type and
+    device: the per-lane moving grid (`_moving_grid`), or the mode's packed
+    fixed grid as [G, 1] columns with its threshold as a tensor."""
+    if plan.moving:
+        return (*_moving_grid(plan, thr), thr)
+    xg, wg, dx = plan.grids[i]
+    x, w = (torch.tensor(v, dtype=like.dtype, device=like.device)[:, None] for v in (xg, wg))
+    return x, w, dx, torch.tensor(thr, dtype=like.dtype, device=like.device)
+
+
+def _erf_sel(z, n_iters: int):
+    """`special.erf_impl` (sign(z)·P(½, z²)) with the series/CF incomplete
+    gamma evaluated only where each lane selects it (`_gammainc_sel`)."""
+    x = z * z
+    log_x = torch.log(torch.clamp(torch.clamp(x, max=1e6), min=torch.finfo(z.dtype).tiny))
+    half = torch.full((1,) * z.ndim, 0.5, dtype=z.dtype, device=z.device)
+    return torch.sign(z) * _gammainc_sel(half, x, n_iters, log_x)
+
+
 def _f2_gamma_grid(plan: FusedPlan, i: int, thr, n, theta, k):
     """Unclamped gamma/exponential F2 {(p, q): row}, p ≤ q < M, on a
     quadrature grid (`_f2_gamma`): Poisson deltas from the Lanczos
@@ -664,16 +687,9 @@ def _f2_gamma_grid(plan: FusedPlan, i: int, thr, n, theta, k):
     exp(k·log x − x·(1/θ))·w, multiplicative prefactors n²θ^{q−k}Γ(q+k)/Γ(k)²,
     the sums over the nodes (`torch.sum` over [G, B] tiles, as `jnp.sum`)
     times dx."""
-    dtype, dev = theta.dtype, theta.device
-    tiny = torch.finfo(dtype).tiny
+    tiny = torch.finfo(theta.dtype).tiny
     M = plan.M
-    if plan.moving:
-        x, w, dx = _moving_grid(plan, thr)
-    else:
-        xg, wg, dx = plan.grids[i]
-        x = torch.tensor(xg, dtype=dtype, device=dev)[:, None]
-        w = torch.tensor(wg, dtype=dtype, device=dev)[:, None]
-        thr = torch.tensor(thr, dtype=dtype, device=dev)
+    x, w, dx, thr = _quad_grid(plan, i, thr, theta)
     logx = torch.log(x)
     inv_theta = 1.0 / theta
     rem = torch.clamp(thr - x, min=0.0) * inv_theta
@@ -705,6 +721,41 @@ def _f2_gamma_grid(plan: FusedPlan, i: int, thr, n, theta, k):
             ypow = ypow * x
         for q in range(p, M):
             out[(p, q)] = torch.sum(ypow * gis[q], dim=0) * dx * prefs[q]
+    return out
+
+
+def _f2_lognormal_grid(plan: FusedPlan, i: int, thr, n, mu, sig):
+    """Unclamped lognormal F2 {(p, q): row}, p ≤ q < M, on a quadrature grid
+    by the exact Φ partial moments (`_f2_lognormal`, pallas_coalescence.py:
+    458-496): density rows fx = exp(−(log x − μ)²/(2σ²))/(x·σ·√(2π)), the
+    partial moments exp(qμ + q²σ²/2)·½(1 + erf(z)) at z = (log(T − x) − μ −
+    qσ²)/(σ√2) with erf by the series/CF P(½, z²) at `gammainc_iters`
+    (gl_nodes = 0) or the rational `erf_approx`, integrand rows x·fx·w·x^p,
+    the sums over the nodes times dx, times n²."""
+    tiny = torch.finfo(mu.dtype).tiny
+    M = plan.M
+    x, w, dx, thr = _quad_grid(plan, i, thr, mu)
+    logx = torch.log(torch.clamp(x, min=tiny))
+    s2 = sig * sig
+    du = logx - mu
+    fx = special.exp(-(du * du) / (2.0 * s2)) / (x * sig * float(np.sqrt(2.0 * np.pi)))
+    rem = torch.clamp(thr - x, min=0.0)
+    logrem = torch.log(torch.clamp(rem, min=tiny))
+    pms = []
+    for q in range(M):
+        z = (logrem - mu - q * s2) / (sig * float(np.sqrt(2.0)))
+        erf_z = (special.erf_approx(z) if plan.gl_nodes
+                 else _erf_sel(z, plan.gammainc_iters))
+        pm = special.exp(q * mu + 0.5 * q ** 2 * s2) * 0.5 * (1.0 + erf_z)
+        pms.append(special.select(rem > 0.0, pm, 0.0))
+    n2 = n * n
+    out = {}
+    ypow = x * fx * w
+    for p in range(M):
+        if p > 0:
+            ypow = ypow * x
+        for q in range(p, M):
+            out[(p, q)] = torch.sum(ypow * pms[q], dim=0) * dx * n2
     return out
 
 
@@ -754,13 +805,14 @@ def _f2_lognormal_window(plan: FusedPlan, thr, n, mu, sig):
 
 def _coal_body_rows(plan: FusedPlan, mom_rows):
     """The shared physics on NORMALIZED rows: closure → integer moments →
-    thresholds → F2 (exact gamma, a quadrature grid, or the lognormal
-    window) → clamp → Q/R/S sparse FMAs. Returns (acc, params); acc[o] is
+    thresholds → F2 (exact gamma, a gamma or lognormal quadrature grid, the
+    lognormal window, or the monodisperse closed form) → clamp → Q/R/S
+    sparse FMAs. Returns (acc, params); acc[o] is
     None where no term lands."""
     dtype = mom_rows[0].dtype
     eps = torch.finfo(dtype).eps
     M = plan.M
-    params, mf, gis, tab = [], [], {}, {}
+    params, mf, gis, tab, below = [], [], {}, {}, {}
     for i, fam in enumerate(plan.families):
         o = plan.offsets[i]
         n, p1, p2 = _invert_rows(fam, mom_rows[o:o + plan.nprog[i]], eps)
@@ -772,6 +824,8 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
                 m = m * p1 * (q + 1.0)
             elif fam == Family.GAMMA:
                 m = m * p1 * (p2 + q)
+            elif fam == Family.MONODISPERSE:
+                m = m * p1
             else:  # LOGNORMAL
                 m = m * special.exp(p1 + (2.0 * q + 1.0) * 0.5 * (p2 * p2))
             rows.append(m)
@@ -781,9 +835,18 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
         thr = (_moving_threshold(plan, i, params[i]) if plan.moving
                else plan.thr_const[i])
         kk = p2 if fam == Family.GAMMA else torch.ones_like(p1)
-        if plan.f2_kind[i] == F2_WINDOW:
+        kind = plan.f2_kind[i]
+        if kind == F2_MONO:
+            # closed form (pallas_coalescence.py:556-568): M_p·M_q where
+            # θ < T/2, else 0; T rounded to the type once, halved exactly
+            if isinstance(thr, float):
+                thr = torch.tensor(thr, dtype=dtype, device=p1.device)
+            below[i] = p1 < thr / 2.0
+        elif kind == F2_WINDOW:
             tab[i] = _f2_lognormal_window(plan, thr, n, p1, p2)
-        elif plan.f2_kind[i] == F2_GRID:
+        elif kind == F2_GRID and fam == Family.LOGNORMAL:
+            tab[i] = _f2_lognormal_grid(plan, i, thr, n, p1, p2)
+        elif kind == F2_GRID:
             tab[i] = _f2_gamma_grid(plan, i, thr, n, p1, kk)
         else:
             gis[i] = _gis_exact(plan, thr, p1, kk)
@@ -796,6 +859,8 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
             mm = mf[k][a] * mf[k][b]
             if k in gis:
                 val = torch.minimum(mm, mm * gis[k][a + b])
+            elif k in below:
+                val = torch.minimum(mm, special.select(below[k], mm, 0.0))
             elif k in tab:
                 val = torch.minimum(mm, tab[k][(a, b)])
             else:
@@ -816,8 +881,9 @@ def _coal_body_rows(plan: FusedPlan, mom_rows):
 
 def _sedi_flux_rows(plan: FusedPlan, params):
     """Normalized sedimentation flux rows ``−Σ_k c_k·M_{m+e_k}`` from the
-    closure parameters (`_sedi_flux_rows`; ``fast_ratio`` where gl_nodes >
-    0, the Lanczos-lgamma pair where gl_nodes = 0)."""
+    closure parameters (`_sedi_flux_rows`; the gamma base by ``fast_ratio``
+    where gl_nodes > 0, the Lanczos-lgamma pair where gl_nodes = 0; the
+    monodisperse ladder n·θ^e, t·θ)."""
     out = [None] * plan.n_tot
     for i, fam in enumerate(plan.families):
         n, p1, p2 = params[i]
@@ -831,6 +897,8 @@ def _sedi_flux_rows(plan: FusedPlan, params):
                                     - special.lgamma(p2))
             elif fam == Family.EXPONENTIAL:
                 t = n * math.gamma(1.0 + e) * special.exp(e * logp1)
+            elif fam == Family.MONODISPERSE:
+                t = n * special.exp(e * logp1)
             for m in range(plan.nprog[i]):
                 q = m + e
                 if fam == Family.LOGNORMAL:
@@ -838,6 +906,8 @@ def _sedi_flux_rows(plan: FusedPlan, params):
                 elif m > 0:
                     if fam == Family.GAMMA:
                         t = t * p1 * (p2 + (m - 1.0) + e)
+                    elif fam == Family.MONODISPERSE:
+                        t = t * p1
                     else:
                         t = t * p1 * q
                 term = c * t
@@ -913,7 +983,7 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan,
     u2 = [0.75 * y[o] + 0.25 * (u1[o] + dt * f1[o]) for o in range(n_tot)]
     f2 = rhs(u2)
     return torch.stack(
-        [y[o] / 3.0 + (2.0 / 3.0) * (u2[o] + dt * f2[o]) for o in range(n_tot)]
+        [special.div(y[o], 3.0) + (2.0 / 3.0) * (u2[o] + dt * f2[o]) for o in range(n_tot)]
     )
 
 

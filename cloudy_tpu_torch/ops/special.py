@@ -45,6 +45,13 @@ def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.as_tensor(c, dtype=t.dtype, device=t.device), t)
 
 
+def div(t: torch.Tensor, c: float) -> torch.Tensor:
+    """``t / c`` as one correctly rounded division on any device (torch
+    divides a CUDA tensor by a Python float as a product with the float's
+    reciprocal: two roundings)."""
+    return torch.div(t, torch.as_tensor(c, dtype=t.dtype, device=t.device))
+
+
 def select(cond, a, b):
     """`jnp.where` with Python-float branches taken in the tensor branch's
     dtype (torch would take a bare float in the default dtype)."""

@@ -15,9 +15,12 @@ lanes (or boxes) of the input it is the operation count per lane that
 with each input read once and each output written once. The count does not
 depend on the device, so it can be taken on a few lanes and scaled.
 
-Run as a script it prints the count per box of the numerical bench's twin
-and its split between the Q/S inner loop, the R loop and the rest, fitted
-from counts at other node budgets (no device needed):
+The twins evaluate each lane's series or continued fraction (the
+incomplete gamma, and erf through P(½, z²)) only where the lane selects it,
+so a count covers what the data needs. Run as a script it prints the count
+per box of the numerical bench's twin and its split between the Q/S inner
+loop, the R loop and the rest, fitted from counts at other node budgets
+(no device needed):
 
     python -m cloudy_tpu_torch.tools.opcount
 """

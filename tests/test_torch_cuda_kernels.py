@@ -370,3 +370,89 @@ def test_rainshaft_128_hook_through_kernel_matches_golden(cuda):
     _, ys_g = load_golden("rainshaft_128")
     scale = np.abs(ys_g).max(axis=(0, 1))
     assert (np.abs(ys.cpu().numpy() - ys_g[:2]) / scale).max() < 1e-6
+
+
+# --------------------------------------------------------------------------
+# the monodisperse and lognormal-Φ-grid arms (reference-tier instance)
+# --------------------------------------------------------------------------
+
+#: name: (families, thresholds, moving, build kwargs, call kwargs)
+ARM_CASES = {
+    "mono_gamma_fixed": ((Family.MONODISPERSE, Family.GAMMA), (5e-10, np.inf), False, {}, {}),
+    "mono_gamma_moving": ((Family.MONODISPERSE, Family.GAMMA), (0.9, 1.0), True, {}, {}),
+    "gamma_mono_last": ((Family.GAMMA, Family.MONODISPERSE), (5e-10, np.inf), False, {}, {}),
+    "lognorm_simpson_series": ((Family.LOGNORMAL, Family.GAMMA), (5e-10, np.inf), False,
+                               {}, {}),
+    "lognorm_gauss_approx": ((Family.LOGNORMAL, Family.GAMMA), (5e-10, np.inf), False,
+                             {"gammainc_gl_nodes": 12}, {"quad_rule": "gauss",
+                                                         "gauss_nodes": 12}),
+    "lognorm_moving_simpson": ((Family.LOGNORMAL, Family.GAMMA), (0.9, 1.0), True, {}, {}),
+    "lognorm_moving_gauss": ((Family.LOGNORMAL, Family.GAMMA), (0.9, 1.0), True,
+                             {"gammainc_gl_nodes": 12}, {"quad_rule": "gauss",
+                                                         "gauss_nodes": 12}),
+    "exp_lognorm_gamma": ((Family.EXPONENTIAL, Family.LOGNORMAL, Family.GAMMA),
+                          (2e-10, 5e-10, np.inf), False, {}, {}),
+}
+
+
+def _arm_moments(families, n, seed):
+    """Normalized moments [n_tot, n] from parameters drawn first: lognormal
+    (μ, σ), monodisperse θ on both sides of T/2 = 0.25, exponential θ,
+    gamma (θ, k)."""
+    rng = np.random.default_rng(seed)
+    ranges = {Family.GAMMA: ((0.05, 5.0), (0.5, 5.0)),
+              Family.LOGNORMAL: ((-2.0, 0.5), (0.3, 1.2)),
+              Family.MONODISPERSE: ((0.05, 0.6), (0.0, 0.0)),
+              Family.EXPONENTIAL: ((0.02, 0.5), (0.0, 0.0))}
+    par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(*ranges[f][0], n),
+                              rng.uniform(*ranges[f][1], n)], -1) for f in families], axis=1)
+    return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).T.contiguous()
+
+
+@pytest.mark.parametrize("case", sorted(ARM_CASES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_arm_coal_kernel_matches_twin(cuda, dtype, case):
+    """B3's reference-tier instance through the monodisperse and lognormal
+    Φ-grid arms against its twin, 4,099 boxes."""
+    fams, thr, moving, bkw, ckw = ARM_CASES[case]
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(SpectrumSpec(fams), ker, thr, norms=NORMS, moving=moving,
+                                  **bkw)
+    fn = fc.make_coal_fn(data, device=cuda, dtype=dtype, **ckw)
+    assert fn.plan.instance == 2
+    x = _arm_moments(fams, 4099, seed=9).to(cuda, dtype)
+    got = fn.soa(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("name", ["mono-gamma-closed", "lognorm-gamma-grid"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_arm_step_and_rhs_kernels_match_twins(cuda, dtype, name):
+    """B1 and B4 at the family matrix's two reference-tier cases against
+    their twins, 9 columns × 32 levels: the case's mode-1 pulse with a seeded
+    gamma mode 2, per-column amplitudes (as chip_smoke.py's phase 20). From
+    the bare pulse a few steps leave mode 2 with moments of rounding size,
+    whose tendencies are rounding noise in relative terms; a seeded mode 2
+    keeps every row's values resolved."""
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    config, step = wsa.build_case(name, 32, cuda, dtype)
+    data, kw = wsa.case_data(name)
+    rhs = fc.make_rainshaft_rhs_fn(data, config.vel, NORMS, device=cuda, dtype=dtype, **kw)
+    assert step.plan.instance == 2 and rhs.plan.instance == 2
+    n1 = config.spec.nprogmoms[0]
+    ic = np.concatenate([rs.initial_condition(config.z, [1e8, 1e-2, 2e-12])[:, :n1],
+                         rs.initial_condition(config.z, [1e7, 1e-3, 2e-13])], axis=-1)
+    amp = np.random.default_rng(2).uniform(0.5, 1.5, (9, 1, 1))
+    x = rs.to_soa(torch.as_tensor(np.tile(ic[None], (9, 1, 1)) * amp)).to(cuda, dtype)
+    norm = torch.tensor(step.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
+    got = step(x)
+    assert step.launches == 1 and bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm, step.plain(x) / norm) < TOL[dtype]
+    norm2 = torch.cat([norm, norm])
+    got = rhs.soa(x)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm2, rhs.plain(x) / norm2) < TOL[dtype]
+

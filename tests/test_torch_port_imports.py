@@ -44,7 +44,8 @@ def test_import_without_jax():
     modules = _port_modules()
     assert {"cloudy_tpu_torch.models.rainshaft", "cloudy_tpu_torch.ops.fused_coalescence",
             "cloudy_tpu_torch.harness", "cloudy_tpu_torch.bench",
-            "cloudy_tpu_torch.coalescence"} <= set(modules)
+            "cloudy_tpu_torch.coalescence",
+            "cloudy_tpu_torch.tools.whole_step_ablation"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"
@@ -147,18 +148,12 @@ def test_wrapper_rejects_wrong_dtype_shape_layout():
 
 @pytest.mark.parametrize(
     "case",
-    ["lognormal", "monodisperse", "capacity"],
+    ["capacity"],
 )
 def test_unsupported_configuration_raises(case):
-    """What is still to port raises, naming its ROADMAP item: a thresholded
-    lognormal mode on the Φ grid (B-arms.4), monodisperse modes (B-arms.3),
-    configurations past the kernels' capacities (B-codegen)."""
-    if case == "lognormal":
-        data, label = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=0), "B-arms.4"
-    elif case == "monodisperse":
-        data, label = _data((Family.MONODISPERSE, Family.GAMMA)), "B-arms.3"
-    else:
-        data, label = _data((Family.GAMMA,) * 4, (5e-10,) * 3 + (np.inf,)), "B-codegen"
+    """What is still to port raises, naming its ROADMAP item: configurations
+    past the kernels' capacities (B-codegen)."""
+    data, label = _data((Family.GAMMA,) * 4, (5e-10,) * 3 + (np.inf,)), "B-codegen"
     with pytest.raises(NotImplementedError, match=f"ROADMAP {label}"):
         fc.make_coal_fn(data, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {label}"):
@@ -169,14 +164,20 @@ def test_unsupported_configuration_raises(case):
 @pytest.mark.parametrize(
     "case",
     ["moving_newton", "simpson_tier", "gauss_grid", "exact_series", "exp_gamma_simpson",
-     "moving_gauss_gl", "lognormal_window_series"],
+     "moving_gauss_gl", "lognormal_window_series", "lognormal", "monodisperse"],
 )
 def test_reference_tier_configuration_accepted(case):
     """Gamma and exponential modes at quad_rule "reference" and "gauss",
     f2_exact True and False, gammainc_gl_nodes 0 and > 0, fixed and moving,
-    build and select the kernels' reference-tier instance."""
+    a thresholded lognormal mode on the Φ grid (B-arms.4) and a monodisperse
+    mode (B-arms.3, here at the fast tier's switches) build and select the
+    kernels' reference-tier instance."""
     kw = {}
-    if case == "moving_newton":
+    if case == "lognormal":
+        data = _data((Family.LOGNORMAL, Family.GAMMA), lognorm_gl_nodes=0)
+    elif case == "monodisperse":
+        data = _data((Family.MONODISPERSE, Family.GAMMA))
+    elif case == "moving_newton":
         data = _data(thresholds=(0.9, 1.0), moving=True, gammainc_gl_nodes=0)
     elif case == "simpson_tier":
         data = _data(fast_tier=False)
