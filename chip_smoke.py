@@ -86,7 +86,18 @@ Drives the port's main path once on the card and fails loudly:
    (`tools.whole_step_ablation`, all nine cases at 2^20 columns x 32 levels,
    f32), each case's first 4,096 columns after its timed chain held against
    the twin run on the card, beside the twin's own spread from a start one
-   ulp away.
+   ulp away;
+21. the per-op-class chain benchmark (B6, `tools.op_microbench`): every
+   chain kernel in f32 and f64 against its twin at K1 links over the full
+   element set, the timed sweep (E elements, ILP 8, K1 and a K2 sized to a
+   ~3 ms launch), the least-squares fit of the class costs in both types,
+   the floor check of the mul and add chains, and the class model's time
+   of B1 `fixed2gamma` and B5 beside their times of phases 6 and 14;
+22. B-cover: an exponential-only and a three-mode (exponential +
+   lognormal + gamma) fast-tier configuration through B3, B4 and B1 against
+   their twins (4,096 columns x 32 levels, f32 and f64) and their times at
+   2^20 x 32 (f32); B5 with three modes at [8, 262144] (f32) and B5 in f64
+   at [6, 262144], each against its twin.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -96,7 +107,10 @@ in phase 11, the numerical chain in phase 14, and in phase 16 `pod_main`'s
 count just before that run and reports it just after), each golden run in
 phase 18, each switch setting's chain in phase 19, and in phase 20 each arm's
 chain and each family-matrix case (`whole_step_ablation.run_case` zeroes the
-step's count after its warm-up and reports it with the record). The last two lines are a JSON
+step's count after its warm-up and reports it with the record), in phase 21
+the timed sweep (`op_microbench.sweep` zeroes every chain kernel's count
+after the comparisons), and in phase 22 each configuration's timed
+launches. The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
@@ -156,6 +170,9 @@ FM_REPS = 3  # timed runs of each family-matrix chain (the tool's default is 5)
 N_FM_ANCHOR_STEPS = 40  # the arms' f64 anchor (phase 20)
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
 NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
+CHAIN_SOURCE = "cloudy_tpu_torch/csrc/op_chains.cu"
+B6_REPLACES = "tools/op_microbench.py:141"
+N_COVER_STEPS = 6  # timed launches of each B-cover kernel (phase 22)
 
 
 def check(cond, msg):
@@ -163,9 +180,10 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
-def ptxas_summary(log):
+def ptxas_summary(log, chains=False):
     """One line per kernel instance from the build's ``-Xptxas -v`` report:
-    registers, stack frame and spills."""
+    registers, stack frame and spills; with `chains`, also the chain kernels
+    (B6)."""
     out, entry, props, stack = [], None, None, ("?", "?", "?")
     for ln in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", ln):
@@ -187,6 +205,13 @@ def ptxas_summary(log):
                 if flags[-1]:
                     args.append("reference")
                 name = f"{k.group(1)}<{', '.join(args)}>"
+            elif k := re.search(r"chain_kernelI([fd])NS0_\d+([A-Za-z]\w*?)I[fd]EELi(\d+)E",
+                                entry):
+                if not chains:
+                    entry = None
+                    continue
+                name = (f"chain_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
+                        f"{k.group(2)}, ILP {k.group(3)}>")
             elif k := re.search(r"cloudy\d+(\w+?)I([fd])Li(\d)ELi(\d)E", entry):
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
                         f"{k.group(3)} modes, kernel function {k.group(4)}>")
@@ -261,7 +286,7 @@ def main():
     build_s = time.perf_counter() - t
     log = _build.library_path().with_suffix(".log").read_text()
     print(f"phase 2 build: {_build.library_path().name} in {build_s:.3f} s {card}")
-    for ln in ptxas_summary(log):
+    for ln in ptxas_summary(log, chains=True):
         print(f"  ptxas: {ln}")
     print(f"phase 2 seconds {time.perf_counter() - t:.3f}")
 
@@ -1172,6 +1197,12 @@ def main():
     # ---- 20. the monodisperse and lognormal Φ-grid arms, the family matrix --
     phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg)
 
+    # ---- 21. the per-op-class chain benchmark (B6) and the class model -----
+    phase_21(dev, card, b1_ms, num_ms, kernels)
+
+    # ---- 22. B-cover: configurations no earlier phase drives ---------------
+    phase_22(dev, card, kernels, bound)
+
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1399,6 +1430,253 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
         del step, state0, timing, yk, yt, yp
         torch.cuda.empty_cache()
     print(f"phase 20 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_21(dev, card, b1_ms, num_ms, kernels):
+    """Phase 21: every chain kernel of B6 against its twin at K1 links over
+    the full element set (f32 and f64), the timed sweep (its launch counts
+    zeroed just before and read just after), the fit in both types, the
+    floor check, and the class model of B1 `fixed2gamma` and B5 beside
+    their times of phases 6 and 14; appends one `kernels` entry per chain
+    and type."""
+    import torch
+
+    from cloudy_tpu_torch import bench, harness
+    from cloudy_tpu_torch.ops import op_chains as oc
+    from cloudy_tpu_torch.tools import op_microbench as om
+    from cloudy_tpu_torch.tools import opcount
+
+    t = time.perf_counter()
+
+    def held(rec):
+        if rec["vs"] == "twin":
+            return f" (tol {rec['tol']:.3e})"
+        return (f", kernel vs f64 twin {rec['f64_rel_err']:.3e} (tol {rec['tol']:.3e}), "
+                f"f32 twin vs f64 twin {rec['twin_f64_rel_err']:.3e}")
+
+    def show(rec):
+        print(f"phase 21 chain [{rec['chain']}, {rec['dtype']}]: E {rec['E']} "
+              f"({rec['columns']} columns x ILP {rec['ilp']}), K1 {rec['k1']} "
+              f"{rec['k1_ms']:.4f} ms, K2 {rec['k2']} {rec['k2_ms']:.4f} ms: "
+              f"{rec['sec_per_elem_link']:.4e} s per element per link; kernel vs twin at "
+              f"K1 relative {rec['max_rel_err']:.3e}{held(rec)}; "
+              f"twin at K2 {rec['plain_k2_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) {card}")
+
+    records, fits, samples = om.sweep((torch.float32, torch.float64), dev, plain=True,
+                                      on_record=show)
+    for rec in records:
+        check(rec["launches"] > 0, f"chain {rec['chain']} {rec['dtype']} never launched")
+        if "floor_sec" in rec:
+            print(f"phase 21 floor [{rec['chain']}, {rec['dtype']}]: "
+                  f"{rec['sec_per_elem_link']:.4e} >= {rec['floor_sec']:.4e} s {card}")
+    print(f"phase 21 launch counts of the sweep: "
+          f"{ {r['chain'] + '/' + r['dtype']: r['launches'] for r in records} }")
+    for tag, f in fits.items():
+        for ln in om.class_lines(tag, f):
+            print(f"phase 21 {ln} {card}")
+    print(f"phase 21 nvidia-smi during the sweep (sm clock, power draw): {samples}")
+    # additivity on real code: each bundle's link priced by the primitive
+    # classes from its twin's operations, against its measured cost
+    for rec in records:
+        if rec["chain"] in oc.BUNDLES:
+            ops = om.link_ops(rec["chain"])
+            pred = om.predict_ms(ops, 1, fits[rec["dtype"]]["classes"]) * 1e-3
+            print(f"phase 21 class model of the [{rec['chain']}, {rec['dtype']}] link: "
+                  f"{pred:.4e} s per element from {rec['ops_per_elem_link']:.2f} twin "
+                  f"operations (f32 twin), measured {rec['sec_per_elem_link']:.4e} "
+                  f"({pred / rec['sec_per_elem_link']:.4f}) {card}")
+
+    # the class model: the twins' operations by class (per lane) priced at
+    # the f32 class costs, beside the measured times of phases 6 and 14
+    classes = fits["f32"]["classes"]
+    small = harness.SCENARIOS["pod_ensemble"](n_columns=8, device=dev)
+    nfn = bench.numerical_fn(dev)
+    boxes = torch.as_tensor(bench.numerical_moments(64).T.copy(), dtype=torch.float32,
+                            device=dev)
+    for label, twin, x, lanes, measured in (
+            ("B1 fixed2gamma step [6, 2^25]", small["step"].plain, small["state0"],
+             N_POD_COLUMNS * NZ, b1_ms),
+            (f"B5 numerical RHS [6, {bench.NUMERICAL_COLUMNS}]", nfn.plain, boxes,
+             bench.NUMERICAL_COLUMNS, num_ms)):
+        counts = opcount.count_ops_by_class(twin, x)
+        n = x.shape[1]
+        per_lane = {c: counts[c] / n for c in oc.PRIMITIVE_CLASSES}
+        per_lane["predicate"] = {o: v / n for o, v in counts["predicate"].items()}
+        other = {o: v / n for o, v in counts["other"].items()}
+        total = opcount.count_ops(twin, x) / n
+        pred = om.predict_ms(per_lane, lanes, classes)
+        print(f"phase 21 class model {label}: predicted {pred:.4f} ms against "
+              f"{measured:.4f} ms measured in this call ({pred / measured:.4f}); operations "
+              f"per lane { {c: round(v, 2) for c, v in per_lane.items() if c != 'predicate'} }, "
+              f"predicates {round(sum(per_lane['predicate'].values()), 2)} (priced as add), "
+              f"unpriced {other} ({sum(other.values()) / total:.4f} of {total:.2f}) {card}")
+        check(pred > 0.0, f"class model of {label} is not positive")
+    del small, nfn, boxes
+
+    for rec in records:
+        kernels.append({
+            "name": f"op_chain[{rec['chain']}, {rec['dtype']}]", "route": "cuda",
+            "source": CHAIN_SOURCE, "replaces": B6_REPLACES, "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "max_rel_err": rec["max_rel_err"],
+            "ms": rec["k2_ms"], "plain_ms": rec["plain_k2_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    torch.cuda.empty_cache()
+    print(f"phase 21 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_22(dev, card, kernels, bound):
+    """Phase 22 (B-cover): an exponential-only and a three-mode fast-tier
+    configuration through B3, B4 and B1 (kernel against twin at 4,096
+    columns x 32 levels, f32 and f64; then their times at 2^20 x 32, f32),
+    B5 with three modes at [8, 262144] and B5 in f64 at [6, 262144], each
+    against its twin; appends their `kernels` entries."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch import bench
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    t = time.perf_counter()
+    E, G, L = Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    # per family the column's moment amplitudes: exponential (N, N x), gamma
+    # k = 1, lognormal sigma = 0.5 (M2 = N x^2 e^(sigma^2))
+    amps = {E: [1e8, 1e-2], G: [1e6, 1e-3, 2e-12], L: [1e7, 1e-3, 1.2840254166877414e-13]}
+    covers = (("exp-only", (E, E), (5e-10, np.inf)),
+              ("three-mode", (E, L, G), (2e-10, 5e-10, np.inf)))
+    for name, fams, thr in covers:
+        spec = SpectrumSpec(fams)
+        data = build_coalescence_data(spec, ker, thr, norms=(1e6, 1e-9), fast_tier=True)
+        cfg = rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
+        ic = np.concatenate([rs.initial_condition(cfg.z, amps[f]) for f in fams], axis=-1)
+        rng = np.random.default_rng(22)
+        amp = np.concatenate([rng.uniform(0.5, 1.5, (N_CMP_COLUMNS, 1, 1)).repeat(n, axis=2)
+                              for n in spec.nprogmoms], axis=2)
+        st = rs.to_soa(torch.as_tensor(np.tile(ic[None], (N_CMP_COLUMNS, 1, 1)) * amp))
+        errs_f32 = None
+        for dname, dt in dtypes.items():
+            kw = dict(device=dev, dtype=dt)
+            step = fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                             dt=1.0, **kw)
+            rhs = fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, **kw)
+            coal = fc.make_coal_fn(data, **kw)
+            x = st.to(dev, dt).contiguous()
+            norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+            xn = (x / norm).contiguous()
+            errs = {
+                "step": row_scaled(step(x) / norm, step.plain(x) / norm),
+                "rhs": row_scaled(rhs.soa(x) / torch.cat([norm, norm]),
+                                  rhs.plain(x) / torch.cat([norm, norm])),
+                "coal": row_scaled(coal.soa(xn), coal.plain(xn)),
+            }
+            print(f"phase 22 [{name}] {spec.n_modes} modes, instance {step.plan.instance}: "
+                  f"kernel vs twin {dname} at {N_CMP_COLUMNS} x {NZ}, row-scaled (normalized) "
+                  + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
+                  + f" (tol {TOL[dname]:.0e}) {card}")
+            for k, (err, _) in errs.items():
+                check(err < TOL[dname], f"[{name}] {k} kernel vs twin {dname} {err:.3e}")
+            errs_f32 = errs_f32 or errs
+        # times at 2^20 x 32, f32
+        kw = dict(device=dev, dtype=torch.float32)
+        step = fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                         dt=1.0, **kw)
+        rhs = fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, **kw)
+        coal = fc.make_coal_fn(data, **kw)
+        col = torch.as_tensor(ic.T.copy(), dtype=torch.float32, device=dev)
+        big = col.repeat(1, N_POD_COLUMNS).contiguous()
+        lanes = big.shape[1]
+        norm = torch.tensor(step.plan.mom_norms, dtype=torch.float32, device=dev)[:, None]
+        bign = (big / norm).contiguous()
+        small = st[:, :8 * NZ].to(dev, torch.float32).contiguous()
+        step(small), rhs.soa(small), coal.soa((small / norm).contiguous())
+        torch.cuda.synchronize()
+        for fn in (step, rhs, coal):
+            fn.launches = 0
+        y = big
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(N_COVER_STEPS):
+            y = step(y)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / N_COVER_STEPS
+        rhs_ms = _time_ms(lambda: rhs.soa(big), N_COVER_STEPS - 1)
+        coal_ms = _time_ms(lambda: coal.soa(bign), N_COVER_STEPS - 1)
+        counts = {"step": step.launches, "rhs": rhs.launches, "coal": coal.launches}
+        finite = bool(torch.isfinite(y).all())
+        print(f"phase 22 [{name}] at {N_POD_COLUMNS} x {NZ} f32: B1 {step_ms:.4f} ms/step "
+              f"({N_POD_COLUMNS / step_ms * 1e3:.4e} column-updates/s, finite {finite}), "
+              f"B4 {rhs_ms:.4f} ms, B3 {coal_ms:.4f} ms per launch; launches {counts} {card}")
+        check(finite, f"[{name}] state after {N_COVER_STEPS} steps not finite")
+        check(all(v == N_COVER_STEPS for v in counts.values()), f"[{name}] launches {counts}")
+        del y
+        plain = {"step": _time_ms(lambda: step.plain(big), 1),
+                 "rhs": _time_ms(lambda: rhs.plain(big), 1),
+                 "coal": _time_ms(lambda: coal.plain(bign), 1)}
+        sn = (small / norm).contiguous()
+        for kk, kname, replaces, twin, x_small, rows_out, ms in (
+                ("step", "rainshaft_step", B1_REPLACES, step.plain, small, spec.n_tot, step_ms),
+                ("rhs", "rainshaft_rhs", B4_REPLACES, rhs.plain, small, 2 * spec.n_tot, rhs_ms),
+                ("coal", "coal_rhs", B3_REPLACES, coal.plain, sn, spec.n_tot, coal_ms)):
+            kernels.append({"name": f"{kname}[{name}]", "route": "cuda", "source": SOURCE,
+                            "replaces": replaces, "launches": counts[kk],
+                            "max_abs_err": errs_f32[kk][1], "max_row_scaled_err": errs_f32[kk][0],
+                            "ms": ms, "plain_ms": plain[kk],
+                            **bound(f"{kname}[{name}]", twin, x_small, lanes, spec.n_tot,
+                                    rows_out)})
+        del big, bign, step, rhs, coal
+        torch.cuda.empty_cache()
+
+    # B5: three modes at [8, 262144] (f32) and the bench's two modes in f64
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(bench.NORMS)
+    n_box = bench.NUMERICAL_COLUMNS
+    rng = np.random.default_rng(23)
+    three = SpectrumSpec((E, G, L))
+    par = np.stack([np.stack([rng.uniform(10, 200, n_box), rng.uniform(*p1, n_box),
+                              rng.uniform(*p2, n_box)], -1)
+                    for p1, p2 in (((0.05, 5.0), (0.5, 5.0)), ((0.05, 5.0), (0.5, 5.0)),
+                                   ((-1.0, 1.0), (0.3, 1.0)))], 1)
+    mom3 = pd.get_moments(three, torch.as_tensor(par)).numpy().T.copy()
+    for label, vspec, mom_np, dt in (
+            ("3 modes exp+gamma+lognormal, f32", three, mom3, torch.float32),
+            ("2 gamma modes, f64", SpectrumSpec((G, G)),
+             bench.numerical_moments().T.copy(), torch.float64)):
+        fn = nc.make_numerical_fn(vspec, kf, device=dev, dtype=dt)
+        x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+        fn.soa(x[:, :64].contiguous())
+        torch.cuda.synchronize()
+        fn.launches = 0
+        ms = _time_ms(lambda: fn.soa(x), N_COVER_STEPS - 1)
+        launches = fn.launches
+        got = fn.soa(x)
+        want = fn.plain(x, chunk=NUM_CHUNK)
+        err, abs_err = row_scaled(got, want)
+        tol = NUM_TOL["float64" if dt == torch.float64 else "float32"]
+        plain_ms = _time_ms(lambda: fn.plain(x, chunk=NUM_CHUNK), 1)
+        print(f"phase 22 numerical kernel [{label}] at [{vspec.n_tot}, {n_box}]: "
+              f"{ms:.4f} ms per launch (launches {launches}), twin {plain_ms:.4f} ms; kernel "
+              f"vs twin row-scaled {err:.3e} (tol {tol:.0e}), max abs {abs_err:.3e}, finite "
+              f"{bool(torch.isfinite(got).all())} {card}")
+        check(bool(torch.isfinite(got).all()), f"numerical [{label}] not finite")
+        check(err < tol, f"numerical [{label}] vs twin {err:.3e}")
+        check(launches == N_COVER_STEPS, f"numerical [{label}] launches {launches}")
+        kernels.append({"name": f"numerical_rhs[{label}]", "route": "cuda",
+                        "source": NUM_SOURCE, "replaces": B5_REPLACES, "launches": launches,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err, "ms": ms,
+                        "plain_ms": plain_ms,
+                        **bound(f"numerical_rhs[{label}]", fn.plain, x[:, :64].contiguous(),
+                                n_box, vspec.n_tot, vspec.n_tot, f64=dt == torch.float64)})
+        del fn, x, got, want
+        torch.cuda.empty_cache()
+    print(f"phase 22 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

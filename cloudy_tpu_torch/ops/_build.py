@@ -120,8 +120,9 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, declare every entry point's signature
     (pointers and the stream as ``c_void_p``: 64 bits), and check that the
-    library's configuration layout is the one the host packs."""
-    from cloudy_tpu_torch.ops import fused_coalescence, numerical_coalescence
+    library's configuration layout and chain table are the ones the host
+    uses."""
+    from cloudy_tpu_torch.ops import fused_coalescence, numerical_coalescence, op_chains
 
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -140,8 +141,20 @@ def load_library() -> ctypes.CDLL:
             f = getattr(lib, f"cloudy_numerical_{tag}_n{n_modes}")
             f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, G, ktag, stream
             f.restype = i
+        f = getattr(lib, f"cloudy_chain_{tag}")
+        f.argtypes = [i, i, p, p, ll, i, p, i, p]  # chain, ilp, in, out, n, k, cfg, bytes, stream
+        f.restype = i
+        f = getattr(lib, f"cloudy_chain_blocks_per_sm_{tag}")
+        f.argtypes = [i, i, p]  # chain, cfg bytes, out
+        f.restype = i
     lib.cloudy_error_string.argtypes = [i]
     lib.cloudy_error_string.restype = ctypes.c_char_p
+    lib.cloudy_chain_name.argtypes = [i]
+    lib.cloudy_chain_name.restype = ctypes.c_char_p
+    names = tuple(lib.cloudy_chain_name(c).decode() for c in range(len(op_chains.NAMES)))
+    if names != op_chains.NAMES or lib.cloudy_chain_name(len(names)) is not None:
+        raise RuntimeError(f"{lib._name}: chain table {names} differs from the host's "
+                           f"{op_chains.NAMES}")
     got = (ctypes.c_int * 8)()
     for export, module, names in (
         (lib.cloudy_layout, fused_coalescence,

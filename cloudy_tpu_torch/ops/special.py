@@ -1,11 +1,13 @@
 """Special functions, branch-free with fixed iteration counts.
 
-Port of `cloudy_tpu.ops.special` (the subset the pod variants run: the
-fixed-threshold and MovingThreshold gamma paths and the lognormal window
-rule), term for term and in the same operation order, so that the torch
-reference path and the plain twins of the CUDA kernels agree with the JAX
-package to rounding. Python-float constants combine with tensors in the
-tensor's dtype, as JAX's weakly typed constants do.
+Port of `cloudy_tpu.ops.special`, term for term and in the same operation
+order, so that the torch reference path and the plain twins of the CUDA
+kernels agree with the JAX package to rounding. Python-float constants
+combine with tensors in the tensor's dtype, as JAX's weakly typed constants
+do. The public wrappers (`gammafn`, `gammainc`, `gammaincc`,
+`gammaincinv_gl`, `gammaincinv`, `erf`) take Python numbers as JAX takes
+them with 64-bit types enabled: in the type of the tensor arguments, or in
+float64 where every argument is a number.
 
 Accuracy bounds against scipy are those of the JAX package (pinned in
 tests/test_special.py and, for this port, tests/test_torch_special.py).
@@ -37,6 +39,20 @@ _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 def _finfo(dtype):
     return np.finfo(_NUMPY_DTYPE[dtype])
+
+
+def _weak(*args):
+    """Tensors of `args`: arrays as they are, Python numbers in the promoted
+    type of the array arguments (float64 where there is none), as JAX's
+    weakly typed scalars combine under 64-bit types."""
+    arrays = [torch.as_tensor(a) for a in args if not isinstance(a, (int, float))]
+    dtype = torch.float64
+    if arrays:
+        dtype = arrays[0].dtype
+        for a in arrays[1:]:
+            dtype = torch.promote_types(dtype, a.dtype)
+    return [torch.as_tensor(a, dtype=dtype) if isinstance(a, (int, float))
+            else torch.as_tensor(a) for a in args]
 
 
 def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -102,6 +118,11 @@ def lgamma(x):
     out = _HALF_LOG_2PI + (zm1 + 0.5) * torch.log(t) - t + torch.log(series)
     tiny = _finfo(x.dtype).tiny
     return torch.where(shift, out - torch.log(torch.clamp(x, min=tiny)), out)
+
+
+def gammafn(x):
+    """Γ(x) for x > 0."""
+    return exp(lgamma(*_weak(x)))
 
 
 def lgamma_stirling(x):
@@ -233,6 +254,17 @@ def gammainc_impl(a, x, n_iters: int = 128, log_x=None):
     out = torch.where(use_series, p_series, 1.0 - q_cf)
     out = torch.clamp(out, 0.0, 1.0)
     return torch.where(x > 0.0, out, torch.zeros_like(out))
+
+
+def gammainc(a, x, n_iters: int = 128):
+    """Regularized lower incomplete gamma P(a, x), elementwise (the JAX
+    package's jitted `gammainc`: `gammainc_impl` at `n_iters`)."""
+    return gammainc_impl(*_weak(a, x), n_iters=n_iters)
+
+
+def gammaincc(a, x, n_iters: int = 128):
+    """Regularized upper incomplete gamma Q(a, x) = 1 − P(a, x)."""
+    return 1.0 - gammainc(a, x, n_iters=n_iters)
 
 
 def gammainc_gl(a, x, n_nodes: int = 12, gln=None):
@@ -401,9 +433,29 @@ def gammaincinv_gl_impl(a, p, n_iter: int = 3, n_nodes: int = 12):
     return x
 
 
+def gammaincinv_gl(a, p, n_iter: int = 3, n_nodes: int = 12):
+    """The fast x with P(a, x) = p (`gammaincinv_gl_impl`; the JAX package
+    jits it)."""
+    return gammaincinv_gl_impl(*_weak(a, p), n_iter=n_iter, n_nodes=n_nodes)
+
+
+def gammaincinv(a, p, n_newton: int = 32, n_iters: int = 128):
+    """x with P(a, x) = p (Julia's ``gamma_inc_inv(a, p, 1 − p)``): the
+    Wilson–Hilferty start and `n_newton` damped Newton steps
+    (`gammaincinv_impl`)."""
+    return gammaincinv_impl(*_weak(a, p), n_newton=n_newton, n_iters=n_iters)
+
+
 # --------------------------------------------------------------------------
 # error function
 # --------------------------------------------------------------------------
+
+
+def erf(x):
+    """Error function (the JAX package lowers `jax.lax.erf`; here
+    `torch.special.erf`)."""
+    return torch.special.erf(*_weak(x))
+
 
 # Abramowitz & Stegun 7.1.26 (Hastings): max absolute error 1.5e-7.
 _ERF_P = 0.3275911

@@ -15,6 +15,11 @@ lanes (or boxes) of the input it is the operation count per lane that
 with each input read once and each output written once. The count does not
 depend on the device, so it can be taken on a few lanes and scaled.
 
+`count_ops_by_class` splits the same count by the primitive operation
+classes of the chain benchmark (B6: mul, add, div, exp, log, sqrt, sel),
+so that `tools.op_microbench.predict_ms` can price a twin's arithmetic at
+the card's measured cost per class.
+
 The twins evaluate each lane's series or continued fraction (the
 incomplete gamma, and erf through P(½, z²)) only where the lane selects it,
 so a count covers what the data needs. Run as a script it prints the count
@@ -32,6 +37,7 @@ import json
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 #: published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet): the device
 #: memory rate in bytes/s and the float32 rate outside the tensor cores in
@@ -50,28 +56,97 @@ _NO_ARITHMETIC = (
 )
 
 
+#: aten operations by the primitive class of the chain benchmark
+#: (`ops.op_chains.PRIMITIVE_CLASSES`); add counts sub, neg, min, max and
+#: clamp as the JAX tool's comment on its chains does, and a sum one add
+#: per element it reads
+_CLASS_OF = {
+    "mul": "mul",
+    "add": "add", "sub": "add", "rsub": "add", "neg": "add", "minimum": "add",
+    "maximum": "add", "clamp": "add", "clamp_min": "add", "clamp_max": "add",
+    "sum": "add",
+    "div": "div", "reciprocal": "div",
+    "exp": "exp",
+    "log": "log",
+    "sqrt": "sqrt",
+    "where": "sel",
+}
+
+
+#: operations whose result does not depend on the values of their arguments
+_FACTORIES = ("empty", "zeros", "ones", "full", "scalar_tensor", "arange")
+
+
 class _Counter(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, data=None):
         super().__init__()
         self.ops = 0
+        self.by_op = {}
+        self.predicates = {}
+        # with `data`: the tensors that depend on it by id, held so that no
+        # other tensor takes their id; only operations on them are counted
+        self.data = None if data is None else {id(t): t for t in data}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = func.__name__
-        if (isinstance(out, torch.Tensor) and out.is_floating_point()
-                and not name.startswith(_NO_ARITHMETIC)):
+        if self.data is not None:
+            if name.startswith(_FACTORIES) or not any(
+                    id(a) in self.data for a in tree_leaves((args, kwargs))):
+                return out
+            self.data.update((id(t), t) for t in tree_leaves(out)
+                             if isinstance(t, torch.Tensor))
+        if not isinstance(out, torch.Tensor) or name.startswith(_NO_ARITHMETIC):
+            return out
+        op = name.split(".")[0].rstrip("_")
+        if out.is_floating_point():
             # a sum does one add per element it reads
             reads = name.startswith("sum") and isinstance(args[0], torch.Tensor)
-            self.ops += args[0].numel() if reads else out.numel()
+            n = args[0].numel() if reads else out.numel()
+            self.ops += n
+            self.by_op[op] = self.by_op.get(op, 0) + n
+        elif out.dtype == torch.bool:
+            self.predicates[op] = self.predicates.get(op, 0) + out.numel()
         return out
 
 
-def count_ops(fn, *args) -> int:
-    """Floating-point elements produced by the arithmetic operations of
-    ``fn(*args)``."""
-    with _Counter() as counter:
+def _run(fn, args, data_only: bool) -> _Counter:
+    data = [a for a in args if isinstance(a, torch.Tensor)] if data_only else None
+    with _Counter(data) as counter:
         fn(*args)
-    return counter.ops
+    return counter
+
+
+def count_ops(fn, *args, data_only: bool = False) -> int:
+    """Floating-point elements produced by the arithmetic operations of
+    ``fn(*args)``. `data_only` counts only the operations whose result
+    depends on the tensors of `args`: an operation on constants alone (a
+    scalar parameter broadcast to the data's shape) is one a kernel does
+    once, not per element."""
+    return _run(fn, args, data_only).ops
+
+
+def count_ops_by_class(fn, *args, data_only: bool = False) -> dict:
+    """`count_ops` split by the chain benchmark's primitive classes (mul,
+    add, div, exp, log, sqrt, sel): ``{class: n, ..., "other": {op: n},
+    "predicate": {op: n}}``. The classes and ``other`` (the floating-point
+    operations of no class, by aten name) add up to `count_ops`;
+    ``predicate`` holds the operations with a boolean result (comparisons,
+    logical operations), which `count_ops` does not count and the class model
+    prices as adds. `data_only` as in `count_ops`."""
+    from cloudy_tpu_torch.ops.op_chains import PRIMITIVE_CLASSES
+
+    counter = _run(fn, args, data_only)
+    out = {c: 0 for c in PRIMITIVE_CLASSES}
+    other = {}
+    for op, n in sorted(counter.by_op.items()):
+        if op in _CLASS_OF:
+            out[_CLASS_OF[op]] += n
+        else:
+            other[op] = n
+    out["other"] = other
+    out["predicate"] = dict(sorted(counter.predicates.items()))
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float, f64: bool = False):

@@ -10,6 +10,9 @@ kernels and the twins run the same operations in the same order; nvcc's FMA
 contraction and CUDA's exp/log differ from torch's in the last bits. The
 quadrature kernel sums its nodes in another order than the twin's
 `torch.sum` and its assembly subtracts sums of like size: f32 1e-3 there.
+The chain kernels (B6) are compared per element, relative: f32 1e-5, f64
+1e-12; the f32 lgamma chains, whose links cancel, against the f64 twin at
+2e-5.
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.ops import numerical_coalescence as nc
+from cloudy_tpu_torch.ops import op_chains
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 
 pytestmark = pytest.mark.cuda
@@ -456,3 +460,39 @@ def test_arm_step_and_rhs_kernels_match_twins(cuda, dtype, name):
     assert bool(torch.isfinite(got).all())
     assert _row_scaled(got / norm2, rhs.plain(x) / norm2) < TOL[dtype]
 
+
+
+@pytest.mark.parametrize("name", list(op_chains.CHAINS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_chain_kernel_matches_twin(cuda, dtype, name):
+    """Each B6 chain kernel against its twin at the chain's K1 links, ILP 8
+    over 4,099 columns (a ragged last block), relative per element: f64
+    1e-12, f32 1e-5; the f32 kernel of a cancelling chain (lgamma,
+    lgamma_stirling) against the f64 twin at 2e-5
+    (`tools.op_microbench.compare`)."""
+    from cloudy_tpu_torch.tools import op_microbench as om
+
+    x = om.inputs(8, 4099, dtype, cuda, seed=4)
+    fn = op_chains.chain_kernel(name, dtype)
+    before = fn.launches
+    rec = om.compare(name, dtype, x)  # raises above the tolerance
+    assert fn.launches == before + 1
+    if dtype == torch.float32 and name in om.CANCELLING:
+        assert rec["vs"] == "f64 twin" and rec["f64_rel_err"] <= om.TOL_CANCELLING == 2e-5
+    else:
+        assert rec["vs"] == "twin" and rec["max_rel_err"] <= om.TOL[dtype]
+    got = op_chains.chain_kernel(name, dtype)(x, 0)
+    assert torch.equal(got, x)  # zero links copy the input
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_mul_chain_above_the_floor(cuda, dtype):
+    """The mul chain's time per element per link, at the tool's sizes,
+    cannot read below one instruction per lane and clock on every SM."""
+    from cloudy_tpu_torch.tools import op_microbench as om
+
+    fn = op_chains.chain_kernel("mul", dtype)
+    x = om.inputs(8, om.columns(fn, cuda), dtype, cuda)
+    rec = om.measure("mul", dtype, x, reps=3)
+    assert rec["k2_ms"] >= om.MIN_K2_MS
+    assert rec["sec_per_elem_link"] >= om.floor_sec(dtype, cuda)

@@ -45,7 +45,9 @@ def test_import_without_jax():
     assert {"cloudy_tpu_torch.models.rainshaft", "cloudy_tpu_torch.ops.fused_coalescence",
             "cloudy_tpu_torch.harness", "cloudy_tpu_torch.bench",
             "cloudy_tpu_torch.coalescence",
-            "cloudy_tpu_torch.tools.whole_step_ablation"} <= set(modules)
+            "cloudy_tpu_torch.tools.whole_step_ablation",
+            "cloudy_tpu_torch.ops.op_chains",
+            "cloudy_tpu_torch.tools.op_microbench"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"

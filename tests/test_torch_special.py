@@ -192,3 +192,94 @@ def test_erf_approx_scipy_bound():
     got = tsp.erf_approx(torch.tensor(x)).numpy()
     assert np.abs(got - ss.erf(x)).max() < 1.6e-7
     assert got[-1] == 0.0
+
+
+# the public wrappers (cloudy_tpu/ops/special.py:112, :295-309, :569-585,
+# :587) on the same seeded inputs
+WRAPPERS = {
+    "gammafn": (lambda m, dt: m.gammafn(_c(m, _K, dt))),
+    "gammainc": (lambda m, dt: m.gammainc(_c(m, _A, dt), _c(m, _X, dt))),
+    "gammaincc": (lambda m, dt: m.gammaincc(_c(m, _A, dt), _c(m, _X, dt), n_iters=24)),
+    "gammaincinv_gl": (lambda m, dt: m.gammaincinv_gl(_c(m, _KI, dt), _c(m, _PI, dt))),
+    "gammaincinv": (
+        lambda m, dt: m.gammaincinv(_c(m, _KI, dt), _c(m, _PI, dt), n_newton=8, n_iters=24)
+    ),
+    "erf": (lambda m, dt: m.erf(_c(m, _Z, dt))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_public_wrapper_f64_matches_jax(name):
+    fn = WRAPPERS[name]
+    want, got = _np(fn(jsp, "f64")), _np(fn(tsp, "f64"))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_public_wrapper_f32_matches_jax(name):
+    """As `test_special_f32_matches_jax` for the composite functions."""
+    fn = WRAPPERS[name]
+    truth = _np(fn(jsp, "f64"))
+    want, got = _np(fn(jsp, "f32")), _np(fn(tsp, "f32"))
+    jax_err = np.abs(want - truth).max()
+    port_err = np.abs(got - truth).max()
+    assert port_err <= 2.0 * jax_err + 1e-30, (port_err, jax_err)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=4.0 * jax_err)
+
+
+def test_gammafn_scipy_bound():
+    """Γ through the Lanczos lgamma (tests/test_special.py:12-18's domain)."""
+    x = np.concatenate([np.linspace(0.01, 1.0, 57), np.linspace(1.0, 50.0, 200)])
+    got = tsp.gammafn(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, ss.gamma(x), rtol=1e-11, atol=0.0)
+
+
+def test_gammainc_scipy_bound():
+    """tests/test_special.py:21-27: P(a, x) to rtol 5e-12, atol 1e-14, and
+    Q = 1 − P."""
+    a = np.logspace(-3, np.log10(50.0), 40)
+    x = np.concatenate([[0.0], np.logspace(-8, np.log10(200.0), 80)])
+    A, X = np.meshgrid(a, x)
+    got = tsp.gammainc(torch.tensor(A), torch.tensor(X)).numpy()
+    np.testing.assert_allclose(got, ss.gammainc(A, X), rtol=5e-12, atol=1e-14)
+    q = tsp.gammaincc(torch.tensor(A), torch.tensor(X)).numpy()
+    np.testing.assert_allclose(q, 1.0 - got, rtol=0.0, atol=1e-15)
+
+
+def test_gammainc_extremes():
+    """tests/test_special.py:30-35: P(a, inf) = 1, P(a, x <= 0) = 0, finite
+    far out; Python numbers are taken in float64, as JAX takes them."""
+    assert float(tsp.gammainc(2.0, float("inf"))) == 1.0
+    assert float(tsp.gammainc(2.0, 0.0)) == 0.0
+    assert float(tsp.gammainc(2.0, -1.0)) == 0.0
+    assert np.isfinite(float(tsp.gammainc(10.0, 1e30)))
+    assert tsp.gammainc(2.0, 1.3).dtype == torch.float64
+    assert tsp.gammainc(2.0, torch.tensor([1.3], dtype=torch.float32)).dtype == torch.float32
+
+
+def test_gammaincinv_roundtrip():
+    """tests/test_special.py:38-48: the Newton inverse against scipy to
+    rtol 1e-8 over k ∈ [0.1, 20] and p from 1e-4 to 1 − 1e-6, and back
+    through P(a, ·)."""
+    a = np.logspace(-1, np.log10(20.0), 25)
+    p = np.array([1e-4, 1e-3, 0.03, 0.25, 0.5, 0.75, 0.97, 0.99, 1 - 1e-6])
+    A, P = np.meshgrid(a, p)
+    x = tsp.gammaincinv(torch.tensor(A), torch.tensor(P))
+    np.testing.assert_allclose(x.numpy(), ss.gammaincinv(A, P), rtol=1e-8, atol=1e-280)
+    back = tsp.gammainc(torch.tensor(A), x).numpy()
+    np.testing.assert_allclose(back, P, rtol=1e-8, atol=0.0)
+
+
+def test_gammaincinv_gl_wrapper_scipy_bound():
+    """tests/test_special.py:160-173 through the public wrapper."""
+    k = np.logspace(np.log10(0.02), 1, 90)
+    p = np.array([0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 0.995])
+    Kk, P = np.meshgrid(k, p, indexing="ij")
+    got = tsp.gammaincinv_gl(torch.tensor(Kk), torch.tensor(P)).numpy()
+    assert np.abs(got / ss.gammaincinv(Kk, P) - 1.0).max() < 2e-5
+
+
+def test_erf_scipy_bound():
+    x = np.concatenate([np.linspace(-8, 8, 4001), [-1e9, -30.0, 30.0, 1e9, 0.0]])
+    got = tsp.erf(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, ss.erf(x), rtol=1e-15, atol=1e-16)
