@@ -4,7 +4,12 @@
 Drives the port's main path once on the card and fails loudly:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles the CUDA kernels from cloudy_tpu_torch/csrc;
+2. build: compiles the table-driven CUDA kernels from cloudy_tpu_torch/csrc
+   and, started with them, every kernel generated per configuration
+   (`ops.codegen`: the fast-tier whole step and fused RHS of each
+   configuration and type the phases launch, one nvcc each), printing each
+   generated unit's nvcc seconds and `ptxas` line (f32: 0 B of stack and
+   spills, checked);
 3. coalescence-RHS kernel vs its plain twin (bench.py's inputs, 65,536
    boxes, f32 and f64);
 4. whole-step kernel vs its plain twin (4,096 columns x 32 levels, one step,
@@ -98,6 +103,17 @@ Drives the port's main path once on the card and fails loudly:
    their twins (4,096 columns x 32 levels, f32 and f64) and their times at
    2^20 x 32 (f32); B5 with three modes at [8, 262144] (f32) and B5 in f64
    at [6, 262144], each against its twin.
+23. the generated B1 and B4 of each pod variant against their table-driven
+   fast instances (reached only through the wrappers' private `_table`):
+   `ptxas`, SASS counts of LDL, STL, LDS, STS, BAR and SHFL, blocks per
+   SM, both against the twin at 4,096 x 32 (f32 and f64), and ms per step
+   of B1 at 2^20 x 32 and per launch of B4 at [6, 2^25] in turns (f32).
+
+From phase 4 on, the whole step and the fused RHS of every fast-tier
+configuration launch the kernel generated for it (the wrappers' `route`
+"generated", printed with each main path's launch counts); the
+coalescence kernel, the scaled whole step and the reference tier launch
+the table-driven kernels.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -112,7 +128,9 @@ the timed sweep (`op_microbench.sweep` zeroes every chain kernel's count
 after the comparisons), and in phase 22 each configuration's timed
 launches. The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
-steps' in normalized moment units; ``bound_ms`` the larger of the bytes moved
+steps' in normalized moment units; ``source`` the kernel's file, for a
+generated kernel its shells with ``generator`` and ``unit`` beside;
+``kernel_path`` "generated" or "table"; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
 the type, `cloudy_tpu_torch.tools.opcount`; ``library_ms`` null: no single
 PyTorch call computes any of these functions) and
@@ -127,6 +145,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -169,10 +188,87 @@ CAL_STEPS = 60  # forward steps per member (tools/calibration_bench.py:102)
 FM_REPS = 3  # timed runs of each family-matrix chain (the tool's default is 5)
 N_FM_ANCHOR_STEPS = 40  # the arms' f64 anchor (phase 20)
 SOURCE = "cloudy_tpu_torch/csrc/fused_coalescence.cu"
+GEN_SOURCE = "cloudy_tpu_torch/csrc/gen_kernels.cuh"
+GEN_GENERATOR = "cloudy_tpu_torch/ops/codegen.py"
 NUM_SOURCE = "cloudy_tpu_torch/csrc/numerical_coalescence.cu"
 CHAIN_SOURCE = "cloudy_tpu_torch/csrc/op_chains.cu"
 B6_REPLACES = "tools/op_microbench.py:141"
 N_COVER_STEPS = 6  # timed launches of each B-cover kernel (phase 22)
+N_GEN_STEPS = 10  # whole steps per timed turn, generated vs table-driven (phase 23)
+N_GEN_RHS = 20  # fused-RHS launches per timed turn (phase 23)
+COVERS = ("exp-only", "three-mode")  # the B-cover configurations (phases 2, 22)
+
+
+def kernel_source(fn):
+    """The `kernels` keys naming a wrapper's kernel: the table-driven source,
+    or the generated kernels' shells and their generator with the route."""
+    if getattr(fn, "route", "table") == "generated":
+        return {"source": GEN_SOURCE, "generator": GEN_GENERATOR, "kernel_path": "generated",
+                "unit": fn.unit.label}
+    return {"source": SOURCE, "kernel_path": "table"}
+
+
+def cover_case(name):
+    """(spec, data, RainshaftConfig) of a B-cover configuration: the pod as
+    exponential-only (E, E) or three-mode (E, L, G;
+    tests/test_pallas.py:172-177), fast tier."""
+    import numpy as np
+
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    E, G, L = Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL
+    fams, thr = {"exp-only": ((E, E), (5e-10, np.inf)),
+                 "three-mode": ((E, L, G), (2e-10, 5e-10, np.inf))}[name]
+    spec = SpectrumSpec(fams)
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, thr, norms=(1e6, 1e-9), fast_tier=True)
+    return spec, data, rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
+
+
+def scaled_tensor_data(spec, s=1.7):
+    """Pod `fixed2gamma` data from the s-scaled Golovin tensor (phase 16)."""
+    import numpy as np
+
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    return build_coalescence_data(spec, K.CoalescenceTensor(s * ker.array), (5e-10, np.inf),
+                                  norms=(1e6, 1e-9), fast_tier=True)
+
+
+def generated_wrappers(dev):
+    """A wrapper of every generated kernel the phases launch, built from the
+    same plans, hence the same units: the pod variants' whole step and fused
+    RHS in f32 and f64 (phases 4-12, 23), the unscaled step from the
+    1.7-scaled tensor in f64 (phase 16), the family matrix's fast cases in
+    f32 (phase 20) and the B-cover configurations (phase 22)."""
+    import torch
+
+    from cloudy_tpu_torch import harness
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.tools import yardstick
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    fns = []
+    for dt in (torch.float32, torch.float64):
+        for variant in yardstick.VARIANTS:
+            for kind in ("step", "rhs"):
+                fns.append(yardstick.make_fns(variant, kind, dev, dt)[0])
+        for name in COVERS:
+            _, data, cfg = cover_case(name)
+            fns.append(fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                                 dt=1.0, device=dev, dtype=dt))
+            fns.append(fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, device=dev, dtype=dt))
+    spec, _ = harness.pod_data("fixed2gamma")
+    _, _, cfg = yardstick.pod_config("fixed2gamma")
+    fns.append(fc.make_rainshaft_step_fn(scaled_tensor_data(spec), cfg.vel, cfg.norms, nz=NZ,
+                                         dz=cfg.dz, dt=1.0, device=dev, dtype=torch.float64))
+    fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
+    return [f for f in fns if f.route == "generated"]
 
 
 def check(cond, msg):
@@ -281,13 +377,46 @@ def main():
     print(f"phase 1 seconds {time.perf_counter() - t:.3f}")
 
     # ---- 2. build ---------------------------------------------------------
+    # the table-driven library (one nvcc per unit) and every generated
+    # kernel the phases launch (one nvcc each), all started together
     t = time.perf_counter()
+    lib_err = []
+
+    def build_library():
+        try:
+            _build.load_library()
+        except BaseException as e:  # re-raised below
+            lib_err.append(e)
+
+    lib_thread = threading.Thread(target=build_library)
+    lib_thread.start()
+    gen_fns = generated_wrappers(dev)
+    gen_records = _build.build_generated([f.unit for f in gen_fns])
+    gen_s = time.perf_counter() - t
+    lib_thread.join()
+    if lib_err:
+        raise lib_err[0]
     _build.load_library()
     build_s = time.perf_counter() - t
+    n_gen_built = len(_build.GEN_BUILDS)
     log = _build.library_path().with_suffix(".log").read_text()
-    print(f"phase 2 build: {_build.library_path().name} in {build_s:.3f} s {card}")
+    print(f"phase 2 build: {_build.library_path().name} and {len(gen_records)} generated "
+          f"units ({sum(r['built'] for r in gen_records)} built here) in {build_s:.3f} s, the "
+          f"generated ones done after {gen_s:.3f} s {card}")
     for ln in ptxas_summary(log, chains=True):
         print(f"  ptxas: {ln}")
+    for rec in gen_records:
+        pt = _build.ptxas_report(rec.get("log", ""))
+        retried = (", rebuilt with a minimum of 1 block per SM: ptxas spilled under its own "
+                   "register target" if rec["retried"] else "")
+        print(f"  generated {rec['label']}: nvcc {rec['seconds']:.3f} s{retried}; ptxas: "
+              f"{pt.get('registers')} registers, {pt.get('stack')} B stack, "
+              f"{pt.get('spill_stores')} B spill stores, {pt.get('spill_loads')} B spill loads")
+        if "_f32_" in rec["label"]:
+            check(pt.get("stack") == 0 and pt.get("spill_stores") == 0
+                  and pt.get("spill_loads") == 0,
+                  f"generated f32 unit {rec['label']} has stack or spills: {pt}")
+    del gen_fns
     print(f"phase 2 seconds {time.perf_counter() - t:.3f}")
 
     spec, bdata = bench.bench_data()
@@ -388,6 +517,7 @@ def main():
     coal32 = fc.make_coal_fn(bdata, device=dev, dtype=torch.float32)
     rhs_mom = torch.as_tensor(bench.bench_moments(bench.BENCH_COLUMNS).T.copy(),
                               dtype=torch.float32, device=dev)
+    check(sc["step"].route == "generated", "the pod step does not take the generated kernel")
     sc["step"].launches = 0  # counts from here to the end of phase 7
     coal32.launches = 0
     y, pod_s, clock = sc["run"]()
@@ -427,7 +557,8 @@ def main():
     launches = {"step": sc["step"].launches, "coal": coal32.launches}
     print(f"phase 7 coal RHS chain {bench.BENCH_COLUMNS} boxes f32: "
           f"{s_chain * 1e3:.4f} ms/step, {mu_rate:.4e} moment-updates/s {card}")
-    print(f"launch counts of the main path: {launches}")
+    print(f"launch counts of the main path: {launches}; routes: step {sc['step'].route} "
+          f"({sc['step'].unit.label}), coal {coal32.route}")
     check(launches["step"] == sc["n_steps"],
           f"whole-step kernel launched {launches['step']} times, not {sc['n_steps']}")
     check(launches["coal"] == N_RHS_STEPS + 3,
@@ -456,6 +587,7 @@ def main():
                        sc["state0"][:, :8 * NZ].contiguous(), N_POD_COLUMNS * NZ, 6, 6)
     coal_bound = bound("coal_rhs", coal32.plain, rhs_mom[:, :256].contiguous(),
                        bench.BENCH_COLUMNS, 6, 6)
+    step_src = kernel_source(sc["step"])
     del sc, y, yt
     print(f"phase 7 per call at main-path shapes: coal kernel {coal_ms:.4f} ms, "
           f"coal twin {coal_plain_ms:.4f} ms; step kernel "
@@ -463,7 +595,7 @@ def main():
     print(f"phase 7 seconds {time.perf_counter() - t:.3f}")
 
     kernels = [
-        {"name": "rainshaft_step", "route": "cuda", "source": SOURCE,
+        {"name": "rainshaft_step", "route": "cuda", **step_src,
          "replaces": B1_REPLACES, "launches": launches["step"],
          "max_abs_err": results[("step", "main")][1],
          "max_row_scaled_err": results[("step", "main")][0],
@@ -573,6 +705,7 @@ def main():
         n_columns=N_POD_COLUMNS, device=dev, dtype=torch.float32)
     cfg = sc["config"]
     rfn = fc.make_rainshaft_rhs_fn(sc["data"], cfg.vel, cfg.norms, device=dev)
+    check(rfn.route == "generated", "the fused-RHS route does not take the generated kernel")
     rhs = rs.make_rainshaft_rhs_fused(cfg, rfn)
     rfn.soa(sc["state0"][:, :NZ].contiguous())  # warm-up outside the count
     torch.cuda.synchronize()
@@ -595,7 +728,7 @@ def main():
     print(f"phase 10 fused-RHS route fixed2gamma {N_POD_COLUMNS} x {NZ} x {N_FUSED_STEPS} "
           f"f32: {fused_s / N_FUSED_STEPS * 1e3:.4f} ms/step, "
           f"{N_POD_COLUMNS * N_FUSED_STEPS / fused_s:.4e} column-updates/s, rhs launches "
-          f"{rhs_launches}; vs {N_FUSED_STEPS} whole steps: row-scaled {ferr:.3e} "
+          f"{rhs_launches} ({rfn.route}, {rfn.unit.label}); vs {N_FUSED_STEPS} whole steps: row-scaled {ferr:.3e} "
           f"(tol {TOL['float32']:.0e}) {card}")
     check(bool(torch.isfinite(y).all()), "fused-RHS route not finite")
     check(ferr < TOL["float32"], f"fused-RHS route vs whole step {ferr:.3e}")
@@ -610,7 +743,7 @@ def main():
     rhs_plain_ms = _time_ms(lambda: rfn.plain(sc["state0"]), 2)
     print(f"phase 10 per call at [6, {N_POD_COLUMNS * NZ}]: rhs kernel {rhs_ms:.4f} ms, "
           f"rhs twin {rhs_plain_ms:.4f} ms {card}")
-    kernels.append({"name": "rainshaft_rhs", "route": "cuda", "source": SOURCE,
+    kernels.append({"name": "rainshaft_rhs", "route": "cuda", **kernel_source(rfn),
                     "replaces": B4_REPLACES, "launches": rhs_launches,
                     "max_abs_err": rabs, "max_row_scaled_err": rerr,
                     "ms": rhs_ms, "plain_ms": rhs_plain_ms,
@@ -626,6 +759,7 @@ def main():
         sc = harness.SCENARIOS[scenario](
             n_columns=N_POD_COLUMNS, device=dev, dtype=torch.float32)
         sc["n_steps"] = N_VARIANT_STEPS  # of the scenario's 120: the time budget
+        check(sc["step"].route == "generated", f"[{variant}] pod step not generated")
         sc["step"].launches = 0
         y, pod_s, clock = sc["run"](N_VARIANT_STEPS)
         n_launch = sc["step"].launches
@@ -636,7 +770,7 @@ def main():
         print(f"phase 11 {scenario} {N_POD_COLUMNS} x {NZ} x {sc['n_steps']} f32: "
               f"{pod_s:.4f} s ({clock}), {pod_s / sc['n_steps'] * 1e3:.4f} ms/step, "
               f"{N_POD_COLUMNS * sc['n_steps'] / pod_s:.4e} column-updates/s, launches "
-              f"{n_launch}, finite {finite}, negative_fraction {rep['negative_fraction']}, "
+              f"{n_launch} ({sc['step'].route}, {sc['step'].unit.label}), finite {finite}, negative_fraction {rep['negative_fraction']}, "
               f"nonfinite_fraction {rep['nonfinite_fraction']}, total_mass "
               f"{rep['total_mass']:.6e} {card}")
         check(finite and rep["nonfinite_fraction"] == 0.0, f"[{variant}] pod state not finite")
@@ -660,7 +794,8 @@ def main():
               f"row-scaled {err:.3e}, max abs {abs_err:.3e} (normalized); kernel "
               f"{pod_s / sc['n_steps'] * 1e3:.4f} ms/step, twin {plain_ms:.4f} ms/step {card}")
         kernels.append({"name": f"rainshaft_step[{variant}]", "route": "cuda",
-                        "source": SOURCE, "replaces": B1_REPLACES, "launches": n_launch,
+                        **kernel_source(sc["step"]), "replaces": B1_REPLACES,
+                        "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
                         "ms": pod_s / sc["n_steps"] * 1e3, "plain_ms": plain_ms,
                         **bound(f"rainshaft_step[{variant}]", sc["step"].plain,
@@ -675,13 +810,14 @@ def main():
     for variant, scenario in VARIANTS.items():
         sc = harness.SCENARIOS[scenario](
             n_columns=N_ANCHOR_COLUMNS, device=dev, dtype=torch.float64)
+        check(sc["step"].route == "generated", f"[{variant}] f64 pod step not generated")
         y, _, _ = sc["run"](N_VARIANT_STEPS)
         yt = sc["state0"]
         for _ in range(N_VARIANT_STEPS):
             yt = sc["step"].plain(yt)
         aerr, _ = row_scaled(y, yt)
         print(f"phase 12 [{variant}] f64 anchor ({N_ANCHOR_COLUMNS} columns, "
-              f"{N_VARIANT_STEPS} steps): kernel vs twin row-scaled {aerr:.3e} "
+              f"{N_VARIANT_STEPS} steps, {sc['step'].route}): kernel vs twin row-scaled {aerr:.3e} "
               f"(tol {TOL['float64']:.0e}) {card}")
         check(bool(torch.isfinite(y).all()), f"[{variant}] f64 anchor not finite")
         check(aerr < TOL["float64"], f"[{variant}] f64 anchor {aerr:.3e}")
@@ -846,8 +982,7 @@ def main():
             check(bool(torch.isfinite(got).all()), f"scaled step [{variant}] {name} not finite")
             check(err < TOL[name], f"scaled step [{variant}] {name} vs twin {err:.3e}")
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
-    data_s = build_coalescence_data(spec, K.CoalescenceTensor(1.7 * ker.array),
-                                    (5e-10, np.inf), norms=(1e6, 1e-9), fast_tier=True)
+    data_s = scaled_tensor_data(spec)
     kw = dict(nz=NZ, dz=sc_cfg.dz, dt=1.0, device=dev, dtype=torch.float64)
     x = torch.as_tensor(state_np, dtype=torch.float64, device=dev)
     got = fc.make_rainshaft_step_fn(fdata, sc_cfg.vel, sc_cfg.norms, kernel_scale=True,
@@ -903,9 +1038,10 @@ def main():
     b1s_plain_ms = _time_ms(lambda: step.plain(y, srow), 5)
     print(f"phase 16 per call at [6, {state.shape[1]}]: B1s kernel {b1s_ms:.4f} ms, B1s twin "
           f"{b1s_plain_ms:.4f} ms; unscaled B1 fixed2gamma at [6, {N_POD_COLUMNS * NZ}] in "
-          f"this call (phase 6) {b1_ms:.4f} ms/step (recorded spread 27.15-27.50) {card}")
+          f"this call (phase 6, generated) {b1_ms:.4f} ms/step (table-driven, recorded: "
+          f"27.15-27.50) {card}")
     small = 8 * NZ
-    kernels.append({"name": "rainshaft_step[scaled]", "route": "cuda", "source": SOURCE,
+    kernels.append({"name": "rainshaft_step[scaled]", "route": "cuda", **kernel_source(step),
                     "replaces": B1S_REPLACES, "launches": rec["b1s_launches_8iters"],
                     "max_abs_err": sabs, "max_row_scaled_err": serr,
                     "ms": b1s_ms, "plain_ms": b1s_plain_ms,
@@ -921,8 +1057,8 @@ def main():
     for ln in ptxas_summary(log):
         if "reference" in ln or ln.startswith("step_kernel<float, false, unscaled>"):
             print(f"phase 17 ptxas (phase 2): {ln}")
-    print(f"phase 17 unscaled B1 fixed2gamma in this call (phase 6): {b1_ms:.4f} ms/step "
-          f"(recorded spread 27.15-27.50) {card}")
+    print(f"phase 17 unscaled B1 fixed2gamma in this call (phase 6, generated): {b1_ms:.4f} "
+          f"ms/step (table-driven, recorded: 27.15-27.50) {card}")
 
     def ref_data(families=(Family.GAMMA, Family.GAMMA), moving=False, **kw):
         """The default (reference) tier, Golovin 5.0 at order 1."""
@@ -1203,6 +1339,14 @@ def main():
     # ---- 22. B-cover: configurations no earlier phase drives ---------------
     phase_22(dev, card, kernels, bound)
 
+    # ---- 23. the generated B1 and B4 against their table-driven instances --
+    phase_23(dev, card, {r["label"]: r for r in gen_records})
+    late = _build.GEN_BUILDS[n_gen_built:]
+    print(f"generated units built after phase 2: {len(late)} "
+          f"{[r['label'] for r in late]}")
+    check(not late, "a phase launched a generated unit that generated_wrappers does not "
+          f"list: {[r['label'] for r in late]}")
+
     print(f"total seconds {time.perf_counter() - t_all:.3f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1234,8 +1378,8 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     for ln in ptxas_summary(log):
         print(f"phase 20 ptxas (phase 2): {ln}")
-    print(f"phase 20 unscaled B1 fixed2gamma in this call (phase 6): {b1_ms:.4f} ms/step "
-          f"(recorded spread 27.15-27.50) {card}")
+    print(f"phase 20 unscaled B1 fixed2gamma in this call (phase 6, generated): {b1_ms:.4f} "
+          f"ms/step (table-driven, recorded: 27.15-27.50) {card}")
     arm_ranges = {Family.GAMMA: ((0.05, 5.0), (0.5, 5.0)),
                   Family.LOGNORMAL: ((-2.0, 0.5), (0.3, 1.2)),
                   Family.MONODISPERSE: ((0.05, 0.6), (0.0, 0.0)),  # θ about T/2 = 0.25
@@ -1408,7 +1552,8 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
             flips = (f", mono lanes across T/2 between them "
                      f"{mono_flips(yk / norm, yt / norm, wsa.case_data(case)[0])}")
         plain_ms = _time_ms(lambda: step.plain(state0), 1)
-        print(f"phase 20 family matrix [{case}] {N_POD_COLUMNS} x {NZ} f32 ({rec['instance']}): "
+        print(f"phase 20 family matrix [{case}] {N_POD_COLUMNS} x {NZ} f32 ({rec['instance']}, "
+              f"{step.route}): "
               f"{rec['ms_per_step']:.4f} ms/step, {rec['column_updates_per_s']:.4e} "
               f"column-updates/s (n1 {rec['n1']}, n2 {rec['n2']}, median of {FM_REPS}), "
               f"launches {n_launch} in {rec['steps_run']} steps; first {N_CMP_COLUMNS} columns "
@@ -1421,7 +1566,7 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
               f"operations per lane), share {rec['bound_share']} {card}")
         print(json.dumps(rec))
         check(err < TOL["float32"], f"[{case}] family matrix vs twin {err:.3e}")
-        kernels.append({"name": f"rainshaft_step[{case}]", "route": "cuda", "source": SOURCE,
+        kernels.append({"name": f"rainshaft_step[{case}]", "route": "cuda", **kernel_source(step),
                         "replaces": B1_REPLACES, "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
                         "ms": rec["ms_per_step"], "plain_ms": plain_ms,
@@ -1537,7 +1682,6 @@ def phase_22(dev, card, kernels, bound):
     from cloudy_tpu_torch import bench
     from cloudy_tpu_torch import distributions as pd
     from cloudy_tpu_torch import kernels as K
-    from cloudy_tpu_torch.coalescence import build_coalescence_data
     from cloudy_tpu_torch.models import rainshaft as rs
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
@@ -1546,16 +1690,12 @@ def phase_22(dev, card, kernels, bound):
     t = time.perf_counter()
     E, G, L = Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL
     dtypes = {"float32": torch.float32, "float64": torch.float64}
-    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     # per family the column's moment amplitudes: exponential (N, N x), gamma
     # k = 1, lognormal sigma = 0.5 (M2 = N x^2 e^(sigma^2))
     amps = {E: [1e8, 1e-2], G: [1e6, 1e-3, 2e-12], L: [1e7, 1e-3, 1.2840254166877414e-13]}
-    covers = (("exp-only", (E, E), (5e-10, np.inf)),
-              ("three-mode", (E, L, G), (2e-10, 5e-10, np.inf)))
-    for name, fams, thr in covers:
-        spec = SpectrumSpec(fams)
-        data = build_coalescence_data(spec, ker, thr, norms=(1e6, 1e-9), fast_tier=True)
-        cfg = rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
+    for name in COVERS:
+        spec, data, cfg = cover_case(name)
+        fams = spec.families
         ic = np.concatenate([rs.initial_condition(cfg.z, amps[f]) for f in fams], axis=-1)
         rng = np.random.default_rng(22)
         amp = np.concatenate([rng.uniform(0.5, 1.5, (N_CMP_COLUMNS, 1, 1)).repeat(n, axis=2)
@@ -1612,7 +1752,8 @@ def phase_22(dev, card, kernels, bound):
         coal_ms = _time_ms(lambda: coal.soa(bign), N_COVER_STEPS - 1)
         counts = {"step": step.launches, "rhs": rhs.launches, "coal": coal.launches}
         finite = bool(torch.isfinite(y).all())
-        print(f"phase 22 [{name}] at {N_POD_COLUMNS} x {NZ} f32: B1 {step_ms:.4f} ms/step "
+        print(f"phase 22 [{name}] at {N_POD_COLUMNS} x {NZ} f32 (B1 and B4 {step.route}, B3 "
+              f"{coal.route}): B1 {step_ms:.4f} ms/step "
               f"({N_POD_COLUMNS / step_ms * 1e3:.4e} column-updates/s, finite {finite}), "
               f"B4 {rhs_ms:.4f} ms, B3 {coal_ms:.4f} ms per launch; launches {counts} {card}")
         check(finite, f"[{name}] state after {N_COVER_STEPS} steps not finite")
@@ -1626,7 +1767,8 @@ def phase_22(dev, card, kernels, bound):
                 ("step", "rainshaft_step", B1_REPLACES, step.plain, small, spec.n_tot, step_ms),
                 ("rhs", "rainshaft_rhs", B4_REPLACES, rhs.plain, small, 2 * spec.n_tot, rhs_ms),
                 ("coal", "coal_rhs", B3_REPLACES, coal.plain, sn, spec.n_tot, coal_ms)):
-            kernels.append({"name": f"{kname}[{name}]", "route": "cuda", "source": SOURCE,
+            kernels.append({"name": f"{kname}[{name}]", "route": "cuda",
+                            **kernel_source({"step": step, "rhs": rhs, "coal": coal}[kk]),
                             "replaces": replaces, "launches": counts[kk],
                             "max_abs_err": errs_f32[kk][1], "max_row_scaled_err": errs_f32[kk][0],
                             "ms": ms, "plain_ms": plain[kk],
@@ -1677,6 +1819,79 @@ def phase_22(dev, card, kernels, bound):
         del fn, x, got, want
         torch.cuda.empty_cache()
     print(f"phase 22 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_23(dev, card, gen_records):
+    """Phase 23: the generated whole step (B1) and fused RHS (B4) of each pod
+    variant against their table-driven fast instances, in this call: each
+    unit's `ptxas` line (f32: 0 B of stack and of spills), the SASS counts
+    of LDL, STL, LDS, STS, BAR and SHFL, resident blocks per SM, both
+    kernels against the twin at 4,096 columns x 32 levels (f32 and f64);
+    then ms per step of B1 at 2^20 x 32 (chains of N_GEN_STEPS steps from
+    the pod's initial state) and per launch of B4 at [6, 2^25] (f32), in
+    turns table, generated, generated, table. `gen_records`: phase 2's build
+    records by unit label (their nvcc seconds)."""
+    import json
+
+    import torch
+
+    from cloudy_tpu_torch.ops import _build
+    from cloudy_tpu_torch.tools import yardstick
+
+    t = time.perf_counter()
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+
+    def show(r):
+        pt, sass = r["ptxas"], r["sass"]
+        return (f"ptxas {pt.get('registers')} registers, {pt.get('stack')} B stack, "
+                f"{pt.get('spill_stores')}/{pt.get('spill_loads')} B spill stores/loads; SASS "
+                + " ".join(f"{k} {sass.get(k)}" for k in ("LDL", "STL", "LDS", "STS", "BAR",
+                                                           "SHFL"))
+                + f" of {sass.get('total')} instructions; {r['blocks_per_sm']} blocks/SM")
+
+    for variant in yardstick.VARIANTS:
+        for kind in ("step", "rhs"):
+            label = "B1 whole step" if kind == "step" else "B4 fused RHS"
+            for name, dt in dtypes.items():
+                gen, table = yardstick.make_fns(variant, kind, dev, dt)
+                rec = gen_records.get(gen.unit.label) or _build.build_generated([gen.unit])[0]
+                g = yardstick.gen_report(gen.unit, rec)
+                tb = yardstick.table_report(kind, dt, gen.plan.arms, gen.plan)
+                gerr, gfin = yardstick.check_vs_twin(gen, kind, variant, dev, dt)
+                terr, tfin = yardstick.check_vs_twin(table, kind, variant, dev, dt)
+                print(f"phase 23 [{variant}, {label}, {name}] generated {gen.unit.label} "
+                      f"({g['threads']} threads, {'shuffle' if g['shfl'] else 'no'} stencil, "
+                      f"nvcc {g['nvcc_s']:.3f} s{', rebuilt' if g['retried'] else ''}): "
+                      f"{show(g)} | table-driven: {show(tb)} | vs "
+                      f"twin at [6, {N_CMP_COLUMNS * NZ}] (normalized): generated {gerr:.3e}, "
+                      f"table-driven {terr:.3e} (tol {TOL[name]:.0e}) {card}")
+                print(json.dumps({"phase": 23, "variant": variant, "kind": kind, "dtype": name,
+                                  "unit": gen.unit.label, "generated": g, "table": tb,
+                                  "gen_vs_twin": gerr, "table_vs_twin": terr}))
+                check(gfin and tfin, f"[{variant}, {kind}, {name}] not finite")
+                check(gerr < TOL[name] and terr < TOL[name],
+                      f"[{variant}, {kind}, {name}] vs twin: generated {gerr:.3e}, table {terr:.3e}")
+                if dt == torch.float32:
+                    pt = g["ptxas"]
+                    check(pt.get("stack") == 0 and pt.get("spill_stores") == 0
+                          and pt.get("spill_loads") == 0,
+                          f"[{variant}, {kind}] generated f32 stack or spills: {pt}")
+                    check(g["sass"].get("LDL") == 0 and g["sass"].get("STL") == 0,
+                          f"[{variant}, {kind}] generated f32 local memory: {g['sass']}")
+                if kind == "step" and g["shfl"]:
+                    check(g["sass"].get("BAR") == 0, f"[{variant}] shuffle step has barriers")
+            x = yardstick.pod_state(variant, N_POD_COLUMNS, dev, torch.float32)
+            gen, table = yardstick.make_fns(variant, kind, dev, torch.float32)
+            n = N_GEN_STEPS if kind == "step" else N_GEN_RHS
+            (t_tab, t_gen), raw = yardstick.time_turns([table, gen], kind, x, n)
+            unit = "ms/step" if kind == "step" else "ms per launch"
+            print(f"phase 23 [{variant}, {label}] at [6, {x.shape[1]}] f32: table-driven "
+                  f"{t_tab:.4f} {unit}, generated {t_gen:.4f} {unit} ({t_tab / t_gen:.3f}x; "
+                  f"turns table {[round(v, 4) for v in raw[0]]}, generated "
+                  f"{[round(v, 4) for v in raw[1]]}, {n} per turn) {card}")
+            del x, gen, table
+            torch.cuda.empty_cache()
+    print(f"phase 23 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

@@ -12,14 +12,29 @@
 // the closure inversion (pallas_numerical.py::_invert_rows), the Lanczos
 // `lgamma` and the series/CF incomplete gamma are in common.cuh.
 //
-// The configuration is table-driven: the host (ops/fused_coalescence.py,
-// `pack_config`) packs families, offsets, thresholds, the nonzeros of the
-// Q/R/S weight tensors wb and wf, the moment norms, the velocity terms, the
-// Gauss-Legendre nodes and dt / inv_dz into one byte buffer; each block
-// copies it to shared memory and every thread reads it from there (uniform
-// addresses: broadcasts). Real constants are computed in double on the host
-// and rounded once to T, as JAX folds Python floats into weakly typed
-// constants. Operation order follows the Pallas body term for term; nvcc's
+// The configuration reaches the body in one of two forms, a type `C` the
+// functions below are templated on:
+//
+// - table-driven, `Config<T>`: the host (ops/fused_coalescence.py,
+//   `pack_config`) packs families, offsets, thresholds, the nonzeros of the
+//   Q/R/S weight tensors wb and wf, the moment norms, the velocity terms,
+//   the Gauss-Legendre nodes and dt / inv_dz into one byte buffer; each
+//   block copies it to shared memory and every thread reads it from there
+//   (uniform addresses: broadcasts). Indices read at run time keep the
+//   body's per-lane arrays (mf, ftab, acc) in local memory. B1s, B3 and the
+//   reference tier run it;
+// - compiled in (`C::kStatic`): a type generated per configuration and type
+//   by ops/codegen.py, whose members are `static constexpr` scalars and
+//   constant tables indexed like the packed ones. Every loop over them
+//   (`each`) has a compile-time bound and is fully unrolled, every index
+//   folds to a constant, so the per-lane arrays live in registers, and a
+//   branch the configuration rules out compiles to nothing. The Q/R/S
+//   contraction is the generated straight-line `C::contract`. The fast tier
+//   of B1 and B4 runs it (csrc/gen_kernels.cuh).
+//
+// Real constants are computed in double on the host and rounded once to T,
+// as JAX folds Python floats into weakly typed constants. Operation order
+// follows the Pallas body term for term; nvcc's
 // default FMA contraction differs from XLA's fusion, so results agree with
 // the plain twin to rounding (compared row-scaled, never elementwise); the
 // reference whole step is built without contraction
@@ -29,7 +44,8 @@
 // kernels' `kArms = true` instances: the host launches the `false` instance
 // for a FixedThreshold gamma/exponential configuration (`FusedPlan.arms`),
 // which then carries neither arm's registers nor its stack. The reference
-// tier (`kRef = true`, always with kArms) adds the gamma/exponential and the
+// tier (`kRef = true`, always with kArms and the table-driven
+// configuration) adds the gamma/exponential and the
 // lognormal (Phi) F2 on a quadrature grid (fixed grids packed by the host,
 // moving Simpson and Gauss grids built per lane, QuadGrid), the
 // series/continued-fraction incomplete gamma and erf, the damped-Newton
@@ -96,6 +112,8 @@ __host__ __device__ constexpr int tri(int p, int q) {
 
 // The configuration, bound to the block's shared-memory copy.
 template <typename T> struct Config {
+  using real = T;
+  static constexpr bool kStatic = false;
   int n_modes, n_tot, M, n_gl, n_wb, n_wf, n_vel, moving, n_win;
   int quad, gi_iters, newton_iters, thr_gi_iters, n_pts, n_gauss;
   const int* f2kind;
@@ -185,6 +203,19 @@ template <typename T> struct Config {
   }
 };
 
+// f(j) for j = 0 .. n-1: fully unrolled for a compiled-in configuration
+// (n is then a compile-time constant once inlined), the plain loop the
+// table-driven configuration always ran otherwise.
+template <class C, class F>
+__device__ __forceinline__ void each(int n, F&& f) {
+  if constexpr (C::kStatic) {
+#pragma unroll
+    for (int j = 0; j < n; ++j) f(j);
+  } else {
+    for (int j = 0; j < n; ++j) f(j);
+  }
+}
+
 // special.lgamma_stirling: Stirling at z = x + 4, shift removed exactly
 template <typename T> __device__ __forceinline__ T lgamma_stirling(T x) {
   const T z = x + T(4);
@@ -220,8 +251,8 @@ template <typename T> __device__ __forceinline__ T gamma_ratio(T k, T e) {
 
 // special.gammainc_gl: P(a, x) by fixed Gauss-Legendre integration of the
 // gamma density towards the far tail; gln = lgamma(a)
-template <typename T>
-__device__ __forceinline__ T gammainc_gl(const Config<T>& c, T a, T x, T gln) {
+template <class C, typename T>
+__device__ __forceinline__ T gammainc_gl(const C& c, T a, T x, T gln) {
   const T tiny = Lim<T>::tiny();
   x = vmin(x, T(1e6));
   const T a1 = a - T(1);
@@ -232,11 +263,11 @@ __device__ __forceinline__ T gammainc_gl(const Config<T>& c, T a, T x, T gln) {
   const T xu = above ? xu_hi : xu_lo;
   const T half = T(0.5) * (xu - x);
   T s = T(0);
-  for (int j = 0; j < c.n_gl; ++j) {
+  each<C>(c.n_gl, [&](int j) {
     const T t = vmax(x + half * c.gl_y1[j], tiny);
     const T f = dexp(a1 * dlog(t) - t - gln);
     s = (j == 0) ? c.gl_w[j] * f : s + c.gl_w[j] * f;
-  }
+  });
   s = s * half;
   const T out = vclip(above ? T(1) - s : -s, T(0), T(1));
   return (x > T(0)) ? out : T(0);
@@ -284,8 +315,8 @@ template <> struct Eps<double> {
 
 // special.gammaincinv_gl_impl: x with P(a, x) = p; max(Wilson-Hilferty,
 // small-x) start, n_iter = 3 Halley steps on the shift-4 GL P(a, x)
-template <typename T>
-__device__ __forceinline__ T gammaincinv_gl(const Config<T>& c, T a, T p) {
+template <class C, typename T>
+__device__ __forceinline__ T gammaincinv_gl(const C& c, T a, T p) {
   const T tiny = Lim<T>::tiny();
   p = vclip(p, tiny, T(1) - Eps<T>::neg());
   const T z = ndtri(p);
@@ -372,9 +403,9 @@ __device__ __forceinline__ T erf_series(T z, int n_iters, T lg_half) {
 // _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2; the top order
 // by GL with the Stirling lgamma, or (reference tier, n_gl = 0) by series/CF
 // with the Lanczos one
-template <typename T, bool kRef>
-__device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
-                                          T k, T* gis) {
+template <bool kRef, class C, typename T>
+__device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
+                                          T* gis) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const bool sc = kRef && c.n_gl == 0;
@@ -395,9 +426,13 @@ __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
     }
   }
   T gi;
-  if (sc) {
-    const T a_top = a0 + T(2 * M - 2);
-    gi = gammainc_sc(a_top, x, c.gi_iters, lgamma_lanczos(a_top), log_x);
+  if constexpr (kRef) {
+    if (sc) {
+      const T a_top = a0 + T(2 * M - 2);
+      gi = gammainc_sc(a_top, x, c.gi_iters, lgamma_lanczos(a_top), log_x);
+    } else {
+      gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
+    }
   } else {
     gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
   }
@@ -416,9 +451,9 @@ __device__ __forceinline__ void gis_exact(const Config<T>& c, T thr, T theta,
 // The nodes are streamed: each node adds ypow_p * pm_q to p <= q
 // accumulators (the Pallas body sums its [G, TB] tile with jnp.sum), and
 // exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop.
-template <typename T>
-__device__ __forceinline__ void f2_lognormal_window(const Config<T>& c, T thr,
-                                                    T n, T mu, T sig, T* f2) {
+template <class C, typename T>
+__device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
+                                                    T mu, T sig, T* f2) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const T W = T(6);  // coalescence.LOGNORM_WINDOW_SIGMA
@@ -438,7 +473,7 @@ __device__ __forceinline__ void f2_lognormal_window(const Config<T>& c, T thr,
   }
 #pragma unroll
   for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
-  for (int g = 0; g < c.n_win; ++g) {
+  each<C>(c.n_win, [&](int g) {
     const T u = center + half * c.win_v[g];
     const T x = dexp(u);
     const T du = u - mu;
@@ -464,7 +499,7 @@ __device__ __forceinline__ void f2_lognormal_window(const Config<T>& c, T thr,
           if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * pm[q];
       }
     }
-  }
+  });
   const T n2 = n * n;
 #pragma unroll
   for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * n2;
@@ -679,29 +714,36 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
 // exp(mu + sigma * ndtri(p)), monodisperse theta: reference tier only),
 // clamped below at 1e-18. The gamma inverse is the GL Halley one, or Newton
 // on series/CF in the reference tier at n_gl = 0.
-template <typename T, bool kArms, bool kRef>
-__device__ __forceinline__ T mode_threshold(const Config<T>& c, int i, int fam,
-                                            T p1, T p2) {
+template <bool kArms, bool kRef, class C, typename T>
+__device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
+                                            T p2) {
   if (!kArms || !c.moving) return c.thr[i];
   T thr;
-  if (kRef && fam == FAM_MONODISPERSE)
+  if (kRef && fam == FAM_MONODISPERSE) {
     thr = p1;
-  else if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
-    thr = p1 * gammaincinv_newton(p2, c.thr[i], c.newton_iters, c.thr_gi_iters);
-  else if (fam == FAM_GAMMA)
-    thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
-  else if (fam == FAM_EXPONENTIAL)
+  } else if (fam == FAM_GAMMA) {
+    if constexpr (kRef) {
+      thr = (c.n_gl == 0)
+                ? p1 * gammaincinv_newton(p2, c.thr[i], c.newton_iters,
+                                          c.thr_gi_iters)
+                : p1 * gammaincinv_gl(c, p2, c.thr[i]);
+    } else {
+      thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
+    }
+  } else if (fam == FAM_EXPONENTIAL) {
     thr = p1 * c.thr[i];
-  else
+  } else {
     thr = dexp(p1 + p2 * c.thr[i]);
+  }
   return vmax(thr, T(1e-18));
 }
 
 // The coalescence body on one lane: normalized moments `mom` [n_tot] ->
 // tendencies `acc` [n_tot] and the closure parameters per mode.
-template <typename T, bool kArms, bool kRef>
-__device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
-                                          T* acc, T (*params)[3]) {
+template <bool kArms, bool kRef, class C, typename T>
+__device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
+                                          T (*params)[3]) {
+  static_assert(!(kRef && C::kStatic), "the reference tier is table-driven");
   const T eps = Lim<T>::eps();
   const int M = c.M;
   T mf[MAX_MODES * MAX_M];
@@ -720,7 +762,7 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
     // | exp(mu + (2o + 1) sigma^2 / 2) | theta (monodisperse: reference tier)
     T m = n;
     mf[i * M] = n;
-    for (int o = 0; o < M - 1; ++o) {
+    each<C>(M - 1, [&](int o) {
       if (logn)
         m = m * dexp(p1 + T((2.0 * o + 1.0) * 0.5) * (p2 * p2));
       else if (fam == FAM_EXPONENTIAL)
@@ -730,47 +772,58 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
       else
         m = m * p1 * (p2 + T(o));
       mf[i * M + o + 1] = m;
-    }
+    });
     if (c.thr_flag[i]) {
-      const T thr = mode_threshold<T, kArms, kRef>(c, i, fam, p1, p2);
-      if (kRef && c.f2kind[i] == F2_MONO) {
-        // closed form (:556-568): M_p M_q where theta < T/2, else 0
-        ftab[i][0] = (p1 < thr / T(2)) ? T(1) : T(0);
-      } else if (logn) {
-        if (kRef && c.f2kind[i] == F2_GRID)
-          f2_lognormal_grid(c, i, thr, n, p1, p2, ftab[i]);
-        else
+      const T thr = mode_threshold<kArms, kRef>(c, i, fam, p1, p2);
+      bool done = false;
+      if constexpr (kRef) {
+        if (c.f2kind[i] == F2_MONO) {
+          // closed form (:556-568): M_p M_q where theta < T/2, else 0
+          ftab[i][0] = (p1 < thr / T(2)) ? T(1) : T(0);
+          done = true;
+        } else if (c.f2kind[i] == F2_GRID) {
+          if (logn)
+            f2_lognormal_grid(c, i, thr, n, p1, p2, ftab[i]);
+          else
+            f2_gamma_grid(c, i, thr, n, p1, (fam == FAM_GAMMA) ? p2 : T(1),
+                          ftab[i]);
+          done = true;
+        }
+      }
+      if (!done) {
+        if (logn)
           f2_lognormal_window(c, thr, n, p1, p2, ftab[i]);
-      } else {
-        const T kk = (fam == FAM_GAMMA) ? p2 : T(1);
-        if (kRef && c.f2kind[i] == F2_GRID)
-          f2_gamma_grid(c, i, thr, n, p1, kk, ftab[i]);
         else
-          gis_exact<T, kRef>(c, thr, p1, kk, ftab[i]);
+          gis_exact<kRef>(c, thr, p1, (fam == FAM_GAMMA) ? p2 : T(1), ftab[i]);
       }
     }
   }
-  // Q/R/S: sparse FMAs over the static nonzeros of wb, then wf
-  for (int o = 0; o < c.n_tot; ++o) acc[o] = T(0);
-  for (int e = 0; e < c.n_wb; ++e) {
-    const int* ix = c.wb_idx + 3 * e;
-    acc[ix[0]] = acc[ix[0]] + c.wb_c[e] * mf[ix[1]] * mf[ix[2]];
-  }
-  for (int e = 0; e < c.n_wf; ++e) {
-    const int* ix = c.wf_idx + 4 * e;
-    const int k = ix[1], a = ix[2], b = ix[3];
-    const T mm = mf[k * M + a] * mf[k * M + b];
-    // clamp against M_a * M_b, reference zero-structure (mm < eps)
-    T v = mm;
-    if (kRef && c.thr_flag[k] && c.f2kind[k] == F2_MONO)
-      v = vmin(mm, (ftab[k][0] != T(0)) ? mm : T(0));
-    else if (c.thr_flag[k])
-      v = (kArms && (c.fam[k] == FAM_LOGNORMAL ||
-                     (kRef && c.f2kind[k] == F2_GRID)))
-              ? vmin(mm, ftab[k][tri(a, b)])
-              : vmin(mm, mm * ftab[k][a + b]);
-    v = (mm < eps) ? T(0) : v;
-    acc[ix[0]] = acc[ix[0]] + c.wf_c[e] * v;
+  if constexpr (C::kStatic) {
+    // the configuration's Q/R/S terms, generated straight-line
+    C::contract(mf, ftab, acc);
+  } else {
+    // Q/R/S: sparse FMAs over the static nonzeros of wb, then wf
+    for (int o = 0; o < c.n_tot; ++o) acc[o] = T(0);
+    for (int e = 0; e < c.n_wb; ++e) {
+      const int* ix = c.wb_idx + 3 * e;
+      acc[ix[0]] = acc[ix[0]] + c.wb_c[e] * mf[ix[1]] * mf[ix[2]];
+    }
+    for (int e = 0; e < c.n_wf; ++e) {
+      const int* ix = c.wf_idx + 4 * e;
+      const int k = ix[1], a = ix[2], b = ix[3];
+      const T mm = mf[k * M + a] * mf[k * M + b];
+      // clamp against M_a * M_b, reference zero-structure (mm < eps)
+      T v = mm;
+      if (kRef && c.thr_flag[k] && c.f2kind[k] == F2_MONO)
+        v = vmin(mm, (ftab[k][0] != T(0)) ? mm : T(0));
+      else if (c.thr_flag[k])
+        v = (kArms && (c.fam[k] == FAM_LOGNORMAL ||
+                       (kRef && c.f2kind[k] == F2_GRID)))
+                ? vmin(mm, ftab[k][tri(a, b)])
+                : vmin(mm, mm * ftab[k][a + b]);
+      v = (mm < eps) ? T(0) : v;
+      acc[ix[0]] = acc[ix[0]] + c.wf_c[e] * v;
+    }
   }
 }
 
@@ -778,9 +831,9 @@ __device__ __forceinline__ void coal_body(const Config<T>& c, const T* mom,
 // gamma_ratio (fast_ratio), or in the reference tier at n_gl = 0 by the
 // Lanczos-lgamma pair; the monodisperse ladder n theta^e, t theta (reference
 // tier)
-template <typename T, bool kArms, bool kRef>
-__device__ __forceinline__ void sedi_flux(const Config<T>& c,
-                                          const T (*params)[3], T* flux) {
+template <bool kArms, bool kRef, class C, typename T>
+__device__ __forceinline__ void sedi_flux(const C& c, const T (*params)[3],
+                                          T* flux) {
   const T tiny = Lim<T>::tiny();
 #pragma unroll
   for (int i = 0; i < MAX_MODES; ++i) {
@@ -793,7 +846,7 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
     T fl[MAX_NPROG];
 #pragma unroll
     for (int m = 0; m < MAX_NPROG; ++m) fl[m] = T(0);
-    for (int v = 0; v < c.n_vel; ++v) {
+    each<C>(c.n_vel, [&](int v) {
       const T cv = c.vel_c[v], e = c.vel_e[v];
       T t = T(0);
       if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
@@ -818,7 +871,7 @@ __device__ __forceinline__ void sedi_flux(const Config<T>& c,
         }
         fl[m] = fl[m] + cv * t;
       }
-    }
+    });
 #pragma unroll
     for (int m = 0; m < MAX_NPROG; ++m) {
       if (m >= np) continue;

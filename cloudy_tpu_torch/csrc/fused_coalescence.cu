@@ -43,8 +43,14 @@
 // i needs the flux of level i+1) goes through shared memory inside a block
 // that holds whole columns: blocks of cols_per_block * nz threads, the flux
 // row written to shared memory, one __syncthreads(), the neighbour read,
-// zero influx at each column's top. Loops over the tables are not unrolled
-// per configuration: generating the kernel per configuration is later work.
+// zero influx at each column's top (rainshaft_lanes.cuh, SmemStencil).
+//
+// The fast tier of the whole step and the fused RHS runs kernels generated
+// per configuration instead (ops/codegen.py, gen_kernels.cuh: every table
+// compiled in, no local memory, the z-stencil a warp shuffle where a column
+// fits a warp segment). Their table-driven fast instances here stay built
+// as the same-call yardstick only (the wrappers' private `_table`); the
+// coalescence RHS, the scaled whole step and the reference tier run here.
 // Each kernel has three instances: `kArms = false` for FixedThreshold
 // gamma/exponential configurations at the fast tier, `kArms = true` with the
 // MovingThreshold and lognormal arms (coal_body.cuh), and the reference tier
@@ -54,7 +60,7 @@
 // the entry points' `arms` argument (0, 1, 2: `FusedPlan.instance`) picks
 // one. The scaled whole step has the two fast instances only.
 
-#include "coal_body.cuh"
+#include "rainshaft_lanes.cuh"
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
@@ -94,7 +100,7 @@ __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) m[o] = mom[o * B + lane];
-  coal_body<T, kArms, kRef>(c, m, acc, params);
+  coal_body<kArms, kRef>(c, m, acc, params);
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
     if (o < c.n_tot) out[o * B + lane] = acc[o];
@@ -113,64 +119,7 @@ __global__ void rhs_kernel(const T* __restrict__ mom, T* __restrict__ out,
   c.bind(smem);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;  // no barrier follows
-
-  const T eps = Lim<T>::eps();
-  T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
-  bool empty = true;
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
-    if (o < c.n_tot) {
-      r[o] = vmax(mom[o * B + lane], T(0)) * c.inv_norm[o];  // clip, normalize
-      empty = empty && (r[o] < eps);
-    }
-  }
-  coal_body<T, kArms, kRef>(c, r, acc, params);
-  sedi_flux<T, kArms, kRef>(c, params, flux);
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
-    if (o < c.n_tot) {
-      out[o * B + lane] = (empty ? T(0) : acc[o]) * c.norm[o];
-      out[(c.n_tot + o) * B + lane] = flux[o] * c.norm[o];
-    }
-  }
-}
-
-// One RHS evaluation of the whole step on this lane's state y -> rows.
-// Every thread of the block calls it (the two barriers are block-wide).
-template <typename T, bool kArms, bool kScale, bool kRef>
-__device__ __forceinline__ void step_rhs(const Config<T>& c, const T* y,
-                                         T* rows, T* sh_flux, bool top, T s) {
-  const T eps = Lim<T>::eps();
-  T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
-  bool empty = true;
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
-    if (o < c.n_tot) {
-      r[o] = vmax(y[o], T(0)) * c.inv_norm[o];  // clip negatives, normalize
-      empty = empty && (r[o] < eps);
-    }
-  }
-  coal_body<T, kArms, kRef>(c, r, acc, params);
-  sedi_flux<T, kArms, kRef>(c, params, flux);
-  const int t = threadIdx.x, nt = blockDim.x;
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
-    if (o < c.n_tot) {
-      flux[o] = flux[o] * c.norm[o];
-      sh_flux[o * nt + t] = flux[o];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
-    if (o < c.n_tot) {
-      T coal = (empty ? T(0) : acc[o]) * c.norm[o];
-      if (kScale) coal = coal * s;
-      const T f_up = top ? T(0) : sh_flux[o * nt + t + 1];
-      rows[o] = coal - (f_up - flux[o]) * c.inv_dz;
-    }
-  }
-  __syncthreads();  // sh_flux is rewritten by the next evaluation
+  rhs_lane<kArms, kRef>(c, mom, out, B, lane);
 }
 
 template <typename T, bool kArms, bool kScale, bool kRef>
@@ -183,37 +132,18 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
   __syncthreads();
   Config<T> c;
   c.bind(smem);
-  T* sh_flux = reinterpret_cast<T*>(smem + cfg_bytes);
+  const SmemStencil<T> st{reinterpret_cast<T*>(smem + cfg_bytes),
+                          (int)threadIdx.x, (int)blockDim.x};
 
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // B % nz == 0 and blockDim.x % nz == 0: lanes past B are whole columns of
   // zeros that keep the barriers uniform and whose results are dropped
   const bool active = lane < B;
   const bool top = (threadIdx.x % nz) == (nz - 1);
-  const T dt = c.dt;
   // the kernel_scale row; a padding lane reads nothing (its state is zero
   // and its result dropped)
   const T s = (kScale && active) ? scale[lane] : T(1);
-
-  T y[MAX_NTOT], u1[MAX_NTOT], u2[MAX_NTOT], f[MAX_NTOT];
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot) y[o] = active ? mom[o * B + lane] : T(0);
-
-  step_rhs<T, kArms, kScale, kRef>(c, y, f, sh_flux, top, s);
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot) u1[o] = y[o] + dt * f[o];
-  step_rhs<T, kArms, kScale, kRef>(c, u1, f, sh_flux, top, s);
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u1[o] + dt * f[o]);
-  step_rhs<T, kArms, kScale, kRef>(c, u2, f, sh_flux, top, s);
-  if (!active) return;
-#pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot)
-      out[o * B + lane] = y[o] / T(3) + c.two_thirds * (u2[o] + dt * f[o]);
+  step_lane<kArms, kScale, kRef, false>(c, st, mom, out, B, lane, active, top, s);
 }
 
 constexpr int COAL_THREADS = 256;
@@ -244,6 +174,20 @@ int launch_rhs_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
   return (int)cudaGetLastError();
 }
 
+// The block size and dynamic shared memory of a table-driven whole step:
+// blocks of whole columns near STEP_TARGET_THREADS, the configuration and
+// then the flux row in shared memory. One definition for its launch and its
+// occupancy query.
+struct LaunchDims {
+  int threads;
+  size_t smem;
+};
+
+template <typename T> LaunchDims step_dims(int cfg_bytes, int nz) {
+  const int threads = (nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz) * nz;
+  return {threads, (size_t)cfg_bytes + (size_t)MAX_NTOT * threads * sizeof(T)};
+}
+
 template <typename T, bool kArms, bool kScale, bool kRef>
 int launch_step_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
                      long long B, int nz, const void* scale, void* stream) {
@@ -251,19 +195,34 @@ int launch_step_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
       nz < 2 || nz > 1024 || B % nz != 0 || (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto kern = step_kernel<T, kArms, kScale, kRef>;
-  const int cols = nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz;
-  const int threads = cols * nz;
-  const long long blocks = (B + threads - 1) / threads;
-  const size_t smem = (size_t)cfg_bytes + (size_t)MAX_NTOT * threads * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+  const LaunchDims d = step_dims<T>(cfg_bytes, nz);
+  const cudaError_t e = allow_smem(kern, d.smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (B + d.threads - 1) / d.threads;
+  kern<<<(unsigned)blocks, d.threads, d.smem, (cudaStream_t)stream>>>(
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B, nz,
       (const T*)scale);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the fast instances of the whole step (unscaled)
+// and the fused RHS at their launch's block size and shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), defined in the units that
+// instantiate them: `cfg_bytes` the packed configuration's size.
+template <typename T, bool kArms>
+int step_blocks_per_sm(int cfg_bytes, int nz, int* out) {
+  if (nz < 2 || nz > 1024) return (int)cudaErrorInvalidValue;
+  const auto kern = step_kernel<T, kArms, false, false>;
+  const LaunchDims d = step_dims<T>(cfg_bytes, nz);
+  const cudaError_t e = allow_smem(kern, d.smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, d.threads, d.smem);
+}
+
+template <typename T, bool kArms>
+int rhs_blocks_per_sm(int cfg_bytes, int* out) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, rhs_kernel<T, kArms, false>, COAL_THREADS, (size_t)cfg_bytes);
 }
 
 // The reference-tier instances, defined in their own build units (8-13)
@@ -393,12 +352,24 @@ int cloudy_rhs_f32(const void* mom, void* out, const void* cfg,
                    int cfg_bytes, long long B, int arms, void* stream) {
   return cloudy::launch_rhs<float>(mom, out, cfg, cfg_bytes, B, arms, stream);
 }
+
+// resident blocks per SM of the fast instance `arms` (0, 1)
+int cloudy_rhs_blocks_per_sm_f32(int cfg_bytes, int arms, int* out) {
+  return arms ? cloudy::rhs_blocks_per_sm<float, true>(cfg_bytes, out)
+              : cloudy::rhs_blocks_per_sm<float, false>(cfg_bytes, out);
+}
 #endif
 
 #if CLOUDY_IN_UNIT(3)
 int cloudy_rhs_f64(const void* mom, void* out, const void* cfg,
                    int cfg_bytes, long long B, int arms, void* stream) {
   return cloudy::launch_rhs<double>(mom, out, cfg, cfg_bytes, B, arms, stream);
+}
+
+// resident blocks per SM of the fast instance `arms` (0, 1)
+int cloudy_rhs_blocks_per_sm_f64(int cfg_bytes, int arms, int* out) {
+  return arms ? cloudy::rhs_blocks_per_sm<double, true>(cfg_bytes, out)
+              : cloudy::rhs_blocks_per_sm<double, false>(cfg_bytes, out);
 }
 #endif
 
@@ -409,6 +380,12 @@ int cloudy_step_f32(const void* mom, void* out, const void* cfg,
   return cloudy::launch_step<float, false>(mom, out, cfg, cfg_bytes, B, nz,
                                            arms, nullptr, stream);
 }
+
+// resident blocks per SM of the unscaled fast instance `arms` (0, 1)
+int cloudy_step_blocks_per_sm_f32(int cfg_bytes, int nz, int arms, int* out) {
+  return arms ? cloudy::step_blocks_per_sm<float, true>(cfg_bytes, nz, out)
+              : cloudy::step_blocks_per_sm<float, false>(cfg_bytes, nz, out);
+}
 #endif
 
 #if CLOUDY_IN_UNIT(5)
@@ -417,6 +394,12 @@ int cloudy_step_f64(const void* mom, void* out, const void* cfg,
                     void* stream) {
   return cloudy::launch_step<double, false>(mom, out, cfg, cfg_bytes, B, nz,
                                             arms, nullptr, stream);
+}
+
+// resident blocks per SM of the unscaled fast instance `arms` (0, 1)
+int cloudy_step_blocks_per_sm_f64(int cfg_bytes, int nz, int arms, int* out) {
+  return arms ? cloudy::step_blocks_per_sm<double, true>(cfg_bytes, nz, out)
+              : cloudy::step_blocks_per_sm<double, false>(cfg_bytes, nz, out);
 }
 #endif
 

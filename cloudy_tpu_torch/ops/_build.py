@@ -10,6 +10,15 @@ long as its slowest kernel. The library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. The compiler's per-kernel report (``-Xptxas -v``: registers,
 shared memory, spills) is written beside the library as ``<name>.log``.
+
+The kernels generated per configuration (`ops.codegen`) are built apart:
+each unit is one ``nvcc`` into a shared library of its own under
+``build/cloudy_tpu_torch/gen/<hash>/`` (the generated header and unit, the
+library and its ``build.log``), the hash taken over the generated text, the
+csrc/ sources, the flags and the rule that rebuilds a unit whose registers
+spilled (`gen_flags_digest`). Units are built at first use, several at once
+when asked for together (`build_generated`), and loaded by ctypes
+(`load_generated`).
 """
 
 from __future__ import annotations
@@ -21,11 +30,13 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cloudy_tpu_torch"
+GEN_DIR = BUILD_DIR / "gen"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,7 +47,9 @@ def sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
+def sources_digest() -> str:
+    """Hash of the csrc/ sources and the compiler flags (the library's name
+    and a generated unit's carry it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
@@ -56,7 +69,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"libcloudy_fused_{_digest()}.so"
+    return BUILD_DIR / f"libcloudy_fused_{sources_digest()}.so"
 
 
 def _units(src: Path):
@@ -134,6 +147,12 @@ def load_library() -> ctypes.CDLL:
         f = getattr(lib, f"cloudy_step_{tag}")
         f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, nz, arms, stream
         f.restype = i
+        f = getattr(lib, f"cloudy_step_blocks_per_sm_{tag}")
+        f.argtypes = [i, i, i, p]  # cfg bytes, nz, arms, out
+        f.restype = i
+        f = getattr(lib, f"cloudy_rhs_blocks_per_sm_{tag}")
+        f.argtypes = [i, i, p]  # cfg bytes, arms, out
+        f.restype = i
         f = getattr(lib, f"cloudy_step_scaled_{tag}")
         f.argtypes = [p, p, p, i, ll, i, i, p, p]  # ..., B, nz, arms, scale, stream
         f.restype = i
@@ -169,3 +188,177 @@ def load_library() -> ctypes.CDLL:
                 f"differs from the host's {module.LAYOUT}"
             )
     return lib
+
+
+#: one record per generated unit this process built (`build_generated`)
+GEN_BUILDS: list = []
+
+#: the define a generated unit is rebuilt with when ptxas spilled under its
+#: own register target (csrc/gen_kernels.cuh, CLOUDY_GEN_BOUNDS)
+GEN_RETRY_FLAG = "-DCLOUDY_GEN_MIN_BLOCKS=1"
+#: a generated unit's library by the extra flags it was built with
+GEN_LIBRARY = {(): "lib.so", (GEN_RETRY_FLAG,): "lib.minblocks1.so"}
+#: one kernel's stack frame and spills in a ``-Xptxas -v`` report
+_PTXAS_STACK = r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+
+
+def gen_flags_digest() -> str:
+    """What a generated unit's name carries besides its text: the csrc/
+    sources and compiler flags (`sources_digest`), the retry flag and the
+    spill rule that decides it."""
+    h = hashlib.sha256(sources_digest().encode())
+    h.update(GEN_RETRY_FLAG.encode())
+    h.update(_PTXAS_STACK.encode())
+    return h.hexdigest()[:16]
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spills of the first kernel in a
+    ``-Xptxas -v`` report."""
+    out = {}
+    for ln in log.splitlines():
+        if m := re.search(_PTXAS_STACK, ln):
+            out.setdefault("stack", int(m.group(1)))
+            out.setdefault("spill_stores", int(m.group(2)))
+            out.setdefault("spill_loads", int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", ln):
+            out.setdefault("registers", int(m.group(1)))
+    return out
+
+
+def _spills(ptxas_log: str) -> bool:
+    """The spill rule: any stack frame or spill bytes in the report."""
+    return any(int(v) > 0 for m in re.finditer(_PTXAS_STACK, ptxas_log) for v in m.groups())
+
+
+def _gen_dir(u) -> Path:
+    return GEN_DIR / u.digest
+
+
+def _write(path: Path, text: str) -> None:
+    """Write through a temporary file and a rename: a concurrent reader
+    sees the old file or the new one, whole."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def build_generated(units, max_jobs: int = None) -> list:
+    """Build every generated unit (`codegen.Unit`) whose library does not
+    exist yet: one ``nvcc -shared`` each, up to `max_jobs` (default twice
+    the CPU count) running at once. A unit whose ``ptxas`` report shows
+    stack or spills (`_spills`) is built once more with `GEN_RETRY_FLAG`
+    into ``lib.minblocks1.so`` (the first report kept as
+    ``build.first.log``); otherwise its library is ``lib.so``.
+    Returns one record per unit: its label, library path, whether it was
+    built here and retried, the seconds from the start to the exit of its
+    ``nvcc`` runs and the compiler's report. A failed build raises."""
+    max_jobs = max_jobs or 2 * (os.cpu_count() or 4)
+    records, todo = [], []
+    for u in {u.digest: u for u in units}.values():
+        d = _gen_dir(u)
+        rec = {"label": u.label, "built": False, "retried": False, "seconds": 0.0}
+        records.append(rec)
+        done = [(d / name, bool(extra)) for extra, name in GEN_LIBRARY.items()
+                if (d / name).exists()]
+        if done:
+            rec["path"], rec["retried"] = done[0]
+            rec["log"] = (d / "build.log").read_text() if (d / "build.log").exists() else ""
+        else:
+            todo.append((u, rec, ()))
+    running, failed = [], None
+    nvcc = _nvcc() if todo else None
+    while todo or running:
+        while todo and len(running) < max_jobs:
+            u, rec, extra = todo.pop(0)
+            d = _gen_dir(u)
+            d.mkdir(parents=True, exist_ok=True)
+            _write(d / "cfg.cuh", u.cfg)
+            _write(d / "unit.cu", u.source)
+            tmp = d / f"lib.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-shared", "-o", str(tmp),
+                   str(d / "unit.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            running.append((u, rec, extra, cmd, tmp, proc, time.perf_counter()))
+        done = next((r for r in running if r[5].poll() is not None), None)
+        if done is None:
+            time.sleep(0.05)  # its report is a few lines: the pipe does not fill
+            continue
+        running.remove(done)
+        u, rec, extra, cmd, tmp, proc, t0 = done
+        rec["seconds"] += time.perf_counter() - t0
+        out, _ = proc.communicate()
+        d = _gen_dir(u)
+        if proc.returncode != 0:
+            failed = failed or (cmd, proc.returncode, out)
+            tmp.unlink(missing_ok=True)
+            continue
+        if not extra and _spills(out):
+            _write(d / "build.first.log", out)
+            tmp.unlink(missing_ok=True)
+            rec["retried"] = True
+            todo.append((u, rec, (GEN_RETRY_FLAG,)))
+            continue
+        rec["log"] = out
+        rec["path"] = d / GEN_LIBRARY[extra]
+        _write(d / "build.log", out)
+        os.replace(tmp, rec["path"])  # atomic: a concurrent build sees all or nothing
+        rec["built"] = True
+        GEN_BUILDS.append(rec)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return records
+
+
+_GEN_LIBS: dict = {}
+
+
+def load_generated(u) -> ctypes.CDLL:
+    """Build `u` if needed, load it, declare its entry points (pointers and
+    the stream as ``c_void_p``) and check that it is the kernel the host
+    asked for (kind, n_tot, nz, type size, block size, stencil)."""
+    lib = _GEN_LIBS.get(u.digest)
+    if lib is not None:
+        return lib
+    rec, = build_generated([u])
+    lib = ctypes.CDLL(str(rec["path"]))
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.cloudy_gen_launch.argtypes = [p, p, ll, p]  # mom, out, B, stream
+    lib.cloudy_gen_launch.restype = ctypes.c_int
+    lib.cloudy_gen_blocks_per_sm.argtypes = [p]
+    lib.cloudy_gen_blocks_per_sm.restype = ctypes.c_int
+    lib.cloudy_gen_info.argtypes = [p]
+    lib.cloudy_gen_info.restype = ctypes.c_int
+    lib.cloudy_gen_error_string.argtypes = [ctypes.c_int]
+    lib.cloudy_gen_error_string.restype = ctypes.c_char_p
+    got = (ctypes.c_int * 8)()
+    n = lib.cloudy_gen_info(got)
+    want = (0 if u.kind == "step" else 1, u.n_tot, u.nz,
+            4 if u.dtype.itemsize == 4 else 8, u.threads, int(u.shfl))
+    if tuple(got[:n]) != want:
+        raise RuntimeError(f"{rec['path']}: kernel {tuple(got[:n])} is not the unit's {want}")
+    _GEN_LIBS[u.digest] = lib
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sass_counts(so: Path, ops=("LDL", "STL", "LDS", "STS", "BAR", "SHFL", "CALL")) -> dict:
+    """Per kernel function of a library, the count of each SASS opcode in
+    `ops` and of all instructions (``cuobjdump -sass``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        if m := re.search(r"Function : (\S+)", ln):
+            cur = out.setdefault(m.group(1), {**{o: 0 for o in ops}, "total": 0})
+        elif cur is not None and (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                                               ln)):
+            cur["total"] += 1
+            if m.group(1) in cur:
+                cur[m.group(1)] += 1
+    return out

@@ -1,0 +1,277 @@
+"""Per-configuration CUDA source for the whole rainshaft step (B1) and the
+fused per-level RHS (B4) at the fast tier, built into one small shared
+library per configuration, type and kernel.
+
+The table-driven kernels (csrc/fused_coalescence.cu) read one packed
+configuration at run time, so the indices of their Q/R/S contraction, of
+the moment recurrence and of the F2 tables are only known per lane, and
+the body's per-lane arrays sit in local memory. The Pallas body
+(cloudy_tpu/ops/pallas_coalescence.py:145-622) is traced once per
+`CoalescenceData` instead: its contraction is a Python loop over the static
+nonzeros, unrolled into straight-line FMAs with constant coefficients
+(:598-620), and families, offsets, GL nodes and velocity terms are Python
+constants. This module does the same for CUDA: `config_source` turns a
+fast-tier `FusedPlan` into a configuration type whose members are
+`static constexpr` scalars and constant tables (csrc/coal_body.cuh reads
+either form), and whose `contract` is the configuration's Q/R/S terms as
+straight-line statements:
+
+- every real constant is computed in double on the host exactly as
+  `pack_config` computes it (`fused_coalescence.config_reals`), rounded once
+  to the kernel's type and written as a hex-float literal, so the rounding
+  is the table-driven kernels';
+- the terms come in the Pallas body's order, wb then wf; the
+  first term of each output assigns and later ones add; the wf terms the
+  Pallas body skips (`f2_lookup` returning None: an F2 entry past the
+  mode's `n_2d_ints`) are the ones `build_plan` leaves out; each F2 entry
+  takes the clamp against M_a·M_b of its mode's kind (exact gamma /
+  exponential: min(mm, mm·P(2k + a + b)); the lognormal window: min(mm,
+  F2[a, b]); no threshold: mm) and the ``mm < eps`` zero, once per entry.
+
+`unit` wraps the configuration in one kernel (csrc/gen_kernels.cuh: the
+whole step with its warp-shuffle or shared-memory z-stencil, or the fused
+RHS), with its block size and launch bounds. Its name is a hash of the
+generated text, the csrc/ sources, the compiler flags and the spill rule
+(`_build.gen_flags_digest`); `ops._build`
+compiles each unit at first use under ``build/cloudy_tpu_torch/gen/<hash>/``
+(several at once when asked for together, `_build.build_generated`) and
+binds it by ctypes (`_build.load_generated`).
+Nothing generated is committed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cloudy_tpu_torch.ops import fused_coalescence as fc
+from cloudy_tpu_torch.spec import Family
+
+#: kernels: the whole step (B1) and the fused per-level RHS (B4)
+KINDS = {"step": 0, "rhs": 1}
+#: threads per block of every generated kernel (the whole step at an nz
+#: that does not divide it takes whole columns: `_block`). Chosen by
+#: measurement on an H100 80GB HBM3 at 700 W (PERF.md §6): 256 took
+#: the pod variants' whole step and B4 below 128. The launch bounds carry no
+#: minimum block count unless ptxas spills under its own register target
+#: (`ops._build.build_generated`), and the whole step runs its three RHS
+#: evaluations as a loop over one inlined copy of the body
+#: (csrc/gen_kernels.cuh), both also chosen there.
+THREADS = 256
+#: the MAX_M of csrc/coal_body.cuh, for the packed (p, q) index `tri`
+_MAX_M = fc.MAX_M
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """One generated build unit: a configuration header and the unit that
+    instantiates one kernel on it."""
+
+    kind: str
+    dtype: torch.dtype
+    cfg: str
+    source: str
+    digest: str
+    threads: int
+    shfl: bool
+    n_tot: int
+    nz: int
+
+    @property
+    def label(self) -> str:
+        return f"{self.kind}_{'f32' if self.dtype == torch.float32 else 'f64'}_{self.digest}"
+
+
+def literal(v: float, dtype: torch.dtype) -> str:
+    """`v` rounded once to `dtype` as a C++ hex-float literal (exact: it
+    parses back to the rounded value bit for bit)."""
+    x = float(np.float32(v)) if dtype == torch.float32 else float(v)
+    if not np.isfinite(x):
+        raise ValueError(f"constant {v!r} is not finite")
+    mant, exp = x.hex().split("p")
+    if "." in mant:
+        mant = mant.rstrip("0")
+        if mant.endswith("."):
+            mant += "0"
+    s = f"{mant}p{exp}" + ("f" if dtype == torch.float32 else "")
+    return f"({s})" if s.startswith("-") else s
+
+
+def _tri(p: int, q: int) -> int:
+    """The packed (p, q), p ≤ q, slot of an F2 row (csrc/coal_body.cuh tri)."""
+    return p * (2 * _MAX_M - p - 1) // 2 + q
+
+
+def _check(plan: fc.FusedPlan) -> None:
+    if plan.ref:
+        raise ValueError("the reference tier runs the table-driven kernels; "
+                         "code is generated for the fast tier only")
+    bad = [k for k in plan.f2_kind if k not in (fc.F2_NONE, fc.F2_EXACT, fc.F2_WINDOW)]
+    if bad:
+        raise ValueError(f"F2 kinds {bad} are reference-tier")
+
+
+def _contract(plan: fc.FusedPlan, dtype: torch.dtype, real: str) -> List[str]:
+    """The body of `contract`: each F2 entry the wf terms read (clamped,
+    zeroed below eps) once, then every term in the Pallas body's order
+    (pallas_coalescence.py:598-620): the wb terms (o, i, j, c), acc[o] +=
+    c·Mf[i]·Mf[j] with i = mode·M + p, then the wf terms (o, k, a, b, c),
+    acc[o] += c·F2[k][a, b] with a ≤ b, its skipped terms left out
+    (`build_plan`)."""
+    M = plan.M
+    wb, wf = list(plan.wb_nz), list(plan.wf_nz)
+    out = [f"const {real} eps = Lim<{real}>::eps();"]
+    seen = set()
+    for (_, k, a, b, _) in wf:
+        if (k, a, b) in seen:
+            continue
+        seen.add((k, a, b))
+        mm = f"mm_{k}_{a}_{b}"
+        out.append(f"const {real} {mm} = mf[{k * M + a}] * mf[{k * M + b}];")
+        kind = plan.f2_kind[k]
+        if kind == fc.F2_WINDOW:
+            val = f"vmin({mm}, ftab[{k}][{_tri(a, b)}])"
+        elif kind == fc.F2_EXACT:
+            val = f"vmin({mm}, {mm} * ftab[{k}][{a + b}])"
+        else:
+            val = mm
+        out.append(f"const {real} f2_{k}_{a}_{b} = ({mm} < eps) ? {real}(0) : {val};")
+    assigned = set()
+    for o in range(plan.n_tot):
+        if not any(t[0] == o for t in wb + wf):
+            out.append(f"acc[{o}] = {real}(0);")
+            assigned.add(o)
+    for (o, i, j, c) in wb:
+        term = f"{literal(c, dtype)} * mf[{i}] * mf[{j}]"
+        out.append(f"acc[{o}] = acc[{o}] + {term};" if o in assigned else f"acc[{o}] = {term};")
+        assigned.add(o)
+    for (o, k, a, b, c) in wf:
+        term = f"{literal(c, dtype)} * f2_{k}_{a}_{b}"
+        out.append(f"acc[{o}] = acc[{o}] + {term};" if o in assigned else f"acc[{o}] = {term};")
+        assigned.add(o)
+    return out
+
+
+def _table(name: str, ctype: str, vals: Sequence[str]) -> List[str]:
+    body = ", ".join(vals) if vals else f"{ctype}(0)"  # an empty table is never read
+    return [
+        f"struct {name}_tab {{",
+        f"  __device__ __forceinline__ {ctype} operator[](int i) const {{",
+        f"    constexpr {ctype} v[] = {{{body}}};",
+        "    return v[i];",
+        "  }",
+        f"}} {name};",
+    ]
+
+
+def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") -> str:
+    """The configuration header of `plan` in `dtype` for kernel `kind`:
+    struct ``cloudy::gen::Cfg`` (csrc/coal_body.cuh, `C::kStatic`)."""
+    _check(plan)
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {tuple(KINDS)}, not {kind!r}")
+    real = "float" if dtype == torch.float32 else "double"
+    threads, shfl = _block(plan, kind)
+    r = fc.config_reals(plan)
+    lit = lambda v: literal(v, dtype)  # noqa: E731
+    fams = " ".join(Family(f).name.lower() for f in plan.families)
+    head = [
+        "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
+        f"// {kind} kernel, {real}: modes {fams}, "
+        f"{'MovingThreshold' if plan.moving else 'FixedThreshold'}, M = {plan.M}, "
+        f"n_tot = {plan.n_tot}, GL nodes {plan.gl_nodes}, window nodes {plan.win_nodes}, "
+        f"nz = {plan.nz}; {len(plan.wb_nz)} wb and {len(plan.wf_nz)} wf terms.",
+        "#pragma once",
+        "",
+        '#include "coal_body.cuh"',
+        "",
+        "namespace cloudy {",
+        "namespace gen {",
+        "",
+        "struct Cfg {",
+    ]
+    body = [
+        f"using real = {real};",
+        "static constexpr bool kStatic = true;",
+        f"static constexpr bool kArms = {'true' if plan.arms else 'false'};",
+        f"static constexpr int kKind = {KINDS[kind]};",
+        f"static constexpr int kThreads = {threads};",
+        f"static constexpr bool kShfl = {'true' if shfl else 'false'};",
+        f"static constexpr int n_modes = {plan.n_modes};",
+        f"static constexpr int n_tot = {plan.n_tot};",
+        f"static constexpr int M = {plan.M};",
+        f"static constexpr int n_gl = {plan.gl_nodes};",
+        f"static constexpr int n_vel = {len(plan.vel_n)};",
+        f"static constexpr int n_win = {plan.win_nodes};",
+        f"static constexpr int moving = {int(plan.moving)};",
+        f"static constexpr int nz = {plan.nz};",
+        f"static constexpr real dt = {lit(r['dt'])};",
+        f"static constexpr real inv_dz = {lit(r['inv_dz'])};",
+        f"static constexpr real two_thirds = {lit(r['two_thirds'])};",
+    ]
+    for name, vals in (("fam", plan.families), ("off", plan.offsets), ("nprog", plan.nprog),
+                       ("thr_flag", plan.thr_flag)):
+        body += _table(name, "int", [str(int(v)) for v in fc._per_mode(vals)])
+    for name in ("thr", "norm", "inv_norm", "vel_c", "vel_e", "vel_g", "vel_me", "vel_hq2",
+                 "gl_y1", "gl_w", "win_v", "win_w"):
+        body += _table(name, "real", [lit(v) for v in r[name]])
+    body += [
+        "// Q/R/S: the configuration's terms, wb then wf (pallas_coalescence.py:598-620)",
+        "template <class F>",
+        "static __device__ __forceinline__ void contract(const real* mf, const F& ftab, "
+        "real* acc) {",
+        *("  " + ln for ln in _contract(plan, dtype, real)),
+        "}",
+    ]
+    return "\n".join(head + ["  " + ln if ln else "" for ln in body]
+                     + ["};", "", "}  // namespace gen", "}  // namespace cloudy", ""])
+
+
+def _block(plan: fc.FusedPlan, kind: str) -> Tuple[int, bool]:
+    """(threads per block, shuffle stencil) of a kernel: the whole step at
+    nz a power of two ≤ 32 takes the warp shuffle in blocks of `THREADS`;
+    any other nz blocks of whole columns through shared memory."""
+    if kind != "step":
+        return THREADS, False
+    nz = plan.nz
+    if nz <= 32 and nz & (nz - 1) == 0:
+        return THREADS, True
+    cols = 1 if nz >= THREADS else THREADS // nz
+    return cols * nz, False
+
+
+def unit(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") -> Unit:
+    """The build unit of `plan`'s `kind` kernel in `dtype`."""
+    from cloudy_tpu_torch.ops import _build
+
+    cfg = config_source(plan, dtype, kind)
+    threads, shfl = _block(plan, kind)
+    real = "float" if dtype == torch.float32 else "double"
+    name = f"gen_{kind}"
+    source = "\n".join([
+        "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
+        '#include "gen_kernels.cuh"',
+        '#include "cfg.cuh"',
+        "",
+        "namespace cloudy {",
+        "namespace gen {",
+        f"__global__ void CLOUDY_GEN_BOUNDS({threads})",
+        f"{name}(const {real}* __restrict__ mom, {real}* __restrict__ out, long long B) {{",
+        f"  gen_{kind}_body<Cfg>(mom, out, B);",
+        "}",
+        "}  // namespace gen",
+        "}  // namespace cloudy",
+        "",
+        f"CLOUDY_GEN_ENTRY(cloudy::gen::Cfg, cloudy::gen::{name})",
+        "",
+    ])
+    h = hashlib.sha256(cfg.encode())
+    h.update(source.encode())
+    h.update(_build.gen_flags_digest().encode())
+    return Unit(kind=kind, dtype=dtype, cfg=cfg, source=source, digest=h.hexdigest()[:16],
+                threads=threads, shfl=shfl, n_tot=plan.n_tot, nz=plan.nz)
+

@@ -19,9 +19,20 @@ Counterpart of `cloudy_tpu.ops.pallas_coalescence`:
   the calibration hook.
 
 The kernels share the device physics of csrc/coal_body.cuh, the counterpart
-of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`. The kernels are
-table-driven: the host packs one configuration (`FusedPlan`) into a small
-byte buffer that each block copies into shared memory.
+of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`, and reach it by
+one of two routes, chosen from the plan alone (the wrapper's `route`):
+
+- ``"generated"``: the whole step and the fused RHS of a fast-tier plan run
+  a kernel generated for that configuration and type (`ops.codegen`, csrc/
+  gen_kernels.cuh), every table compiled in;
+- ``"table"``: the coalescence RHS, the scaled whole step and every
+  reference-tier plan run the table-driven kernels (csrc/
+  fused_coalescence.cu): the host packs the configuration (`pack_config`)
+  into a small byte buffer that each block copies into shared memory.
+
+The table-driven fast instances of the whole step and the fused RHS are
+still built, reachable only through the constructors' private ``_table``
+argument: `chip_smoke.py` times them beside the generated kernels.
 
 Layout: the flat structure-of-arrays ``[n_tot, B]``, one CUDA thread per
 lane (one level of one column), z contiguous within each column.
@@ -371,30 +382,67 @@ def build_plan(
     )
 
 
-def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
-    """The byte buffer the kernels read (layout: csrc/coal_body.cuh,
-    `Config::bind`). Real constants are computed in double on the host and
-    rounded once to the kernel's type, as JAX folds Python floats. The
-    FixedThreshold quadrature grids (the Pallas kernels' `grid_inputs`) ride
-    at its end, so each block reads them from shared memory: a three-mode
-    configuration with two Simpson grids (76 and 86 points) takes 6,032
-    bytes in f32 and 8,480 in f64 of the 12,288."""
-    real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
-    N = plan.n_modes
+def _per_mode(vals, fill=0):
+    return list(vals) + [fill] * (MAX_MODES - len(vals))
+
+
+def config_reals(plan: FusedPlan) -> dict:
+    """The configuration's real constants in host double, by name: every
+    kernel rounds each once to its type, as JAX folds Python floats. The
+    table-driven kernels read them packed (`pack_config`), the generated
+    ones as literals (`ops.codegen`)."""
     gl_y, gl_w = (np.polynomial.legendre.leggauss(plan.gl_nodes) if plan.gl_nodes
                   else ((), ()))
     win_v, win_w = (np.polynomial.legendre.leggauss(plan.win_nodes)
                     if plan.win_nodes else ((), ()))
-
-    def per_mode(vals, fill=0):
-        return list(vals) + [fill] * (MAX_MODES - len(vals))
-
     # the GL base nodes of a moving "gauss" grid (`_moving_grid`), rounded
     # to the kernel's type as the Pallas grid input is
     n_gauss = (plan.gauss_nodes if plan.moving and plan.quad_rule == "gauss"
                and F2_GRID in plan.f2_kind else 0)
     gauss_u, gauss_w = (np.polynomial.legendre.leggauss(n_gauss) if n_gauss
                         else ((), ()))
+    grids = [g or ((), (), 0.0) for g in plan.grids]
+    norms = list(plan.mom_norms) or [1.0] * plan.n_tot
+    pad = [1.0] * (MAX_NTOT - plan.n_tot)
+    return {
+        "thr": _per_mode(plan.thr_const, 0.0),
+        "norm": norms + pad,
+        "inv_norm": [1.0 / v for v in norms] + pad,
+        "wb_c": [c for (*_, c) in plan.wb_nz],
+        "wf_c": [c for (*_, c) in plan.wf_nz],
+        "vel_c": [c for (c, _) in plan.vel_n],
+        "vel_e": [e for (_, e) in plan.vel_n],
+        "vel_g": [math.gamma(1.0 + e) for (_, e) in plan.vel_n],
+        # flux ladder orders q = m + e and the lognormal ½q² (Python doubles,
+        # as the Pallas body folds `m + e` and `0.5 * q * q`), m = 0..2
+        "vel_me": [m + e for (_, e) in plan.vel_n for m in range(3)],
+        "vel_hq2": [0.5 * (m + e) * (m + e) for (_, e) in plan.vel_n for m in range(3)],
+        "gl_y1": [float(y) + 1.0 for y in gl_y],
+        "gl_w": [float(w) for w in gl_w],
+        "win_v": [float(v) for v in win_v],
+        "win_w": [float(w) for w in win_w],
+        "dt": plan.dt,
+        "inv_dz": plan.inv_dz,
+        "two_thirds": 2.0 / 3.0,
+        "grid_dx": _per_mode([g[2] for g in grids], 0.0),
+        "gauss_u": [float(u) for u in gauss_u],
+        "gauss_w": [float(w) for w in gauss_w],
+        "grids": [v for x, w, _ in grids for v in list(x) + list(w)],
+    }
+
+
+def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
+    """The byte buffer the table-driven kernels read (layout:
+    csrc/coal_body.cuh, `Config::bind`). Real constants are computed in
+    double on the host (`config_reals`) and rounded once to the kernel's
+    type, as JAX folds Python floats. The FixedThreshold quadrature grids
+    (the Pallas kernels' `grid_inputs`) ride at its end, so each block reads
+    them from shared memory: a three-mode configuration with two Simpson
+    grids (76 and 86 points) takes 6,032 bytes in f32 and 8,480 in f64 of
+    the 12,288."""
+    real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    N = plan.n_modes
+    r = config_reals(plan)
     grids = [g or ((), (), 0.0) for g in plan.grids]
 
     # header; slot 7 becomes the byte offset of the reals
@@ -404,14 +452,14 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     # per-mode F2 kind and fixed-grid length
     ints += [int(plan.quad_rule == "gauss"), plan.gammainc_iters,
              plan.thr_newton_iters, plan.thr_gammainc_iters, plan.n_points_max,
-             n_gauss]
-    ints += per_mode(plan.f2_kind)
-    ints += per_mode([len(g[0]) for g in grids])
+             len(r["gauss_u"])]
+    ints += _per_mode(plan.f2_kind)
+    ints += _per_mode([len(g[0]) for g in grids])
     assert len(ints) == HEADER_INTS
-    ints += per_mode(plan.families)
-    ints += per_mode(plan.offsets)
-    ints += per_mode(plan.nprog)
-    ints += per_mode(plan.thr_flag)
+    ints += _per_mode(plan.families)
+    ints += _per_mode(plan.offsets)
+    ints += _per_mode(plan.nprog)
+    ints += _per_mode(plan.thr_flag)
     for (o, i, j, _) in plan.wb_nz:
         ints += [o, i, j]
     for (o, k, a, b, _) in plan.wf_nz:
@@ -420,31 +468,13 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
         ints.append(0)  # 8-byte align the real section
     real_offset = 4 * len(ints)
 
-    norms = list(plan.mom_norms) or [1.0] * plan.n_tot
-    reals = per_mode(plan.thr_const, 0.0)
-    reals += norms + [1.0] * (MAX_NTOT - plan.n_tot)
-    reals += [1.0 / v for v in norms] + [1.0] * (MAX_NTOT - plan.n_tot)
-    reals += [c for (*_, c) in plan.wb_nz]
-    reals += [c for (*_, c) in plan.wf_nz]
-    reals += [c for (c, _) in plan.vel_n]
-    reals += [e for (_, e) in plan.vel_n]
-    reals += [math.gamma(1.0 + e) for (_, e) in plan.vel_n]
-    # flux ladder orders q = m + e and the lognormal ½q² (Python doubles, as
-    # the Pallas body folds `m + e` and `0.5 * q * q`), m = 0..2
-    for (_, e) in plan.vel_n:
-        reals += [m + e for m in range(3)]
-    for (_, e) in plan.vel_n:
-        reals += [0.5 * (m + e) * (m + e) for m in range(3)]
-    reals += [float(y) + 1.0 for y in gl_y]
-    reals += [float(w) for w in gl_w]
-    reals += [float(v) for v in win_v]
-    reals += [float(w) for w in win_w]
-    reals += [plan.dt, plan.inv_dz, 2.0 / 3.0]
-    reals += per_mode([g[2] for g in grids], 0.0)
-    reals += [float(u) for u in gauss_u]
-    reals += [float(w) for w in gauss_w]
-    for x, w, _ in grids:
-        reals += list(x) + list(w)
+    reals = []
+    for key in ("thr", "norm", "inv_norm", "wb_c", "wf_c", "vel_c", "vel_e", "vel_g",
+                "vel_me", "vel_hq2", "gl_y1", "gl_w", "win_v", "win_w"):
+        reals += r[key]
+    reals += [r["dt"], r["inv_dz"], r["two_thirds"]]
+    for key in ("grid_dx", "gauss_u", "gauss_w", "grids"):
+        reals += r[key]
 
     ints[7] = real_offset
     total = real_offset + np.dtype(real_t).itemsize * len(reals)
@@ -1020,6 +1050,9 @@ class _KernelFn:
         self.dtype = dtype
         self.launches = 0
         self._cfg = None
+        #: the kernel a CUDA call launches: "table" (csrc/fused_coalescence.cu)
+        #: or "generated" (`ops.codegen`)
+        self.route = "table"
 
     @property
     def _tag(self) -> str:
@@ -1046,7 +1079,10 @@ class _KernelFn:
 
     def _launch(self, mom: torch.Tensor, n_out: int, *extra) -> torch.Tensor:
         """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``;
-        `extra` are the entry point's arguments between B and the stream."""
+        `extra` are the table-driven entry point's arguments between B and
+        the stream."""
+        if self.route == "generated":
+            return self._launch_generated(mom, n_out)
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_library()
@@ -1063,6 +1099,49 @@ class _KernelFn:
             raise RuntimeError(
                 f"{self._symbol} launch failed: cudaError {err} "
                 f"({lib.cloudy_error_string(err).decode()})"
+            )
+        self.launches += 1
+        return out
+
+
+class _GeneratedFn(_KernelFn):
+    """A wrapper whose fast-tier plans launch the kernel generated for the
+    configuration (`ops.codegen`) and whose reference-tier plans launch the
+    table-driven instance; the route follows from the plan alone. `_table`
+    (private) forces the table-driven fast instance: the same-call
+    yardstick of `chip_smoke.py`, reached by no public entry point."""
+
+    _kind = ""
+
+    def __init__(self, plan, device, dtype: torch.dtype, _table: bool = False):
+        super().__init__(plan, device, dtype)
+        self.route = "table" if (_table or plan.ref) else "generated"
+        self._unit = None
+
+    @property
+    def unit(self):
+        """The generated build unit of this wrapper's kernel
+        (`codegen.Unit`); None on the table-driven route."""
+        if self.route != "generated":
+            return None
+        if self._unit is None:
+            from cloudy_tpu_torch.ops import codegen
+
+            self._unit = codegen.unit(self.plan, self.dtype, self._kind)
+        return self._unit
+
+    def _launch_generated(self, mom: torch.Tensor, n_out: int) -> torch.Tensor:
+        from cloudy_tpu_torch.ops import _build
+
+        lib = _build.load_generated(self.unit)
+        out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = lib.cloudy_gen_launch(mom.data_ptr(), out.data_ptr(), mom.shape[1], stream)
+        if err != 0:
+            raise RuntimeError(
+                f"generated {self.unit.label} launch failed: cudaError {err} "
+                f"({lib.cloudy_gen_error_string(err).decode()})"
             )
         self.launches += 1
         return out
@@ -1088,12 +1167,14 @@ class CoalFn(_KernelFn):
         return coal_soa_plain(mom, self.plan)
 
 
-class RainshaftStepFn(_KernelFn):
+class RainshaftStepFn(_GeneratedFn):
     """Whole SSPRK33 rainshaft step (replaces
     `make_pallas_rainshaft_step_fn`): ``fn(mom [n_tot, B])``, physical
-    moments, ``B % nz == 0``."""
+    moments, ``B % nz == 0``. A fast-tier plan launches the generated kernel
+    (`route` ``"generated"``), a reference-tier plan the table-driven one."""
 
     _name = "cloudy_step"
+    _kind = "step"
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self._step(mom, None)
@@ -1124,6 +1205,9 @@ class ScaledRainshaftStepFn(RainshaftStepFn):
 
     _name = "cloudy_step_scaled"
 
+    def __init__(self, plan, device, dtype: torch.dtype):
+        super().__init__(plan, device, dtype, _table=True)  # table-driven only
+
     def __call__(self, mom: torch.Tensor, scale) -> torch.Tensor:
         return self._step(mom, self.scale_row(mom, scale))
 
@@ -1140,14 +1224,16 @@ class ScaledRainshaftStepFn(RainshaftStepFn):
         return row.reshape(1, -1).expand(1, B).reshape(B).contiguous()
 
 
-class RainshaftRhsFn(_KernelFn):
+class RainshaftRhsFn(_GeneratedFn):
     """Fused per-level rainshaft RHS (replaces
     `make_pallas_rainshaft_rhs_fn`): ``fn.soa(mom [n_tot, B])`` on physical
     moments → ``[2·n_tot, B]``, the physical coalescence tendencies over the
     physical sedimentation fluxes. The caller applies the upwind stencil
-    (`models.rainshaft.make_rainshaft_rhs_fused`)."""
+    (`models.rainshaft.make_rainshaft_rhs_fused`). A fast-tier plan launches
+    the generated kernel, a reference-tier plan the table-driven one."""
 
     _name = "cloudy_rhs"
+    _kind = "rhs"
 
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)

@@ -195,6 +195,7 @@ def run_case(name: str, n_columns: int = 1 << 20, nz: int = 32, device="cuda",
         "n1": timing["n1"],
         "n2": timing["n2"],
         "instance": INSTANCES[step.plan.instance],
+        "route": step.route,
         "launches": step.launches,
         "steps_run": timing["steps_run"],
         **bnd,

@@ -44,6 +44,28 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _generated_units():
+    """On a card, build the generated kernels this module launches in one
+    batch (one nvcc each, all at once) instead of one by one at first use."""
+    if not torch.cuda.is_available():
+        return
+    from cloudy_tpu_torch.ops import _build
+
+    fns = []
+    for variant in ("fixed2gamma", "moving", "lognorm"):
+        _, data = harness.pod_data(variant)
+        for dtype in DTYPES:
+            for nz in (32, 16, 128):
+                fns.append(fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=nz, dz=3000.0 / nz,
+                                                     dt=1.0, device="cuda", dtype=dtype))
+            fns.append(fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device="cuda", dtype=dtype))
+    fns.append(fc.make_rainshaft_step_fn(_fast_data((Family.EXPONENTIAL, Family.GAMMA)), VEL,
+                                         NORMS, nz=32, dz=93.75, dt=1.0, device="cuda",
+                                         dtype=torch.float64))
+    _build.build_generated([f.unit for f in fns if f.route == "generated"])
+
+
 def _fast_data(families=(Family.GAMMA, Family.GAMMA)):
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     return build_coalescence_data(SpectrumSpec(families), ker, (5e-10, np.inf),
@@ -201,6 +223,70 @@ def test_rhs_kernel_matches_twin(cuda, dtype, variant):
     assert bool(torch.isfinite(got).all())
     norm = torch.tensor(fn.plan.mom_norms * 2, dtype=dtype, device=cuda)[:, None]
     assert _row_scaled(got / norm, fn.plain(x) / norm) < TOL[dtype]
+
+
+# --------------------------------------------------------------------------
+# the whole step and the fused RHS generated per configuration (ops.codegen)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nz,n_cols", [(32, 9), (16, 40), (128, 3)],
+                         ids=["shuffle-32", "shuffle-16", "smem-128"])
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_step_matches_twin(cuda, dtype, variant, nz, n_cols):
+    """The generated whole step at nz 32 and 16 (the z-stencil a warp
+    shuffle) and 128 (shared memory), each with a ragged last block (288,
+    640 and 384 lanes in blocks of 256)."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=nz, dz=3000.0 / nz, dt=1.0,
+                                   device=cuda, dtype=dtype)
+    assert fn.route == "generated" and fn.unit.shfl == (nz <= 32)
+    x = _column_state(n_cols, nz, seed=nz + 1).to(cuda, dtype)
+    got = fn(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_rhs_matches_twin(cuda, dtype, variant):
+    """The generated fused RHS, 279 lanes (a ragged last block), and the
+    table-driven fast instance on the same input."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device=cuda, dtype=dtype)
+    table = fc.RainshaftRhsFn(fn.plan, cuda, dtype, _table=True)
+    assert (fn.route, table.route) == ("generated", "table")
+    x = _column_state(9, 31, seed=10).to(cuda, dtype)
+    got = fn.soa(x)
+    assert fn.launches == 1 and got.shape == (12, x.shape[1])
+    assert bool(torch.isfinite(got).all())
+    norm = torch.tensor(fn.plan.mom_norms * 2, dtype=dtype, device=cuda)[:, None]
+    want = fn.plain(x) / norm
+    assert _row_scaled(got / norm, want) < TOL[dtype]
+    assert _row_scaled(table.soa(x) / norm, want) < TOL[dtype]
+
+
+def test_routes_on_the_card(cuda):
+    """A fast-tier plan launches the generated kernel, a reference-tier plan
+    the table-driven one; each wrapper counts its own launches."""
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    ref = build_coalescence_data(SpectrumSpec((Family.GAMMA, Family.GAMMA)), ker,
+                                 (5e-10, np.inf), norms=NORMS)
+    kw = dict(nz=32, dz=93.75, dt=1.0, device=cuda, dtype=torch.float32)
+    fast_step = fc.make_rainshaft_step_fn(_fast_data(), VEL, NORMS, **kw)
+    ref_step = fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw)
+    fast_rhs = fc.make_rainshaft_rhs_fn(_fast_data(), VEL, NORMS, device=cuda)
+    ref_rhs = fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device=cuda)
+    assert [f.route for f in (fast_step, ref_step, fast_rhs, ref_rhs)] == [
+        "generated", "table", "generated", "table"]
+    x = _column_state(4, 32, seed=11).to(cuda, torch.float32)
+    for f in (fast_step, ref_step):
+        assert _row_scaled(f(x), f.plain(x)) < TOL[torch.float32]
+    for f in (fast_rhs, ref_rhs):
+        assert f.soa(x).shape == (12, x.shape[1])
+    assert [f.launches for f in (fast_step, ref_step, fast_rhs, ref_rhs)] == [1, 1, 1, 1]
 
 
 # --------------------------------------------------------------------------
