@@ -39,7 +39,8 @@ Drives the port's main path once on the card and fails loudly:
 13. the direct-quadrature kernel against its twin: 128 boxes (one empty, one
    with an empty second mode), (64, 32) nodes, f32 and f64, two gamma modes
    with each of the four kernel functions and exponential + gamma +
-   lognormal with the Long kernel; the f32 kernel against the f64 kernel;
+   lognormal with the Long kernel; the f32 kernel against the f64 kernel
+   and the f64 twin;
 14. the numerical bench: the Euler chain of 262,144 boxes, two gamma modes,
    the Long kernel, f32, default budgets (96, 48), through the quadrature
    kernel; the kernel against its twin (run in chunks of boxes) at the full
@@ -107,13 +108,26 @@ Drives the port's main path once on the card and fails loudly:
    fast instances (reached only through the wrappers' private `_table`):
    `ptxas`, SASS counts of LDL, STL, LDS, STS, BAR and SHFL, blocks per
    SM, both against the twin at 4,096 x 32 (f32 and f64), and ms per step
-   of B1 at 2^20 x 32 and per launch of B4 at [6, 2^25] in turns (f32).
+   of B1 at 2^20 x 32 and per launch of B4 at [6, 2^25] in turns (f32);
+24. B3 and B5 as redesigned, against what they replace, in turns: the
+   generated coalescence RHS of each pod variant against its table-driven
+   fast instance (`ptxas`, SASS counts, blocks per SM, vs twin at 2^20
+   boxes f32 and 65,536 f64, ms per launch at 2^20), and of B-cover's two
+   configurations at 2^25 lanes; the reference tier at the `rainshaft_128`
+   hook's configuration with a warp per box against a thread per box at
+   B = 128 to 262,144, f64 and f32 (the crossover `coal_layout` takes), and
+   at 2^20 boxes for bench.py's reference switches and the mono and Φ-grid
+   arms; the quadrature kernel against its twin with each kernel function
+   at [6, 262144], and against the body it replaced at [6, 262144] (the
+   bench), [8, 262144] (E + G + L) and in f64, with their `ptxas` lines,
+   SASS counts and phase 21's class model.
 
-From phase 4 on, the whole step and the fused RHS of every fast-tier
-configuration launch the kernel generated for it (the wrappers' `route`
-"generated", printed with each main path's launch counts); the
-coalescence kernel, the scaled whole step and the reference tier launch
-the table-driven kernels.
+From phase 3 on, the whole step, the fused RHS and the coalescence RHS of
+every fast-tier configuration launch the kernel generated for it (the
+wrappers' `route` "generated", printed with each main path's launch
+counts); the scaled whole step and the reference tier launch the
+table-driven kernels, the reference coalescence RHS with a warp per box at
+small batches (phase 18's `rainshaft_128` hook: 128 boxes).
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -197,15 +211,26 @@ N_COVER_STEPS = 6  # timed launches of each B-cover kernel (phase 22)
 N_GEN_STEPS = 10  # whole steps per timed turn, generated vs table-driven (phase 23)
 N_GEN_RHS = 20  # fused-RHS launches per timed turn (phase 23)
 COVERS = ("exp-only", "three-mode")  # the B-cover configurations (phases 2, 22)
+#: boxes of the reference coalescence kernel's layouts, timed in turns (phase 24)
+REF_LAYOUT_BOXES = (128, 1024, 8192, 32768, 65536, 131072, 262144)
 
 
-def kernel_source(fn):
-    """The `kernels` keys naming a wrapper's kernel: the table-driven source,
-    or the generated kernels' shells and their generator with the route."""
+def kernel_source(fn, B=None):
+    """The `kernels` keys naming a wrapper's kernel: the table-driven source
+    (for the coalescence RHS with its layout at `B` boxes, a thread or a
+    warp per box), the generated kernels' shells and their generator with
+    the route, or the quadrature kernel's source and body."""
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+
     if getattr(fn, "route", "table") == "generated":
         return {"source": GEN_SOURCE, "generator": GEN_GENERATOR, "kernel_path": "generated",
                 "unit": fn.unit.label}
-    return {"source": SOURCE, "kernel_path": "table"}
+    if isinstance(fn, nc.NumericalFn):
+        return {"source": NUM_SOURCE, "kernel_path": "quad"}
+    out = {"source": SOURCE, "kernel_path": "table"}
+    if B is not None and hasattr(fn, "layout"):
+        out["layout"] = fn.layout(B)
+    return out
 
 
 def cover_case(name):
@@ -242,13 +267,15 @@ def scaled_tensor_data(spec, s=1.7):
 
 def generated_wrappers(dev):
     """A wrapper of every generated kernel the phases launch, built from the
-    same plans, hence the same units: the pod variants' whole step and fused
-    RHS in f32 and f64 (phases 4-12, 23), the unscaled step from the
-    1.7-scaled tensor in f64 (phase 16), the family matrix's fast cases in
-    f32 (phase 20) and the B-cover configurations (phase 22)."""
+    same plans, hence the same units: the pod variants' whole step, fused
+    RHS and coalescence RHS in f32 and f64 (phases 4-12, 23, 24), the
+    bench's coalescence RHS (phases 3, 7, 19) and `rainshaft_128`'s at the
+    bench overrides (phase 18), the unscaled step from the 1.7-scaled tensor
+    in f64 (phase 16), the family matrix's fast cases in f32 (phase 20) and
+    the B-cover configurations (phase 22)."""
     import torch
 
-    from cloudy_tpu_torch import harness
+    from cloudy_tpu_torch import bench, harness
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.tools import yardstick
     from cloudy_tpu_torch.tools import whole_step_ablation as wsa
@@ -256,19 +283,45 @@ def generated_wrappers(dev):
     fns = []
     for dt in (torch.float32, torch.float64):
         for variant in yardstick.VARIANTS:
-            for kind in ("step", "rhs"):
+            for kind in ("step", "rhs", "coal"):
                 fns.append(yardstick.make_fns(variant, kind, dev, dt)[0])
         for name in COVERS:
             _, data, cfg = cover_case(name)
             fns.append(fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
                                                  dt=1.0, device=dev, dtype=dt))
             fns.append(fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, device=dev, dtype=dt))
+            fns.append(fc.make_coal_fn(data, device=dev, dtype=dt))
+        fns.append(fc.make_coal_fn(bench.bench_data()[1], device=dev, dtype=dt))
+        fns.append(harness.SCENARIOS["rainshaft_128"](device=dev, dtype=dt, hook=True,
+                                                      **BENCH_OVERRIDES)["coal_fn"])
+    fns.append(bench.coal_fn(dev))
     spec, _ = harness.pod_data("fixed2gamma")
     _, _, cfg = yardstick.pod_config("fixed2gamma")
     fns.append(fc.make_rainshaft_step_fn(scaled_tensor_data(spec), cfg.vel, cfg.norms, nz=NZ,
                                          dz=cfg.dz, dt=1.0, device=dev, dtype=torch.float64))
     fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
     return [f for f in fns if f.route == "generated"]
+
+
+def arm_moments(families, n, seed):
+    """Normalized moments [n_tot, n] of the family arms (phases 20, 24),
+    parameters drawn first: gamma (θ, k) ∈ [0.05, 5] × [0.5, 5], lognormal
+    (μ, σ) ∈ [−2, 0.5] × [0.3, 1.2], monodisperse θ ∈ [0.05, 0.6] (about
+    T/2 = 0.25), exponential θ ∈ [0.02, 0.5]; n ∈ [10, 200]."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    ranges = {Family.GAMMA: ((0.05, 5.0), (0.5, 5.0)),
+              Family.LOGNORMAL: ((-2.0, 0.5), (0.3, 1.2)),
+              Family.MONODISPERSE: ((0.05, 0.6), (0.0, 0.0)),
+              Family.EXPONENTIAL: ((0.02, 0.5), (0.0, 0.0))}
+    rng = np.random.default_rng(seed)
+    par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(*ranges[f][0], n),
+                              rng.uniform(*ranges[f][1], n)], -1) for f in families], axis=1)
+    return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).numpy().T.copy()
 
 
 def check(cond, msg):
@@ -308,6 +361,8 @@ def ptxas_summary(log, chains=False):
                     continue
                 name = (f"chain_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
                         f"{k.group(2)}, ILP {k.group(3)}>")
+            elif k := re.search(r"cloudy\d+(coal_warp_kernel)I([fd])E", entry):
+                name = f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, reference>"
             elif k := re.search(r"cloudy\d+(\w+?)I([fd])Li(\d)ELi(\d)E", entry):
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
                         f"{k.group(3)} modes, kernel function {k.group(4)}>")
@@ -355,7 +410,7 @@ def main():
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
     from cloudy_tpu_torch.spec import Family, SpectrumSpec, get_moments_normalizing_factors
-    from cloudy_tpu_torch.tools import opcount
+    from cloudy_tpu_torch.tools import opcount, yardstick
     from cloudy_tpu_torch.utils import metrics
 
     dev = torch.device("cuda", 0)
@@ -383,8 +438,12 @@ def main():
     lib_err = []
 
     def build_library():
+        # then the library's SASS counts (phases 23, 24: one cuobjdump of the
+        # whole library, about a minute), here so that no timed phase runs
+        # beside the listing's parse
         try:
             _build.load_library()
+            _build.sass_counts(_build.library_path())
         except BaseException as e:  # re-raised below
             lib_err.append(e)
 
@@ -600,36 +659,20 @@ def main():
          "max_abs_err": results[("step", "main")][1],
          "max_row_scaled_err": results[("step", "main")][0],
          "ms": pod_s / 120 * 1e3, "plain_ms": step_plain_ms, **step_bound},
-        {"name": "coal_rhs", "route": "cuda", "source": SOURCE,
+        {"name": "coal_rhs", "route": "cuda", **kernel_source(coal32),
          "replaces": B3_REPLACES, "launches": launches["coal"],
          "max_abs_err": results[("coal", "main")][1],
          "max_row_scaled_err": results[("coal", "main")][0],
          "ms": coal_ms, "plain_ms": coal_plain_ms, **coal_bound},
     ]
 
-    def variant_moments(variant, n, seed):
-        """Normalized bench-style moments [n_tot, n]: bench.py's joint
-        amplitude and mass scalings for two gamma modes; for lognormal +
-        gamma, parameters drawn first (tests/test_pallas.py:311-319)."""
-        if variant == "moving":
-            return bench.bench_moments(n, seed=seed).T.copy()
-        vspec, _ = harness.pod_data(variant)
-        rng = np.random.default_rng(seed)
-        par = np.stack([
-            np.stack([rng.uniform(10, 200, n), rng.uniform(-2.0, 0.5, n),
-                      rng.uniform(0.3, 1.2, n)], -1),
-            np.stack([rng.uniform(10, 200, n), rng.uniform(0.05, 5.0, n),
-                      rng.uniform(0.5, 5.0, n)], -1)], axis=1)
-        return pd.get_moments(vspec, torch.as_tensor(par)).numpy().T.copy()
-
     # ---- 8. coalescence-kernel arms vs twin, and each arm's chain ----------
     t = time.perf_counter()
     for variant in VARIANTS:
         _, vdata = harness.pod_data(variant)
-        mom_np = variant_moments(variant, 65536, seed=1)
         for name, dt in dtypes.items():
             fn = fc.make_coal_fn(vdata, device=dev, dtype=dt)
-            x = torch.as_tensor(mom_np, dtype=dt, device=dev)
+            x = yardstick.coal_moments(variant, 65536, dev, dt, seed=1)
             got = fn.soa(x)
             want = fn.plain(x)
             torch.cuda.synchronize()
@@ -640,8 +683,7 @@ def main():
             check(bool(torch.isfinite(got).all()), f"coal kernel [{variant}] {name} not finite")
             check(err < TOL[name], f"coal kernel [{variant}] {name} vs twin {err:.3e}")
         fn = fc.make_coal_fn(vdata, device=dev, dtype=torch.float32)
-        x = torch.as_tensor(variant_moments(variant, bench.BENCH_COLUMNS, seed=0),
-                            dtype=torch.float32, device=dev)
+        x = yardstick.coal_moments(variant, bench.BENCH_COLUMNS, dev, torch.float32, seed=0)
         fn.launches = 0
         s_chain = bench.time_chain(fn.soa, x, N_ARM_STEPS)
         n_launch = fn.launches
@@ -655,7 +697,7 @@ def main():
               f"moment-updates/s, launches {n_launch}; at [6, {bench.BENCH_COLUMNS}] "
               f"row-scaled {err:.3e}, max abs {abs_err:.3e}; kernel {ms:.4f} ms, "
               f"twin {plain_ms:.4f} ms {card}")
-        kernels.append({"name": f"coal_rhs[{variant}]", "route": "cuda", "source": SOURCE,
+        kernels.append({"name": f"coal_rhs[{variant}]", "route": "cuda", **kernel_source(fn),
                         "replaces": B3_REPLACES, "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
                         "ms": ms, "plain_ms": plain_ms,
@@ -881,9 +923,12 @@ def main():
             check(err < NUM_TOL[name], f"numerical kernel [{kname}] {name} vs twin {err:.3e}")
             got_by_type[name] = got
         err, _ = row_scaled(got_by_type["float32"], got_by_type["float64"], cancelling)
+        err64, _ = row_scaled(got_by_type["float32"], want, cancelling)  # want: the f64 twin
         print(f"phase 13 numerical kernel [{len(families)} modes, {kname}] f32 kernel vs "
-              f"f64 kernel: row-scaled {err:.3e} (tol {NUM_TOL['float32']:.0e}) {card}")
-        check(err < NUM_TOL["float32"], f"numerical f32 vs f64 kernel [{kname}] {err:.3e}")
+              f"f64 kernel: row-scaled {err:.3e}, vs f64 twin {err64:.3e} (tol "
+              f"{NUM_TOL['float32']:.0e}) {card}")
+        check(err < NUM_TOL["float32"] and err64 < NUM_TOL["float32"],
+              f"numerical f32 vs f64 kernel [{kname}] {err:.3e}, vs f64 twin {err64:.3e}")
     print(f"phase 13 seconds {time.perf_counter() - t:.3f}")
 
     # ---- 14. the numerical bench: 262,144 boxes through the kernel ---------
@@ -921,7 +966,7 @@ def main():
     num_plain_ms = _time_ms(lambda: nfn.plain(x, chunk=NUM_CHUNK), 1)
     print(f"phase 14 per call at [6, {n_box}]: numerical kernel {num_ms:.4f} ms, "
           f"twin {num_plain_ms:.4f} ms {card}")
-    kernels.append({"name": "numerical_rhs", "route": "cuda", "source": NUM_SOURCE,
+    kernels.append({"name": "numerical_rhs", "route": "cuda", **kernel_source(nfn),
                     "replaces": B5_REPLACES, "launches": num_launches,
                     "max_abs_err": nabs, "max_row_scaled_err": nerr,
                     "ms": num_ms, "plain_ms": num_plain_ms,
@@ -1178,8 +1223,11 @@ def main():
               f"rainshaft_128 [{label}] not finite or of shape {ys.shape}")
         frames = (np.abs(ys - ys128) / scale128).max(axis=(1, 2))
         gerr = float(frames.max())
+        hook_route = sc["coal_fn"].route
+        if hook_route == "table":
+            hook_route += f", a {sc['coal_fn'].layout(128)} per box"
         print(f"phase 18 rainshaft_128 through the coal kernel hook [{label}, instance "
-              f"{sc['coal_fn'].plan.instance}], 128 levels x 300 s: per-moment-scaled "
+              f"{sc['coal_fn'].plan.instance}, {hook_route}], 128 levels x 300 s: per-moment-scaled "
               f"{gerr:.3e} vs its golden (largest at t = {30 * int(frames.argmax())} s"
               f"{f', tol {tol:.0e}' if tol else ''}), launches {n_launch}, {secs:.3f} s "
               f"(host clock) {card}")
@@ -1269,10 +1317,11 @@ def main():
     hook_ms = _time_ms(lambda: hook_fn.soa(x128), 50)
     hook_plain_ms = _time_ms(lambda: hook_fn.plain(x128), 5)
     print(f"phase 18 coal kernel [reference, f64] at its path's shape [6, 128] (a rainshaft_128 "
-          f"state): row-scaled {herr:.3e}, max abs {habs:.3e}; kernel {hook_ms:.4f} ms, twin "
-          f"{hook_plain_ms:.4f} ms {card}")
+          f"state, {hook_fn.layout(128)} per box): row-scaled {herr:.3e}, max abs {habs:.3e}; "
+          f"kernel {hook_ms:.4f} ms, twin {hook_plain_ms:.4f} ms {card}")
+    check(hook_fn.layout(128) == "warp", "the rainshaft_128 hook does not take a warp per box")
     kernels.append({"name": "coal_rhs[reference, f64, rainshaft_128 hook]", "route": "cuda",
-                    "source": SOURCE, "replaces": B3_REPLACES,
+                    **kernel_source(hook_fn, 128), "replaces": B3_REPLACES,
                     "launches": golden_launches[("hook", torch.float64, False)],
                     "max_abs_err": habs, "max_row_scaled_err": herr, "ms": hook_ms,
                     "plain_ms": hook_plain_ms,
@@ -1319,7 +1368,8 @@ def main():
                           "card": smi.splitlines()[0]}))
         if fn.plan.ref:
             kernels.append({"name": f"coal_rhs[reference, f32, bench f2_exact={f2_exact} "
-                                    f"gl_nodes={gl}]", "route": "cuda", "source": SOURCE,
+                                    f"gl_nodes={gl}]", "route": "cuda",
+                            **kernel_source(fn, bench.BENCH_COLUMNS),
                             "replaces": B3_REPLACES, "launches": n_launch,
                             "max_abs_err": abs_err, "max_row_scaled_err": err, "ms": ms,
                             "plain_ms": plain_ms,
@@ -1334,13 +1384,16 @@ def main():
     phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg)
 
     # ---- 21. the per-op-class chain benchmark (B6) and the class model -----
-    phase_21(dev, card, b1_ms, num_ms, kernels)
+    class_model = phase_21(dev, card, b1_ms, num_ms, kernels)
 
     # ---- 22. B-cover: configurations no earlier phase drives ---------------
     phase_22(dev, card, kernels, bound)
 
     # ---- 23. the generated B1 and B4 against their table-driven instances --
     phase_23(dev, card, {r["label"]: r for r in gen_records})
+
+    # ---- 24. B3 and B5 as redesigned, against what they replace -----------
+    phase_24(dev, card, log, b1_ms, {r["label"]: r for r in gen_records}, class_model)
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -1365,7 +1418,6 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
     import torch
 
     from cloudy_tpu_torch import bench
-    from cloudy_tpu_torch import distributions as pd
     from cloudy_tpu_torch import kernels as K
     from cloudy_tpu_torch.coalescence import build_coalescence_data
     from cloudy_tpu_torch.models import rainshaft as rs
@@ -1380,19 +1432,6 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
         print(f"phase 20 ptxas (phase 2): {ln}")
     print(f"phase 20 unscaled B1 fixed2gamma in this call (phase 6, generated): {b1_ms:.4f} "
           f"ms/step (table-driven, recorded: 27.15-27.50) {card}")
-    arm_ranges = {Family.GAMMA: ((0.05, 5.0), (0.5, 5.0)),
-                  Family.LOGNORMAL: ((-2.0, 0.5), (0.3, 1.2)),
-                  Family.MONODISPERSE: ((0.05, 0.6), (0.0, 0.0)),  # θ about T/2 = 0.25
-                  Family.EXPONENTIAL: ((0.02, 0.5), (0.0, 0.0))}
-
-    def arm_moments(families, n, seed):
-        """Normalized moments [n_tot, n], parameters drawn first."""
-        rng = np.random.default_rng(seed)
-        par = np.stack([np.stack([rng.uniform(10, 200, n), rng.uniform(*arm_ranges[f][0], n),
-                                  rng.uniform(*arm_ranges[f][1], n)], -1) for f in families],
-                       axis=1)
-        return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).numpy().T.copy()
-
     M_, L_, E_, G_ = Family.MONODISPERSE, Family.LOGNORMAL, Family.EXPONENTIAL, Family.GAMMA
     gauss12 = ({"gammainc_gl_nodes": 12}, {"quad_rule": "gauss", "gauss_nodes": 12})
     arm_cases = {
@@ -1456,7 +1495,8 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
               f"moment-updates/s, launches {n_launch}; at [{n_tot}, {bench.BENCH_COLUMNS}] "
               f"row-scaled {err:.3e}, max abs {abs_err:.3e}; kernel {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms {card}")
-        kernels.append({"name": f"coal_rhs[{arm}]", "route": "cuda", "source": SOURCE,
+        kernels.append({"name": f"coal_rhs[{arm}]", "route": "cuda",
+                        **kernel_source(fn, bench.BENCH_COLUMNS),
                         "replaces": B3_REPLACES, "launches": n_launch,
                         "max_abs_err": abs_err, "max_row_scaled_err": err,
                         "ms": ms, "plain_ms": plain_ms,
@@ -1583,7 +1623,7 @@ def phase_21(dev, card, b1_ms, num_ms, kernels):
     zeroed just before and read just after), the fit in both types, the
     floor check, and the class model of B1 `fixed2gamma` and B5 beside
     their times of phases 6 and 14; appends one `kernels` entry per chain
-    and type."""
+    and type. Returns the class model's time by kernel ("B1", "B5")."""
     import torch
 
     from cloudy_tpu_torch import bench, harness
@@ -1635,6 +1675,7 @@ def phase_21(dev, card, b1_ms, num_ms, kernels):
     # the class model: the twins' operations by class (per lane) priced at
     # the f32 class costs, beside the measured times of phases 6 and 14
     classes = fits["f32"]["classes"]
+    class_model = {}
     small = harness.SCENARIOS["pod_ensemble"](n_columns=8, device=dev)
     nfn = bench.numerical_fn(dev)
     boxes = torch.as_tensor(bench.numerical_moments(64).T.copy(), dtype=torch.float32,
@@ -1657,6 +1698,7 @@ def phase_21(dev, card, b1_ms, num_ms, kernels):
               f"predicates {round(sum(per_lane['predicate'].values()), 2)} (priced as add), "
               f"unpriced {other} ({sum(other.values()) / total:.4f} of {total:.2f}) {card}")
         check(pred > 0.0, f"class model of {label} is not positive")
+        class_model[label.split()[0]] = pred
     del small, nfn, boxes
 
     for rec in records:
@@ -1668,6 +1710,7 @@ def phase_21(dev, card, b1_ms, num_ms, kernels):
             "bound_by": rec["bound_by"], "library_ms": None})
     torch.cuda.empty_cache()
     print(f"phase 21 seconds {time.perf_counter() - t:.3f}")
+    return class_model
 
 
 def phase_22(dev, card, kernels, bound):
@@ -1738,25 +1781,33 @@ def phase_22(dev, card, kernels, bound):
         small = st[:, :8 * NZ].to(dev, torch.float32).contiguous()
         step(small), rhs.soa(small), coal.soa((small / norm).contiguous())
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def window(y):
+            start.record()
+            for _ in range(N_COVER_STEPS):
+                y = step(y)
+            end.record()
+            end.synchronize()
+            return y, start.elapsed_time(end) / N_COVER_STEPS
+
+        # B1 from two windows in a row: the first allocates the steps' outputs at
+        # this size (the allocator was emptied after the last case) inside its
+        # window, the second, whose time is kept, does not
+        y, cold_ms = window(big)
         for fn in (step, rhs, coal):
             fn.launches = 0
-        y = big
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(N_COVER_STEPS):
-            y = step(y)
-        end.record()
-        end.synchronize()
-        step_ms = start.elapsed_time(end) / N_COVER_STEPS
+        y, step_ms = window(y)
         rhs_ms = _time_ms(lambda: rhs.soa(big), N_COVER_STEPS - 1)
         coal_ms = _time_ms(lambda: coal.soa(bign), N_COVER_STEPS - 1)
         counts = {"step": step.launches, "rhs": rhs.launches, "coal": coal.launches}
         finite = bool(torch.isfinite(y).all())
         print(f"phase 22 [{name}] at {N_POD_COLUMNS} x {NZ} f32 (B1 and B4 {step.route}, B3 "
               f"{coal.route}): B1 {step_ms:.4f} ms/step "
-              f"({N_POD_COLUMNS / step_ms * 1e3:.4e} column-updates/s, finite {finite}), "
+              f"({N_POD_COLUMNS / step_ms * 1e3:.4e} column-updates/s, finite {finite}; the "
+              f"window before it, with the outputs' allocation, {cold_ms:.4f}), "
               f"B4 {rhs_ms:.4f} ms, B3 {coal_ms:.4f} ms per launch; launches {counts} {card}")
-        check(finite, f"[{name}] state after {N_COVER_STEPS} steps not finite")
+        check(finite, f"[{name}] state after {2 * N_COVER_STEPS} steps not finite")
         check(all(v == N_COVER_STEPS for v in counts.values()), f"[{name}] launches {counts}")
         del y
         plain = {"step": _time_ms(lambda: step.plain(big), 1),
@@ -1811,7 +1862,7 @@ def phase_22(dev, card, kernels, bound):
         check(err < tol, f"numerical [{label}] vs twin {err:.3e}")
         check(launches == N_COVER_STEPS, f"numerical [{label}] launches {launches}")
         kernels.append({"name": f"numerical_rhs[{label}]", "route": "cuda",
-                        "source": NUM_SOURCE, "replaces": B5_REPLACES, "launches": launches,
+                        **kernel_source(fn), "replaces": B5_REPLACES, "launches": launches,
                         "max_abs_err": abs_err, "max_row_scaled_err": err, "ms": ms,
                         "plain_ms": plain_ms,
                         **bound(f"numerical_rhs[{label}]", fn.plain, x[:, :64].contiguous(),
@@ -1888,10 +1939,282 @@ def phase_23(dev, card, gen_records):
             print(f"phase 23 [{variant}, {label}] at [6, {x.shape[1]}] f32: table-driven "
                   f"{t_tab:.4f} {unit}, generated {t_gen:.4f} {unit} ({t_tab / t_gen:.3f}x; "
                   f"turns table {[round(v, 4) for v in raw[0]]}, generated "
-                  f"{[round(v, 4) for v in raw[1]]}, {n} per turn) {card}")
+                  f"{[round(v, 4) for v in raw[1]]}, {n} per turn); {time.perf_counter() - t:.3f} "
+                  f"s into the phase {card}")
             del x, gen, table
             torch.cuda.empty_cache()
     print(f"phase 23 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_24(dev, card, log, b1_ms, gen_records, class_model):
+    """Phase 24: B3 and B5 as redesigned, each against what it replaces, in
+    this call:
+    (a) B3's generated kernel of each pod variant against its table-driven
+        fast instance (the wrapper's private `_table`): `ptxas`, SASS counts,
+        blocks per SM, both against the twin at 2^20 boxes (f32) and 65,536
+        (f64) of `yardstick.coal_moments`, ms per launch at 2^20 boxes in
+        turns table, generated, generated, table (f32); the same at
+        B-cover's (E, E) and (E, L, G) on phase 22's 2^25 lanes (f32);
+    (b) B3's reference tier at the `rainshaft_128` hook's configuration
+        (fixed Simpson grid, series/CF) with a warp per box against a thread
+        per box (the private `_layout`), f64 and f32 at B = 128 to 262,144:
+        both against the twin, two warp launches bit for bit, ms per launch
+        in turns thread, warp, warp, thread, and the layout `coal_layout`
+        takes at each B on this card; then the same at 2^20 boxes (f32) for
+        bench.py's three reference switches and the mono and lognormal-Φ-grid
+        arms;
+    (c) B5's `quad_kernel` against its twin with each kernel function at
+        [6, 262144] (f32 and f64); against the body it replaced (`_direct`)
+        at the numerical bench's [6, 262144] (Long, f32), at B-cover's
+        E + G + L [8, 262144] (f32) and at [6, 262144] in f64: both against
+        the twin (in chunks), ms per launch in turns direct, quad, quad,
+        direct, with the `ptxas` line and SASS counts of each instance and
+        phase 21's class-model time of the old body's operation mix;
+    and the unscaled B1 `fixed2gamma` time of phase 6 in this call beside
+    them. `gen_records`: phase 2's build records by unit label; `class_model`:
+    phase 21's predictions."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch import bench, harness
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.ops import _build
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec, get_moments_normalizing_factors
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+    from cloudy_tpu_torch.tools import yardstick
+
+    t = time.perf_counter()
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+    print(f"phase 24 unscaled B1 fixed2gamma in this call (phase 6, generated): {b1_ms:.4f} "
+          f"ms/step (recorded: 6.09-6.18) {card}")
+
+    def show(r):
+        pt, sass = r["ptxas"], r["sass"]
+        return (f"ptxas {pt.get('registers')} registers, {pt.get('stack')} B stack, "
+                f"{pt.get('spill_stores')}/{pt.get('spill_loads')} B spill stores/loads; SASS "
+                + " ".join(f"{k} {sass.get(k)}" for k in ("LDL", "STL", "LDS", "STS", "BAR",
+                                                           "SHFL", "CALL"))
+                + f" of {sass.get('total')} instructions; {r['blocks_per_sm']} blocks/SM")
+
+    # (a) B3 fast tier: generated against table-driven
+    for variant in yardstick.VARIANTS:
+        for name, dt in dtypes.items():
+            gen, table = yardstick.make_fns(variant, "coal", dev, dt)
+            check(gen.route == "generated", f"[{variant}] B3 does not take the generated route")
+            rec = gen_records.get(gen.unit.label) or _build.build_generated([gen.unit])[0]
+            g = yardstick.gen_report(gen.unit, rec)
+            tb = yardstick.table_report("coal", dt, gen.plan.arms, gen.plan)
+            n = bench.BENCH_COLUMNS if dt == torch.float32 else N_REF_BOXES
+            x = yardstick.coal_moments(variant, n, dev, dt, seed=24)
+            want = gen.plain(x)
+            got = gen.soa(x)
+            gerr, gabs = row_scaled(got, want)
+            terr, _ = row_scaled(table.soa(x), want)
+            finite = bool(torch.isfinite(got).all())
+            print(f"phase 24 [{variant}, B3 coal RHS, {name}] generated {gen.unit.label} "
+                  f"(nvcc {g['nvcc_s']:.3f} s{', rebuilt' if g['retried'] else ''}): {show(g)} | "
+                  f"table-driven: {show(tb)} | vs twin at [{x.shape[0]}, {n}]: generated "
+                  f"{gerr:.3e} (max abs {gabs:.3e}), table-driven {terr:.3e} (tol "
+                  f"{TOL[name]:.0e}), finite {finite} {card}")
+            print(json.dumps({"phase": 24, "variant": variant, "kind": "coal", "dtype": name,
+                              "unit": gen.unit.label, "generated": g, "table": tb,
+                              "gen_vs_twin": gerr, "table_vs_twin": terr, "boxes": n}))
+            check(finite, f"[{variant}, coal, {name}] generated not finite")
+            check(gerr < TOL[name] and terr < TOL[name],
+                  f"[{variant}, coal, {name}] vs twin: generated {gerr:.3e}, table {terr:.3e}")
+            if dt == torch.float32:
+                pt = g["ptxas"]
+                check(pt.get("stack") == 0 and pt.get("spill_stores") == 0
+                      and pt.get("spill_loads") == 0,
+                      f"[{variant}, coal] generated f32 stack or spills: {pt}")
+                check(g["sass"].get("LDL") == 0 and g["sass"].get("STL") == 0,
+                      f"[{variant}, coal] generated f32 local memory: {g['sass']}")
+                (t_tab, t_gen), raw = yardstick.time_turns([table, gen], "coal", x, N_GEN_RHS)
+                print(f"phase 24 [{variant}, B3 coal RHS] at [{x.shape[0]}, {n}] f32: "
+                      f"table-driven {t_tab:.4f} ms, generated {t_gen:.4f} ms per launch "
+                      f"({t_tab / t_gen:.3f}x; turns table {[round(v, 4) for v in raw[0]]}, "
+                      f"generated {[round(v, 4) for v in raw[1]]}, {N_GEN_RHS} per turn) {card}")
+            del gen, table, x, want, got
+            torch.cuda.empty_cache()
+
+    # B-cover's (E, E) and (E, L, G) at phase 22's 2^25 lanes (the pod column, normalized)
+    for cover in COVERS:
+        spec, data, cfg = cover_case(cover)
+        amps = {Family.EXPONENTIAL: [1e8, 1e-2], Family.GAMMA: [1e6, 1e-3, 2e-12],
+                Family.LOGNORMAL: [1e7, 1e-3, 1.2840254166877414e-13]}
+        ic = np.concatenate([rs.initial_condition(cfg.z, amps[f]) for f in spec.families],
+                            axis=-1)
+        norm = np.asarray(get_moments_normalizing_factors(spec.nprogmoms, cfg.norms))
+        x = torch.as_tensor((ic / norm).T.copy(), dtype=torch.float32,
+                            device=dev).repeat(1, N_POD_COLUMNS).contiguous()
+        gen = fc.make_coal_fn(data, device=dev, dtype=torch.float32)
+        table = fc.CoalFn(gen.plan, dev, torch.float32, _table=True)
+        want = gen.plain(x)
+        errs = [row_scaled(fn.soa(x), want)[0] for fn in (gen, table)]
+        (t_tab, t_gen), raw = yardstick.time_turns([table, gen], "coal", x, N_COVER_STEPS)
+        print(f"phase 24 [{cover}, B3 coal RHS] at [{x.shape[0]}, {x.shape[1]}] f32: "
+              f"table-driven {t_tab:.4f} ms, generated {t_gen:.4f} ms per launch "
+              f"({t_tab / t_gen:.3f}x; turns table {[round(v, 4) for v in raw[0]]}, generated "
+              f"{[round(v, 4) for v in raw[1]]}); vs twin: generated {errs[0]:.3e}, "
+              f"table-driven {errs[1]:.3e} (tol {TOL['float32']:.0e}) {card}")
+        check(max(errs) < TOL["float32"], f"[{cover}, coal] vs twin {errs}")
+        del x, gen, table, want
+        torch.cuda.empty_cache()
+    print(f"phase 24 (a) seconds {time.perf_counter() - t:.3f}")
+
+    # (b) B3 reference tier: a warp per box against a thread per box
+    sc = harness.SCENARIOS["rainshaft_128"](device=dev, hook=True)
+    data = sc["data"]
+    rng = np.random.default_rng(24)
+    big = max(REF_LAYOUT_BOXES)
+    par = np.stack([np.stack([rng.uniform(10, 200, big), rng.uniform(0.05, 5.0, big),
+                              rng.uniform(0.5, 5.0, big)], -1) for _ in range(2)], axis=1)
+    mom_np = pd.get_moments(data.spec, torch.as_tensor(par)).numpy().T.copy()
+    mom_np[:, 5] = 0.0  # an empty box
+    for name, dt in dtypes.items():
+        auto = fc.make_coal_fn(data, device=dev, dtype=dt)
+        check(auto.plan.ref, "the rainshaft_128 configuration is not at the reference tier")
+        thread = fc.CoalFn(auto.plan, dev, dt, _layout="thread")
+        warp = fc.CoalFn(auto.plan, dev, dt, _layout="warp")
+        n_sm, slots = auto.slots()
+        print(f"phase 24 [B3 reference, {name}] {n_sm} SMs x {slots} resident threads of the "
+              f"thread-per-box instance: coal_layout takes a warp per box up to B = "
+              f"{n_sm * slots} {card}")
+        for n in REF_LAYOUT_BOXES:
+            x = torch.as_tensor(mom_np[:, :n], dtype=dt, device=dev).contiguous()
+            want = warp.plain(x)
+            got = warp.soa(x)
+            werr, wabs = row_scaled(got, want)
+            terr, _ = row_scaled(thread.soa(x), want)
+            same = bool(torch.equal(got, warp.soa(x)))
+            finite = bool(torch.isfinite(got).all())
+            reps = max(2, min(50, 2 ** 17 // n))
+            (t_thr, t_warp), raw = yardstick.time_turns([thread, warp], "coal", x, reps)
+            print(f"phase 24 [B3 reference, rainshaft_128 configuration, {name}] B = {n}: a warp "
+                  f"per box {t_warp:.4f} ms, a thread per box {t_thr:.4f} ms per launch "
+                  f"({t_thr / t_warp:.3f}x; turns thread {[round(v, 4) for v in raw[0]]}, warp "
+                  f"{[round(v, 4) for v in raw[1]]}, {reps} per turn); coal_layout takes "
+                  f"{auto.layout(n)}; vs twin: warp {werr:.3e} (max abs {wabs:.3e}), thread "
+                  f"{terr:.3e} (tol {TOL[name]:.0e}); two warp launches bit-identical {same}, "
+                  f"finite {finite} {card}")
+            print(json.dumps({"phase": 24, "kind": "coal_reference_layout", "dtype": name,
+                              "boxes": n, "warp_ms": t_warp, "thread_ms": t_thr,
+                              "warp_turns": raw[1], "thread_turns": raw[0],
+                              "layout": auto.layout(n), "warp_vs_twin": werr,
+                              "thread_vs_twin": terr}))
+            check(finite and same, f"[B3 reference, warp, {name}, B = {n}] not finite or not "
+                  "bit-identical")
+            check(werr < TOL[name] and terr < TOL[name],
+                  f"[B3 reference, {name}, B = {n}] vs twin: warp {werr:.3e}, thread {terr:.3e}")
+            del x, want, got
+        del auto, thread, warp
+    del sc
+    # the reference rows at 2^20 boxes (f32): bench.py's three reference switches (phase 19)
+    # and the mono and lognormal-Φ-grid arms' chains (phase 20), the layout coal_layout
+    # takes against the other
+    x_bench = torch.as_tensor(bench.bench_moments(bench.BENCH_COLUMNS).T.copy(),
+                              dtype=torch.float32, device=dev)
+    rows = {f"bench f2_exact={e} gl_nodes={g}": (bench.coal_fn(dev, f2_exact=bool(e),
+                                                               gl_nodes=g), x_bench)
+            for e, g in BENCH_SWITCHES if (e, g) != (1, 12)}
+    for arm, case in (("mono", "mono-gamma-closed"), ("lognorm_grid", "lognorm-gamma-grid")):
+        data, kw = wsa.case_data(case)
+        rows[arm] = (fc.make_coal_fn(data, device=dev, dtype=torch.float32, **kw),
+                     torch.as_tensor(arm_moments(data.spec.families, bench.BENCH_COLUMNS,
+                                                 seed=0), dtype=torch.float32, device=dev))
+    for label, (auto, x) in rows.items():
+        fns = [fc.CoalFn(auto.plan, dev, torch.float32, _layout=lay) for lay in ("thread", "warp")]
+        want = auto.plain(x)
+        errs = [row_scaled(fn.soa(x), want)[0] for fn in fns]
+        (t_thr, t_warp), raw = yardstick.time_turns(fns, "coal", x, 3)
+        grid = fc.F2_GRID in auto.plan.f2_kind
+        print(f"phase 24 [B3 reference, {label}, float32] B = {x.shape[1]} ({'a' if grid else 'no'}"
+              f" grid F2): a warp per box {t_warp:.4f} ms, a thread per box {t_thr:.4f} ms per "
+              f"launch ({t_thr / t_warp:.3f}x; turns thread {[round(v, 4) for v in raw[0]]}, warp "
+              f"{[round(v, 4) for v in raw[1]]}); coal_layout takes {auto.layout(x.shape[1])}; vs "
+              f"twin: thread {errs[0]:.3e}, warp {errs[1]:.3e} (tol {TOL['float32']:.0e}) {card}")
+        check(max(errs) < TOL["float32"], f"[B3 reference, {label}] vs twin {errs}")
+        del auto, fns, want
+    del rows, x_bench, x
+    torch.cuda.empty_cache()
+    print(f"phase 24 (b) seconds {time.perf_counter() - t:.3f}")
+
+    # (c) B5: quad_kernel against numerical_kernel
+    lines = ptxas_summary(log)
+    for ln in lines:
+        if ln.startswith(("quad_kernel<", "numerical_kernel<")) and "kernel function 3" in ln:
+            print(f"phase 24 ptxas (phase 2): {ln}")
+    so = _build.library_path()
+    for fname, counts in _build.sass_counts(so).items():
+        if re.search(r"(quad|numerical)_kernelI[fd]Li[23]ELi3E", fname):
+            print(f"phase 24 SASS {fname}: "
+                  + " ".join(f"{k} {v}" for k, v in counts.items() if k != "total")
+                  + f" of {counts['total']} instructions")
+    n_box = bench.NUMERICAL_COLUMNS
+    # each kernel function at the bench's [6, 262144] (two gamma modes, default budgets)
+    G2 = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+    for kname, kfun in (("constant", K.ConstantKernelFunction(1e-3)),
+                        ("linear", K.LinearKernelFunction(5e-3)),
+                        ("hydro", K.HydrodynamicKernelFunction(1e-2)),
+                        ("long", K.LongKernelFunction(2.0, 1e-3, 5e-3))):
+        errs = {}
+        for name, dt in dtypes.items():
+            fn = nc.make_numerical_fn(G2, kfun, device=dev, dtype=dt)
+            x = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=dt, device=dev)
+            got = fn.soa(x)
+            errs[name] = row_scaled(got, fn.plain(x, chunk=NUM_CHUNK))[0]
+            check(bool(torch.isfinite(got).all()), f"[B5 {kname}, {name}] not finite")
+            del fn, x, got
+        print(f"phase 24 [B5 {kname}, 2 gamma modes] quad_kernel vs twin at [6, {n_box}]: f32 "
+              f"{errs['float32']:.3e} (tol {NUM_TOL['float32']:.0e}), f64 {errs['float64']:.3e} "
+              f"(tol {NUM_TOL['float64']:.0e}) {card}")
+        check(all(errs[k] < NUM_TOL[k] for k in errs), f"[B5 {kname}] vs twin {errs}")
+    torch.cuda.empty_cache()
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(bench.NORMS)
+    rng = np.random.default_rng(23)
+    E, G, L = Family.EXPONENTIAL, Family.GAMMA, Family.LOGNORMAL
+    three = SpectrumSpec((E, G, L))
+    par = np.stack([np.stack([rng.uniform(10, 200, n_box), rng.uniform(*p1, n_box),
+                              rng.uniform(*p2, n_box)], -1)
+                    for p1, p2 in (((0.05, 5.0), (0.5, 5.0)), ((0.05, 5.0), (0.5, 5.0)),
+                                   ((-1.0, 1.0), (0.3, 1.0)))], 1)
+    mom3 = pd.get_moments(three, torch.as_tensor(par)).numpy().T.copy()
+    for label, vspec, mom, dt in (
+            ("bench: 2 gamma modes, Long, f32", SpectrumSpec((G, G)),
+             bench.numerical_moments().T.copy(), torch.float32),
+            ("B-cover: E + G + L, Long, f32", three, mom3, torch.float32),
+            ("B-cover: 2 gamma modes, Long, f64", SpectrumSpec((G, G)),
+             bench.numerical_moments().T.copy(), torch.float64)):
+        quad = nc.make_numerical_fn(vspec, kf, device=dev, dtype=dt)
+        direct = nc.NumericalFn(quad.plan, dev, dt, _direct=True)
+        x = torch.as_tensor(mom, dtype=dt, device=dev)
+        want = quad.plain(x, chunk=NUM_CHUNK)
+        qerr, qabs = row_scaled(quad.soa(x), want)
+        derr, _ = row_scaled(direct.soa(x), want)
+        tol = NUM_TOL["float64" if dt == torch.float64 else "float32"]
+        (t_dir, t_quad), raw = yardstick.time_turns([direct, quad], "coal", x, 5)
+        model = class_model.get("B5") if vspec.n_modes == 2 and dt == torch.float32 else None
+        print(f"phase 24 [B5 {label}] at [{vspec.n_tot}, {n_box}]: quad_kernel {t_quad:.4f} ms, "
+              f"numerical_kernel {t_dir:.4f} ms per launch ({t_dir / t_quad:.3f}x; turns direct "
+              f"{[round(v, 4) for v in raw[0]]}, quad {[round(v, 4) for v in raw[1]]}, 5 per "
+              f"turn); vs twin: quad {qerr:.3e} (max abs {qabs:.3e}), direct {derr:.3e} (tol "
+              f"{tol:.0e})" + (f"; class model of the old body's operations (phase 21) "
+                               f"{model:.4f} ms" if model else "") + f" {card}")
+        print(json.dumps({"phase": 24, "kind": "numerical", "label": label, "quad_ms": t_quad,
+                          "direct_ms": t_dir, "quad_turns": raw[1], "direct_turns": raw[0],
+                          "quad_vs_twin": qerr, "direct_vs_twin": derr}))
+        check(bool(torch.isfinite(want).all()), f"[B5 {label}] twin not finite")
+        check(qerr < tol and derr < tol,
+              f"[B5 {label}] vs twin: quad {qerr:.3e}, direct {derr:.3e}")
+        del quad, direct, x, want
+        torch.cuda.empty_cache()
+    print(f"phase 24 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

@@ -505,6 +505,33 @@ __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
   for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * n2;
 }
 
+// How a lane takes its part of a quadrature grid's nodes (the grid F2 loops
+// below) and adds the parts up:
+// - Serial: a box per lane, every node in turn (every kernel but one);
+// - WarpSplit: a box per warp (the reference-tier coalescence kernel at
+//   small batches, fused_coalescence.cu): lane l takes nodes l, l + 32, ...
+//   and the warp's partial sums are added by a fixed xor-shuffle tree, which
+//   leaves the same total, bit for bit, in every lane (each step adds two
+//   partial sums that the two lanes hold in swapped order, and IEEE addition
+//   commutes), so every lane goes on as the serial lane would, and two
+//   launches agree bit for bit.
+struct Serial {
+  static constexpr int kStep = 1;
+  __device__ __forceinline__ int first() const { return 0; }
+  template <typename T> __device__ __forceinline__ T total(T v) const { return v; }
+};
+
+struct WarpSplit {
+  static constexpr int kStep = 32;
+  int lane;
+  __device__ __forceinline__ int first() const { return lane; }
+  template <typename T> __device__ __forceinline__ T total(T v) const {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, d);
+    return v;
+  }
+};
+
 // simpson_even_fast_weights_dynamic at the 1-based node j of a grid of nb
 // bins, the terms added in the reference's order (j <= nb: the mask is the
 // caller's loop bound)
@@ -585,9 +612,11 @@ template <typename T> struct QuadGrid {
 // node by node (the Pallas body sums its [G, TB] tile with jnp.sum); nodes
 // past the mask or at rem = 0 add exact zeros and are skipped. Then times dx
 // and the multiplicative prefactors n^2 theta^(q-k) Gamma(q+k) / Gamma(k)^2.
-template <typename T>
+// The lane's nodes and the sum of the parts follow `sp` (Serial, WarpSplit).
+template <typename T, class Sp>
 __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
-                                              T n, T theta, T k, T* f2) {
+                                              T n, T theta, T k, T* f2,
+                                              const Sp& sp) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const T inv_theta = T(1) / theta;
@@ -606,7 +635,7 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
   T acc[FTAB];
 #pragma unroll
   for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
-  for (int g = 0; g < grid.G; ++g) {
+  for (int g = sp.first(); g < grid.G; g += Sp::kStep) {
     T x, w;
     if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
     const T rem = vmax(thr - x, T(0)) * inv_theta;
@@ -646,7 +675,7 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
   for (int p = 0; p < MAX_M; ++p)
 #pragma unroll
     for (int q = p; q < MAX_M; ++q)
-      if (q < M) f2[tri(p, q)] = acc[tri(p, q)] * grid.dx * prefs[q];
+      if (q < M) f2[tri(p, q)] = sp.total(acc[tri(p, q)]) * grid.dx * prefs[q];
 }
 
 // _f2_lognormal (:458-496): the lognormal F2 entries p <= q < M (before the
@@ -657,11 +686,12 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
 // (sigma sqrt 2), erf by the series/CF P(1/2, z^2) at gi_iters (n_gl = 0) or
 // erf_approx, and the integrand x fx w x^p, summed node by node; nodes at
 // rem = 0 add exact zeros and are skipped. Then times dx and n^2.
-// exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop.
-template <typename T>
+// exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop. The lane's
+// nodes and the sum of the parts follow `sp` (Serial, WarpSplit).
+template <typename T, class Sp>
 __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
                                                   T thr, T n, T mu, T sig,
-                                                  T* f2) {
+                                                  T* f2, const Sp& sp) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const T s2 = sig * sig;
@@ -675,7 +705,7 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
 #pragma unroll
   for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
   const QuadGrid<T> grid(c, i, thr);
-  for (int g = 0; g < grid.G; ++g) {
+  for (int g = sp.first(); g < grid.G; g += Sp::kStep) {
     T x, w;
     if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
     const T rem = vmax(thr - x, T(0));
@@ -705,7 +735,10 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
   }
   const T n2 = n * n;
 #pragma unroll
-  for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * grid.dx * n2;
+  for (int p = 0; p < MAX_M; ++p)
+#pragma unroll
+    for (int q = p; q < MAX_M; ++q)
+      if (q < M) f2[tri(p, q)] = sp.total(acc[tri(p, q)]) * grid.dx * n2;
 }
 
 // The per-lane threshold of thresholded mode i: the packed constant under
@@ -739,10 +772,12 @@ __device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
 }
 
 // The coalescence body on one lane: normalized moments `mom` [n_tot] ->
-// tendencies `acc` [n_tot] and the closure parameters per mode.
-template <bool kArms, bool kRef, class C, typename T>
+// tendencies `acc` [n_tot] and the closure parameters per mode. `sp`: how
+// the grid F2's nodes are shared out (Serial: this lane takes them all;
+// WarpSplit: the lanes of a warp that all run this body on one box).
+template <bool kArms, bool kRef, class C, typename T, class Sp = Serial>
 __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
-                                          T (*params)[3]) {
+                                          T (*params)[3], const Sp& sp = Sp{}) {
   static_assert(!(kRef && C::kStatic), "the reference tier is table-driven");
   const T eps = Lim<T>::eps();
   const int M = c.M;
@@ -783,10 +818,10 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
           done = true;
         } else if (c.f2kind[i] == F2_GRID) {
           if (logn)
-            f2_lognormal_grid(c, i, thr, n, p1, p2, ftab[i]);
+            f2_lognormal_grid(c, i, thr, n, p1, p2, ftab[i], sp);
           else
             f2_gamma_grid(c, i, thr, n, p1, (fam == FAM_GAMMA) ? p2 : T(1),
-                          ftab[i]);
+                          ftab[i], sp);
           done = true;
         }
       }

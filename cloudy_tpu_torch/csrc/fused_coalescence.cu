@@ -5,7 +5,8 @@
 //
 // - cloudy_coal_*  <- make_pallas_coal_fn (:662): normalized moments
 //   [n_tot, B] -> coalescence tendencies [n_tot, B] (the RHS bench.py
-//   measures);
+//   measures); cloudy_coal_warp_* the same at the reference tier with a
+//   warp per box;
 // - cloudy_rhs_*   <- make_pallas_rainshaft_rhs_fn (:771): the fused
 //   per-level rainshaft RHS, physical moments [n_tot, B] -> [2 n_tot, B],
 //   the physical coalescence tendencies (clip, normalize, empty-cell mask,
@@ -45,12 +46,14 @@
 // row written to shared memory, one __syncthreads(), the neighbour read,
 // zero influx at each column's top (rainshaft_lanes.cuh, SmemStencil).
 //
-// The fast tier of the whole step and the fused RHS runs kernels generated
-// per configuration instead (ops/codegen.py, gen_kernels.cuh: every table
-// compiled in, no local memory, the z-stencil a warp shuffle where a column
-// fits a warp segment). Their table-driven fast instances here stay built
-// as the same-call yardstick only (the wrappers' private `_table`); the
-// coalescence RHS, the scaled whole step and the reference tier run here.
+// The fast tier of the whole step, the fused RHS and the coalescence RHS
+// runs kernels generated per configuration instead (ops/codegen.py,
+// gen_kernels.cuh: every table compiled in, no local memory, the z-stencil
+// a warp shuffle where a column fits a warp segment). Their table-driven
+// fast instances here stay built as the same-call yardstick only (the
+// wrappers' private `_table`); the scaled whole step and the reference tier
+// run here, the reference coalescence RHS at small batches with a warp per
+// box (coal_warp_kernel).
 // Each kernel has three instances: `kArms = false` for FixedThreshold
 // gamma/exponential configurations at the fast tier, `kArms = true` with the
 // MovingThreshold and lognormal arms (coal_body.cuh), and the reference tier
@@ -64,7 +67,8 @@
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
-// kernel (the whole step: scaled or not; units 8-13: the reference tier) in
+// kernel (the whole step: scaled or not; units 8-13: the reference tier;
+// 14-15: the reference coalescence RHS with a warp per box) in
 // one type. Without CLOUDY_UNIT the file builds everything.
 //
 // The reference whole step (units 12, 13) is compiled without FMA
@@ -84,6 +88,12 @@
 
 namespace cloudy {
 
+constexpr int COAL_THREADS = 256;
+// 4 boxes per block: at the smallest batches (128 boxes: a rainshaft_128
+// column) the boxes spread over 32 SMs, one warp per SM sub-partition
+constexpr int COAL_WARP_THREADS = 128;
+constexpr int STEP_TARGET_THREADS = 256;
+
 template <typename T, bool kArms, bool kRef>
 __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
                             const unsigned char* __restrict__ cfg_g,
@@ -95,15 +105,44 @@ __global__ void coal_kernel(const T* __restrict__ mom, T* __restrict__ out,
   c.bind(smem);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;  // no barrier follows
+  coal_lane<kArms, kRef>(c, mom, out, B, lane);
+}
+
+// The reference-tier coalescence RHS with a warp per box (the layout the
+// host picks at small batches: `fused_coalescence.coal_layout`). Below one
+// full wave of the thread-per-box instance (33,792 boxes in f64, 67,584 in
+// f32 on an H100) a launch takes one lane's serial walk over its quadrature
+// grid whatever the batch (~76 Simpson nodes per mode, each a series/CF
+// incomplete gamma of up to 128 iterations). Here the 32
+// lanes of a warp run the body on one box together: the closure, the
+// thresholds and the contraction once per lane (the same values in every
+// lane), the grid F2's node loops strided across the lanes (`WarpSplit`,
+// coal_body.cuh) and their partial sums added by a fixed shuffle tree, so
+// two launches agree bit for bit; lane 0 writes the box.
+template <typename T>
+__global__ void __launch_bounds__(COAL_WARP_THREADS)
+    coal_warp_kernel(const T* __restrict__ mom, T* __restrict__ out,
+                     const unsigned char* __restrict__ cfg_g, int cfg_bytes,
+                     long long B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  load_config(smem, cfg_g, cfg_bytes);
+  __syncthreads();
+  Config<T> c;
+  c.bind(smem);
+  const long long box = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const WarpSplit sp{(int)(threadIdx.x & 31)};
+  if (box >= B) return;  // a whole warp: no barrier or shuffle follows for it
 
   T m[MAX_NTOT], acc[MAX_NTOT], params[MAX_MODES][3];
 #pragma unroll
   for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot) m[o] = mom[o * B + lane];
-  coal_body<kArms, kRef>(c, m, acc, params);
+    if (o < c.n_tot) m[o] = mom[o * B + box];  // one address per warp
+  coal_body<true, true>(c, m, acc, params, sp);
+  if (sp.lane == 0) {
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
-    if (o < c.n_tot) out[o * B + lane] = acc[o];
+    for (int o = 0; o < MAX_NTOT; ++o)
+      if (o < c.n_tot) out[o * B + box] = acc[o];
+  }
 }
 
 // The fused per-level RHS: one thread per lane, no stencil and no barrier
@@ -146,8 +185,6 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
   step_lane<kArms, kScale, kRef, false>(c, st, mom, out, B, lane, active, top, s);
 }
 
-constexpr int COAL_THREADS = 256;
-constexpr int STEP_TARGET_THREADS = 256;
 
 // One instance's launch (kernel sizes and the configuration check).
 template <typename T, bool kArms, bool kRef>
@@ -205,8 +242,8 @@ int launch_step_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of the fast instances of the whole step (unscaled)
-// and the fused RHS at their launch's block size and shared memory
+// Resident blocks per SM of the fast instances of the whole step (unscaled),
+// the fused RHS and the coalescence RHS at their launch's block size and shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), defined in the units that
 // instantiate them: `cfg_bytes` the packed configuration's size.
 template <typename T, bool kArms>
@@ -217,6 +254,21 @@ int step_blocks_per_sm(int cfg_bytes, int nz, int* out) {
   const cudaError_t e = allow_smem(kern, d.smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, d.threads, d.smem);
+}
+
+template <typename T, bool kArms, bool kRef = false>
+int coal_blocks_per_sm(int cfg_bytes, int* out) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, coal_kernel<T, kArms, kRef>, COAL_THREADS, (size_t)cfg_bytes);
+}
+
+// Resident threads per SM of the reference tier's thread-per-box instance,
+// defined in its units (8, 9): what the host's choice of layout reads
+// (`fused_coalescence.coal_layout`).
+template <typename T> int coal_ref_threads_per_sm(int cfg_bytes, int* out) {
+  const int err = coal_blocks_per_sm<T, true, true>(cfg_bytes, out);
+  *out *= COAL_THREADS;
+  return err;
 }
 
 template <typename T, bool kArms>
@@ -284,6 +336,22 @@ template int launch_step_ref<double>(const void*, void*, const void*, int,
                                      long long, int, void*);
 #endif
 
+// The box-per-warp launch of the reference tier, in its own build units
+// (14, 15).
+template <typename T>
+int launch_coal_warp(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                     long long B, void* stream) {
+  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  constexpr int boxes = COAL_WARP_THREADS / 32;
+  const long long blocks = (B + boxes - 1) / boxes;
+  coal_warp_kernel<T><<<(unsigned)blocks, COAL_WARP_THREADS, cfg_bytes,
+                        (cudaStream_t)stream>>>((const T*)mom, (T*)out,
+                                                (const unsigned char*)cfg,
+                                                cfg_bytes, B);
+  return (int)cudaGetLastError();
+}
+
 // `arms`: the instance (FusedPlan.instance): 0 fast tier, 1 fast tier with
 // the arms, 2 reference tier
 template <typename T>
@@ -326,6 +394,12 @@ int cloudy_coal_f32(const void* mom, void* out, const void* cfg,
   return cloudy::launch_coal<float>(mom, out, cfg, cfg_bytes, B, arms, stream);
 }
 
+// resident blocks per SM of the fast instance `arms` (0, 1)
+int cloudy_coal_blocks_per_sm_f32(int cfg_bytes, int arms, int* out) {
+  return arms ? cloudy::coal_blocks_per_sm<float, true>(cfg_bytes, out)
+              : cloudy::coal_blocks_per_sm<float, false>(cfg_bytes, out);
+}
+
 // The packed configuration's capacities and header size, for the host to
 // check against its own (ops/fused_coalescence.py, LAYOUT).
 int cloudy_layout(int* out) {
@@ -338,12 +412,24 @@ int cloudy_layout(int* out) {
 const char* cloudy_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The multiprocessors of `device` (the host's choice of the
+// reference-tier coalescence layout).
+int cloudy_device_sms(int device, int* out) {
+  return (int)cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+}
 #endif
 
 #if CLOUDY_IN_UNIT(1)
 int cloudy_coal_f64(const void* mom, void* out, const void* cfg,
                     int cfg_bytes, long long B, int arms, void* stream) {
   return cloudy::launch_coal<double>(mom, out, cfg, cfg_bytes, B, arms, stream);
+}
+
+// resident blocks per SM of the fast instance `arms` (0, 1)
+int cloudy_coal_blocks_per_sm_f64(int cfg_bytes, int arms, int* out) {
+  return arms ? cloudy::coal_blocks_per_sm<double, true>(cfg_bytes, out)
+              : cloudy::coal_blocks_per_sm<double, false>(cfg_bytes, out);
 }
 #endif
 
@@ -419,6 +505,33 @@ int cloudy_step_scaled_f64(const void* mom, void* out, const void* cfg,
                            const void* scale, void* stream) {
   return cloudy::launch_step<double, true>(mom, out, cfg, cfg_bytes, B, nz,
                                            arms, scale, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(8)
+int cloudy_coal_ref_threads_per_sm_f32(int cfg_bytes, int* out) {
+  return cloudy::coal_ref_threads_per_sm<float>(cfg_bytes, out);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(9)
+int cloudy_coal_ref_threads_per_sm_f64(int cfg_bytes, int* out) {
+  return cloudy::coal_ref_threads_per_sm<double>(cfg_bytes, out);
+}
+#endif
+
+// The reference tier of the coalescence RHS with a warp per box
+#if CLOUDY_IN_UNIT(14)
+int cloudy_coal_warp_f32(const void* mom, void* out, const void* cfg,
+                         int cfg_bytes, long long B, void* stream) {
+  return cloudy::launch_coal_warp<float>(mom, out, cfg, cfg_bytes, B, stream);
+}
+#endif
+
+#if CLOUDY_IN_UNIT(15)
+int cloudy_coal_warp_f64(const void* mom, void* out, const void* cfg,
+                         int cfg_bytes, long long B, void* stream) {
+  return cloudy::launch_coal_warp<double>(mom, out, cfg, cfg_bytes, B, stream);
 }
 #endif
 

@@ -1,12 +1,15 @@
 // Shells of the kernels generated per configuration (ops/codegen.py): the
 // whole SSPRK33 step (B1, replaces pallas_coalescence.py:876
-// make_pallas_rainshaft_step_fn) and the fused per-level RHS (B4, replaces
-// pallas_coalescence.py:771 make_pallas_rainshaft_rhs_fn) at the fast tier.
+// make_pallas_rainshaft_step_fn), the fused per-level RHS (B4, replaces
+// pallas_coalescence.py:771 make_pallas_rainshaft_rhs_fn) and the
+// coalescence RHS on normalized moments (B3, replaces
+// pallas_coalescence.py:662 make_pallas_coal_fn) at the fast tier.
 //
 // A generated unit defines one compiled-in configuration `Cfg`
 // (coal_body.cuh: static constexpr members, the straight-line Q/R/S
 // contraction), a `__global__` kernel with its launch bounds that calls
-// gen_step_body<Cfg> or gen_rhs_body<Cfg>, and then CLOUDY_GEN_ENTRY, the
+// gen_step_body<Cfg>, gen_rhs_body<Cfg> or gen_coal_body<Cfg>, and then
+// CLOUDY_GEN_ENTRY, the
 // plain C interface ops/codegen.py binds with ctypes. What bounds the
 // kernels and what the design does about it: see rainshaft_lanes.cuh and
 // ops/codegen.py; in short, the table-driven body's local memory, its
@@ -72,6 +75,17 @@ __device__ __forceinline__ void gen_rhs_body(const typename C::real* __restrict_
   rhs_lane<C::kArms, false>(c, mom, out, B, lane);
 }
 
+// The coalescence RHS: one thread per box, no flux and no stencil.
+template <class C>
+__device__ __forceinline__ void gen_coal_body(const typename C::real* __restrict__ mom,
+                                              typename C::real* __restrict__ out,
+                                              long long B) {
+  const C c{};
+  const long long lane = (long long)blockIdx.x * C::kThreads + threadIdx.x;
+  if (lane >= B) return;  // no barrier follows
+  coal_lane<C::kArms, false>(c, mom, out, B, lane);
+}
+
 // Dynamic shared memory of a generated kernel: the flux row of the
 // shared-memory stencil, none otherwise.
 template <class C> constexpr size_t gen_smem_bytes() {
@@ -84,12 +98,13 @@ template <class C> constexpr size_t gen_smem_bytes() {
 
 // The unit's C interface:
 //   cloudy_gen_launch(mom, out, B, stream): one launch on [n_tot, B] into
-//     [n_tot, B] (step) or [2 n_tot, B] (rhs); B % nz == 0 for the step;
+//     [n_tot, B] (step, coal) or [2 n_tot, B] (rhs); B % nz == 0 for the
+//     step (nz = 1 for the others);
 //     returns the launch's cudaError_t;
 //   cloudy_gen_blocks_per_sm(out): resident blocks per SM
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's block
 //     size and shared memory);
-//   cloudy_gen_info(out): kind (0 step, 1 rhs), n_tot, nz, sizeof(T),
+//   cloudy_gen_info(out): kind (0 step, 1 rhs, 2 coal), n_tot, nz, sizeof(T),
 //     threads per block, shuffle stencil; returns the count;
 //   cloudy_gen_error_string(err).
 #define CLOUDY_GEN_ENTRY(CFG, KERNEL)                                          \

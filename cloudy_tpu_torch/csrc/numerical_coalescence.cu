@@ -36,15 +36,26 @@
 // with the hydrodynamic kernel on an NVIDIA H100 80GB HBM3 at 700 W
 // (tools/dispatch_compare.py). Threads past G in the last warp skip the
 // loops and add exact zeros to every reduction.
+//
+// That is numerical_kernel, kept as the same-call yardstick. The kernel the
+// wrapper launches, quad_kernel, keeps its layout and sums and takes each
+// inner node off the divide and log paths, which held most of its time:
+// the densities run in base 2 on the SFU in f32 (ex2/lg2, IEEE exp/log in
+// f64) with every per-mode divide and constant log hoisted per box, in f64
+// the logs of s and 1 - s come from host tables where a panel starts at 0
+// or ends at 1, and for the constant, linear and Long kernels R is a few
+// block sums of WX F_j y^m instead of the G x G loop (the hydrodynamic
+// kernel keeps the loop, each node's radius computed once).
 
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
-// type at one number of modes. Without CLOUDY_UNIT the file builds
-// everything.
+// body in one type at one number of modes (units 0-5 quad_kernel, 6-11
+// numerical_kernel). Without CLOUDY_UNIT the file builds everything.
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else
@@ -86,6 +97,10 @@ template <typename T> struct NumConfig {
   const T* wu;      // [g_outer] GL weights
   const T* s01;     // [g_inner] GL nodes mapped to (0, 1) (host double)
   const T* w01;     // [g_inner] halved GL weights (host double)
+  // [g_inner] log s01 and log(1 - s01) of the rounded s01 (host double,
+  // rounded once): packed, and read by quad_kernel, in f64 only
+  const T* ls01;
+  const T* l1m01;
 
   __device__ __forceinline__ void bind(const unsigned char* buf) {
     const int* ip = reinterpret_cast<const int*>(buf);
@@ -106,8 +121,24 @@ template <typename T> struct NumConfig {
     wu = xu + g_outer;
     s01 = wu + g_outer;
     w01 = s01 + g_inner;
+    ls01 = w01 + g_inner;
+    l1m01 = ls01 + g_inner;
   }
 };
+
+// The hydrodynamic kernel from the radii r = (3 x / 4 pi)^(1/3) (by pow, as
+// the reference) of its two masses: k0 (r1 + r2)^2 |pi r1^2 - pi r2^2|
+constexpr double HYDRO_C = 3.0 / 4.0 / 3.141592653589793;
+template <typename T> __device__ __forceinline__ T hydro_radius(T x) {
+  return dpow(T(HYDRO_C) * x, T(1.0 / 3.0));
+}
+template <typename T> __device__ __forceinline__ T hydro_value(T k0, T r1, T r2) {
+  const T pi = T(3.141592653589793);
+  const T a1 = pi * (r1 * r1);
+  const T a2 = pi * (r2 * r2);
+  const T s = r1 + r2;
+  return k0 * (s * s) * dabs(a1 - a2);
+}
 
 // K(x, y) of kernels.py's four kernel functions; k0..k2 are the dataclass
 // fields after `.normalized(norms)`
@@ -116,17 +147,7 @@ __device__ __forceinline__ T kernel_value(int ktag, T k0, T k1, T k2, T x, T y) 
   const int kt = (KT == KT_RUNTIME) ? ktag : KT;
   if (kt == KT_CONSTANT) return k0;
   if (kt == KT_LINEAR) return k0 * (x + y);
-  if (kt == KT_HYDRO) {
-    // r = (3 x / 4 pi)^(1/3) by pow, as the reference; A = pi r^2
-    const T c = T(3.0 / 4.0 / 3.141592653589793);
-    const T pi = T(3.141592653589793);
-    const T r1 = dpow(c * x, T(1.0 / 3.0));
-    const T r2 = dpow(c * y, T(1.0 / 3.0));
-    const T a1 = pi * (r1 * r1);
-    const T a2 = pi * (r2 * r2);
-    const T s = r1 + r2;
-    return k0 * (s * s) * dabs(a1 - a2);
-  }
+  if (kt == KT_HYDRO) return hydro_value(k0, hydro_radius(x), hydro_radius(y));
   // Long: k0 the mass threshold, k1 the rate below it, k2 the rate above
   const bool below = (x < k0) && (y < k0);
   return below ? k1 * (x * x + y * y) : k2 * (x + y);
@@ -181,21 +202,92 @@ template <typename T> __device__ __forceinline__ T warp_sum(T val) {
   return val;
 }
 
+// The sums over the outer nodes and the gated assembly, shared by both
+// kernels: each term reduced over the warp, then across the warps in index
+// order (a fixed order: two launches agree bit for bit); thread o writes
+// prognostic moment o. Every thread of the block calls it.
+template <typename T, int N>
+__device__ __forceinline__ void reduce_assemble(
+    const NumConfig<T>& c, int g, bool active, T X, T WX, const T* F,
+    const T* wfrac, const T* A, const T* Gkk, const T* Gq, T* __restrict__ out,
+    long long B, long long box) {
+  constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
+  // reduced terms per moment order: R[j][k], S1[k], Stot[k], Q[pair]
+  constexpr int PER_M = N * N + 2 * N + NP;
+  constexpr int V = NUM_MAX_NMOM * PER_M;
+  constexpr int MAX_WARPS = NUM_MAX_G / 32;
+  __shared__ T shRed[V][MAX_WARPS];
+  __shared__ T shTot[V];
+  const int lane = g & 31, warp = g >> 5;
+  const int n_warps = blockDim.x >> 5;
+  {
+    T Bm = WX;  // B_m = WX x^m; C_m = B_m x (the inner Jacobian)
+#pragma unroll
+    for (int m = 0; m < NUM_MAX_NMOM; ++m) {
+      if (m < c.n_mom) {
+        if (m == 1) Bm = WX * X;
+        if (m == 2) Bm = WX * (X * X);
+        const T Cm = Bm * X;
+        const int v0 = m * PER_M;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            const T r = warp_sum(active ? Bm * F[k] * A[j] : T(0));
+            if (lane == 0) shRed[v0 + j * N + k][warp] = r;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const T s1 = warp_sum(active ? Cm * wfrac[k] * Gkk[k] : T(0));
+          const T st = warp_sum(active ? Cm * Gkk[k] : T(0));
+          if (lane == 0) {
+            shRed[v0 + N * N + k][warp] = s1;
+            shRed[v0 + N * N + N + k][warp] = st;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const T qq = warp_sum(active ? Cm * Gq[q] : T(0));
+          if (lane == 0) shRed[v0 + N * N + 2 * N + q][warp] = qq;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int v = g; v < c.n_mom * PER_M; v += blockDim.x) {
+    T tot = shRed[v][0];
+    for (int w = 1; w < n_warps; ++w) tot = tot + shRed[v][w];
+    shTot[v] = tot;
+  }
+  __syncthreads();
+
+  // ---- gated assembly: thread o writes prognostic moment o ---------------
+  if (g < c.n_tot) {
+    int k = 0;
+#pragma unroll
+    for (int j = 1; j < N; ++j)
+      if (g >= c.off[j]) k = j;
+    const int m = g - c.off[k];
+    const T* t = shTot + m * PER_M;
+    T acc = t[N * N + k];  // S1[m][k]
+    for (int j = 0; j < N; ++j) acc = acc - t[j * N + k];  // R[m][j][k]
+    for (int j = 0; j < k; ++j) acc = acc + t[N * N + 2 * N + j + k - 1];  // Q
+    if (k > 0)  // S2[m][k-1] = Stot - S1
+      acc = acc + (t[N * N + N + k - 1] - t[N * N + k - 1]);
+    out[g * B + box] = acc;
+  }
+}
+
 template <typename T, int N, int KT>
 __global__ void __launch_bounds__(NUM_MAX_G)
     numerical_kernel(const T* __restrict__ mom, T* __restrict__ out,
                      const unsigned char* __restrict__ cfg_g, int cfg_bytes,
                      long long B) {
   constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
-  // reduced terms per moment order: R[j][k], S1[k], Stot[k], Q[pair]
-  constexpr int PER_M = N * N + 2 * N + NP;
-  constexpr int V = NUM_MAX_NMOM * PER_M;
-  constexpr int MAX_WARPS = NUM_MAX_G / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T shX[NUM_MAX_G];
   __shared__ T shWF[N][NUM_MAX_G];  // WX[y] * F_j[y]
-  __shared__ T shRed[V][MAX_WARPS];
-  __shared__ T shTot[V];
 
   load_config(smem, cfg_g, cfg_bytes);
   __syncthreads();
@@ -326,108 +418,386 @@ __global__ void __launch_bounds__(NUM_MAX_G)
     }
   }
 
-  // ---- the sums over the outer nodes: each term reduced over the warp,
-  // then across the warps in index order --------------------------------
+  reduce_assemble<T, N>(c, g, active, X, WX, F, wfrac, A, Gkk, Gq, out, B, box);
+}
+
+// ---------------------------------------------------------------------------
+// quad_kernel: the kernel the wrapper launches (the file's header says what
+// it changes against numerical_kernel above, the wrapper's `_direct`).
+// ---------------------------------------------------------------------------
+
+// The exp/log domain of quad_kernel's densities: base 2 on the SFU in f32
+// (lg2.approx / ex2.approx, subnormals kept: no .ftz; a relative error near
+// 2^-22, far inside the f32 tolerance against the twin), natural IEEE
+// log/exp in f64. `kFromLn` turns a natural log,
+// or a constant that multiplies one, into the domain; `kToLn` turns the
+// domain's log back.
+template <typename T> struct Dom {
+  static constexpr T kFromLn = T(1);
+  static constexpr T kToLn = T(1);
+  static __device__ __forceinline__ T lg(T x) { return dlog(x); }
+  static __device__ __forceinline__ T ex(T x) { return dexp(x); }
+};
+template <> struct Dom<float> {
+  static constexpr float kFromLn = 1.4426950408889634f;  // log2(e)
+  static constexpr float kToLn = 0.6931471805599453f;    // ln(2)
+  static __device__ __forceinline__ float lg(float x) {
+    float y;
+    asm("lg2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  }
+  static __device__ __forceinline__ float ex(float x) {
+    float y;
+    asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  }
+};
+
+// One mode's density (`_density_rows`) in the domain `D` (Dom), its
+// divides and constant logs hoisted per box: at x, with L the domain log of
+// max(x, tiny), the density is s ex(e):
+//   gamma         e = (k - 1) L - (k log theta + lgamma k) kFromLn
+//                     - x kFromLn / theta,                           s = n
+//   exponential   e = -x kFromLn / theta,                            s = n / theta
+//   lognormal     e = -d^2 kFromLn / (2 sigma^2) - L,
+//                 d = L kToLn - mu (the 1 / x is the - L),           s = n / (sigma sqrt(2 pi))
+//   monodisperse  s where |x - theta| < theta / 10, else 0,          s = n / (2 theta / 10)
+// `unit` is s at n = 1 (the weighting fractions' normed density).
+template <typename T, class D> struct ModeDensity {
+  int fam;
+  T a, c, r, mu, q, h, s, unit;
+
+  __device__ __forceinline__ void init(int fam_, T n, T p1, T p2) {
+    fam = fam_;
+    a = p2 - T(1);
+    c = r = q = h = T(0);
+    mu = p1;
+    if (fam == FAM_GAMMA) {
+      c = (p2 * dlog(p1) + lgamma_lanczos(p2)) * D::kFromLn;
+      r = D::kFromLn / p1;
+      unit = T(1);
+    } else if (fam == FAM_EXPONENTIAL) {
+      r = D::kFromLn / p1;
+      unit = T(1) / p1;
+    } else if (fam == FAM_LOGNORMAL) {
+      q = D::kFromLn / (T(2) * (p2 * p2));
+      unit = T(1) / (p2 * T(2.5066282746310002));
+    } else {
+      h = p1 / T(10);
+      unit = T(1) / (T(2) * p1 / T(10));
+    }
+    s = n * unit;
+  }
+
+  // ex(e) at x (1 or 0 for the monodisperse pulse)
+  __device__ __forceinline__ T shape(T x, T L) const {
+    if (fam == FAM_GAMMA) return D::ex(a * L - c - x * r);
+    if (fam == FAM_EXPONENTIAL) return D::ex(-x * r);
+    if (fam == FAM_LOGNORMAL) {
+      const T d = L * D::kToLn - mu;
+      return D::ex(-(d * d) * q - L);
+    }
+    return (dabs(x - mu) < h) ? T(1) : T(0);
+  }
+};
+
+// Sums of V per-thread values over the block, in a fixed order (each warp's
+// shuffle tree, then the warps in index order), the totals in every
+// thread's v. Every thread of the block calls it.
+template <typename T, int V>
+__device__ __forceinline__ void block_sums(T* v, int lane, int warp, int n_warps) {
+  __shared__ T part[V > 0 ? V : 1][NUM_MAX_G / 32];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const T r = warp_sum(v[k]);
+    if (lane == 0) part[k][warp] = r;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    T t = part[k][0];
+    for (int w = 1; w < n_warps; ++w) t = t + part[k][w];
+    v[k] = t;
+  }
+}
+
+template <typename T, int N, int KT>
+__global__ void __launch_bounds__(NUM_MAX_G)
+    quad_kernel(const T* __restrict__ mom, T* __restrict__ out,
+                const unsigned char* __restrict__ cfg_g, int cfg_bytes,
+                long long B) {
+  constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
+  using D = Dom<T>;
+  // the inner nodes' log tables, in f64 only: in f32 an inner node's
+  // lg2.approx is quicker than the table read and its offset (measured on
+  // an H100 80GB HBM3 at 700 W, PERF.md)
+  constexpr bool kTables = std::is_same<T, double>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T shR[NUM_MAX_G];      // hydrodynamic radius at each node
+  __shared__ T shWF[N][NUM_MAX_G];  // WX[y] * F_j[y]
+
+  load_config(smem, cfg_g, cfg_bytes);
+  __syncthreads();
+  NumConfig<T> c;
+  c.bind(smem);
+  const T tiny = Lim<T>::tiny();
+  const long long box = blockIdx.x;
+  const int g = threadIdx.x;
   const int lane = g & 31, warp = g >> 5;
   const int n_warps = blockDim.x >> 5;
-  {
-    T Bm = WX;  // B_m = WX x^m; C_m = B_m x (the inner Jacobian)
+  const int G = c.n_po * c.g_outer;
+  const bool active = g < G;
+  const T k0 = c.kpar[0], k1 = c.kpar[1], k2 = c.kpar[2];
+  const int kt = (KT == KT_RUNTIME) ? reinterpret_cast<const int*>(smem)[NH_KTAG] : KT;
+
+  // ---- closure inversion, per-mode constants and support bounds (the same
+  // in every thread) --------------------------------------------------------
+  ModeDensity<T, D> md[N];
+  T x_lo = T(INFINITY), x_hi = T(0);
 #pragma unroll
-    for (int m = 0; m < NUM_MAX_NMOM; ++m) {
-      if (m < c.n_mom) {
-        if (m == 1) Bm = WX * X;
-        if (m == 2) Bm = WX * (X * X);
-        const T Cm = Bm * X;
-        const int v0 = m * PER_M;
+  for (int j = 0; j < N; ++j) {
+    const int fam = c.fam[j];
+    T m[NUM_MAX_NMOM], n, p1, p2;
+#pragma unroll
+    for (int q = 0; q < NUM_MAX_NMOM; ++q)
+      m[q] = (q < c.nprog[j]) ? mom[(c.off[j] + q) * B + box] : T(0);
+    invert_mode<T, true>(fam, m, n, p1, p2);
+    md[j].init(fam, n, p1, p2);
+    T lo, hi;
+    mode_bounds(fam, n, p1, p2, lo, hi);
+    x_lo = vmin(x_lo, lo);
+    x_hi = vmax(x_hi, hi);
+  }
+  x_lo = vmin(x_lo, T(1e30));
+  x_hi = vmax(x_hi, T(1e-30));
+  x_lo = vmax(vmin(x_lo, x_hi * T(1e-12)), tiny);
+  x_hi = vmax(T(2) * x_hi, T(4) * tiny);
+
+  // ---- this thread's outer node, as numerical_kernel ----------------------
+  const T lo_l = dlog(x_lo), hi_l = dlog(x_hi);
+  T X = T(1), WX = T(0);
+  if (active) {
+    const int p = g / c.g_outer;
+    const int i = g - p * c.g_outer;
+    const bool cut = c.n_po > 1;
+    const T e1 = cut ? vclip(c.logcut[0], lo_l, hi_l) : hi_l;
+    const T e2 = cut ? vclip(c.logcut[1], lo_l, hi_l) : hi_l;
+    const T a = (p == 0) ? lo_l : ((p == 1) ? e1 : e2);
+    const T b = (p == 0) ? e1 : ((p == 1) ? e2 : hi_l);
+    const T h = T(0.5) * (b - a);
+    X = dexp(a + h * (c.xu[i] + T(1)));
+    WX = h * c.wu[i] * X;
+  }
+  const T LX = D::lg(vmax(X, tiny));
+  const T L_tiny = D::lg(tiny);
+
+  // ---- densities at the outer node, and the weighting fractions -----------
+  T F[N], wfrac[N];
+  {
+    T NF[N], denom = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T e = md[j].shape(X, LX);
+      F[j] = md[j].s * e;
+      NF[j] = md[j].unit * e;
+      denom = (j == 0) ? NF[0] : denom + NF[j];
+    }
+    // divided per mode, as the twin: the reciprocal of a denominator in the
+    // subnormal range (a node far in a tail) overflows
+    T run = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      run = run + NF[j];
+      wfrac[j] = (denom == T(0)) ? T(0) : run / denom;
+    }
+  }
+
+  // ---- R: A_j(X) = sum_y K(X, y) WX[y] F_j[y] -----------------------------
+  T A[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) A[j] = T(0);
+  if (kt == KT_HYDRO) {
+    // the G x G loop, each node's radius published once
+    const T r1 = hydro_radius(X);
+    shR[g] = r1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) shWF[j][g] = WX * F[j];
+    __syncthreads();
+    if (active) {
+      for (int y = 0; y < G; ++y) {
+        const T K = hydro_value(k0, r1, shR[y]);
+#pragma unroll
+        for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j][y] * K;
+      }
+    }
+  } else {
+    // piecewise polynomial K: the sum over y is a few block sums of
+    // WX F_j y^m, per mode j:
+    //   constant  k0 S0;  linear  k0 (X S0 + S1);
+    //   Long      X < t: k1 (X^2 Sb0 + Sb2) + k2 (X Sa0 + Sa1),
+    //             else:  k2 (X (Sb0 + Sa0) + (Sb1 + Sa1)),
+    //   Sb over the nodes below the threshold t = k0, Sa over the rest
+    // sums per mode (a run-time tag takes the most)
+    constexpr int NS = (KT == KT_CONSTANT) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
+    T v[N * NS];
+    const bool below = X < k0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T* t = v + j * NS;
+      const T wf = active ? WX * F[j] : T(0);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) t[k] = T(0);
+      if (kt == KT_CONSTANT) {
+        t[0] = wf;
+      } else if (NS >= 2 && kt == KT_LINEAR) {
+        t[0] = wf;
+        t[1] = wf * X;
+      } else if (NS == 5) {
+        t[0] = below ? wf : T(0);
+        t[1] = below ? wf * X : T(0);
+        t[2] = below ? wf * X * X : T(0);
+        t[3] = below ? T(0) : wf;
+        t[4] = below ? T(0) : wf * X;
+      }
+    }
+    block_sums<T, N * NS>(v, lane, warp, n_warps);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T* t = v + j * NS;
+      if (kt == KT_CONSTANT)
+        A[j] = k0 * t[0];
+      else if (NS >= 2 && kt == KT_LINEAR)
+        A[j] = k0 * (X * t[0] + t[1]);
+      else if (NS == 5 && below)
+        A[j] = k1 * (X * X * t[0] + t[2]) + k2 * (X * t[3] + t[4]);
+      else if (NS == 5)
+        A[j] = k2 * (X * (t[0] + t[3]) + (t[1] + t[4]));
+    }
+  }
+
+  T Gkk[N], Gq[NP > 0 ? NP : 1];
+#pragma unroll
+  for (int j = 0; j < N; ++j) Gkk[j] = T(0);
+#pragma unroll
+  for (int q = 0; q < NP; ++q) Gq[q] = T(0);
+
+  if (active) {
+    // ---- Q and S: the triangular inner integrals, y = s x; with a kink t
+    // the inner panels split at s = t / x and 1 - t / x ----------------------
+    T c1 = T(1), c2 = T(1);  // no kink: one panel [0, 1]
+    if (c.n_pi == 3) {
+      const T t = c.kink[0];
+      const T b1 = vclip(t / X, T(0), T(1));
+      const T b2 = vclip(T(1) - t / X, T(0), T(1));
+      c1 = vmin(b1, b2);
+      c2 = vmax(b1, b2);
+    }
+    const T lc = D::lg(T(HYDRO_C));
+#pragma unroll 1
+    for (int p = 0; p < c.n_pi; ++p) {
+      const T a = (p == 0) ? T(0) : ((p == 1) ? c1 : c2);
+      const T b = (p == 0) ? c1 : ((p == 1) ? c2 : T(1));
+      const T ba = b - a;
+      // a panel from 0 has s = ba s01, one to 1 has 1 - s = ba (1 - s01):
+      // their logs are a table entry plus LX + log(ba) (log(ba) = 0 for the
+      // one panel [0, 1]); any other log is taken at the node
+      const bool from0 = kTables && p == 0, to1 = kTables && p == c.n_pi - 1;
+      const T off = LX + ((c.n_pi == 1) ? T(0) : D::lg(ba));
+      for (int i = 0; i < c.g_inner; ++i) {
+        const T s = a + ba * c.s01[i];
+        const T w = ba * c.w01[i];
+        const T XR = X * (T(1) - s), XS = X * s;
+        const T lr = to1 ? vmax(off + c.l1m01[i], L_tiny) : D::lg(vmax(XR, tiny));
+        const T ls = from0 ? vmax(off + c.ls01[i], L_tiny) : D::lg(vmax(XS, tiny));
+        T D[N], E[N];
 #pragma unroll
         for (int j = 0; j < N; ++j) {
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const T r = warp_sum(active ? Bm * F[k] * A[j] : T(0));
-            if (lane == 0) shRed[v0 + j * N + k][warp] = r;
-          }
+          D[j] = md[j].s * md[j].shape(XR, lr);
+          E[j] = md[j].s * md[j].shape(XS, ls);
         }
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const T s1 = warp_sum(active ? Cm * wfrac[k] * Gkk[k] : T(0));
-          const T st = warp_sum(active ? Cm * Gkk[k] : T(0));
-          if (lane == 0) {
-            shRed[v0 + N * N + k][warp] = s1;
-            shRed[v0 + N * N + N + k][warp] = st;
-          }
+        T K;
+        if (kt == KT_HYDRO) {
+          // radius (c x)^(1/3) from the logs already taken
+          const T r1 = D::ex((lr + lc) * T(1.0 / 3.0));
+          const T r2 = D::ex((ls + lc) * T(1.0 / 3.0));
+          K = hydro_value(k0, r1, r2);
+        } else {
+          K = kernel_value<T, KT>(kt, k0, k1, k2, XR, XS);
         }
+        const T KW = T(0.5) * w * K;
 #pragma unroll
-        for (int q = 0; q < NP; ++q) {
-          const T qq = warp_sum(active ? Cm * Gq[q] : T(0));
-          if (lane == 0) shRed[v0 + N * N + 2 * N + q][warp] = qq;
+        for (int j = 0; j < N; ++j) {
+          Gkk[j] = Gkk[j] + KW * D[j] * E[j];
+#pragma unroll
+          for (int k = j + 1; k < N; ++k)
+            Gq[j + k - 1] = Gq[j + k - 1] + KW * (D[j] * E[k] + D[k] * E[j]);
         }
       }
     }
   }
-  __syncthreads();
-  for (int v = g; v < c.n_mom * PER_M; v += blockDim.x) {
-    T tot = shRed[v][0];
-    for (int w = 1; w < n_warps; ++w) tot = tot + shRed[v][w];
-    shTot[v] = tot;
-  }
-  __syncthreads();
 
-  // ---- gated assembly: thread o writes prognostic moment o ---------------
-  if (g < c.n_tot) {
-    int k = 0;
-#pragma unroll
-    for (int j = 1; j < N; ++j)
-      if (g >= c.off[j]) k = j;
-    const int m = g - c.off[k];
-    const T* t = shTot + m * PER_M;
-    T acc = t[N * N + k];  // S1[m][k]
-    for (int j = 0; j < N; ++j) acc = acc - t[j * N + k];  // R[m][j][k]
-    for (int j = 0; j < k; ++j) acc = acc + t[N * N + 2 * N + j + k - 1];  // Q
-    if (k > 0)  // S2[m][k-1] = Stot - S1
-      acc = acc + (t[N * N + N + k - 1] - t[N * N + k - 1]);
-    out[g * B + box] = acc;
-  }
+  reduce_assemble<T, N>(c, g, active, X, WX, F, wfrac, A, Gkk, Gq, out, B, box);
 }
 
-template <typename T, int N>
-int launch_numerical(const void* mom, void* out, const void* cfg,
-                     int cfg_bytes, long long B, int g_total, int ktag,
-                     void* stream) {
+// The kernel of one tag: quad_kernel, or with kDirect numerical_kernel
+template <typename T, int N, int KT, bool kDirect>
+constexpr auto numerical_instance() {
+  if constexpr (kDirect)
+    return numerical_kernel<T, N, KT>;
+  else
+    return quad_kernel<T, N, KT>;
+}
+
+template <typename T>
+using NumKernel = void (*)(const T*, T*, const unsigned char*, int, long long);
+
+// One launch: a block per box, a thread per outer node.
+template <typename T>
+int launch_num_kernel(NumKernel<T> kern, const void* mom, void* out,
+                      const void* cfg, int cfg_bytes, long long B, int g_total,
+                      void* stream) {
   if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
       g_total < 1 || g_total > NUM_MAX_G || B < 1 || B > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const int threads = (g_total + 31) / 32 * 32;
-  void (*kern)(const T*, T*, const unsigned char*, int, long long);
-#ifdef CLOUDY_RUNTIME_KTAG
-  if (ktag < KT_CONSTANT || ktag > KT_LONG) return (int)cudaErrorInvalidValue;
-  kern = numerical_kernel<T, N, KT_RUNTIME>;
-#else
-  switch (ktag) {
-    case KT_CONSTANT: kern = numerical_kernel<T, N, KT_CONSTANT>; break;
-    case KT_LINEAR: kern = numerical_kernel<T, N, KT_LINEAR>; break;
-    case KT_HYDRO: kern = numerical_kernel<T, N, KT_HYDRO>; break;
-    case KT_LONG: kern = numerical_kernel<T, N, KT_LONG>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#endif
   kern<<<(unsigned)B, threads, cfg_bytes, (cudaStream_t)stream>>>(
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int N, bool kDirect>
+int launch_numerical(const void* mom, void* out, const void* cfg,
+                     int cfg_bytes, long long B, int g_total, int ktag,
+                     void* stream) {
+  NumKernel<T> kern;
+#ifdef CLOUDY_RUNTIME_KTAG
+  if (ktag < KT_CONSTANT || ktag > KT_LONG) return (int)cudaErrorInvalidValue;
+  kern = numerical_instance<T, N, KT_RUNTIME, kDirect>();
+#else
+  switch (ktag) {
+    case KT_CONSTANT: kern = numerical_instance<T, N, KT_CONSTANT, kDirect>(); break;
+    case KT_LINEAR: kern = numerical_instance<T, N, KT_LINEAR, kDirect>(); break;
+    case KT_HYDRO: kern = numerical_instance<T, N, KT_HYDRO, kDirect>(); break;
+    case KT_LONG: kern = numerical_instance<T, N, KT_LONG, kDirect>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#endif
+  return launch_num_kernel<T>(kern, mom, out, cfg, cfg_bytes, B, g_total, stream);
+}
+
 }  // namespace cloudy
 
-#define CLOUDY_NUMERICAL_ENTRY(name, T, N)                                   \
+#define CLOUDY_NUMERICAL_ENTRY(name, T, N, DIRECT)                           \
   int name(const void* mom, void* out, const void* cfg, int cfg_bytes,       \
            long long B, int g_total, int ktag, void* stream) {               \
-    return cloudy::launch_numerical<T, N>(mom, out, cfg, cfg_bytes, B,       \
-                                          g_total, ktag, stream);            \
+    return cloudy::launch_numerical<T, N, DIRECT>(mom, out, cfg, cfg_bytes,  \
+                                                  B, g_total, ktag, stream); \
   }
 
 extern "C" {
 
 #if CLOUDY_IN_UNIT(0)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n1, float, 1)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n1, float, 1, false)
 
 // The packed configuration's capacities and header size, for the host to
 // check against its own (ops/numerical_coalescence.py, LAYOUT).
@@ -440,23 +810,48 @@ int cloudy_numerical_layout(int* out) {
 #endif
 
 #if CLOUDY_IN_UNIT(1)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n2, float, 2)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n2, float, 2, false)
 #endif
 
 #if CLOUDY_IN_UNIT(2)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n3, float, 3)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n3, float, 3, false)
 #endif
 
 #if CLOUDY_IN_UNIT(3)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n1, double, 1)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n1, double, 1, false)
 #endif
 
 #if CLOUDY_IN_UNIT(4)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n2, double, 2)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n2, double, 2, false)
 #endif
 
 #if CLOUDY_IN_UNIT(5)
-CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n3, double, 3)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f64_n3, double, 3, false)
+#endif
+
+// numerical_kernel, the same-call yardstick
+#if CLOUDY_IN_UNIT(6)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f32_n1, float, 1, true)
+#endif
+
+#if CLOUDY_IN_UNIT(7)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f32_n2, float, 2, true)
+#endif
+
+#if CLOUDY_IN_UNIT(8)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f32_n3, float, 3, true)
+#endif
+
+#if CLOUDY_IN_UNIT(9)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f64_n1, double, 1, true)
+#endif
+
+#if CLOUDY_IN_UNIT(10)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f64_n2, double, 2, true)
+#endif
+
+#if CLOUDY_IN_UNIT(11)
+CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_direct_f64_n3, double, 3, true)
 #endif
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// One lane of the fused per-level RHS (B4) and of the whole SSPRK33 step
-// (B1), shared by the table-driven kernels (fused_coalescence.cu) and the
+// One lane of the coalescence RHS (B3), the fused per-level RHS (B4) and of
+// the whole SSPRK33 step (B1), shared by the table-driven kernels (fused_coalescence.cu) and the
 // kernels generated per configuration (gen_kernels.cuh): the configuration
 // type `C` is either `Config<T>` or a compiled-in one (coal_body.cuh).
 //
@@ -56,6 +56,22 @@ template <int kWidth> struct ShflStencil {
   }
   __device__ __forceinline__ void done() const {}
 };
+
+// The coalescence RHS (B3) on lane `lane` < B: normalized moments
+// [n_tot, B] -> tendencies [n_tot, B].
+template <bool kArms, bool kRef, class C, typename T>
+__device__ __forceinline__ void coal_lane(const C& c, const T* __restrict__ mom,
+                                          T* __restrict__ out, long long B,
+                                          long long lane) {
+  T m[MAX_NTOT], acc[MAX_NTOT], params[MAX_MODES][3];
+#pragma unroll
+  for (int o = 0; o < MAX_NTOT; ++o)
+    if (o < c.n_tot) m[o] = mom[o * B + lane];
+  coal_body<kArms, kRef>(c, m, acc, params);
+#pragma unroll
+  for (int o = 0; o < MAX_NTOT; ++o)
+    if (o < c.n_tot) out[o * B + lane] = acc[o];
+}
 
 // The fused per-level RHS on lane `lane` < B: physical moments [n_tot, B]
 // -> [2 n_tot, B], the physical coalescence tendencies (clip, normalize,

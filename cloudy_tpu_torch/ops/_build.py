@@ -150,22 +150,32 @@ def load_library() -> ctypes.CDLL:
         f = getattr(lib, f"cloudy_step_blocks_per_sm_{tag}")
         f.argtypes = [i, i, i, p]  # cfg bytes, nz, arms, out
         f.restype = i
-        f = getattr(lib, f"cloudy_rhs_blocks_per_sm_{tag}")
-        f.argtypes = [i, i, p]  # cfg bytes, arms, out
-        f.restype = i
+        for name in ("cloudy_rhs_blocks_per_sm", "cloudy_coal_blocks_per_sm"):
+            f = getattr(lib, f"{name}_{tag}")
+            f.argtypes = [i, i, p]  # cfg bytes, arms, out
+            f.restype = i
         f = getattr(lib, f"cloudy_step_scaled_{tag}")
         f.argtypes = [p, p, p, i, ll, i, i, p, p]  # ..., B, nz, arms, scale, stream
         f.restype = i
         for n_modes in range(1, numerical_coalescence.MAX_MODES + 1):
-            f = getattr(lib, f"cloudy_numerical_{tag}_n{n_modes}")
-            f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, G, ktag, stream
-            f.restype = i
+            for body in ("", "direct_"):
+                f = getattr(lib, f"cloudy_numerical_{body}{tag}_n{n_modes}")
+                f.argtypes = [p, p, p, i, ll, i, i, p]  # ..., B, G, ktag, stream
+                f.restype = i
         f = getattr(lib, f"cloudy_chain_{tag}")
         f.argtypes = [i, i, p, p, ll, i, p, i, p]  # chain, ilp, in, out, n, k, cfg, bytes, stream
         f.restype = i
         f = getattr(lib, f"cloudy_chain_blocks_per_sm_{tag}")
         f.argtypes = [i, i, p]  # chain, cfg bytes, out
         f.restype = i
+        f = getattr(lib, f"cloudy_coal_warp_{tag}")
+        f.argtypes = [p, p, p, i, ll, p]  # mom, out, cfg, cfg bytes, B, stream
+        f.restype = i
+        f = getattr(lib, f"cloudy_coal_ref_threads_per_sm_{tag}")
+        f.argtypes = [i, p]  # cfg bytes, out
+        f.restype = i
+    lib.cloudy_device_sms.argtypes = [i, p]  # device, out
+    lib.cloudy_device_sms.restype = i
     lib.cloudy_error_string.argtypes = [i]
     lib.cloudy_error_string.restype = ctypes.c_char_p
     lib.cloudy_chain_name.argtypes = [i]
@@ -335,7 +345,9 @@ def load_generated(u) -> ctypes.CDLL:
     lib.cloudy_gen_error_string.restype = ctypes.c_char_p
     got = (ctypes.c_int * 8)()
     n = lib.cloudy_gen_info(got)
-    want = (0 if u.kind == "step" else 1, u.n_tot, u.nz,
+    from cloudy_tpu_torch.ops import codegen
+
+    want = (codegen.KINDS[u.kind], u.n_tot, u.nz,
             4 if u.dtype.itemsize == 4 else 8, u.threads, int(u.shfl))
     if tuple(got[:n]) != want:
         raise RuntimeError(f"{rec['path']}: kernel {tuple(got[:n])} is not the unit's {want}")
@@ -344,7 +356,8 @@ def load_generated(u) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def sass_counts(so: Path, ops=("LDL", "STL", "LDS", "STS", "BAR", "SHFL", "CALL")) -> dict:
+def sass_counts(so: Path, ops=("LDL", "STL", "LDS", "STS", "BAR", "SHFL", "CALL", "MUFU")
+                ) -> dict:
     """Per kernel function of a library, the count of each SASS opcode in
     `ops` and of all instructions (``cuobjdump -sass``)."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -352,13 +365,25 @@ def sass_counts(so: Path, ops=("LDL", "STL", "LDS", "STS", "BAR", "SHFL", "CALL"
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
-    out, cur = {}, None
-    for ln in text.splitlines():
-        if m := re.search(r"Function : (\S+)", ln):
-            cur = out.setdefault(m.group(1), {**{o: 0 for o in ops}, "total": 0})
-        elif cur is not None and (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                                               ln)):
-            cur["total"] += 1
-            if m.group(1) in cur:
-                cur[m.group(1)] += 1
+    return _count_sass(text, ops)
+
+
+#: a kernel's header and one SASS instruction (its opcode, after any
+#: predicate) in ``cuobjdump -sass`` output
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_OPCODE = re.compile(r"^[ \t]*/\*[0-9a-f]{4,}\*/[ \t]+(?:@!?U?P\w+[ \t]+)?([A-Z][A-Z0-9_]*)",
+                          re.M)
+
+
+def _count_sass(text: str, ops) -> dict:
+    """`sass_counts` of one ``cuobjdump -sass`` listing: each function's
+    opcodes found by one pass of a compiled pattern over its part."""
+    out = {}
+    parts = _SASS_FUNCTION.split(text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        found = _SASS_OPCODE.findall(body)
+        cur = out.setdefault(name, {**{o: 0 for o in ops}, "total": 0})
+        cur["total"] += len(found)
+        for o in ops:
+            cur[o] += found.count(o)
     return out

@@ -1,6 +1,7 @@
-"""Per-configuration CUDA source for the whole rainshaft step (B1) and the
-fused per-level RHS (B4) at the fast tier, built into one small shared
-library per configuration, type and kernel.
+"""Per-configuration CUDA source for the whole rainshaft step (B1), the
+fused per-level RHS (B4) and the coalescence RHS on normalized moments (B3)
+at the fast tier, built into one small shared library per configuration,
+type and kernel.
 
 The table-driven kernels (csrc/fused_coalescence.cu) read one packed
 configuration at run time, so the indices of their Q/R/S contraction, of
@@ -29,8 +30,8 @@ straight-line statements:
   F2[a, b]); no threshold: mm) and the ``mm < eps`` zero, once per entry.
 
 `unit` wraps the configuration in one kernel (csrc/gen_kernels.cuh: the
-whole step with its warp-shuffle or shared-memory z-stencil, or the fused
-RHS), with its block size and launch bounds. Its name is a hash of the
+whole step with its warp-shuffle or shared-memory z-stencil, the fused
+RHS, or the coalescence RHS), with its block size and launch bounds. Its name is a hash of the
 generated text, the csrc/ sources, the compiler flags and the spill rule
 (`_build.gen_flags_digest`); `ops._build`
 compiles each unit at first use under ``build/cloudy_tpu_torch/gen/<hash>/``
@@ -51,8 +52,9 @@ import torch
 from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.spec import Family
 
-#: kernels: the whole step (B1) and the fused per-level RHS (B4)
-KINDS = {"step": 0, "rhs": 1}
+#: kernels: the whole step (B1), the fused per-level RHS (B4) and the
+#: coalescence RHS on normalized moments (B3, one thread per box)
+KINDS = {"step": 0, "rhs": 1, "coal": 2}
 #: threads per block of every generated kernel (the whole step at an nz
 #: that does not divide it takes whole columns: `_block`). Chosen by
 #: measurement on an H100 80GB HBM3 at 700 W (PERF.md §6): 256 took

@@ -22,20 +22,23 @@ The kernels share the device physics of csrc/coal_body.cuh, the counterpart
 of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`, and reach it by
 one of two routes, chosen from the plan alone (the wrapper's `route`):
 
-- ``"generated"``: the whole step and the fused RHS of a fast-tier plan run
-  a kernel generated for that configuration and type (`ops.codegen`, csrc/
-  gen_kernels.cuh), every table compiled in;
-- ``"table"``: the coalescence RHS, the scaled whole step and every
-  reference-tier plan run the table-driven kernels (csrc/
-  fused_coalescence.cu): the host packs the configuration (`pack_config`)
-  into a small byte buffer that each block copies into shared memory.
+- ``"generated"``: the whole step, the fused RHS and the coalescence RHS of
+  a fast-tier plan run a kernel generated for that configuration and type
+  (`ops.codegen`, csrc/gen_kernels.cuh), every table compiled in;
+- ``"table"``: the scaled whole step and every reference-tier plan run the
+  table-driven kernels (csrc/fused_coalescence.cu): the host packs the
+  configuration (`pack_config`) into a small byte buffer that each block
+  copies into shared memory.
 
-The table-driven fast instances of the whole step and the fused RHS are
-still built, reachable only through the constructors' private ``_table``
-argument: `chip_smoke.py` times them beside the generated kernels.
+The table-driven fast instances of the three kernels are still built,
+reachable only through the constructors' private ``_table`` argument:
+`chip_smoke.py` times them beside the generated kernels.
 
 Layout: the flat structure-of-arrays ``[n_tot, B]``, one CUDA thread per
-lane (one level of one column), z contiguous within each column.
+lane (one level of one column), z contiguous within each column. The
+reference tier's coalescence RHS gives each box a warp instead at small
+batches (`coal_layout`, from B and the card: its quadrature grid's nodes
+strided across the lanes).
 
 Beside each kernel sits its plain twin (`coal_soa_plain`,
 `rainshaft_rhs_soa_plain`, `rainshaft_step_soa_plain`): the same operations
@@ -1077,27 +1080,29 @@ class _KernelFn:
         if not mom.is_contiguous():
             raise ValueError("expected a contiguous [n_tot, B] tensor")
 
-    def _launch(self, mom: torch.Tensor, n_out: int, *extra) -> torch.Tensor:
+    def _launch(self, mom: torch.Tensor, n_out: int, *extra, symbol: str = None
+                ) -> torch.Tensor:
         """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``;
         `extra` are the table-driven entry point's arguments between B and
-        the stream."""
+        the stream, `symbol` an entry point other than `_symbol`."""
         if self.route == "generated":
             return self._launch_generated(mom, n_out)
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_library()
+        symbol = symbol or self._symbol
         if self._cfg is None:
             self._cfg = torch.from_numpy(self._pack()).to(self.device)
         out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = getattr(lib, self._symbol)(
+            err = getattr(lib, symbol)(
                 mom.data_ptr(), out.data_ptr(), self._cfg.data_ptr(),
                 self._cfg.numel(), mom.shape[1], *extra, stream,
             )
         if err != 0:
             raise RuntimeError(
-                f"{self._symbol} launch failed: cudaError {err} "
+                f"{symbol} launch failed: cudaError {err} "
                 f"({lib.cloudy_error_string(err).decode()})"
             )
         self.launches += 1
@@ -1147,16 +1152,85 @@ class _GeneratedFn(_KernelFn):
         return out
 
 
-class CoalFn(_KernelFn):
+def coal_layout(plan: FusedPlan, B: int, n_sm: int, threads_per_sm: int) -> str:
+    """The coalescence kernel's layout for `plan` at `B` boxes on a card of
+    `n_sm` multiprocessors, where the reference tier's thread-per-box
+    instance keeps `threads_per_sm` threads resident on each (its
+    occupancy): ``"warp"`` (a warp per box, the quadrature grid's nodes
+    strided across its lanes) for a reference-tier plan with a grid F2 while
+    B ≤ n_sm · threads_per_sm, else ``"thread"`` (a thread per box; a plan
+    without a grid has no node loop to share out). Up to one full wave a
+    thread per box takes one lane's serial walk over the grid whatever B
+    is, 14-31× as long as a warp per box takes; past that wave the 32× as
+    many threads a warp per box needs queue up.
+
+    The bound is that model, not the measured crossover, which moves with
+    the type and the grid's node count. Measured on an H100 80GB HBM3 at
+    700 W (`chip_smoke.py` phase 24, PERF.md §6) at the `rainshaft_128`
+    configuration (76 Simpson nodes), the model picks the slower layout in
+    f64 at 32,768 boxes (the warp, 0.91×) and in f32 at 131,072-262,144
+    (the thread, 1.30-1.36× slower); elsewhere it picks the faster one,
+    with bench.py's 12-node grid at 2^20 boxes too (the thread, 13×)."""
+    if not plan.ref or F2_GRID not in plan.f2_kind:
+        return "thread"
+    return "warp" if B <= n_sm * threads_per_sm else "thread"
+
+
+class CoalFn(_GeneratedFn):
     """Coalescence RHS (replaces `make_pallas_coal_fn`): ``fn(mom [B, n_tot])``
-    and ``fn.soa(mom [n_tot, B])`` on normalized moments."""
+    and ``fn.soa(mom [n_tot, B])`` on normalized moments. A fast-tier plan
+    launches the kernel generated for it (`route` ``"generated"``), a
+    reference-tier plan the table-driven one, laid out per call by
+    `coal_layout` from B and the card (`layout`): a thread per box, or a
+    warp per box at small batches. `_layout` (private) forces one: the
+    same-call yardstick of `chip_smoke.py`."""
 
     _name = "cloudy_coal"
+    _kind = "coal"
+
+    def __init__(self, plan, device, dtype: torch.dtype, _table: bool = False,
+                 _layout: str = None):
+        super().__init__(plan, device, dtype, _table)
+        if _layout not in (None, "thread", "warp"):
+            raise ValueError(f"layout must be 'thread' or 'warp', not {_layout!r}")
+        self._layout = _layout
+        self._slots = None
+
+    def layout(self, B: int) -> str:
+        """The layout of a launch on `B` boxes: ``"warp"`` or ``"thread"``
+        (`coal_layout`; always ``"thread"`` on the fast tier and on the
+        CPU)."""
+        if not self.plan.ref or self.device.type != "cuda":
+            return "thread"
+        return self._layout or coal_layout(self.plan, B, *self.slots())
+
+    def slots(self) -> Tuple[int, int]:
+        """(multiprocessors, resident threads per multiprocessor of the
+        reference thread-per-box instance) on this wrapper's card, from the
+        runtime (cudaDeviceGetAttribute, the occupancy calculator at this
+        configuration's shared memory)."""
+        if self._slots is None:
+            import ctypes
+
+            from cloudy_tpu_torch.ops import _build
+
+            lib = _build.load_library()
+            n_sm, threads = ctypes.c_int(0), ctypes.c_int(0)
+            with torch.cuda.device(self.device):
+                err = lib.cloudy_device_sms(self.device.index, ctypes.byref(n_sm))
+                err = err or getattr(lib, f"cloudy_coal_ref_threads_per_sm_{self._tag}")(
+                    int(self._pack().size), ctypes.byref(threads))
+            if err != 0:
+                raise RuntimeError(f"occupancy query failed: cudaError {err}")
+            self._slots = (n_sm.value, threads.value)
+        return self._slots
 
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":
             return coal_soa_plain(mom, self.plan)
+        if self.layout(mom.shape[1]) == "warp":
+            return self._launch(mom, self.plan.n_tot, symbol=f"cloudy_coal_warp_{self._tag}")
         return self._launch(mom, self.plan.n_tot, self.plan.instance)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:

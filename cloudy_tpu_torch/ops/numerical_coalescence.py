@@ -20,8 +20,14 @@ kernel functions of `kernels` (constant, linear, hydrodynamic, Long).
 Layout: the structure-of-arrays ``[n_tot, B]``; on the card one thread block
 per box and one thread per outer node. The kernel reads one packed
 configuration (`NumericalPlan` → `pack_config`): the spectrum, the node
-counts, the Gauss–Legendre rules, the panel cuts and the kernel function as a
-tag with up to three parameters (`kernel_descriptor`).
+counts, the Gauss–Legendre rules, the panel cuts, the kernel function as a
+tag with up to three parameters (`kernel_descriptor`), and in f64 the logs
+of the inner nodes that the kernel adds to a per-panel offset instead of
+taking them per node (`inner_log_tables`). The kernel a CUDA call launches,
+``quad_kernel``, runs its densities in base 2 on the card's special
+function unit in f32 (IEEE exp/log in f64) with their divides hoisted per
+box, and for the constant, linear and Long kernels takes R from block sums
+instead of the G × G loop (csrc/numerical_coalescence.cu).
 
 Beside the kernel sits its plain twin `numerical_soa_plain`: the same
 operations in the Pallas body's order on ``[G, B]`` tiles (the y-loop for R,
@@ -168,11 +174,22 @@ def _rules(plan: NumericalPlan):
             0.5 * np.asarray(ws), np.log(np.asarray(plan.outer_cuts, np.float64)))
 
 
+def inner_log_tables(s01):
+    """(log s, log(1 − s)) of the inner nodes s01 in f64 (s rounded once,
+    1 − s formed in f64 as the twin forms it), natural logs taken in host
+    double. `quad_kernel` in f64 adds them to a per-panel offset instead of
+    taking two logs per inner node; in f32 it takes them at the node (the
+    SFU's log2 is quicker there than the table read), so f32 packs none."""
+    s = np.asarray(s01, np.float64)
+    return np.log(s), np.log(1.0 - s)
+
+
 def pack_config(plan: NumericalPlan, dtype: torch.dtype) -> np.ndarray:
     """The byte buffer the kernel reads (layout:
     csrc/numerical_coalescence.cu, `NumConfig::bind`)."""
     real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     xu, wu, s01, w01, log_cuts = _rules(plan)
+    tables = inner_log_tables(s01) if dtype == torch.float64 else ()
 
     def per_mode(vals):
         return list(vals) + [0] * (MAX_MODES - len(vals))
@@ -188,6 +205,8 @@ def pack_config(plan: NumericalPlan, dtype: torch.dtype) -> np.ndarray:
     reals = list(plan.kpar) + [plan.kinks[0] if plan.kinks else 0.0]
     reals += list(log_cuts) + [0.0] * (2 - len(log_cuts))
     reals += list(xu) + list(wu) + list(s01) + list(w01)
+    for t in tables:
+        reals += list(t)
     total = real_offset + np.dtype(real_t).itemsize * len(reals)
     total += (-total) % 16
     if total > CFG_MAX_BYTES:
@@ -385,14 +404,21 @@ def numerical_soa_plain(mom: torch.Tensor, plan: NumericalPlan) -> torch.Tensor:
 class NumericalFn(_KernelFn):
     """Direct-quadrature coalescence RHS (replaces
     `make_pallas_numerical_fn`): ``fn(mom [B, n_tot])`` and
-    ``fn.soa(mom [n_tot, B])`` on normalized moments."""
+    ``fn.soa(mom [n_tot, B])`` on normalized moments. A CUDA call launches
+    ``quad_kernel``; `_direct` (private) launches the body it replaced,
+    ``numerical_kernel``: the same-call yardstick of `chip_smoke.py`."""
+
+    def __init__(self, plan, device, dtype: torch.dtype, _direct: bool = False):
+        super().__init__(plan, device, dtype)
+        self._direct = _direct
 
     def _pack(self) -> np.ndarray:
         return pack_config(self.plan, self.dtype)
 
     @property
     def _symbol(self) -> str:
-        return f"cloudy_numerical_{self._tag}_n{self.plan.n_modes}"
+        body = "direct_" if self._direct else ""
+        return f"cloudy_numerical_{body}{self._tag}_n{self.plan.n_modes}"
 
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)

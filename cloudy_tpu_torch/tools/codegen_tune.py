@@ -1,5 +1,5 @@
-"""The generated whole step (B1) and fused per-level RHS (B4) against their
-table-driven instances on the card.
+"""The generated whole step (B1), fused per-level RHS (B4) and coalescence
+RHS (B3) against their table-driven instances on the card.
 
 For each pod variant (`harness.POD_VARIANTS`: ``fixed2gamma``, ``moving``,
 ``lognorm``) or family-matrix case asked for, the generated kernels
@@ -18,13 +18,14 @@ table-driven fast instances of csrc/fused_coalescence.cu
 - ms per step of B1 at 2^20 columns × 32 levels (f32: chains of `steps`
   whole steps from the pod's initial state, CUDA events, in turns table,
   generated, generated, table; the median of each) and ms per launch of
-  B4 on the pod state [6, 2^25], in the same turns.
+  B4 on the pod state [6, 2^25] and of B3 on `columns` boxes of
+  bench-style moments (`yardstick.coal_moments`), in the same turns.
 
 One JSON record per variant and kernel on stdout, with the card's name and
 power limit.
 
     python -m cloudy_tpu_torch.tools.codegen_tune
-    python -m cloudy_tpu_torch.tools.codegen_tune --variants fixed2gamma --kinds step
+    python -m cloudy_tpu_torch.tools.codegen_tune --variants fixed2gamma --kinds step,coal
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ def main(argv=None):
         out["finite"] = finite
         out["ok"] = finite and out["gen_vs_twin"] < ys.TOL[dtype]
         if not args.no_time and dtype == torch.float32:
-            x = ys.pod_state(variant, args.columns, dev, dtype)
+            x = (ys.coal_moments(variant, args.columns, dev, dtype) if kind == "coal"
+                 else ys.pod_state(variant, args.columns, dev, dtype))
             (t_table, t_gen), raw = ys.time_turns([table, gen], kind, x, args.steps)
             out.update({"table_ms": t_table, "gen_ms": t_gen, "turns_ms": raw,
                         "lanes": x.shape[1], "speedup": t_table / t_gen})

@@ -1,8 +1,9 @@
-"""The generated whole step (B1) and fused per-level RHS (B4) against their
-table-driven fast instances on the card: the wrappers of both routes from
-the same plan, their build reports (``ptxas``, SASS counts, resident
-blocks per SM), the check against the plain twin and the timing in turns.
-`tools.codegen_tune` and chip_smoke.py's phase 23 use it.
+"""The generated whole step (B1), fused per-level RHS (B4) and coalescence
+RHS (B3) against their table-driven fast instances on the card: the
+wrappers of both routes from the same plan, their build reports
+(``ptxas``, SASS counts, resident blocks per SM), the check against the
+plain twin and the timing in turns. `tools.codegen_tune` and
+chip_smoke.py's phases 23 and 24 use it.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ def pod_config(variant: str, nz: int = NZ):
 def make_fns(variant: str, kind: str, device="cuda", dtype=torch.float32, nz: int = NZ):
     """(generated, table-driven) wrappers of a pod variant's `kind` kernel."""
     _, data, cfg = pod_config(variant, nz)
-    if kind == "step":
+    if kind == "coal":
+        gen = fc.make_coal_fn(data, device=device, dtype=dtype)
+        table = fc.CoalFn(gen.plan, device, dtype, _table=True)
+    elif kind == "step":
         gen = fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=nz, dz=cfg.dz,
                                         dt=cfg.dt, device=device, dtype=dtype)
         table = fc.RainshaftStepFn(gen.plan, device, dtype, _table=True)
@@ -62,7 +66,7 @@ def table_report(kind: str, dtype, arms: int, plan) -> dict:
     if kind == "step":
         pat = rf"step_kernelI{tag}Lb{arms}ELb0ELb0E"
     else:
-        pat = rf"rhs_kernelI{tag}Lb{arms}ELb0E"
+        pat = rf"{kind}_kernelI{tag}Lb{arms}ELb0E"
     sass = {k: v for k, v in _build.sass_counts(so).items() if re.search(pat, k)}
     log = so.with_suffix(".log").read_text()
     lines, keep, pt = log.splitlines(), False, ""
@@ -78,7 +82,8 @@ def table_report(kind: str, dtype, arms: int, plan) -> dict:
         err = getattr(lib, f"cloudy_step_blocks_per_sm_{t}")(cfg_bytes, plan.nz, arms,
                                                             ctypes.byref(got))
     else:
-        err = getattr(lib, f"cloudy_rhs_blocks_per_sm_{t}")(cfg_bytes, arms, ctypes.byref(got))
+        err = getattr(lib, f"cloudy_{kind}_blocks_per_sm_{t}")(cfg_bytes, arms,
+                                                              ctypes.byref(got))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return {"ptxas": _build.ptxas_report(pt), "sass": next(iter(sass.values()), {}),
@@ -105,9 +110,37 @@ def _row_scaled(got, want):
     return float((d / want.double().abs().amax(dim=1).clamp_min(1e-300)).max())
 
 
+def coal_moments(variant: str, n: int, device, dtype, seed: int = 0) -> torch.Tensor:
+    """Normalized moments [6, n] for a pod variant's coalescence RHS (B3):
+    bench.py's for two gamma modes (joint amplitude and mass scalings per
+    mode), for ``lognorm`` parameters drawn first (lognormal μ ∈ [−2, 0.5],
+    σ ∈ [0.3, 1.2]; gamma θ ∈ [0.05, 5], k ∈ [0.5, 5];
+    tests/test_pallas.py:311-319)."""
+    from cloudy_tpu_torch import bench
+    from cloudy_tpu_torch import distributions as pd
+
+    spec, _, _ = pod_config(variant)
+    if variant != "lognorm":
+        return torch.as_tensor(bench.bench_moments(n, seed=seed).T.copy(), dtype=dtype,
+                               device=device)
+    rng = np.random.default_rng(seed)
+    par = np.stack([
+        np.stack([rng.uniform(10, 200, n), rng.uniform(-2.0, 0.5, n),
+                  rng.uniform(0.3, 1.2, n)], -1),
+        np.stack([rng.uniform(10, 200, n), rng.uniform(0.05, 5.0, n),
+                  rng.uniform(0.5, 5.0, n)], -1)], axis=1)
+    return pd.get_moments(spec, torch.as_tensor(par)).T.contiguous().to(device, dtype)
+
+
 def check_vs_twin(fn, kind, variant, device, dtype, n_cols: int = 4096, nz: int = NZ):
     """Row-scaled error (normalized units) of one launch against the twin on
-    a seeded two-mode state with a negative moment and an empty level."""
+    a seeded two-mode state with a negative moment and an empty level (the
+    coalescence RHS: on `coal_moments` of n_cols · nz boxes)."""
+    if kind == "coal":
+        x = coal_moments(variant, n_cols * nz, device, dtype, seed=2)
+        got, want = fn.soa(x), fn.plain(x)
+        torch.cuda.synchronize()
+        return _row_scaled(got, want), bool(torch.isfinite(got).all())
     spec, _, cfg = pod_config(variant, nz)
     amps = ([1e8, 1e-2, 2e-12], [1e7, 1e-3, 2e-13], [1e6, 1e-4, 2e-14])
     ic = np.concatenate([rs.initial_condition(cfg.z, a)[:, :n]

@@ -19,9 +19,16 @@ CPU, against the JAX package and the plain twins (no GPU, no nvcc):
     `make_pallas_coal_fn` in interpret mode at 256 lanes, < 1e-9
     (tests/test_pallas.py:656: XLA's and g++'s exp/log and fusion differ);
 
-and the route each wrapper takes, from its plan alone; and the build
-cache of generated units (`ops._build`): the ptxas report and spill rule,
-a unit's name over the retry rule, a built library found by its name.
+and the same for the coalescence RHS on normalized moments (B3, the
+``"coal"`` kind): its source, digest and route, its generated shell
+(`gen_coal_body`, one thread per box) compiled as host C++ and called lane
+by lane against the twin (f64 < 1e-12, f32 < 1e-5, the three pod
+variants) and in f64 against `make_pallas_coal_fn` in interpret mode
+(< 1e-9); the reference tier's layout choice (a warp per box at small
+batches) as a function of B and the card; the route each wrapper takes,
+from its plan alone; and the build cache of generated units (`ops._build`):
+the ptxas report and spill rule, a unit's name over the retry rule, a built
+library found by its name. Each host library is compiled once per module.
 """
 
 import ctypes
@@ -83,10 +90,10 @@ enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline void __syncthreads() {}
 template <class T> T __shfl_down_sync(unsigned, T v, int, int) { return v; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 """
 
-HARNESS = """#include "coal_body.cuh"
-#include "rainshaft_lanes.cuh"
+HARNESS = """#include "gen_kernels.cuh"
 #include "cfg.cuh"
 using cloudy::gen::Cfg;
 using T = Cfg::real;
@@ -103,6 +110,14 @@ extern "C" void host_rhs(const T* mom, T* out, long long B) {
   const Cfg c{};
   for (long long lane = 0; lane < B; ++lane)
     cloudy::rhs_lane<Cfg::kArms, false>(c, mom, out, B, lane);
+}
+// the generated coalescence kernel's shell, one "thread" at a time
+extern "C" void host_gen_coal(const T* mom, T* out, long long B) {
+  for (long long lane = 0; lane < B; ++lane) {
+    blockIdx.x = (unsigned)(lane / Cfg::kThreads);
+    threadIdx.x = (unsigned)(lane % Cfg::kThreads);
+    cloudy::gen_coal_body<Cfg>(mom, out, B);
+  }
 }
 """
 
@@ -122,6 +137,8 @@ def _both(name):
 def _plan(data, kind="step"):
     if kind == "step":
         return fc.build_plan(data, VEL, NORMS, NZ, DZ, DT)
+    if kind == "coal":
+        return fc.build_plan(data)  # as `make_coal_fn` builds it
     return fc.build_plan(data, VEL, NORMS)
 
 
@@ -236,25 +253,37 @@ def test_emitted_tables_are_the_packed_reals(name, dtype):
 # --------------------------------------------------------------------------
 
 
-def _host_lib(tmp_path, plan, dtype):
-    """The generated rhs configuration compiled as host C++ (g++, no FMA
-    contraction) with `host_coal` and `host_rhs`."""
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """`host_lib(name, dtype, kind)`: the generated `kind` configuration of a
+    variant compiled as host C++ (g++, no FMA contraction) with `host_coal`,
+    `host_rhs` and `host_gen_coal`; each compiled once per module."""
     if shutil.which("g++") is None:
         pytest.fail("g++ is needed to compile the generated body on the host")
-    (tmp_path / "shim").mkdir()
-    (tmp_path / "shim" / "cuda_runtime.h").write_text(SHIM)
-    (tmp_path / "cfg.cuh").write_text(codegen.config_source(plan, dtype, "rhs"))
-    (tmp_path / "host.cpp").write_text(HARNESS)
-    so = tmp_path / "libhost.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-Wno-unknown-pragmas", "-I", str(tmp_path / "shim"), "-I",
-                    str(_build.CSRC), "-I", str(tmp_path), "-o", str(so),
-                    str(tmp_path / "host.cpp")], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    for f in (lib.host_coal, lib.host_rhs):
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-        f.restype = None
-    return lib
+    libs = {}
+
+    def get(name, dtype, kind):
+        key = (name, dtype, kind)
+        if key not in libs:
+            _, data = _both(name)
+            d = tmp_path_factory.mktemp(f"{name}_{kind}")
+            (d / "shim").mkdir()
+            (d / "shim" / "cuda_runtime.h").write_text(SHIM)
+            (d / "cfg.cuh").write_text(codegen.config_source(_plan(data, kind), dtype, kind))
+            (d / "host.cpp").write_text(HARNESS)
+            so = d / "libhost.so"
+            subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
+                            "-shared", "-Wno-unknown-pragmas", "-I", str(d / "shim"), "-I",
+                            str(_build.CSRC), "-I", str(d), "-o", str(so),
+                            str(d / "host.cpp")], check=True, capture_output=True, text=True)
+            lib = ctypes.CDLL(str(so))
+            for f in (lib.host_coal, lib.host_rhs, lib.host_gen_coal):
+                f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                f.restype = None
+            libs[key] = lib
+        return libs[key]
+
+    return get
 
 
 def _lanes(spec, B, seed):
@@ -286,10 +315,10 @@ def _row_scaled(got, want):
 
 @pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_host_compiled_body_matches_twins(tmp_path, variant, dtype):
+def test_host_compiled_body_matches_twins(host_lib, variant, dtype):
     _, data = _both(variant)
     plan = _plan(data, "rhs")
-    lib = _host_lib(tmp_path, plan, dtype)
+    lib = host_lib(variant, dtype, "rhs")
     mom = torch.as_tensor(_lanes(data.spec, 512, seed=4), dtype=dtype)
     n_tot = plan.n_tot
     got = _call(lib.host_coal, mom, n_tot)
@@ -305,16 +334,110 @@ def test_host_compiled_body_matches_twins(tmp_path, variant, dtype):
     assert bool((got[:n_tot, 3] == 0).all())  # the empty lane's tendency
 
 
-def test_host_compiled_body_matches_pallas_interpret(tmp_path):
+def test_host_compiled_body_matches_pallas_interpret(host_lib):
     jdata, data = _both("moving")
     plan = _plan(data, "rhs")
-    lib = _host_lib(tmp_path, plan, torch.float64)
+    lib = host_lib("moving", torch.float64, "rhs")
     mom = _lanes(data.spec, 256, seed=6)
     got = _call(lib.host_coal, torch.as_tensor(mom), plan.n_tot).numpy()
     want = np.asarray(pc.make_pallas_coal_fn(jdata, block_cols=128, interpret=True)
                       .soa(jnp.asarray(mom)))
     scale = np.abs(want).max(axis=1, keepdims=True)
     assert (np.abs(got - want) / np.maximum(scale, 1e-300)).max() < 1e-9
+
+
+# --------------------------------------------------------------------------
+# the coalescence RHS (B3): the "coal" kind
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
+def test_coal_kind_source_digest_and_route(dtype):
+    """The coal unit: kind 2, one thread per box in blocks of `THREADS`,
+    the `gen_coal_body` shell; its digest differs from the fused RHS's of
+    the same data; `make_coal_fn` routes a fast-tier plan to it."""
+    _, data = _both("fixed2gamma")
+    fn = fc.make_coal_fn(data, device="cpu", dtype=dtype)
+    assert fn.route == "generated" and fn.plan == _plan(data, "coal")
+    u = fn.unit
+    assert (u.kind, u.threads, u.shfl, u.nz, u.n_tot) == ("coal", codegen.THREADS, False, 1, 6)
+    assert "static constexpr int kKind = 2;" in u.cfg
+    assert "gen_coal_body<Cfg>(mom, out, B);" in u.source
+    assert "CLOUDY_GEN_ENTRY(cloudy::gen::Cfg, cloudy::gen::gen_coal)" in u.source
+    assert u.digest != codegen.unit(_plan(data, "rhs"), dtype, "rhs").digest
+    assert u.label == f"coal_{'f32' if dtype == torch.float32 else 'f64'}_{u.digest}"
+    assert codegen.unit(fn.plan, dtype, "coal").digest == u.digest  # deterministic
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES.values()), ids=list(DTYPES))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_generated_coal_shell_matches_twin(host_lib, variant, dtype):
+    """The generated coalescence kernel's shell, run lane by lane as host
+    C++, against the twin; the empty lane's tendency is zero."""
+    _, data = _both(variant)
+    plan = _plan(data, "coal")
+    lib = host_lib(variant, dtype, "coal")
+    mom = torch.as_tensor(_lanes(data.spec, 300, seed=8), dtype=dtype)
+    got = _call(lib.host_gen_coal, mom, plan.n_tot)
+    want = fc.coal_soa_plain(mom, plan)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got, want) < HOST_TOL[dtype]
+    assert bool((got[:, 3] == 0).all())
+
+
+def test_generated_coal_shell_matches_pallas_interpret(host_lib):
+    jdata, data = _both("fixed2gamma")
+    lib = host_lib("fixed2gamma", torch.float64, "coal")
+    mom = _lanes(data.spec, 256, seed=12)
+    got = _call(lib.host_gen_coal, torch.as_tensor(mom), 6).numpy()
+    want = np.asarray(pc.make_pallas_coal_fn(jdata, block_cols=128, interpret=True)
+                      .soa(jnp.asarray(mom)))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert (np.abs(got - want) / np.maximum(scale, 1e-300)).max() < 1e-9
+
+
+#: (B, multiprocessors, resident threads per multiprocessor of the
+#: thread-per-box instance, layout): an H100 SXM (132 SMs) at the f64
+#: instance's 256 and the f32 instance's 512, a smaller card, both sides of
+#: the bound
+LAYOUTS = [(128, 132, 256, "warp"), (8192, 132, 256, "warp"), (33792, 132, 256, "warp"),
+           (33793, 132, 256, "thread"), (65536, 132, 256, "thread"),
+           (65536, 132, 512, "warp"), (67585, 132, 512, "thread"),
+           (1 << 20, 132, 512, "thread"), (1536, 48, 32, "warp"), (1537, 48, 32, "thread"),
+           (1, 1, 1, "warp")]
+
+
+def _ref_plan(**kw):
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(SpectrumSpec((G, G)), ker, (5e-10, np.inf), norms=NORMS,
+                                  **kw)
+    return fc.build_plan(data)
+
+
+@pytest.mark.parametrize("B,n_sm,threads,want", LAYOUTS)
+def test_reference_coal_layout_from_batch_and_card(B, n_sm, threads, want):
+    """A warp per box up to one full wave of the thread-per-box instance,
+    for a reference-tier plan with a quadrature grid; a thread per box for
+    the same batch without a grid (exact F2 by series/CF) or at the fast
+    tier."""
+    assert fc.coal_layout(_ref_plan(), B, n_sm, threads) == want
+    assert fc.coal_layout(_ref_plan(f2_exact=True), B, n_sm, threads) == "thread"
+    assert fc.coal_layout(_plan(_both("fixed2gamma")[1], "coal"), B, n_sm, threads) == "thread"
+
+
+def test_coal_layout_of_the_wrappers():
+    """The fast tier and the CPU always run a thread per box; `_layout`
+    forces a layout and is checked."""
+    _, fast = _both("fixed2gamma")
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    ref = build_coalescence_data(SpectrumSpec((G, G)), ker, (5e-10, np.inf), norms=NORMS)
+    for data in (fast, ref):
+        fn = fc.make_coal_fn(data, device="cpu")
+        assert fn.layout(128) == fn.layout(1 << 20) == "thread"
+    fn = fc.CoalFn(fc.build_plan(ref), "cpu", torch.float64, _layout="warp")
+    assert fn.route == "table" and fn.layout(128) == "thread"  # on the host: the twin
+    with pytest.raises(ValueError):
+        fc.CoalFn(fc.build_plan(ref), "cpu", torch.float64, _layout="block")
 
 
 # --------------------------------------------------------------------------
@@ -335,14 +458,18 @@ def test_routes_follow_the_plan():
     assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).route == "table"
     assert fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device="cpu").route == "table"
     assert fc.make_rainshaft_step_fn(fast, VEL, NORMS, kernel_scale=True, **kw).route == "table"
-    assert fc.make_coal_fn(fast, device="cpu").route == "table"
+    coal = fc.make_coal_fn(fast, device="cpu")
+    assert coal.route == "generated" and coal.unit.kind == "coal"
+    assert fc.make_coal_fn(ref, device="cpu").route == "table"
+    assert fc.make_coal_fn(ref, device="cpu").unit is None
+    assert fc.CoalFn(coal.plan, "cpu", torch.float32, _table=True).route == "table"
     assert fc.RainshaftStepFn(step.plan, "cpu", torch.float32, _table=True).route == "table"
     assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).unit is None
     with pytest.raises(ValueError):
         codegen.unit(fc.build_plan(ref, VEL, NORMS, NZ, DZ, DT), torch.float32)
     x = torch.ones(6, NZ)  # on the host the twin runs and nothing launches
-    step(x), rhs.soa(x)
-    assert step.launches == rhs.launches == 0
+    step(x), rhs.soa(x), coal.soa(x)
+    assert step.launches == rhs.launches == coal.launches == 0
 
 
 @pytest.mark.parametrize("nz,shfl,threads", [(32, True, codegen.THREADS),

@@ -60,6 +60,9 @@ def _generated_units():
                 fns.append(fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=nz, dz=3000.0 / nz,
                                                      dt=1.0, device="cuda", dtype=dtype))
             fns.append(fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device="cuda", dtype=dtype))
+            fns.append(fc.make_coal_fn(data, device="cuda", dtype=dtype))
+    for dtype in DTYPES:
+        fns.append(fc.make_coal_fn(bench.bench_data()[1], device="cuda", dtype=dtype))
     fns.append(fc.make_rainshaft_step_fn(_fast_data((Family.EXPONENTIAL, Family.GAMMA)), VEL,
                                          NORMS, nz=32, dz=93.75, dt=1.0, device="cuda",
                                          dtype=torch.float64))
@@ -289,6 +292,47 @@ def test_routes_on_the_card(cuda):
     assert [f.launches for f in (fast_step, ref_step, fast_rhs, ref_rhs)] == [1, 1, 1, 1]
 
 
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_coal_matches_twin(cuda, dtype, variant):
+    """B3's generated kernel (route "generated") and its table-driven fast
+    instance (`_table`) against the twin, 4,099 boxes (a ragged last block)."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_coal_fn(data, device=cuda, dtype=dtype)
+    table = fc.CoalFn(fn.plan, cuda, dtype, _table=True)
+    assert (fn.route, fn.unit.kind, table.route) == ("generated", "coal", "table")
+    x = torch.as_tensor(_variant_moments(variant, 4099, seed=12), dtype=dtype, device=cuda)
+    got = fn.soa(x)
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    want = fn.plain(x)
+    assert _row_scaled(got, want) < TOL[dtype]
+    assert _row_scaled(table.soa(x), want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("n_box", [128, 1024])
+@pytest.mark.parametrize("case", ["bench_grid_gl", "exp_gamma", "fixed_gauss",
+                                  "fixed_simpson", "moving_gauss", "moving_simpson"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_reference_coal_warp_per_box_matches_twin(cuda, dtype, case, n_box):
+    """B3's reference tier with a warp per box (the layout the wrapper takes
+    at these batches) against the twin and against a thread per box; two
+    launches agree bit for bit."""
+    bkw, ckw = REF_CASES[case]
+    data = _ref_data(**bkw)
+    fn = fc.make_coal_fn(data, device=cuda, dtype=dtype, **ckw)
+    thread = fc.CoalFn(fn.plan, cuda, dtype, _layout="thread")
+    assert fn.layout(n_box) == "warp" and thread.layout(n_box) == "thread"
+    x = _param_moments(data.spec.families, n_box, seed=8).to(cuda, dtype)
+    x[:, 5] = 0.0  # an empty box
+    got = fn.soa(x)
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    assert bool((got[:, 5] == 0).all())
+    assert torch.equal(got, fn.soa(x))
+    want = fn.plain(x)
+    assert _row_scaled(got, want) < TOL[dtype]
+    assert _row_scaled(thread.soa(x), want) < TOL[dtype]
+
+
 # --------------------------------------------------------------------------
 # the direct-quadrature kernel
 # --------------------------------------------------------------------------
@@ -339,6 +383,27 @@ def test_numerical_kernel_matches_twin(cuda, dtype, families, kname):
     assert _row_scaled(got, fn.plain(x), cancelling) < NUM_TOL[dtype]
     assert torch.equal(got, fn.soa(x))  # fixed summation order: bit for bit
     assert torch.equal(fn(x.T.contiguous()), got.T)
+
+
+@pytest.mark.parametrize("families,kname", [
+    (TWO_GAMMA, "linear"), (TWO_GAMMA, "constant"), (TWO_GAMMA, "long"),
+    (TWO_GAMMA, "hydro"), (THREE_MODE, "long")],
+    ids=["linear", "constant", "long", "hydro", "three_mode_long"])
+def test_numerical_kernel_against_its_yardstick_and_f64(cuda, families, kname):
+    """`quad_kernel` and the body it replaced (`_direct`) against the twin;
+    the f32 kernel against the f64 twin."""
+    spec = SpectrumSpec(families)
+    x = _numerical_moments(families, 131, seed=6).to(cuda)
+    want64 = nc.numerical_soa_plain(x, nc.build_plan(spec, NUM_KERNELS[kname], 64, 32))
+    for dtype in DTYPES:
+        fn = nc.make_numerical_fn(spec, NUM_KERNELS[kname], 64, 32, device=cuda, dtype=dtype)
+        direct = nc.NumericalFn(fn.plan, cuda, dtype, _direct=True)
+        xt = x.to(dtype)
+        want = fn.plain(xt)
+        got = fn.soa(xt)
+        assert _row_scaled(got, want) < NUM_TOL[dtype]
+        assert _row_scaled(direct.soa(xt), want) < NUM_TOL[dtype]
+        assert _row_scaled(got, want64) < NUM_TOL[torch.float32]
 
 
 def test_numerical_kernel_matches_einsum_path_at_box_nodes(cuda):

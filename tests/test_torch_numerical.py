@@ -390,9 +390,47 @@ def test_packed_config_layout(dtype):
     np.testing.assert_array_equal(reals[38:70], wu.astype(real_t))
     np.testing.assert_array_equal(reals[70:86], (0.5 * (su + 1.0)).astype(real_t))
     np.testing.assert_array_equal(reals[86:102], (0.5 * ws).astype(real_t))
+    n_tables = 0
+    if dtype == torch.float64:  # the inner nodes' log tables: f64 only
+        ls01, l1m01 = nc.inner_log_tables(0.5 * (su + 1.0))
+        np.testing.assert_array_equal(reals[102:118], ls01)
+        np.testing.assert_array_equal(reals[118:134], l1m01)
+        n_tables = 32
+    assert not reals[102 + n_tables:].any()  # padding
     smooth = nc.pack_config(nc.build_plan(SpectrumSpec(TWO_GAMMA), _kernel(K, "linear")),
                             dtype).view(np.int32)
     assert list(smooth[3:8]) == [1, 96, 1, 48, 1]
+
+
+@pytest.mark.parametrize("kname", ["linear", "long"])
+def test_inner_log_tables_are_the_logs_the_twin_takes(kname):
+    """`quad_kernel`'s f64 tables: log s and log(1 − s) of the inner nodes
+    (1 − s formed in f64, as the twin forms X·(1 − s) on the panel [0, 1]),
+    each within one rounding of the log the twin takes of them; one inner
+    panel (linear) and three (Long)."""
+    plan = nc.build_plan(SpectrumSpec(TWO_GAMMA), _kernel(K, kname), 64, 32)
+    s01 = nc._rules(plan)[2]
+    ls01, l1m01 = nc.inner_log_tables(s01)
+    s = torch.as_tensor(s01, dtype=torch.float64)  # the twin's s = 0 + (1 - 0) · s01
+    one_minus = 1.0 - s
+    np.testing.assert_allclose(np.exp(ls01), s.numpy(), rtol=1e-14)
+    np.testing.assert_allclose(np.exp(l1m01), one_minus.numpy(), rtol=1e-14)
+    eps = torch.finfo(torch.float64).eps
+    np.testing.assert_allclose(ls01, torch.log(s).numpy(), rtol=eps, atol=4 * eps)
+    np.testing.assert_allclose(l1m01, torch.log(one_minus).numpy(), rtol=eps, atol=4 * eps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_numerical_wrapper_bodies(dtype):
+    """The wrapper launches `quad_kernel`; `_direct` the body it replaced."""
+    plan = bench.numerical_fn(device="cpu").plan
+    tag = "f32" if dtype == torch.float32 else "f64"
+    assert nc.NumericalFn(plan, "cpu", dtype)._symbol == f"cloudy_numerical_{tag}_n2"
+    assert (nc.NumericalFn(plan, "cpu", dtype, _direct=True)._symbol
+            == f"cloudy_numerical_direct_{tag}_n2")
+    fn = nc.NumericalFn(plan, "cpu", dtype, _direct=True)
+    x = torch.as_tensor(bench.numerical_moments(16).T.copy(), dtype=dtype)
+    assert torch.equal(fn.soa(x), nc.numerical_soa_plain(x, plan)) and fn.launches == 0
 
 
 def test_opcount_counts_arithmetic_only():
@@ -421,3 +459,4 @@ def test_opcount_counts_arithmetic_only():
     shares = opcount.numerical_bench_shares(n_boxes=4)
     assert abs(shares["operations_per_box"] - per_box) < 1e-3 * per_box
     assert shares["qs_loop_share"] > shares["r_loop_share"] > shares["rest_share"] > 0
+
