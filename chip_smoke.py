@@ -55,9 +55,13 @@ Drives the port's main path once on the card and fails loudly:
    s = 1.7 against the unscaled kernel built from the 1.7-scaled kernel
    tensor (f64); then the main path, `tools.calibration_bench.pod_main`: EKI
    at 64 and 256 members x 32 columns x 32 levels x 60 f32 steps through
-   B1s, its 8-iteration run at 256 members checked for 540 launches, finite
-   observables and s within 2 % of 1.7; B1s against its twin at that run's
-   shape [6, 262144], and the unscaled B1 time of phase 6 beside it;
+   B1s (generated for the configuration), its 8-iteration run at 256
+   members checked for 540 launches, finite observables and s within 2 %
+   of 1.7 at both sizes, and each size's busy share of an EKI window; B1s
+   against its twin at that run's shape [6, 262144]; the generated B1s
+   against its table-driven instance there (ptxas, SASS counts, blocks per
+   SM, ms per step in turns), with the unscaled generated B1 `fixed2gamma`
+   at 2^20 x 32 read in a turn before and after them;
 17. the reference tier (quadrature-grid F2, series/CF incomplete gamma,
    Newton percentile inverse, Lanczos-pair flux): the `ptxas` lines of its
    instances beside phase 6's unscaled B1 time; the coalescence kernel's
@@ -120,14 +124,23 @@ Drives the port's main path once on the card and fails loudly:
    arms; the quadrature kernel against its twin with each kernel function
    at [6, 262144], and against the body it replaced at [6, 262144] (the
    bench), [8, 262144] (E + G + L) and in f64, with their `ptxas` lines,
-   SASS counts and phase 21's class model.
+   SASS counts and phase 21's class model;
+25. C.1 and C.2: the four-gamma-mode configuration of
+   examples/box_gamma_mixture_4modes.py (n_tot 12, past the prebuilt
+   kernels' 3 modes and 9 moments) through B1 generated for it at 2^20
+   columns x 32 levels (ms/step, column-updates/s), B3 and B4 at [12,
+   2^20], B5 at [12, 262144] (the unit built for four modes), the reference
+   tier's B1, B3 and B4 at [12, 131072] (units built at capacities (4, 12,
+   5)), and the scaled whole step at the reference tier in f64 at [6,
+   4096]; each against its twin, with its `kernels` entry.
 
-From phase 3 on, the whole step, the fused RHS and the coalescence RHS of
-every fast-tier configuration launch the kernel generated for it (the
-wrappers' `route` "generated", printed with each main path's launch
-counts); the scaled whole step and the reference tier launch the
-table-driven kernels, the reference coalescence RHS with a warp per box at
-small batches (phase 18's `rainshaft_128` hook: 128 boxes).
+From phase 3 on, the whole step (scaled or not), the fused RHS and the
+coalescence RHS of every fast-tier configuration launch the kernel
+generated for it (the wrappers' `route` "generated", printed with each
+main path's launch counts); the reference tier launches the table-driven
+kernels, the reference coalescence RHS with a warp per box at small
+batches (phase 18's `rainshaft_128` hook: 128 boxes), past the prebuilt
+capacities from units built at first use.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -139,8 +152,8 @@ phase 18, each switch setting's chain in phase 19, and in phase 20 each arm's
 chain and each family-matrix case (`whole_step_ablation.run_case` zeroes the
 step's count after its warm-up and reports it with the record), in phase 21
 the timed sweep (`op_microbench.sweep` zeroes every chain kernel's count
-after the comparisons), and in phase 22 each configuration's timed
-launches. The last two lines are a JSON
+after the comparisons), in phase 22 each configuration's timed
+launches, and in phase 25 each kernel's timed run. The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``source`` the kernel's file, for a
 generated kernel its shells with ``generator`` and ``unit`` beside;
@@ -211,6 +224,18 @@ N_COVER_STEPS = 6  # timed launches of each B-cover kernel (phase 22)
 N_GEN_STEPS = 10  # whole steps per timed turn, generated vs table-driven (phase 23)
 N_GEN_RHS = 20  # fused-RHS launches per timed turn (phase 23)
 COVERS = ("exp-only", "three-mode")  # the B-cover configurations (phases 2, 22)
+#: the kinds of the kernels generated per configuration (phase 2's f32
+#: check; units of the table-driven sources built at first use are "ref"
+#: and "numerical")
+GEN_KINDS = ("step", "rhs", "coal")
+#: the four-gamma-mode configuration of examples/box_gamma_mixture_4modes.py
+#: (phase 25): thresholds, and per mode the column's number and mean mass
+FOUR_THR = (5e-10, 5e-9, 5e-8, math.inf)
+FOUR_AMPS = tuple((1e8 * 10.0 ** -j, 1e-10 * 10.0 ** j) for j in range(4))
+N_FOUR_STEPS = 6  # timed whole steps or launches of each phase-25 kernel
+N_REF_COLUMNS = 4096  # the reference tier's columns in phase 25: [12, 131072]
+N_FOUR_NUM_BOXES = 262144  # B5's boxes at four modes (phase 25): the bench's width
+N_SCALED_TURN_STEPS = 20  # B1s steps per timed turn, generated vs table-driven (phase 16)
 #: boxes of the reference coalescence kernel's layouts, timed in turns (phase 24)
 REF_LAYOUT_BOXES = (128, 1024, 8192, 32768, 65536, 131072, 262144)
 
@@ -219,17 +244,23 @@ def kernel_source(fn, B=None):
     """The `kernels` keys naming a wrapper's kernel: the table-driven source
     (for the coalescence RHS with its layout at `B` boxes, a thread or a
     warp per box), the generated kernels' shells and their generator with
-    the route, or the quadrature kernel's source and body."""
+    the route, or the quadrature kernel's source and body; with the units
+    built at first use where the prebuilt library does not hold the
+    kernel."""
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
 
     if getattr(fn, "route", "table") == "generated":
         return {"source": GEN_SOURCE, "generator": GEN_GENERATOR, "kernel_path": "generated",
                 "unit": fn.unit.label}
     if isinstance(fn, nc.NumericalFn):
-        return {"source": NUM_SOURCE, "kernel_path": "quad"}
-    out = {"source": SOURCE, "kernel_path": "table"}
-    if B is not None and hasattr(fn, "layout"):
-        out["layout"] = fn.layout(B)
+        out = {"source": NUM_SOURCE, "kernel_path": "quad"}
+    else:
+        out = {"source": SOURCE, "kernel_path": "table"}
+        if B is not None and hasattr(fn, "layout"):
+            out["layout"] = fn.layout(B)
+    units = fn.build_units()
+    if units:  # built at first use: past the prebuilt library's capacities
+        out.update(generator=GEN_GENERATOR, units=[u.label for u in units])
     return out
 
 
@@ -253,6 +284,68 @@ def cover_case(name):
     return spec, data, rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
 
 
+def four_mode_case(fast=True):
+    """(spec, data, RainshaftConfig) of the four-gamma-mode configuration
+    (examples/box_gamma_mixture_4modes.py: thresholds 5e-10, 5e-9, 5e-8, ∞;
+    n_tot 12, past the prebuilt kernels' 3 modes and 9 moments) in the pod's
+    column (32 levels over 3000 m, Golovin 5.0 at order 1, norms (1e6,
+    1e-9)); `fast`: the fast tier, else the reference tier (phase 25)."""
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    spec = SpectrumSpec((Family.GAMMA,) * 4)
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, FOUR_THR, norms=(1e6, 1e-9), fast_tier=fast)
+    return spec, data, rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
+
+
+def four_mode_wrappers(dev, dtype, fast=True):
+    """{kind: wrapper} of the four-gamma-mode configuration: the whole
+    step, the fused RHS and the coalescence RHS (phase 25)."""
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+
+    _, data, cfg = four_mode_case(fast)
+    kw = dict(device=dev, dtype=dtype)
+    return {"step": fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                              dt=1.0, **kw),
+            "rhs": fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, **kw),
+            "coal": fc.make_coal_fn(data, **kw)}
+
+
+def four_mode_numerical(dev, dtype):
+    """B5 at four gamma modes: the Long kernel normalized by the bench's
+    norms, its budgets (96, 48) (phase 25)."""
+    from cloudy_tpu_torch import bench
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78).normalized(bench.NORMS)
+    return nc.make_numerical_fn(SpectrumSpec((Family.GAMMA,) * 4), kf, device=dev, dtype=dtype)
+
+
+def scaled_reference_step(dev, dtype):
+    """B1s at the reference tier (C.2): pod `fixed2gamma`'s two gamma modes
+    at the default tier (Simpson grid, series/CF), the library's scaled
+    reference instance (phase 25)."""
+    import numpy as np
+
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(spec, ker, (5e-10, np.inf), norms=(1e6, 1e-9))
+    cfg = rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9))
+    return fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz, dt=1.0,
+                                     device=dev, dtype=dtype, kernel_scale=True)
+
+
 def scaled_tensor_data(spec, s=1.7):
     """Pod `fixed2gamma` data from the s-scaled Golovin tensor (phase 16)."""
     import numpy as np
@@ -266,13 +359,16 @@ def scaled_tensor_data(spec, s=1.7):
 
 
 def generated_wrappers(dev):
-    """A wrapper of every generated kernel the phases launch, built from the
-    same plans, hence the same units: the pod variants' whole step, fused
-    RHS and coalescence RHS in f32 and f64 (phases 4-12, 23, 24), the
-    bench's coalescence RHS (phases 3, 7, 19) and `rainshaft_128`'s at the
-    bench overrides (phase 18), the unscaled step from the 1.7-scaled tensor
-    in f64 (phase 16), the family matrix's fast cases in f32 (phase 20) and
-    the B-cover configurations (phase 22)."""
+    """A wrapper of every kernel the phases launch from a unit built at
+    first use (`build_units`), built from the same plans, hence the same
+    units: the pod variants' whole step, fused RHS and coalescence RHS in
+    f32 and f64 (phases 4-12, 23, 24) and their scaled whole step (B1s,
+    phase 16), the bench's coalescence RHS (phases 3, 7, 19) and
+    `rainshaft_128`'s at the bench overrides (phase 18), the unscaled step
+    from the 1.7-scaled tensor in f64 (phase 16), the family matrix's fast
+    cases in f32 (phase 20), the B-cover configurations (phase 22), and the
+    four-gamma-mode configuration's kernels at both tiers and B5 (f32,
+    phase 25)."""
     import torch
 
     from cloudy_tpu_torch import bench, harness
@@ -295,12 +391,21 @@ def generated_wrappers(dev):
         fns.append(harness.SCENARIOS["rainshaft_128"](device=dev, dtype=dt, hook=True,
                                                       **BENCH_OVERRIDES)["coal_fn"])
     fns.append(bench.coal_fn(dev))
+    for dt in (torch.float32, torch.float64):
+        for variant in yardstick.VARIANTS:
+            _, data, cfg = yardstick.pod_config(variant)
+            fns.append(fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                                 dt=1.0, device=dev, dtype=dt,
+                                                 kernel_scale=True))
+    for fast in (True, False):
+        fns += four_mode_wrappers(dev, torch.float32, fast).values()
+    fns.append(four_mode_numerical(dev, torch.float32))
     spec, _ = harness.pod_data("fixed2gamma")
     _, _, cfg = yardstick.pod_config("fixed2gamma")
     fns.append(fc.make_rainshaft_step_fn(scaled_tensor_data(spec), cfg.vel, cfg.norms, nz=NZ,
                                          dz=cfg.dz, dt=1.0, device=dev, dtype=torch.float64))
     fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
-    return [f for f in fns if f.route == "generated"]
+    return [f for f in fns if f.build_units()]
 
 
 def arm_moments(families, n, seed):
@@ -450,7 +555,7 @@ def main():
     lib_thread = threading.Thread(target=build_library)
     lib_thread.start()
     gen_fns = generated_wrappers(dev)
-    gen_records = _build.build_generated([f.unit for f in gen_fns])
+    gen_records = _build.build_generated([u for f in gen_fns for u in f.build_units()])
     gen_s = time.perf_counter() - t
     lib_thread.join()
     if lib_err:
@@ -471,7 +576,7 @@ def main():
         print(f"  generated {rec['label']}: nvcc {rec['seconds']:.3f} s{retried}; ptxas: "
               f"{pt.get('registers')} registers, {pt.get('stack')} B stack, "
               f"{pt.get('spill_stores')} B spill stores, {pt.get('spill_loads')} B spill loads")
-        if "_f32_" in rec["label"]:
+        if "_f32_" in rec["label"] and rec["label"].split("_")[0] in GEN_KINDS:
             check(pt.get("stack") == 0 and pt.get("spill_stores") == 0
                   and pt.get("spill_loads") == 0,
                   f"generated f32 unit {rec['label']} has stack or spills: {pt}")
@@ -1021,9 +1126,9 @@ def main():
             torch.cuda.synchronize()
             norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
             err, abs_err = row_scaled(got / norm, want / norm)
-            print(f"phase 16 scaled step kernel [{variant}, arms {step.plan.arms}] vs twin "
-                  f"{name}, scale 0.4-2.5 per column: row-scaled {err:.3e} (tol "
-                  f"{TOL[name]:.0e}), max abs {abs_err:.3e} (normalized) {card}")
+            print(f"phase 16 scaled step kernel [{variant}, arms {step.plan.arms}, "
+                  f"{step.route}] vs twin {name}, scale 0.4-2.5 per column: row-scaled "
+                  f"{err:.3e} (tol {TOL[name]:.0e}), max abs {abs_err:.3e} (normalized) {card}")
             check(bool(torch.isfinite(got).all()), f"scaled step [{variant}] {name} not finite")
             check(err < TOL[name], f"scaled step [{variant}] {name} vs twin {err:.3e}")
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
@@ -1060,8 +1165,21 @@ def main():
           f"B1s launched {rec['b1s_launches_8iters']} times in the 8-iteration EKI run, "
           f"not {want_launches}")
     check(all(r["observables_finite"] for r in records.values()), "EKI observables not finite")
-    check(abs(rec["s_recovered_8iters"] - 1.7) / 1.7 < 0.02,
-          f"EKI recovered s = {rec['s_recovered_8iters']:.6f}, not within 2 % of 1.7")
+    for r in records.values():
+        check(abs(r["s_recovered_8iters"] - 1.7) / 1.7 < 0.02,
+              f"EKI J={r['ensemble_members']} recovered s = {r['s_recovered_8iters']:.6f}, "
+              "not within 2 % of 1.7")
+    # the device's busy share of an EKI window (torch.profiler's device
+    # activities over a CUDA-event window of two 4-iteration runs)
+    from cloudy_tpu_torch.tools import profile_step
+
+    for J in CAL_MEMBERS:
+        prof = profile_step.profile_eki(J)
+        share = prof["busy_share"]
+        print(f"phase 16 EKI J={J} through B1s ({records[J]['seconds_per_iter'] * 1e3:.4f} ms "
+              f"per iteration above): busy share "
+              f"{'not measured' if share is None else f'{share:.4f}'} of a "
+              f"{prof['window_ms']:.4f} ms window of 2 x 4 iterations {card}")
 
     # B1s against its twin at the main path's shape, and the times there
     n_ens = CAL_MEMBERS[-1]
@@ -1081,15 +1199,67 @@ def main():
     check(serr < TOL["float32"], f"scaled step vs twin at the main-path shape {serr:.3e}")
     b1s_ms = _time_ms(lambda: step(y, srow), 100)
     b1s_plain_ms = _time_ms(lambda: step.plain(y, srow), 5)
-    print(f"phase 16 per call at [6, {state.shape[1]}]: B1s kernel {b1s_ms:.4f} ms, B1s twin "
-          f"{b1s_plain_ms:.4f} ms; unscaled B1 fixed2gamma at [6, {N_POD_COLUMNS * NZ}] in "
-          f"this call (phase 6, generated) {b1_ms:.4f} ms/step (table-driven, recorded: "
-          f"27.15-27.50) {card}")
+    print(f"phase 16 per call at [6, {state.shape[1]}]: B1s kernel ({step.route}) "
+          f"{b1s_ms:.4f} ms, B1s twin {b1s_plain_ms:.4f} ms; unscaled B1 fixed2gamma at [6, "
+          f"{N_POD_COLUMNS * NZ}] in this call (phase 6, generated) {b1_ms:.4f} ms/step {card}")
+    # B1s as redesigned: the generated unit against the table-driven instance
+    # it replaces, in turns at the EKI run's shape, with the unscaled
+    # generated B1 fixed2gamma at 2^20 x 32 read in a turn before and after
+    check(step.route == "generated", f"the EKI forward's B1s runs route {step.route}")
+    table = fc.ScaledRainshaftStepFn(step.plan, dev, torch.float32, _table=True)
+    terr, _ = row_scaled(table(y, srow) / norm, step.plain(y, srow) / norm)
+    check(terr < TOL["float32"], f"table-driven B1s vs twin {terr:.3e}")
+    grec = next(r for r in gen_records if r["label"] == step.unit.label)
+    g_rep = yardstick.gen_report(step.unit, grec)
+    t_rep = yardstick.table_report("step", torch.float32, step.plan.arms, step.plan,
+                                   scaled=True)
+
+    def show(r):
+        pt, sass = r["ptxas"], r["sass"]
+        return (f"{pt.get('registers')} registers, {pt.get('stack')} B stack, "
+                f"{pt.get('spill_stores')}/{pt.get('spill_loads')} B spill stores/loads; SASS "
+                + " ".join(f"{k} {sass.get(k)}" for k in ("LDL", "STL", "LDS", "STS", "BAR",
+                                                           "SHFL", "CALL"))
+                + f" of {sass.get('total')} instructions; {r['blocks_per_sm']} blocks/SM")
+
+    print(f"phase 16 B1s generated {step.unit.label} (nvcc {g_rep['nvcc_s']:.3f} s"
+          f"{', rebuilt' if g_rep['retried'] else ''}): {show(g_rep)} | table-driven: "
+          f"{show(t_rep)} | table-driven vs twin {terr:.3e} {card}")
+    check(g_rep["ptxas"].get("stack") == 0 and g_rep["sass"].get("LDL") == 0,
+          f"generated B1s has stack or local memory: {g_rep}")
+    b1_gen, _ = yardstick.make_fns("fixed2gamma", "step", dev, torch.float32)
+    x_pod = yardstick.pod_state("fixed2gamma", N_POD_COLUMNS, dev, torch.float32)
+
+    def b1_turn():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        yy = b1_gen(x_pod)  # warm: the outputs' allocation outside the window
+        start.record()
+        for _ in range(N_GEN_STEPS):
+            yy = b1_gen(yy)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / N_GEN_STEPS
+
+    b1_turns = [b1_turn()]
+    (s_tab, s_gen), s_raw = yardstick.time_turns([table, step], "step", y,
+                                                 N_SCALED_TURN_STEPS, scale=srow)
+    b1_turns.append(b1_turn())
+    band = all(6.08 <= v <= 6.18 for v in b1_turns)
+    print(f"phase 16 B1s at [6, {y.shape[1]}] f32, {N_SCALED_TURN_STEPS} steps per turn: "
+          f"table-driven {s_tab:.4f} ms/step, generated {s_gen:.4f} ms/step "
+          f"({s_tab / s_gen:.3f}x; turns table {[round(v, 4) for v in s_raw[0]]}, generated "
+          f"{[round(v, 4) for v in s_raw[1]]}); unscaled generated B1 fixed2gamma at [6, "
+          f"{x_pod.shape[1]}] in a turn before and after: {[round(v, 4) for v in b1_turns]} "
+          f"ms/step ({'within' if band else 'outside'} its recorded band 6.08-6.18) {card}")
+    print(json.dumps({"phase": 16, "b1s_generated": g_rep, "b1s_table": t_rep,
+                      "b1s_ms_turns": s_raw, "b1_unscaled_ms_turns": b1_turns,
+                      "card": smi.splitlines()[0]}))
+    del table, x_pod, b1_gen
     small = 8 * NZ
     kernels.append({"name": "rainshaft_step[scaled]", "route": "cuda", **kernel_source(step),
                     "replaces": B1S_REPLACES, "launches": rec["b1s_launches_8iters"],
                     "max_abs_err": sabs, "max_row_scaled_err": serr,
-                    "ms": b1s_ms, "plain_ms": b1s_plain_ms,
+                    "ms": b1s_ms, "plain_ms": b1s_plain_ms, "table_ms": s_tab,
                     **bound("rainshaft_step[scaled]",
                             lambda v: step.plain(v, srow[:small]),
                             y[:, :small].contiguous(), state.shape[1], 7, 6)})
@@ -1394,6 +1564,9 @@ def main():
 
     # ---- 24. B3 and B5 as redesigned, against what they replace -----------
     phase_24(dev, card, log, b1_ms, {r["label"]: r for r in gen_records}, class_model)
+
+    # ---- 25. C.1 and C.2: four gamma modes, the scaled reference step ----
+    phase_25(dev, card, kernels, bound, {r["label"]: r for r in gen_records})
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -2215,6 +2388,227 @@ def phase_24(dev, card, log, b1_ms, gen_records, class_model):
         del quad, direct, x, want
         torch.cuda.empty_cache()
     print(f"phase 24 seconds {time.perf_counter() - t:.3f}")
+
+
+def four_mode_state(n_cols, seed=None):
+    """The four-gamma-mode column's physical state [12, n_cols · 32]: each
+    mode's top hat (`rainshaft.initial_condition`) with the number and mean
+    mass of FOUR_AMPS (k = 1 gamma moments), every mode's mean below its
+    threshold; with a `seed`, a seeded amplitude per column and mode (0.5 to
+    1.5), one negative moment and one level of small negative ones."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch.models import rainshaft as rs
+
+    z = (np.arange(NZ) + 0.5) * 3000.0 / NZ
+    ic = np.concatenate([rs.initial_condition(z, [n, n * x, 2.0 * n * x * x])
+                         for n, x in FOUR_AMPS], axis=-1)
+    if seed is None:
+        return torch.as_tensor(ic.T.copy()).repeat(1, n_cols)
+    amp = np.random.default_rng(seed).uniform(0.5, 1.5, (n_cols, 1, 4)).repeat(3, axis=2)
+    st = np.tile(ic[None], (n_cols, 1, 1)) * amp
+    st[0, NZ // 2, 0] *= -1.0
+    st[1, NZ // 2 + 1, 3:6] = -1e-3
+    return rs.to_soa(torch.as_tensor(st))
+
+
+def phase_25(dev, card, kernels, bound, gen_records):
+    """Phase 25 (C.1, C.2): the four-gamma-mode configuration, past the
+    prebuilt kernels' 3 modes and 9 moments, at the pod's width (2^20
+    columns x 32 levels, f32): B1 generated for it (ms/step and
+    column-updates/s), B3 and B4 at [12, 2^20], B5 at [12, 262144] (the unit
+    built for four modes), the reference tier's B1, B3 and B4 (units built
+    at capacities (4, 12, 5)) at [12, 131072], and the scaled whole step at
+    the reference tier (the library's scaled reference instance) in f64 at
+    [6, 4096]; each against its twin (f32 < 1e-4, f64 < 1e-9, B5 f32 < 1e-3)
+    with its `kernels` entry: launches counted over its timed run."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.spec import Family
+
+    t = time.perf_counter()
+    f32 = torch.float32
+
+    def timed(call, n):
+        """ms per call over `n` calls after one untimed (CUDA events), and
+        the last result."""
+        out = call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            out = call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n, out
+
+    def entry(name, fn, replaces, launches, err, ms, plain_ms, bnd, B=None):
+        kernels.append({"name": name, "route": "cuda", **kernel_source(fn, B),
+                        "replaces": replaces, "launches": launches, "max_abs_err": err[1],
+                        "max_row_scaled_err": err[0], "ms": ms, "plain_ms": plain_ms, **bnd})
+
+    # (a) the fast tier: B1 at 2^20 x 32, B3 and B4 at [12, 2^20], B5 at
+    # [12, 262144]
+    fns = four_mode_wrappers(dev, f32, fast=True)
+    step, rhs, coal = fns["step"], fns["rhs"], fns["coal"]
+    check(all(f.route == "generated" for f in fns.values()),
+          f"four-mode fast tier routes {[f.route for f in fns.values()]}")
+    norm = torch.tensor(step.plan.mom_norms, dtype=f32, device=dev)[:, None]
+    n2 = torch.cat([norm, norm])
+    cmp = four_mode_state(N_CMP_COLUMNS, seed=25).to(dev, f32)
+    errs = {"step": row_scaled(step(cmp) / norm, step.plain(cmp) / norm),
+            "rhs": row_scaled(rhs.soa(cmp) / n2, rhs.plain(cmp) / n2)}
+    mom = torch.as_tensor(arm_moments((Family.GAMMA,) * 4, 1 << 20, seed=26), dtype=f32,
+                          device=dev)
+    errs["coal"] = row_scaled(coal.soa(mom), coal.plain(mom))
+    for k, (err, _) in errs.items():
+        check(err < TOL["float32"], f"four-mode {k} (generated) vs twin {err:.3e}")
+    big = four_mode_state(N_POD_COLUMNS).to(dev, f32)
+    y = step(big)  # the outputs' allocation outside the window
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(N_FOUR_STEPS):
+        y = step(y)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / N_FOUR_STEPS
+    finite = bool(torch.isfinite(y).all())
+    check(finite, "four-mode state after the timed steps not finite")
+    del y
+    phys = big[:, :1 << 20].contiguous()
+    rhs_ms, _ = timed(lambda: rhs.soa(phys), N_FOUR_STEPS - 1)
+    coal_ms, _ = timed(lambda: coal.soa(mom), N_FOUR_STEPS - 1)
+    counts = {k: f.launches for k, f in fns.items()}
+    check(all(v == N_FOUR_STEPS for v in counts.values()), f"four-mode launches {counts}")
+    plain = {"step": _time_ms(lambda: step.plain(big), 1),
+             "rhs": _time_ms(lambda: rhs.plain(phys), 1),
+             "coal": _time_ms(lambda: coal.plain(mom), 1)}
+    print(f"phase 25 [four gamma modes, generated] B1 at {N_POD_COLUMNS} x {NZ} f32: "
+          f"{step_ms:.4f} ms/step ({N_POD_COLUMNS / step_ms * 1e3:.4e} column-updates/s, "
+          f"finite {finite}); B4 at [12, {phys.shape[1]}] {rhs_ms:.4f} ms, B3 at [12, "
+          f"{mom.shape[1]}] {coal_ms:.4f} ms per launch; launches {counts}; vs twin "
+          f"(normalized, f32; B1 and B4 at {N_CMP_COLUMNS} x {NZ}): "
+          + ", ".join(f"{k} {e[0]:.3e}" for k, e in errs.items())
+          + f"; twins {', '.join(f'{k} {v:.4f} ms' for k, v in plain.items())} {card}")
+    small = cmp[:, :8 * NZ].contiguous()
+    for kk, kname, replaces, x_small, lanes, rows_out, ms in (
+            ("step", "rainshaft_step", B1_REPLACES, small, big.shape[1], 12, step_ms),
+            ("rhs", "rainshaft_rhs", B4_REPLACES, small, phys.shape[1], 24, rhs_ms),
+            ("coal", "coal_rhs", B3_REPLACES, mom[:, :256].contiguous(), mom.shape[1], 12,
+             coal_ms)):
+        fn = fns[kk]
+        entry(f"{kname}[four gamma modes]", fn, replaces, counts[kk], errs[kk], ms, plain[kk],
+              bound(f"{kname}[four gamma modes]", fn.plain, x_small, lanes, 12, rows_out))
+    del big, phys, mom, cmp, fns, step, rhs, coal
+    torch.cuda.empty_cache()
+
+    num = four_mode_numerical(dev, f32)
+    check(num.unit is not None, "four-mode B5 does not run its unit")
+    n_box = N_FOUR_NUM_BOXES
+    x = torch.as_tensor(arm_moments((Family.GAMMA,) * 4, n_box, seed=27), dtype=f32,
+                        device=dev)
+    num.soa(x[:, :64].contiguous())
+    torch.cuda.synchronize()
+    num.launches = 0
+    num_ms, got = timed(lambda: num.soa(x), N_FOUR_STEPS - 1)
+    launches = num.launches
+    want = num.plain(x, chunk=NUM_CHUNK)
+    err = row_scaled(got, want)
+    plain_ms = _time_ms(lambda: num.plain(x, chunk=NUM_CHUNK), 1)
+    print(f"phase 25 [four gamma modes] numerical kernel ({num.unit.label}) at [12, {n_box}] "
+          f"f32, Long kernel, nodes ({num.plan.g_total}, {num.plan.n_pi * num.plan.g_inner}): "
+          f"{num_ms:.4f} ms per launch (launches {launches}), twin {plain_ms:.4f} ms; vs twin "
+          f"row-scaled {err[0]:.3e} (tol {NUM_TOL['float32']:.0e}), max abs {err[1]:.3e}, "
+          f"finite {bool(torch.isfinite(got).all())} {card}")
+    check(bool(torch.isfinite(got).all()) and err[0] < NUM_TOL["float32"],
+          f"four-mode numerical kernel vs twin {err[0]:.3e}")
+    entry("numerical_rhs[four gamma modes, f32]", num, B5_REPLACES, launches, err, num_ms,
+          plain_ms, bound("numerical_rhs[four gamma modes]", num.plain, x[:, :64].contiguous(),
+                          n_box, 12, 12))
+    del num, x, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the reference tier at capacities (4, 12, 5): B1, B3, B4 at [12, 131072]
+    fns = four_mode_wrappers(dev, f32, fast=False)
+    step, rhs, coal = fns["step"], fns["rhs"], fns["coal"]
+    check(all(f.route == "table" and f.caps == (4, 12, 5) for f in fns.values()),
+          "four-mode reference tier not on units at capacities (4, 12, 5)")
+    x = four_mode_state(N_REF_COLUMNS, seed=28).to(dev, f32)
+    xn = (x.clamp_min(0) / norm).contiguous()
+    lanes = x.shape[1]
+    for f in fns.values():
+        f.launches = 0
+    times = {"step": timed(lambda: step(x), N_FOUR_STEPS - 1),
+             "rhs": timed(lambda: rhs.soa(x), N_FOUR_STEPS - 1),
+             "coal": timed(lambda: coal.soa(xn), N_FOUR_STEPS - 1)}
+    counts = {k: f.launches for k, f in fns.items()}
+    errs = {"step": row_scaled(times["step"][1] / norm, step.plain(x) / norm),
+            "rhs": row_scaled(times["rhs"][1] / n2, rhs.plain(x) / n2),
+            "coal": row_scaled(times["coal"][1], coal.plain(xn))}
+    plain = {"step": _time_ms(lambda: step.plain(x), 1),
+             "rhs": _time_ms(lambda: rhs.plain(x), 1),
+             "coal": _time_ms(lambda: coal.plain(xn), 1)}
+    units = {k: [u.label for u in f.build_units()] for k, f in fns.items()}
+    print(f"phase 25 [four gamma modes, reference tier] at [12, {lanes}] f32 (units {units}, "
+          f"B3 layout {coal.layout(lanes)}): "
+          + ", ".join(f"{k} {times[k][0]:.4f} ms (twin {plain[k]:.4f}, vs twin {errs[k][0]:.3e})"
+                      for k in times)
+          + f" (tol {TOL['float32']:.0e}); launches {counts} {card}")
+    for k, (err, _) in errs.items():
+        check(err < TOL["float32"], f"four-mode reference {k} vs twin {err:.3e}")
+        check(bool(torch.isfinite(times[k][1]).all()), f"four-mode reference {k} not finite")
+    check(all(v == N_FOUR_STEPS for v in counts.values()), f"reference launches {counts}")
+    small = x[:, :8 * NZ].contiguous()
+    for kk, kname, replaces, x_small, rows_out in (
+            ("step", "rainshaft_step", B1_REPLACES, small, 12),
+            ("rhs", "rainshaft_rhs", B4_REPLACES, small, 24),
+            ("coal", "coal_rhs", B3_REPLACES, xn[:, :8 * NZ].contiguous(), 12)):
+        entry(f"{kname}[reference, four gamma modes]", fns[kk], replaces, counts[kk], errs[kk],
+              times[kk][0], plain[kk],
+              bound(f"{kname}[reference, four gamma modes]", fns[kk].plain, x_small, lanes, 12,
+                    rows_out), B=lanes)
+    del fns, step, rhs, coal, x, xn, times
+    torch.cuda.empty_cache()
+
+    # (c) the scaled whole step at the reference tier, f64, [6, 4096]
+    f64 = torch.float64
+    sfn = scaled_reference_step(dev, f64)
+    check(sfn.plan.instance == 2 and sfn.route == "table" and sfn.caps == fc.CAPS,
+          "the scaled reference step is not the library's reference instance")
+    n_cols = 4096 // NZ
+    z = (np.arange(NZ) + 0.5) * 3000.0 / NZ
+    ic = np.concatenate([rs.initial_condition(z, [1e8, 1e-2, 2e-12]),
+                         rs.initial_condition(z, [1e7, 1e-3, 2e-13])], axis=-1)
+    amp = np.random.default_rng(29).uniform(0.5, 1.5, (n_cols, 1, 2)).repeat(3, axis=2)
+    x = rs.to_soa(torch.as_tensor(np.tile(ic[None], (n_cols, 1, 1)) * amp)).to(dev, f64)
+    srow = torch.linspace(0.4, 2.5, n_cols, dtype=f64, device=dev).repeat_interleave(NZ)
+    sfn.launches = 0
+    s_ms, got = timed(lambda: sfn(x, srow), N_FOUR_STEPS - 1)
+    launches = sfn.launches
+    norm6 = norm[:6].to(f64)
+    err = row_scaled(got / norm6, sfn.plain(x, srow) / norm6)
+    plain_ms = _time_ms(lambda: sfn.plain(x, srow), 1)
+    print(f"phase 25 [scaled whole step, reference tier] at [6, {x.shape[1]}] f64, scale "
+          f"0.4-2.5 per column: {s_ms:.4f} ms per launch (launches {launches}), twin "
+          f"{plain_ms:.4f} ms; vs twin row-scaled {err[0]:.3e} (tol {TOL['float64']:.0e}), "
+          f"max abs {err[1]:.3e} (normalized) {card}")
+    check(bool(torch.isfinite(got).all()) and err[0] < TOL["float64"],
+          f"scaled reference step vs twin {err[0]:.3e}")
+    entry("rainshaft_step[scaled, reference, f64]", sfn, B1S_REPLACES, launches, err, s_ms,
+          plain_ms, bound("rainshaft_step[scaled, reference, f64]",
+                          lambda v: sfn.plain(v, srow[:8 * NZ]), x[:, :8 * NZ].contiguous(),
+                          x.shape[1], 7, 6, f64=True))
+    print(json.dumps({"phase": 25, "entries": kernels[-8:]}))
+    del sfn, x, got
+    torch.cuda.empty_cache()
+    print(f"phase 25 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

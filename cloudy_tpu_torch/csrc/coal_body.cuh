@@ -64,18 +64,29 @@
 
 namespace cloudy {
 
-// capacities (MAX_MODES and CFG_MAX_BYTES: common.cuh); the library exports
-// them with the header size (`cloudy_layout`) and the host checks its own
-// copy against them on load
-constexpr int MAX_NTOT = 9;
+// Capacities. A configuration type `C` carries its own as `C::kModes`,
+// `C::kNtot` and `C::kM` (modes, moments, moment orders M: the size of every
+// per-lane array of the body), with `C::kS` = 2 kM - 1 orders s of
+// P(2k + s, T/theta) and `C::kFtab` = kM (kM + 1) / 2 entries of an F2 row.
+// The table-driven `Config<T>` takes them from CLOUDY_CAP_MODES,
+// CLOUDY_CAP_NTOT and CLOUDY_CAP_M: the prebuilt library's (3, 9, 5), or a
+// unit's own, defined before this header by a unit built at first use for a
+// plan past them (ops/codegen.py `ref_unit`). A generated configuration's
+// are its own n_modes and n_tot, and M but at least MAX_M (the F2 rows'
+// stride). The library exports its capacities with the header size
+// (`cloudy_layout`, a unit `cloudy_ref_layout`) and the host checks its own
+// copy against them on load.
+#ifndef CLOUDY_CAP_MODES
+#define CLOUDY_CAP_MODES 3
+#define CLOUDY_CAP_NTOT 9
+#define CLOUDY_CAP_M 5
+#endif
+constexpr int CAP_MODES = CLOUDY_CAP_MODES;
+constexpr int CAP_NTOT = CLOUDY_CAP_NTOT;
+constexpr int CAP_M = CLOUDY_CAP_M;
+// the least F2 row stride (the prebuilt capacity of M)
 constexpr int MAX_M = 5;
-constexpr int MAX_S = 2 * MAX_M - 1;  // orders s of P(2k + s, T/theta)
 constexpr int MAX_NPROG = 3;
-// per-mode F2 table: P(2k + s, T/theta) for s < MAX_S (exact
-// gamma/exponential), the p <= q entries packed by `tri` (a window or grid
-// rule), or the monodisperse flag theta < T/2 in entry 0
-constexpr int FTAB = MAX_M * (MAX_M + 1) / 2;
-static_assert(FTAB >= MAX_S, "F2 table too small for the gamma orders");
 
 // int32 layout of the packed configuration: a 10-slot header, then
 // per-mode ints and the wb/wf index tables; the reals start at the byte
@@ -85,16 +96,11 @@ constexpr int H_NMODES = 0, H_NTOT = 1, H_M = 2, H_NGL = 3, H_NWB = 4,
 // reference tier: quadrature rule (1 Gauss), series/CF iterations of the F2
 // incomplete gamma, Newton steps and their series/CF iterations, points of
 // a moving Simpson grid, GL base nodes of a moving Gauss grid, then per
-// mode the F2 kind and the length of its fixed grid
+// mode (kModes slots each: `Config`) the F2 kind and the length of its fixed
+// grid
 constexpr int H_QUAD = 10, H_GI_ITERS = 11, H_NEWTON = 12, H_THR_ITERS = 13,
               H_NPTS = 14, H_NGAUSS = 15;
 constexpr int I_F2KIND = 16;
-constexpr int I_GRIDN = I_F2KIND + MAX_MODES;
-constexpr int I_FAM = I_GRIDN + MAX_MODES;
-constexpr int I_OFF = I_FAM + MAX_MODES;
-constexpr int I_NPROG = I_OFF + MAX_MODES;
-constexpr int I_THR = I_NPROG + MAX_MODES;
-constexpr int I_TABLES = I_THR + MAX_MODES;
 
 // jnp.sign: -1, 0 or 1, and NaN for NaN
 template <typename T> __device__ __forceinline__ T vsign(T x) {
@@ -105,15 +111,24 @@ template <typename T> __device__ __forceinline__ T vsign(T x) {
 constexpr int F2_NONE = 0, F2_EXACT = 1, F2_WINDOW = 2, F2_GRID = 3,
               F2_MONO = 4;
 
-// index of (p, q), p <= q < MAX_M, in an FTAB row
-__host__ __device__ constexpr int tri(int p, int q) {
-  return p * (2 * MAX_M - p - 1) / 2 + q;
+// index of (p, q), p <= q < kM, in an F2 row of stride kM
+template <int kM> __host__ __device__ constexpr int tri(int p, int q) {
+  return p * (2 * kM - p - 1) / 2 + q;
 }
 
 // The configuration, bound to the block's shared-memory copy.
 template <typename T> struct Config {
   using real = T;
   static constexpr bool kStatic = false;
+  static constexpr int kModes = CAP_MODES, kNtot = CAP_NTOT, kM = CAP_M;
+  static constexpr int kS = 2 * kM - 1, kFtab = kM * (kM + 1) / 2;
+  // per-mode int slots and the header's size
+  static constexpr int I_GRIDN = I_F2KIND + kModes;
+  static constexpr int I_FAM = I_GRIDN + kModes;
+  static constexpr int I_OFF = I_FAM + kModes;
+  static constexpr int I_NPROG = I_OFF + kModes;
+  static constexpr int I_THR = I_NPROG + kModes;
+  static constexpr int I_TABLES = I_THR + kModes;
   int n_modes, n_tot, M, n_gl, n_wb, n_wf, n_vel, moving, n_win;
   int quad, gi_iters, newton_iters, thr_gi_iters, n_pts, n_gauss;
   const int* f2kind;
@@ -124,11 +139,11 @@ template <typename T> struct Config {
   const int* thr_flag;  // mode carries an F2 integral
   const int* wb_idx;    // n_wb x (o, i, j)
   const int* wf_idx;    // n_wf x (o, k, a, b), a <= b
-  // [MAX_MODES] fixed: normalized thresholds; moving: gamma the percentile
+  // [kModes] fixed: normalized thresholds; moving: gamma the percentile
   // p, exponential -log1p(-p), lognormal ndtri(p) (host double)
   const T* thr;
-  const T* norm;      // [MAX_NTOT] moment norms
-  const T* inv_norm;  // [MAX_NTOT] 1 / norm (host double)
+  const T* norm;      // [kNtot] moment norms
+  const T* inv_norm;  // [kNtot] 1 / norm (host double)
   const T* wb_c;
   const T* wf_c;
   const T* vel_c;  // normalized velocity coefficients
@@ -141,7 +156,7 @@ template <typename T> struct Config {
   const T* win_v;  // lognormal window GL nodes
   const T* win_w;  // and weights
   T dt, inv_dz, two_thirds;
-  const T* grid_dx;  // [MAX_MODES] dx of each fixed grid
+  const T* grid_dx;  // [kModes] dx of each fixed grid
   const T* gauss_u;  // n_gauss GL base nodes of a moving Gauss grid
   const T* gauss_w;  // and weights
   const T* grids;    // per fixed-grid mode: x[grid_n], w[grid_n]
@@ -173,9 +188,9 @@ template <typename T> struct Config {
     wf_idx = wb_idx + 3 * n_wb;
     const T* rp = reinterpret_cast<const T*>(buf + ip[H_REAL_OFF]);
     thr = rp;
-    norm = thr + MAX_MODES;
-    inv_norm = norm + MAX_NTOT;
-    wb_c = inv_norm + MAX_NTOT;
+    norm = thr + kModes;
+    inv_norm = norm + kNtot;
+    wb_c = inv_norm + kNtot;
     wf_c = wb_c + n_wb;
     vel_c = wf_c + n_wf;
     vel_e = vel_c + n_vel;
@@ -190,7 +205,7 @@ template <typename T> struct Config {
     inv_dz = win_w[n_win + 1];
     two_thirds = win_w[n_win + 2];
     grid_dx = win_w + n_win + 3;
-    gauss_u = grid_dx + MAX_MODES;
+    gauss_u = grid_dx + kModes;
     gauss_w = gauss_u + n_gauss;
     grids = gauss_w + n_gauss;
   }
@@ -415,11 +430,11 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
   const T lga01 = sc ? lgamma_lanczos(a0 + T(1)) : lgamma_stirling(a0 + T(1));
   T d = dexp(a0 * log_x - x - lga01);
   d = (x > T(0)) ? d : T(0);
-  T ds[MAX_S];
+  T ds[C::kS];
   ds[0] = d;
   T prod = T(1);
 #pragma unroll
-  for (int j = 1; j < MAX_S - 1; ++j) {
+  for (int j = 1; j < C::kS - 1; ++j) {
     if (j < 2 * M - 2) {
       ds[j] = ds[j - 1] * x / (a0 + T(j));
       prod = (j == 1) ? (a0 + T(j)) : prod * (a0 + T(j));
@@ -438,7 +453,7 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
   }
   gis[2 * M - 2] = gi;
 #pragma unroll
-  for (int j = MAX_S - 2; j >= 0; --j) {
+  for (int j = C::kS - 2; j >= 0; --j) {
     if (j <= 2 * M - 3) {
       gi = vclip(gi + ds[j], T(0), T(1));
       gis[j] = gi;
@@ -447,7 +462,8 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
 }
 
 // _f2_lognormal_window: the lognormal F2 entries p <= q < M (before the
-// clamp) by the density-recentred GL window rule, written to f2[tri(p, q)].
+// clamp) by the density-recentred GL window rule, written to f2[tri(p, q)]
+// (`tri` of stride C::kM, as every F2 row below).
 // The nodes are streamed: each node adds ypow_p * pm_q to p <= q
 // accumulators (the Pallas body sums its [G, TB] tile with jnp.sum), and
 // exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop.
@@ -465,14 +481,14 @@ __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
   const T two_s2 = T(2) * s2;
   const T sig_c = sig * T(2.5066282746310002);  // sqrt(2 pi)
   const T sig_r2 = sig * T(1.4142135623730951);  // sqrt(2)
-  T eq[MAX_M], qs2[MAX_M], acc[FTAB];
+  T eq[C::kM], qs2[C::kM], acc[C::kFtab];
 #pragma unroll
-  for (int q = 0; q < MAX_M; ++q) {
+  for (int q = 0; q < C::kM; ++q) {
     eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
     qs2[q] = T(q) * s2;
   }
 #pragma unroll
-  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
+  for (int e = 0; e < C::kFtab; ++e) acc[e] = T(0);
   each<C>(c.n_win, [&](int g) {
     const T u = center + half * c.win_v[g];
     const T x = dexp(u);
@@ -480,9 +496,9 @@ __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
     const T g0 = half * c.win_w[g] * dexp(-(du * du) / two_s2) / sig_c;
     const T rem = vmax(thr - x, T(0));
     const T logrem = dlog(vmax(rem, tiny));
-    T pm[MAX_M];
+    T pm[C::kM];
 #pragma unroll
-    for (int q = 0; q < MAX_M; ++q) {
+    for (int q = 0; q < C::kM; ++q) {
       if (q < M) {
         const T z = (logrem - mu - qs2[q]) / sig_r2;
         const T v = eq[q] * T(0.5) * (T(1) + erf_approx(z));
@@ -491,18 +507,18 @@ __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
     }
     T ypow = g0;
 #pragma unroll
-    for (int p = 0; p < MAX_M; ++p) {
+    for (int p = 0; p < C::kM; ++p) {
       if (p < M) {
         if (p > 0) ypow = ypow * x;
 #pragma unroll
-        for (int q = p; q < MAX_M; ++q)
-          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * pm[q];
+        for (int q = p; q < C::kM; ++q)
+          if (q < M) acc[tri<C::kM>(p, q)] = acc[tri<C::kM>(p, q)] + ypow * pm[q];
       }
     }
   });
   const T n2 = n * n;
 #pragma unroll
-  for (int e = 0; e < FTAB; ++e) f2[e] = acc[e] * n2;
+  for (int e = 0; e < C::kFtab; ++e) f2[e] = acc[e] * n2;
 }
 
 // How a lane takes its part of a quadrature grid's nodes (the grid F2 loops
@@ -557,13 +573,13 @@ template <typename T> __device__ __forceinline__ T simpson_weight(T j, T nb) {
 // (log10 as jnp.log10: log times 1/ln 10 in T; the division, the log, the
 // product by 15 and the floor in the twin's order). Shared by the gamma and
 // the lognormal grid F2.
-template <typename T> struct QuadGrid {
+template <class C, typename T> struct QuadGrid {
   int G;
   T dx = T(1), ga = T(0), ghalf = T(0), x_min = T(0), nb = T(0);
   const T* gx = nullptr;
   bool gauss;
 
-  __device__ __forceinline__ QuadGrid(const Config<T>& c, int i, T thr) {
+  __device__ __forceinline__ QuadGrid(const C& c, int i, T thr) {
     gauss = c.quad != 0;
     if (!c.moving) {
       G = c.grid_n[i];
@@ -586,7 +602,7 @@ template <typename T> struct QuadGrid {
 
   // node g's abscissa and weight; false past the moving Simpson mask (every
   // later node has weight zero)
-  __device__ __forceinline__ bool node(const Config<T>& c, int g, T& x,
+  __device__ __forceinline__ bool node(const C& c, int g, T& x,
                                        T& w) const {
     if (!c.moving) {
       x = gx[g];
@@ -613,9 +629,9 @@ template <typename T> struct QuadGrid {
 // past the mask or at rem = 0 add exact zeros and are skipped. Then times dx
 // and the multiplicative prefactors n^2 theta^(q-k) Gamma(q+k) / Gamma(k)^2.
 // The lane's nodes and the sum of the parts follow `sp` (Serial, WarpSplit).
-template <typename T, class Sp>
-__device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
-                                              T n, T theta, T k, T* f2,
+template <class C, typename T, class Sp>
+__device__ __forceinline__ void f2_gamma_grid(const C& c, int i, T thr, T n,
+                                              T theta, T k, T* f2,
                                               const Sp& sp) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
@@ -625,16 +641,16 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
   const T lg_top = lgamma_lanczos(a_top);
   const T lgk = lgamma_lanczos(k);
   const T logth = dlog(theta);
-  T prefs[MAX_M];
+  T prefs[C::kM];
   prefs[0] = (n * n) * dexp(-k * logth - lgk);
 #pragma unroll
-  for (int q = 1; q < MAX_M; ++q)
+  for (int q = 1; q < C::kM; ++q)
     if (q < M) prefs[q] = prefs[q - 1] * theta * ((k + T(q)) - T(1));
 
-  const QuadGrid<T> grid(c, i, thr);
-  T acc[FTAB];
+  const QuadGrid<C, T> grid(c, i, thr);
+  T acc[C::kFtab];
 #pragma unroll
-  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
+  for (int e = 0; e < C::kFtab; ++e) acc[e] = T(0);
   for (int g = sp.first(); g < grid.G; g += Sp::kStep) {
     T x, w;
     if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
@@ -642,16 +658,16 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
     if (!(rem > T(0))) continue;  // every gis is zero
     const T logx = dlog(x);
     const T log_rem = dlog(vmax(rem, tiny));
-    T deltas[MAX_M];
+    T deltas[C::kM];
     deltas[0] = dexp(k * log_rem - rem - lgk1);
 #pragma unroll
-    for (int q = 1; q < MAX_M - 1; ++q)
+    for (int q = 1; q < C::kM - 1; ++q)
       if (q < M - 1) deltas[q] = deltas[q - 1] * rem / (k + T(q));
     T gi = (c.n_gl > 0) ? gammainc_gl(c, a_top, rem, lg_top)
                         : gammainc_sc(a_top, rem, c.gi_iters, lg_top, log_rem);
-    T gis[MAX_M];  // the top order, then downward (unrolled: registers)
+    T gis[C::kM];  // the top order, then downward (unrolled: registers)
 #pragma unroll
-    for (int q = MAX_M - 1; q >= 0; --q) {
+    for (int q = C::kM - 1; q >= 0; --q) {
       if (q == M - 1) {
         gis[q] = gi;
       } else if (q < M - 1) {
@@ -662,20 +678,21 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
     const T base = dexp(k * logx - x * inv_theta) * w;
     T ypow = base;
 #pragma unroll
-    for (int p = 0; p < MAX_M; ++p) {
+    for (int p = 0; p < C::kM; ++p) {
       if (p < M) {
         if (p > 0) ypow = ypow * x;
 #pragma unroll
-        for (int q = p; q < MAX_M; ++q)
-          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * gis[q];
+        for (int q = p; q < C::kM; ++q)
+          if (q < M) acc[tri<C::kM>(p, q)] = acc[tri<C::kM>(p, q)] + ypow * gis[q];
       }
     }
   }
 #pragma unroll
-  for (int p = 0; p < MAX_M; ++p)
+  for (int p = 0; p < C::kM; ++p)
 #pragma unroll
-    for (int q = p; q < MAX_M; ++q)
-      if (q < M) f2[tri(p, q)] = sp.total(acc[tri(p, q)]) * grid.dx * prefs[q];
+    for (int q = p; q < C::kM; ++q)
+      if (q < M)
+        f2[tri<C::kM>(p, q)] = sp.total(acc[tri<C::kM>(p, q)]) * grid.dx * prefs[q];
 }
 
 // _f2_lognormal (:458-496): the lognormal F2 entries p <= q < M (before the
@@ -688,10 +705,10 @@ __device__ __forceinline__ void f2_gamma_grid(const Config<T>& c, int i, T thr,
 // rem = 0 add exact zeros and are skipped. Then times dx and n^2.
 // exp(q mu + q^2 sigma^2 / 2) is hoisted out of the node loop. The lane's
 // nodes and the sum of the parts follow `sp` (Serial, WarpSplit).
-template <typename T, class Sp>
-__device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
-                                                  T thr, T n, T mu, T sig,
-                                                  T* f2, const Sp& sp) {
+template <class C, typename T, class Sp>
+__device__ __forceinline__ void f2_lognormal_grid(const C& c, int i, T thr, T n,
+                                                  T mu, T sig, T* f2,
+                                                  const Sp& sp) {
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const T s2 = sig * sig;
@@ -699,12 +716,12 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
   const T sig_r2 = sig * T(1.4142135623730951);  // sqrt(2)
   const T lg_half = lgamma_lanczos(T(0.5));
   const bool approx = c.n_gl > 0;
-  T eq[MAX_M], acc[FTAB];
+  T eq[C::kM], acc[C::kFtab];
 #pragma unroll
-  for (int q = 0; q < MAX_M; ++q) eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
+  for (int q = 0; q < C::kM; ++q) eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
 #pragma unroll
-  for (int e = 0; e < FTAB; ++e) acc[e] = T(0);
-  const QuadGrid<T> grid(c, i, thr);
+  for (int e = 0; e < C::kFtab; ++e) acc[e] = T(0);
+  const QuadGrid<C, T> grid(c, i, thr);
   for (int g = sp.first(); g < grid.G; g += Sp::kStep) {
     T x, w;
     if (!grid.node(c, g, x, w)) break;  // masked: weight zero from here on
@@ -713,9 +730,9 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
     const T du = dlog(vmax(x, tiny)) - mu;
     const T fx = dexp(-(du * du) / two_s2) / (x * sig * T(2.5066282746310002));
     const T logrem = dlog(vmax(rem, tiny));
-    T pm[MAX_M];
+    T pm[C::kM];
 #pragma unroll
-    for (int q = 0; q < MAX_M; ++q) {
+    for (int q = 0; q < C::kM; ++q) {
       if (q < M) {
         const T z = (logrem - mu - T(q) * s2) / sig_r2;
         const T erf_z = approx ? erf_approx(z) : erf_series(z, c.gi_iters, lg_half);
@@ -724,21 +741,21 @@ __device__ __forceinline__ void f2_lognormal_grid(const Config<T>& c, int i,
     }
     T ypow = x * fx * w;
 #pragma unroll
-    for (int p = 0; p < MAX_M; ++p) {
+    for (int p = 0; p < C::kM; ++p) {
       if (p < M) {
         if (p > 0) ypow = ypow * x;
 #pragma unroll
-        for (int q = p; q < MAX_M; ++q)
-          if (q < M) acc[tri(p, q)] = acc[tri(p, q)] + ypow * pm[q];
+        for (int q = p; q < C::kM; ++q)
+          if (q < M) acc[tri<C::kM>(p, q)] = acc[tri<C::kM>(p, q)] + ypow * pm[q];
       }
     }
   }
   const T n2 = n * n;
 #pragma unroll
-  for (int p = 0; p < MAX_M; ++p)
+  for (int p = 0; p < C::kM; ++p)
 #pragma unroll
-    for (int q = p; q < MAX_M; ++q)
-      if (q < M) f2[tri(p, q)] = sp.total(acc[tri(p, q)]) * grid.dx * n2;
+    for (int q = p; q < C::kM; ++q)
+      if (q < M) f2[tri<C::kM>(p, q)] = sp.total(acc[tri<C::kM>(p, q)]) * grid.dx * n2;
 }
 
 // The per-lane threshold of thresholded mode i: the packed constant under
@@ -781,10 +798,10 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
   static_assert(!(kRef && C::kStatic), "the reference tier is table-driven");
   const T eps = Lim<T>::eps();
   const int M = c.M;
-  T mf[MAX_MODES * MAX_M];
-  T ftab[MAX_MODES][kArms ? FTAB : MAX_S];
+  T mf[C::kModes * C::kM];
+  T ftab[C::kModes][kArms ? C::kFtab : C::kS];
 #pragma unroll
-  for (int i = 0; i < MAX_MODES; ++i) {
+  for (int i = 0; i < C::kModes; ++i) {
     if (i >= c.n_modes) continue;
     const int fam = c.fam[i];
     const bool logn = kArms && fam == FAM_LOGNORMAL;
@@ -854,7 +871,7 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
       else if (c.thr_flag[k])
         v = (kArms && (c.fam[k] == FAM_LOGNORMAL ||
                        (kRef && c.f2kind[k] == F2_GRID)))
-                ? vmin(mm, ftab[k][tri(a, b)])
+                ? vmin(mm, ftab[k][tri<C::kM>(a, b)])
                 : vmin(mm, mm * ftab[k][a + b]);
       v = (mm < eps) ? T(0) : v;
       acc[ix[0]] = acc[ix[0]] + c.wf_c[e] * v;
@@ -871,7 +888,7 @@ __device__ __forceinline__ void sedi_flux(const C& c, const T (*params)[3],
                                           T* flux) {
   const T tiny = Lim<T>::tiny();
 #pragma unroll
-  for (int i = 0; i < MAX_MODES; ++i) {
+  for (int i = 0; i < C::kModes; ++i) {
     if (i >= c.n_modes) continue;
     const int fam = c.fam[i];
     const bool logn = kArms && fam == FAM_LOGNORMAL;

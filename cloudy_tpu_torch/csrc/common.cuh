@@ -14,8 +14,9 @@
 
 namespace cloudy {
 
-constexpr int MAX_MODES = 3;
-constexpr int CFG_MAX_BYTES = 12288;
+// The dynamic shared memory a launch takes without opting in (a kernel that
+// may take more opts in per launch: `allow_smem` below).
+constexpr int SMEM_NO_OPTIN = 48 * 1024;
 
 // spec.Family
 constexpr int FAM_EXPONENTIAL = 0;
@@ -55,6 +56,17 @@ template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
 }
 template <typename T> __device__ __forceinline__ T vclip(T x, T lo, T hi) {
   return vmin(vmax(x, lo), hi);
+}
+
+// Opts a kernel into more than SMEM_NO_OPTIN bytes of dynamic shared memory
+// where its launch asks for that much (host code: before the launch and
+// before an occupancy query at the same size). Past the card's opt-in limit
+// the attribute, and so the launch, is refused.
+template <class K> inline cudaError_t allow_smem(K kern, size_t smem) {
+  return smem > (size_t)SMEM_NO_OPTIN
+             ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)
+             : cudaSuccess;
 }
 
 // Copy the packed configuration (16-byte padded) into shared memory.

@@ -61,17 +61,29 @@
 // lognormal, series/CF incomplete gamma, Newton percentile inverse,
 // Lanczos-pair flux, monodisperse modes) built in units of its own;
 // the entry points' `arms` argument (0, 1, 2: `FusedPlan.instance`) picks
-// one. The scaled whole step has the two fast instances only.
+// one. The scaled whole step has all three, its reference instance as
+// JAX's `fn_scaled` passes a reference plan's grid inputs (:1022-1056).
+//
+// The library is built at the configuration's prebuilt capacities (3 modes,
+// 9 moments, M 5: coal_body.cuh). A reference-tier plan past them runs a
+// unit built at first use (ops/codegen.py `ref_unit`): this file included
+// with its own CLOUDY_CAP_* and CLOUDY_UNIT -1 (every template, no
+// prebuilt instance or entry point), then CLOUDY_REF_ENTRY for one kernel.
+// The packed tables live in dynamic shared memory, sized by each launch
+// from the packed configuration (the whole step adds its flux rows); above
+// 48 KB a launch opts in (allow_smem), and the host refuses, saying why, a
+// configuration past the card's opt-in limit.
 
 #include "rainshaft_lanes.cuh"
 
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
 // kernel (the whole step: scaled or not; units 8-13: the reference tier;
-// 14-15: the reference coalescence RHS with a warp per box) in
-// one type. Without CLOUDY_UNIT the file builds everything.
+// 14-15: the reference coalescence RHS with a warp per box; 16-17: the
+// scaled reference whole step) in one type. Without CLOUDY_UNIT the file
+// builds everything.
 //
-// The reference whole step (units 12, 13) is compiled without FMA
+// The reference whole step (units 12, 13, 16, 17) is compiled without FMA
 // contraction: every product and sum is rounded on its own, as the plain
 // twin's torch ops round them, so that the step rounds as its twin does
 // wherever its arithmetic has no reduction order of its own (the
@@ -79,7 +91,7 @@
 // whose rounding noise grows by orders of magnitude per step (monodisperse +
 // gamma from an empty second mode, PERF.md) can then be held against the
 // twin over many steps. Every other unit keeps nvcc's contraction.
-// CLOUDY_NO_FMA_UNITS: 12 13
+// CLOUDY_NO_FMA_UNITS: 12 13 16 17
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else
@@ -133,14 +145,15 @@ __global__ void __launch_bounds__(COAL_WARP_THREADS)
   const WarpSplit sp{(int)(threadIdx.x & 31)};
   if (box >= B) return;  // a whole warp: no barrier or shuffle follows for it
 
-  T m[MAX_NTOT], acc[MAX_NTOT], params[MAX_MODES][3];
+  using C = Config<T>;
+  T m[C::kNtot], acc[C::kNtot], params[C::kModes][3];
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
+  for (int o = 0; o < C::kNtot; ++o)
     if (o < c.n_tot) m[o] = mom[o * B + box];  // one address per warp
   coal_body<true, true>(c, m, acc, params, sp);
   if (sp.lane == 0) {
 #pragma unroll
-    for (int o = 0; o < MAX_NTOT; ++o)
+    for (int o = 0; o < C::kNtot; ++o)
       if (o < c.n_tot) out[o * B + box] = acc[o];
   }
 }
@@ -187,27 +200,34 @@ __global__ void step_kernel(const T* __restrict__ mom, T* __restrict__ out,
 
 
 // One instance's launch (kernel sizes and the configuration check).
+// The launches' check of the packed configuration: its size is whole 16-byte
+// words (load_config's copy); the shared memory it takes is opted into by
+// each launch (allow_smem) and bounded by the card alone.
+inline bool cfg_ok(int cfg_bytes) { return cfg_bytes > 0 && cfg_bytes % 16 == 0; }
+
 template <typename T, bool kArms, bool kRef>
 int launch_coal_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
                      long long B, void* stream) {
-  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(cfg_bytes)) return (int)cudaErrorInvalidValue;
+  const auto kern = coal_kernel<T, kArms, kRef>;
+  const cudaError_t e = allow_smem(kern, cfg_bytes);
+  if (e != cudaSuccess) return (int)e;
   const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
-  coal_kernel<T, kArms, kRef>
-      <<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
-          (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
+  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kArms, bool kRef>
 int launch_rhs_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
                     long long B, void* stream) {
-  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(cfg_bytes)) return (int)cudaErrorInvalidValue;
+  const auto kern = rhs_kernel<T, kArms, kRef>;
+  const cudaError_t e = allow_smem(kern, cfg_bytes);
+  if (e != cudaSuccess) return (int)e;
   const long long blocks = (B + COAL_THREADS - 1) / COAL_THREADS;
-  rhs_kernel<T, kArms, kRef>
-      <<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
-          (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
+  kern<<<(unsigned)blocks, COAL_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
@@ -222,14 +242,15 @@ struct LaunchDims {
 
 template <typename T> LaunchDims step_dims(int cfg_bytes, int nz) {
   const int threads = (nz >= STEP_TARGET_THREADS ? 1 : STEP_TARGET_THREADS / nz) * nz;
-  return {threads, (size_t)cfg_bytes + (size_t)MAX_NTOT * threads * sizeof(T)};
+  return {threads,
+          (size_t)cfg_bytes + (size_t)Config<T>::kNtot * threads * sizeof(T)};
 }
 
 template <typename T, bool kArms, bool kScale, bool kRef>
 int launch_step_inst(const void* mom, void* out, const void* cfg, int cfg_bytes,
                      long long B, int nz, const void* scale, void* stream) {
-  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
-      nz < 2 || nz > 1024 || B % nz != 0 || (kScale && scale == nullptr))
+  if (!cfg_ok(cfg_bytes) || nz < 2 || nz > 1024 || B % nz != 0 ||
+      (kScale && scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto kern = step_kernel<T, kArms, kScale, kRef>;
   const LaunchDims d = step_dims<T>(cfg_bytes, nz);
@@ -258,8 +279,11 @@ int step_blocks_per_sm(int cfg_bytes, int nz, int* out) {
 
 template <typename T, bool kArms, bool kRef = false>
 int coal_blocks_per_sm(int cfg_bytes, int* out) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, coal_kernel<T, kArms, kRef>, COAL_THREADS, (size_t)cfg_bytes);
+  const auto kern = coal_kernel<T, kArms, kRef>;
+  const cudaError_t e = allow_smem(kern, cfg_bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, COAL_THREADS,
+                                                            (size_t)cfg_bytes);
 }
 
 // Resident threads per SM of the reference tier's thread-per-box instance,
@@ -273,21 +297,24 @@ template <typename T> int coal_ref_threads_per_sm(int cfg_bytes, int* out) {
 
 template <typename T, bool kArms>
 int rhs_blocks_per_sm(int cfg_bytes, int* out) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, rhs_kernel<T, kArms, false>, COAL_THREADS, (size_t)cfg_bytes);
+  const auto kern = rhs_kernel<T, kArms, false>;
+  const cudaError_t e = allow_smem(kern, cfg_bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, COAL_THREADS,
+                                                            (size_t)cfg_bytes);
 }
 
-// The reference-tier instances, defined in their own build units (8-13)
-// and called from the entry points' units.
+// The reference-tier instances, defined in their own build units (8-13,
+// 16-17) and called from the entry points' units.
 template <typename T>
 int launch_coal_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
                     long long B, void* stream);
 template <typename T>
 int launch_rhs_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
                    long long B, void* stream);
-template <typename T>
+template <typename T, bool kScale>
 int launch_step_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                    long long B, int nz, void* stream);
+                    long long B, int nz, const void* scale, void* stream);
 
 #if CLOUDY_IN_UNIT(8) || CLOUDY_IN_UNIT(9)
 template <typename T>
@@ -303,12 +330,12 @@ int launch_rhs_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
   return launch_rhs_inst<T, true, true>(mom, out, cfg, cfg_bytes, B, stream);
 }
 #endif
-#if CLOUDY_IN_UNIT(12) || CLOUDY_IN_UNIT(13)
-template <typename T>
+#if CLOUDY_IN_UNIT(12) || CLOUDY_IN_UNIT(13) || CLOUDY_IN_UNIT(16) || CLOUDY_IN_UNIT(17)
+template <typename T, bool kScale>
 int launch_step_ref(const void* mom, void* out, const void* cfg, int cfg_bytes,
-                    long long B, int nz, void* stream) {
-  return launch_step_inst<T, true, false, true>(mom, out, cfg, cfg_bytes, B, nz,
-                                                nullptr, stream);
+                    long long B, int nz, const void* scale, void* stream) {
+  return launch_step_inst<T, true, kScale, true>(mom, out, cfg, cfg_bytes, B, nz,
+                                                 scale, stream);
 }
 #endif
 #if CLOUDY_IN_UNIT(8)
@@ -328,12 +355,20 @@ template int launch_rhs_ref<double>(const void*, void*, const void*, int,
                                     long long, void*);
 #endif
 #if CLOUDY_IN_UNIT(12)
-template int launch_step_ref<float>(const void*, void*, const void*, int,
-                                    long long, int, void*);
+template int launch_step_ref<float, false>(const void*, void*, const void*, int,
+                                           long long, int, const void*, void*);
 #endif
 #if CLOUDY_IN_UNIT(13)
-template int launch_step_ref<double>(const void*, void*, const void*, int,
-                                     long long, int, void*);
+template int launch_step_ref<double, false>(const void*, void*, const void*, int,
+                                            long long, int, const void*, void*);
+#endif
+#if CLOUDY_IN_UNIT(16)
+template int launch_step_ref<float, true>(const void*, void*, const void*, int,
+                                          long long, int, const void*, void*);
+#endif
+#if CLOUDY_IN_UNIT(17)
+template int launch_step_ref<double, true>(const void*, void*, const void*, int,
+                                           long long, int, const void*, void*);
 #endif
 
 // The box-per-warp launch of the reference tier, in its own build units
@@ -341,14 +376,14 @@ template int launch_step_ref<double>(const void*, void*, const void*, int,
 template <typename T>
 int launch_coal_warp(const void* mom, void* out, const void* cfg, int cfg_bytes,
                      long long B, void* stream) {
-  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 || B < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(cfg_bytes) || B < 1) return (int)cudaErrorInvalidValue;
+  const auto kern = coal_warp_kernel<T>;
+  const cudaError_t e = allow_smem(kern, cfg_bytes);
+  if (e != cudaSuccess) return (int)e;
   constexpr int boxes = COAL_WARP_THREADS / 32;
   const long long blocks = (B + boxes - 1) / boxes;
-  coal_warp_kernel<T><<<(unsigned)blocks, COAL_WARP_THREADS, cfg_bytes,
-                        (cudaStream_t)stream>>>((const T*)mom, (T*)out,
-                                                (const unsigned char*)cfg,
-                                                cfg_bytes, B);
+  kern<<<(unsigned)blocks, COAL_WARP_THREADS, cfg_bytes, (cudaStream_t)stream>>>(
+      (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
 
@@ -374,17 +409,79 @@ template <typename T, bool kScale>
 int launch_step(const void* mom, void* out, const void* cfg, int cfg_bytes,
                 long long B, int nz, int arms, const void* scale,
                 void* stream) {
-  if (arms == 2) {
-    if (kScale) return (int)cudaErrorInvalidValue;  // no scaled reference tier
-    return launch_step_ref<T>(mom, out, cfg, cfg_bytes, B, nz, stream);
-  }
+  if (arms == 2)
+    return launch_step_ref<T, kScale>(mom, out, cfg, cfg_bytes, B, nz, scale, stream);
   return arms ? launch_step_inst<T, true, kScale, false>(mom, out, cfg, cfg_bytes,
                                                          B, nz, scale, stream)
               : launch_step_inst<T, false, kScale, false>(mom, out, cfg, cfg_bytes,
                                                           B, nz, scale, stream);
 }
 
+// The kernels of a reference-tier unit built at first use (CLOUDY_REF_ENTRY):
+// the coalescence RHS with a thread or a warp per box, the fused RHS, the
+// whole step, the scaled whole step.
+constexpr int REF_COAL = 0, REF_WARP = 1, REF_RHS = 2, REF_STEP = 3,
+              REF_STEP_SCALED = 4;
+
+template <typename T, int kKind>
+int launch_ref_kind(const void* mom, void* out, const void* cfg, int cfg_bytes,
+                    long long B, int nz, const void* scale, void* stream) {
+  if constexpr (kKind == REF_COAL)
+    return launch_coal_inst<T, true, true>(mom, out, cfg, cfg_bytes, B, stream);
+  else if constexpr (kKind == REF_WARP)
+    return launch_coal_warp<T>(mom, out, cfg, cfg_bytes, B, stream);
+  else if constexpr (kKind == REF_RHS)
+    return launch_rhs_inst<T, true, true>(mom, out, cfg, cfg_bytes, B, stream);
+  else
+    return launch_step_inst<T, true, kKind == REF_STEP_SCALED, true>(
+        mom, out, cfg, cfg_bytes, B, nz, scale, stream);
+}
+
+template <typename T, int kKind> int ref_threads_per_sm(int cfg_bytes, int* out) {
+  if constexpr (kKind == REF_COAL)
+    return coal_ref_threads_per_sm<T>(cfg_bytes, out);
+  else
+    return (int)cudaErrorInvalidValue;  // a unit of another kernel
+}
+
 }  // namespace cloudy
+
+// The C interface of a reference-tier unit built at first use, for one
+// kernel KIND (COAL, WARP, RHS, STEP, STEP_SCALED) in type T:
+//   cloudy_ref_launch(mom, out, cfg, cfg_bytes, B, nz, scale, stream): one
+//     launch (nz and scale read by the whole steps only; the scaled one
+//     refuses a null scale);
+//   cloudy_ref_layout(out): the capacities and header size, as cloudy_layout;
+//   cloudy_ref_info(out): kind, sizeof(T);
+//   cloudy_ref_threads_per_sm(cfg_bytes, out): resident threads per SM of
+//     the thread-per-box coalescence RHS (kind COAL; the layout choice);
+//   cloudy_ref_error_string(err).
+#define CLOUDY_REF_ENTRY(T, KIND)                                              \
+  extern "C" {                                                                 \
+  int cloudy_ref_launch(const void* mom, void* out, const void* cfg,          \
+                        int cfg_bytes, long long B, int nz, const void* scale, \
+                        void* stream) {                                        \
+    return cloudy::launch_ref_kind<T, cloudy::REF_##KIND>(                     \
+        mom, out, cfg, cfg_bytes, B, nz, scale, stream);                       \
+  }                                                                            \
+  int cloudy_ref_layout(int* out) {                                            \
+    const int v[] = {cloudy::CAP_MODES, cloudy::CAP_NTOT, cloudy::CAP_M,       \
+                     cloudy::Config<T>::I_FAM};                                \
+    for (int i = 0; i < 4; ++i) out[i] = v[i];                                 \
+    return 4;                                                                  \
+  }                                                                            \
+  int cloudy_ref_info(int* out) {                                              \
+    out[0] = cloudy::REF_##KIND;                                               \
+    out[1] = (int)sizeof(T);                                                   \
+    return 2;                                                                  \
+  }                                                                            \
+  int cloudy_ref_threads_per_sm(int cfg_bytes, int* out) {                     \
+    return cloudy::ref_threads_per_sm<T, cloudy::REF_##KIND>(cfg_bytes, out);   \
+  }                                                                            \
+  const char* cloudy_ref_error_string(int err) {                               \
+    return cudaGetErrorString((cudaError_t)err);                               \
+  }                                                                            \
+  }
 
 extern "C" {
 
@@ -403,10 +500,10 @@ int cloudy_coal_blocks_per_sm_f32(int cfg_bytes, int arms, int* out) {
 // The packed configuration's capacities and header size, for the host to
 // check against its own (ops/fused_coalescence.py, LAYOUT).
 int cloudy_layout(int* out) {
-  const int v[] = {cloudy::MAX_MODES, cloudy::MAX_NTOT, cloudy::MAX_M,
-                   cloudy::CFG_MAX_BYTES, cloudy::I_FAM};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
-  return 5;
+  const int v[] = {cloudy::CAP_MODES, cloudy::CAP_NTOT, cloudy::CAP_M,
+                   cloudy::Config<float>::I_FAM};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 4;
 }
 
 const char* cloudy_error_string(int err) {
@@ -417,6 +514,13 @@ const char* cloudy_error_string(int err) {
 // reference-tier coalescence layout).
 int cloudy_device_sms(int device, int* out) {
   return (int)cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+}
+
+// The shared memory a block of `device` may opt into (the host's refusal of
+// a configuration whose tables do not fit).
+int cloudy_device_smem_optin(int device, int* out) {
+  return (int)cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                     device);
 }
 #endif
 

@@ -19,7 +19,8 @@
 // counts 3.6e5 operations per box for 48 bytes moved.
 //
 // What the design does about it: one thread block per box, one thread per
-// outer node. Every thread inverts the closure (a few dozen operations, the
+// outer node (numerical_kernel; quad_kernel below strides the nodes over its
+// block). Every thread inverts the closure (a few dozen operations, the
 // same in each thread) and hoists the per-mode constant
 // k log(theta) + lgamma(k) out of the density. Thread g builds its node
 // X[g], its weight and its densities, and publishes X[g] and WX[g] F_j[g]
@@ -45,7 +46,20 @@
 // the logs of s and 1 - s come from host tables where a panel starts at 0
 // or ends at 1, and for the constant, linear and Long kernels R is a few
 // block sums of WX F_j y^m instead of the G x G loop (the hydrodynamic
-// kernel keeps the loop, each node's radius computed once).
+// kernel keeps the loop, each node's radius computed once). Its outer nodes
+// are strided over a block of at most NUM_BLOCK threads, so the node count
+// is bounded by the configuration alone: thread g takes nodes g,
+// g + blockDim, ... in passes, each pass's terms summed over the warp by the
+// fixed tree and added to the warp's column in that order (one node per
+// thread: the sums numerical_kernel takes). The passes cost the bench's
+// one-pass launch 12 % (64 registers against 48 before them, on an NVIDIA
+// H100 80GB HBM3 at 700 W; a one-pass instance known at compile time took
+// 61 and no less time: PERF.md).
+//
+// The library holds both bodies at 1-3 modes. A configuration of more modes
+// runs quad_kernel from a unit built at first use (ops/codegen.py
+// `numerical_unit`): this file included with CLOUDY_UNIT -1 (every template,
+// no prebuilt instance or entry point), then CLOUDY_NUMERICAL_UNIT_ENTRY.
 
 #include <cmath>
 #include <type_traits>
@@ -55,7 +69,8 @@
 // Build units: ops/_build.py compiles this file once per unit, all at once,
 // with -DCLOUDY_UNIT=u, and links the objects; each unit instantiates one
 // body in one type at one number of modes (units 0-5 quad_kernel, 6-11
-// numerical_kernel). Without CLOUDY_UNIT the file builds everything.
+// numerical_kernel). Without CLOUDY_UNIT the file builds everything; with
+// CLOUDY_UNIT -1, no instance and no entry point.
 #ifdef CLOUDY_UNIT
 #define CLOUDY_IN_UNIT(u) (CLOUDY_UNIT == (u))
 #else
@@ -64,10 +79,17 @@
 
 namespace cloudy {
 
-// capacities; the library exports them with the header size
-// (`cloudy_numerical_layout`) and the host checks its own copy on load
-constexpr int NUM_MAX_G = 256;   // outer nodes, one thread each
+// The prebuilt library's modes (and the least per-mode stride of the packed
+// configuration: `num_stride`), the moment orders of a mode, the threads of
+// a quad_kernel block and the outer nodes of a numerical_kernel block (one
+// thread each); the library exports the layout's with the header size
+// (`cloudy_numerical_layout`, a unit `cloudy_numerical_unit_layout`) and the
+// host checks its own copy on load
+constexpr int NUM_MAX_MODES = 3;
 constexpr int NUM_MAX_NMOM = 3;  // moment orders 0..2
+constexpr int NUM_BLOCK = 256;
+constexpr int NUM_MAX_G = NUM_BLOCK;
+constexpr int NUM_MAX_WARPS = NUM_BLOCK / 32;
 
 // kernel-function tags (ops/numerical_coalescence.py, KERNEL_TAGS)
 constexpr int KT_CONSTANT = 0, KT_LINEAR = 1, KT_HYDRO = 2, KT_LONG = 3;
@@ -77,15 +99,20 @@ constexpr int KT_CONSTANT = 0, KT_LINEAR = 1, KT_HYDRO = 2, KT_LONG = 3;
 constexpr int KT_RUNTIME = -1;
 
 // int32 layout of the packed configuration: a 10-slot header, then per-mode
-// ints; the reals start at the byte offset in slot NH_REAL_OFF
+// ints (`kStride` slots each: NUM_MAX_MODES, or the number of modes past
+// it); the reals start at the byte offset in slot NH_REAL_OFF
 constexpr int NH_NMODES = 0, NH_NTOT = 1, NH_NMOM = 2, NH_NPO = 3,
               NH_GOUTER = 4, NH_NPI = 5, NH_GINNER = 6, NH_KTAG = 7,
               NH_REAL_OFF = 8;
 constexpr int NI_FAM = 10;
-constexpr int NI_OFF = NI_FAM + MAX_MODES;
-constexpr int NI_NPROG = NI_OFF + MAX_MODES;
 
-template <typename T> struct NumConfig {
+template <int N> __host__ __device__ constexpr int num_stride() {
+  return N > NUM_MAX_MODES ? N : NUM_MAX_MODES;
+}
+
+template <typename T, int kStride = NUM_MAX_MODES> struct NumConfig {
+  static constexpr int NI_OFF = NI_FAM + kStride;
+  static constexpr int NI_NPROG = NI_OFF + kStride;
   int n_tot, n_mom, n_po, g_outer, n_pi, g_inner;
   const int* fam;
   const int* off;
@@ -202,80 +229,101 @@ template <typename T> __device__ __forceinline__ T warp_sum(T val) {
   return val;
 }
 
-// The sums over the outer nodes and the gated assembly, shared by both
-// kernels: each term reduced over the warp, then across the warps in index
-// order (a fixed order: two launches agree bit for bit); thread o writes
-// prognostic moment o. Every thread of the block calls it.
-template <typename T, int N>
-__device__ __forceinline__ void reduce_assemble(
-    const NumConfig<T>& c, int g, bool active, T X, T WX, const T* F,
-    const T* wfrac, const T* A, const T* Gkk, const T* Gq, T* __restrict__ out,
-    long long B, long long box) {
-  constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
-  // reduced terms per moment order: R[j][k], S1[k], Stot[k], Q[pair]
-  constexpr int PER_M = N * N + 2 * N + NP;
-  constexpr int V = NUM_MAX_NMOM * PER_M;
-  constexpr int MAX_WARPS = NUM_MAX_G / 32;
-  __shared__ T shRed[V][MAX_WARPS];
-  __shared__ T shTot[V];
-  const int lane = g & 31, warp = g >> 5;
-  const int n_warps = blockDim.x >> 5;
-  {
-    T Bm = WX;  // B_m = WX x^m; C_m = B_m x (the inner Jacobian)
+// The slot of mode pair j < k among the N (N - 1) / 2 pairs, in the order
+// (0, 1), (0, 2), ..., (1, 2), ...: for N <= 3 it is j + k - 1.
+template <int N> __host__ __device__ constexpr int pair_index(int j, int k) {
+  return j * (2 * N - j - 1) / 2 + (k - j - 1);
+}
+
+// The terms the gated assembly reduces over the outer nodes, per moment
+// order: R[j][k], S1[k], Stot[k], Q[pair].
+template <int N> struct Terms {
+  static constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
+  static constexpr int PER_M = N * N + 2 * N + NP;
+  static constexpr int V = NUM_MAX_NMOM * PER_M;
+};
+
+// Adds one outer node's terms, each summed over the warp in a fixed tree, to
+// the warp's column of `red` (lane 0 adds; it zeroed the column at the
+// kernel's start). Every thread of the warp calls it.
+template <typename T, int N, class Cf>
+__device__ __forceinline__ void add_warp_terms(const Cf& c, int lane, int warp,
+                                               bool active, T X, T WX, const T* F,
+                                               const T* wfrac, const T* A,
+                                               const T* Gkk, const T* Gq,
+                                               T (*red)[NUM_MAX_WARPS]) {
+  using Tm = Terms<N>;
+  T Bm = WX;  // B_m = WX x^m; C_m = B_m x (the inner Jacobian)
 #pragma unroll
-    for (int m = 0; m < NUM_MAX_NMOM; ++m) {
-      if (m < c.n_mom) {
-        if (m == 1) Bm = WX * X;
-        if (m == 2) Bm = WX * (X * X);
-        const T Cm = Bm * X;
-        const int v0 = m * PER_M;
+  for (int m = 0; m < NUM_MAX_NMOM; ++m) {
+    if (m < c.n_mom) {
+      if (m == 1) Bm = WX * X;
+      if (m == 2) Bm = WX * (X * X);
+      const T Cm = Bm * X;
+      T (*r)[NUM_MAX_WARPS] = red + m * Tm::PER_M;
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const T r = warp_sum(active ? Bm * F[k] * A[j] : T(0));
-            if (lane == 0) shRed[v0 + j * N + k][warp] = r;
-          }
-        }
+      for (int j = 0; j < N; ++j) {
 #pragma unroll
         for (int k = 0; k < N; ++k) {
-          const T s1 = warp_sum(active ? Cm * wfrac[k] * Gkk[k] : T(0));
-          const T st = warp_sum(active ? Cm * Gkk[k] : T(0));
-          if (lane == 0) {
-            shRed[v0 + N * N + k][warp] = s1;
-            shRed[v0 + N * N + N + k][warp] = st;
-          }
+          const T v = warp_sum(active ? Bm * F[k] * A[j] : T(0));
+          if (lane == 0) r[j * N + k][warp] = r[j * N + k][warp] + v;
         }
+      }
 #pragma unroll
-        for (int q = 0; q < NP; ++q) {
-          const T qq = warp_sum(active ? Cm * Gq[q] : T(0));
-          if (lane == 0) shRed[v0 + N * N + 2 * N + q][warp] = qq;
+      for (int k = 0; k < N; ++k) {
+        const T s1 = warp_sum(active ? Cm * wfrac[k] * Gkk[k] : T(0));
+        const T st = warp_sum(active ? Cm * Gkk[k] : T(0));
+        if (lane == 0) {
+          r[N * N + k][warp] = r[N * N + k][warp] + s1;
+          r[N * N + N + k][warp] = r[N * N + N + k][warp] + st;
         }
+      }
+#pragma unroll
+      for (int q = 0; q < Tm::NP; ++q) {
+        const T qq = warp_sum(active ? Cm * Gq[q] : T(0));
+        if (lane == 0) r[N * N + 2 * N + q][warp] = r[N * N + 2 * N + q][warp] + qq;
       }
     }
   }
+}
+
+// The warps' columns of `red` summed in index order (a fixed order: two
+// launches agree bit for bit), then the gated assembly: thread o writes
+// prognostic moment o. Every thread of the block calls it.
+template <typename T, int N, class Cf>
+__device__ __forceinline__ void assemble(const Cf& c, int g, T (*red)[NUM_MAX_WARPS],
+                                         T* tot, T* __restrict__ out, long long B,
+                                         long long box) {
+  using Tm = Terms<N>;
+  const int n_warps = blockDim.x >> 5;
   __syncthreads();
-  for (int v = g; v < c.n_mom * PER_M; v += blockDim.x) {
-    T tot = shRed[v][0];
-    for (int w = 1; w < n_warps; ++w) tot = tot + shRed[v][w];
-    shTot[v] = tot;
+  for (int v = g; v < c.n_mom * Tm::PER_M; v += blockDim.x) {
+    T t = red[v][0];
+    for (int w = 1; w < n_warps; ++w) t = t + red[v][w];
+    tot[v] = t;
   }
   __syncthreads();
-
-  // ---- gated assembly: thread o writes prognostic moment o ---------------
-  if (g < c.n_tot) {
+  for (int o = g; o < c.n_tot; o += blockDim.x) {
     int k = 0;
 #pragma unroll
     for (int j = 1; j < N; ++j)
-      if (g >= c.off[j]) k = j;
-    const int m = g - c.off[k];
-    const T* t = shTot + m * PER_M;
+      if (o >= c.off[j]) k = j;
+    const int m = o - c.off[k];
+    const T* t = tot + m * Tm::PER_M;
     T acc = t[N * N + k];  // S1[m][k]
     for (int j = 0; j < N; ++j) acc = acc - t[j * N + k];  // R[m][j][k]
-    for (int j = 0; j < k; ++j) acc = acc + t[N * N + 2 * N + j + k - 1];  // Q
+    for (int j = 0; j < k; ++j) acc = acc + t[N * N + 2 * N + pair_index<N>(j, k)];  // Q
     if (k > 0)  // S2[m][k-1] = Stot - S1
       acc = acc + (t[N * N + N + k - 1] - t[N * N + k - 1]);
-    out[g * B + box] = acc;
+    out[o * B + box] = acc;
+  }
+}
+
+// Zeroes this warp's column of `red` (lane 0, which alone adds to it).
+template <typename T, int N>
+__device__ __forceinline__ void zero_terms(int lane, int warp, T (*red)[NUM_MAX_WARPS]) {
+  if (lane == 0) {
+    for (int v = 0; v < Terms<N>::V; ++v) red[v][warp] = T(0);
   }
 }
 
@@ -288,8 +336,11 @@ __global__ void __launch_bounds__(NUM_MAX_G)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T shX[NUM_MAX_G];
   __shared__ T shWF[N][NUM_MAX_G];  // WX[y] * F_j[y]
+  __shared__ T red[Terms<N>::V][NUM_MAX_WARPS];
+  __shared__ T tot[Terms<N>::V];
 
   load_config(smem, cfg_g, cfg_bytes);
+  zero_terms<T, N>(threadIdx.x & 31, threadIdx.x >> 5, red);
   __syncthreads();
   NumConfig<T> c;
   c.bind(smem);
@@ -412,13 +463,15 @@ __global__ void __launch_bounds__(NUM_MAX_G)
           Gkk[j] = Gkk[j] + KW * D[j] * E[j];
 #pragma unroll
           for (int k = j + 1; k < N; ++k)
-            Gq[j + k - 1] = Gq[j + k - 1] + KW * (D[j] * E[k] + D[k] * E[j]);
+            Gq[pair_index<N>(j, k)] =
+                Gq[pair_index<N>(j, k)] + KW * (D[j] * E[k] + D[k] * E[j]);
         }
       }
     }
   }
 
-  reduce_assemble<T, N>(c, g, active, X, WX, F, wfrac, A, Gkk, Gq, out, B, box);
+  add_warp_terms<T, N>(c, g & 31, g >> 5, active, X, WX, F, wfrac, A, Gkk, Gq, red);
+  assemble<T, N>(c, g, red, tot, out, B, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,28 +554,40 @@ template <typename T, class D> struct ModeDensity {
   }
 };
 
-// Sums of V per-thread values over the block, in a fixed order (each warp's
-// shuffle tree, then the warps in index order), the totals in every
-// thread's v. Every thread of the block calls it.
+// Sums of V per-thread values over the block, in a fixed order: each
+// warp's shuffle tree into `part` (block_partials, which every thread of the
+// block calls), then the warps in index order (block_total, read where a sum
+// is needed, so that no thread holds the V totals in registers across the
+// node loop).
 template <typename T, int V>
-__device__ __forceinline__ void block_sums(T* v, int lane, int warp, int n_warps) {
-  __shared__ T part[V > 0 ? V : 1][NUM_MAX_G / 32];
+__device__ __forceinline__ void block_partials(const T* v, int lane, int warp,
+                                               T (*part)[NUM_MAX_WARPS]) {
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const T r = warp_sum(v[k]);
     if (lane == 0) part[k][warp] = r;
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    T t = part[k][0];
-    for (int w = 1; w < n_warps; ++w) t = t + part[k][w];
-    v[k] = t;
-  }
+}
+
+template <typename T>
+__device__ __forceinline__ T block_total(const T (*part)[NUM_MAX_WARPS], int k,
+                                         int n_warps) {
+  T t = part[k][0];
+  for (int w = 1; w < n_warps; ++w) t = t + part[k][w];
+  return t;
+}
+
+// The dynamic shared memory of a quad_kernel launch past its configuration:
+// with the hydrodynamic kernel, the radius and WX F_j of every outer node
+// (the G x G loop reads them all), none otherwise.
+template <typename T, int N>
+constexpr size_t quad_node_bytes(int ktag, int g_total) {
+  return ktag == KT_HYDRO ? (size_t)(N + 1) * g_total * sizeof(T) : 0;
 }
 
 template <typename T, int N, int KT>
-__global__ void __launch_bounds__(NUM_MAX_G)
+__global__ void __launch_bounds__(NUM_BLOCK)
     quad_kernel(const T* __restrict__ mom, T* __restrict__ out,
                 const unsigned char* __restrict__ cfg_g, int cfg_bytes,
                 long long B) {
@@ -533,22 +598,28 @@ __global__ void __launch_bounds__(NUM_MAX_G)
   // an H100 80GB HBM3 at 700 W, PERF.md)
   constexpr bool kTables = std::is_same<T, double>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T shR[NUM_MAX_G];      // hydrodynamic radius at each node
-  __shared__ T shWF[N][NUM_MAX_G];  // WX[y] * F_j[y]
+  __shared__ T red[Terms<N>::V][NUM_MAX_WARPS];
+  __shared__ T tot[Terms<N>::V];
 
   load_config(smem, cfg_g, cfg_bytes);
-  __syncthreads();
-  NumConfig<T> c;
-  c.bind(smem);
-  const T tiny = Lim<T>::tiny();
-  const long long box = blockIdx.x;
   const int g = threadIdx.x;
   const int lane = g & 31, warp = g >> 5;
   const int n_warps = blockDim.x >> 5;
+  zero_terms<T, N>(lane, warp, red);
+  __syncthreads();
+  NumConfig<T, num_stride<N>()> c;
+  c.bind(smem);
+  const T tiny = Lim<T>::tiny();
+  const long long box = blockIdx.x;
   const int G = c.n_po * c.g_outer;
-  const bool active = g < G;
+  // passes over the outer nodes: thread g takes node g + p blockDim.x
+  const int n_pass = (G + blockDim.x - 1) / blockDim.x;
   const T k0 = c.kpar[0], k1 = c.kpar[1], k2 = c.kpar[2];
   const int kt = (KT == KT_RUNTIME) ? reinterpret_cast<const int*>(smem)[NH_KTAG] : KT;
+  // hydrodynamic kernel: each node's radius, then WX F_j, after the
+  // configuration (quad_node_bytes)
+  T* shR = reinterpret_cast<T*>(smem + cfg_bytes);
+  T* shWF = shR + G;
 
   // ---- closure inversion, per-mode constants and support bounds (the same
   // in every thread) --------------------------------------------------------
@@ -572,171 +643,209 @@ __global__ void __launch_bounds__(NUM_MAX_G)
   x_hi = vmax(x_hi, T(1e-30));
   x_lo = vmax(vmin(x_lo, x_hi * T(1e-12)), tiny);
   x_hi = vmax(T(2) * x_hi, T(4) * tiny);
-
-  // ---- this thread's outer node, as numerical_kernel ----------------------
   const T lo_l = dlog(x_lo), hi_l = dlog(x_hi);
-  T X = T(1), WX = T(0);
-  if (active) {
-    const int p = g / c.g_outer;
-    const int i = g - p * c.g_outer;
-    const bool cut = c.n_po > 1;
-    const T e1 = cut ? vclip(c.logcut[0], lo_l, hi_l) : hi_l;
-    const T e2 = cut ? vclip(c.logcut[1], lo_l, hi_l) : hi_l;
-    const T a = (p == 0) ? lo_l : ((p == 1) ? e1 : e2);
-    const T b = (p == 0) ? e1 : ((p == 1) ? e2 : hi_l);
-    const T h = T(0.5) * (b - a);
-    X = dexp(a + h * (c.xu[i] + T(1)));
-    WX = h * c.wu[i] * X;
-  }
-  const T LX = D::lg(vmax(X, tiny));
   const T L_tiny = D::lg(tiny);
 
-  // ---- densities at the outer node, and the weighting fractions -----------
-  T F[N], wfrac[N];
-  {
-    T NF[N], denom = T(0);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T e = md[j].shape(X, LX);
-      F[j] = md[j].s * e;
-      NF[j] = md[j].unit * e;
-      denom = (j == 0) ? NF[0] : denom + NF[j];
+  // outer node gg: x = exp(u), GL in u, one panel per smooth piece of the
+  // kernel (an empty panel collapses to zero weight), as numerical_kernel;
+  // (1, 0) past G
+  const auto node = [&](int gg, T& X, T& WX) {
+    X = T(1);
+    WX = T(0);
+    if (gg < G) {
+      const int p = gg / c.g_outer;
+      const int i = gg - p * c.g_outer;
+      const bool cut = c.n_po > 1;
+      const T e1 = cut ? vclip(c.logcut[0], lo_l, hi_l) : hi_l;
+      const T e2 = cut ? vclip(c.logcut[1], lo_l, hi_l) : hi_l;
+      const T a = (p == 0) ? lo_l : ((p == 1) ? e1 : e2);
+      const T b = (p == 0) ? e1 : ((p == 1) ? e2 : hi_l);
+      const T h = T(0.5) * (b - a);
+      X = dexp(a + h * (c.xu[i] + T(1)));
+      WX = h * c.wu[i] * X;
     }
-    // divided per mode, as the twin: the reciprocal of a denominator in the
-    // subnormal range (a node far in a tail) overflows
-    T run = T(0);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      run = run + NF[j];
-      wfrac[j] = (denom == T(0)) ? T(0) : run / denom;
-    }
-  }
+  };
 
-  // ---- R: A_j(X) = sum_y K(X, y) WX[y] F_j[y] -----------------------------
-  T A[N];
+  // ---- R's sums over the nodes: A_j(X) = sum_y K(X, y) WX[y] F_j[y] --------
+  // piecewise polynomial K: the sum over y is a few block sums of
+  // WX F_j y^m, per mode j:
+  //   constant  k0 S0;  linear  k0 (X S0 + S1);
+  //   Long      X < t: k1 (X^2 Sb0 + Sb2) + k2 (X Sa0 + Sa1),
+  //             else:  k2 (X (Sb0 + Sa0) + (Sb1 + Sa1)),
+  //   Sb over the nodes below the threshold t = k0, Sa over the rest; each
+  //   thread adds its nodes' values in pass order first.
+  // The hydrodynamic kernel keeps the G x G loop over every node's radius
+  // and WX F_j, published here.
+  // sums per mode (a run-time tag takes the most)
+  constexpr int NS = (KT == KT_CONSTANT) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
+  __shared__ T part[N * NS][NUM_MAX_WARPS];
+  T v[N * NS];
 #pragma unroll
-  for (int j = 0; j < N; ++j) A[j] = T(0);
-  if (kt == KT_HYDRO) {
-    // the G x G loop, each node's radius published once
-    const T r1 = hydro_radius(X);
-    shR[g] = r1;
+  for (int k = 0; k < N * NS; ++k) v[k] = T(0);
+#pragma unroll 1
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int gg = g + pass * blockDim.x;
+    const bool active = gg < G;
+    T X, WX;
+    node(gg, X, WX);
+    const T LX = D::lg(vmax(X, tiny));
+    if (kt == KT_HYDRO) {
+      if (active) {
+        shR[gg] = hydro_radius(X);
 #pragma unroll
-    for (int j = 0; j < N; ++j) shWF[j][g] = WX * F[j];
-    __syncthreads();
-    if (active) {
-      for (int y = 0; y < G; ++y) {
-        const T K = hydro_value(k0, r1, shR[y]);
-#pragma unroll
-        for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j][y] * K;
+        for (int j = 0; j < N; ++j) shWF[j * G + gg] = WX * (md[j].s * md[j].shape(X, LX));
       }
+      continue;
     }
-  } else {
-    // piecewise polynomial K: the sum over y is a few block sums of
-    // WX F_j y^m, per mode j:
-    //   constant  k0 S0;  linear  k0 (X S0 + S1);
-    //   Long      X < t: k1 (X^2 Sb0 + Sb2) + k2 (X Sa0 + Sa1),
-    //             else:  k2 (X (Sb0 + Sa0) + (Sb1 + Sa1)),
-    //   Sb over the nodes below the threshold t = k0, Sa over the rest
-    // sums per mode (a run-time tag takes the most)
-    constexpr int NS = (KT == KT_CONSTANT) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
-    T v[N * NS];
     const bool below = X < k0;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       T* t = v + j * NS;
-      const T wf = active ? WX * F[j] : T(0);
-#pragma unroll
-      for (int k = 0; k < NS; ++k) t[k] = T(0);
+      const T wf = active ? WX * (md[j].s * md[j].shape(X, LX)) : T(0);
       if (kt == KT_CONSTANT) {
-        t[0] = wf;
+        t[0] = t[0] + wf;
       } else if (NS >= 2 && kt == KT_LINEAR) {
-        t[0] = wf;
-        t[1] = wf * X;
+        t[0] = t[0] + wf;
+        t[1] = t[1] + wf * X;
       } else if (NS == 5) {
-        t[0] = below ? wf : T(0);
-        t[1] = below ? wf * X : T(0);
-        t[2] = below ? wf * X * X : T(0);
-        t[3] = below ? T(0) : wf;
-        t[4] = below ? T(0) : wf * X;
+        t[0] = t[0] + (below ? wf : T(0));
+        t[1] = t[1] + (below ? wf * X : T(0));
+        t[2] = t[2] + (below ? wf * X * X : T(0));
+        t[3] = t[3] + (below ? T(0) : wf);
+        t[4] = t[4] + (below ? T(0) : wf * X);
       }
     }
-    block_sums<T, N * NS>(v, lane, warp, n_warps);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T* t = v + j * NS;
-      if (kt == KT_CONSTANT)
-        A[j] = k0 * t[0];
-      else if (NS >= 2 && kt == KT_LINEAR)
-        A[j] = k0 * (X * t[0] + t[1]);
-      else if (NS == 5 && below)
-        A[j] = k1 * (X * X * t[0] + t[2]) + k2 * (X * t[3] + t[4]);
-      else if (NS == 5)
-        A[j] = k2 * (X * (t[0] + t[3]) + (t[1] + t[4]));
-    }
   }
+  if (kt == KT_HYDRO)
+    __syncthreads();
+  else
+    block_partials<T, N * NS>(v, lane, warp, part);
 
-  T Gkk[N], Gq[NP > 0 ? NP : 1];
-#pragma unroll
-  for (int j = 0; j < N; ++j) Gkk[j] = T(0);
-#pragma unroll
-  for (int q = 0; q < NP; ++q) Gq[q] = T(0);
-
-  if (active) {
-    // ---- Q and S: the triangular inner integrals, y = s x; with a kink t
-    // the inner panels split at s = t / x and 1 - t / x ----------------------
-    T c1 = T(1), c2 = T(1);  // no kink: one panel [0, 1]
-    if (c.n_pi == 3) {
-      const T t = c.kink[0];
-      const T b1 = vclip(t / X, T(0), T(1));
-      const T b2 = vclip(T(1) - t / X, T(0), T(1));
-      c1 = vmin(b1, b2);
-      c2 = vmax(b1, b2);
-    }
-    const T lc = D::lg(T(HYDRO_C));
+  // ---- per node: densities, weighting fractions, A, the inner integrals,
+  // and its terms added to the warp's sums ----------------------------------
+  const T lc = D::lg(T(HYDRO_C));
 #pragma unroll 1
-    for (int p = 0; p < c.n_pi; ++p) {
-      const T a = (p == 0) ? T(0) : ((p == 1) ? c1 : c2);
-      const T b = (p == 0) ? c1 : ((p == 1) ? c2 : T(1));
-      const T ba = b - a;
-      // a panel from 0 has s = ba s01, one to 1 has 1 - s = ba (1 - s01):
-      // their logs are a table entry plus LX + log(ba) (log(ba) = 0 for the
-      // one panel [0, 1]); any other log is taken at the node
-      const bool from0 = kTables && p == 0, to1 = kTables && p == c.n_pi - 1;
-      const T off = LX + ((c.n_pi == 1) ? T(0) : D::lg(ba));
-      for (int i = 0; i < c.g_inner; ++i) {
-        const T s = a + ba * c.s01[i];
-        const T w = ba * c.w01[i];
-        const T XR = X * (T(1) - s), XS = X * s;
-        const T lr = to1 ? vmax(off + c.l1m01[i], L_tiny) : D::lg(vmax(XR, tiny));
-        const T ls = from0 ? vmax(off + c.ls01[i], L_tiny) : D::lg(vmax(XS, tiny));
-        T D[N], E[N];
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int gg = g + pass * blockDim.x;
+    const bool active = gg < G;
+    T X, WX;
+    node(gg, X, WX);
+    const T LX = D::lg(vmax(X, tiny));
+
+    T F[N], wfrac[N];
+    {
+      T NF[N], denom = T(0);
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          D[j] = md[j].s * md[j].shape(XR, lr);
-          E[j] = md[j].s * md[j].shape(XS, ls);
+      for (int j = 0; j < N; ++j) {
+        const T e = md[j].shape(X, LX);
+        F[j] = md[j].s * e;
+        NF[j] = md[j].unit * e;
+        denom = (j == 0) ? NF[0] : denom + NF[j];
+      }
+      // divided per mode, as the twin: the reciprocal of a denominator in the
+      // subnormal range (a node far in a tail) overflows
+      T run = T(0);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        run = run + NF[j];
+        wfrac[j] = (denom == T(0)) ? T(0) : run / denom;
+      }
+    }
+
+    T A[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) A[j] = T(0);
+    if (kt == KT_HYDRO) {
+      if (active) {
+        const T r1 = hydro_radius(X);
+        for (int y = 0; y < G; ++y) {
+          const T K = hydro_value(k0, r1, shR[y]);
+#pragma unroll
+          for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j * G + y] * K;
         }
-        T K;
-        if (kt == KT_HYDRO) {
-          // radius (c x)^(1/3) from the logs already taken
-          const T r1 = D::ex((lr + lc) * T(1.0 / 3.0));
-          const T r2 = D::ex((ls + lc) * T(1.0 / 3.0));
-          K = hydro_value(k0, r1, r2);
-        } else {
-          K = kernel_value<T, KT>(kt, k0, k1, k2, XR, XS);
-        }
-        const T KW = T(0.5) * w * K;
+      }
+    } else {
+      const bool below = X < k0;
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          Gkk[j] = Gkk[j] + KW * D[j] * E[j];
+      for (int j = 0; j < N; ++j) {
+        T t[NS];
 #pragma unroll
-          for (int k = j + 1; k < N; ++k)
-            Gq[j + k - 1] = Gq[j + k - 1] + KW * (D[j] * E[k] + D[k] * E[j]);
+        for (int k = 0; k < NS; ++k) t[k] = block_total(part, j * NS + k, n_warps);
+        if (kt == KT_CONSTANT)
+          A[j] = k0 * t[0];
+        else if (NS >= 2 && kt == KT_LINEAR)
+          A[j] = k0 * (X * t[0] + t[1]);
+        else if (NS == 5 && below)
+          A[j] = k1 * (X * X * t[0] + t[2]) + k2 * (X * t[3] + t[4]);
+        else if (NS == 5)
+          A[j] = k2 * (X * (t[0] + t[3]) + (t[1] + t[4]));
+      }
+    }
+
+    T Gkk[N], Gq[NP > 0 ? NP : 1];
+#pragma unroll
+    for (int j = 0; j < N; ++j) Gkk[j] = T(0);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) Gq[q] = T(0);
+
+    if (active) {
+      // ---- Q and S: the triangular inner integrals, y = s x; with a kink t
+      // the inner panels split at s = t / x and 1 - t / x --------------------
+      T c1 = T(1), c2 = T(1);  // no kink: one panel [0, 1]
+      if (c.n_pi == 3) {
+        const T t = c.kink[0];
+        const T b1 = vclip(t / X, T(0), T(1));
+        const T b2 = vclip(T(1) - t / X, T(0), T(1));
+        c1 = vmin(b1, b2);
+        c2 = vmax(b1, b2);
+      }
+#pragma unroll 1
+      for (int p = 0; p < c.n_pi; ++p) {
+        const T a = (p == 0) ? T(0) : ((p == 1) ? c1 : c2);
+        const T b = (p == 0) ? c1 : ((p == 1) ? c2 : T(1));
+        const T ba = b - a;
+        // a panel from 0 has s = ba s01, one to 1 has 1 - s = ba (1 - s01):
+        // their logs are a table entry plus LX + log(ba) (log(ba) = 0 for the
+        // one panel [0, 1]); any other log is taken at the node
+        const bool from0 = kTables && p == 0, to1 = kTables && p == c.n_pi - 1;
+        const T off = LX + ((c.n_pi == 1) ? T(0) : D::lg(ba));
+        for (int i = 0; i < c.g_inner; ++i) {
+          const T s = a + ba * c.s01[i];
+          const T w = ba * c.w01[i];
+          const T XR = X * (T(1) - s), XS = X * s;
+          const T lr = to1 ? vmax(off + c.l1m01[i], L_tiny) : D::lg(vmax(XR, tiny));
+          const T ls = from0 ? vmax(off + c.ls01[i], L_tiny) : D::lg(vmax(XS, tiny));
+          T D[N], E[N];
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            D[j] = md[j].s * md[j].shape(XR, lr);
+            E[j] = md[j].s * md[j].shape(XS, ls);
+          }
+          T K;
+          if (kt == KT_HYDRO) {
+            // radius (c x)^(1/3) from the logs already taken
+            const T r1 = D::ex((lr + lc) * T(1.0 / 3.0));
+            const T r2 = D::ex((ls + lc) * T(1.0 / 3.0));
+            K = hydro_value(k0, r1, r2);
+          } else {
+            K = kernel_value<T, KT>(kt, k0, k1, k2, XR, XS);
+          }
+          const T KW = T(0.5) * w * K;
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            Gkk[j] = Gkk[j] + KW * D[j] * E[j];
+#pragma unroll
+            for (int k = j + 1; k < N; ++k)
+              Gq[pair_index<N>(j, k)] =
+                  Gq[pair_index<N>(j, k)] + KW * (D[j] * E[k] + D[k] * E[j]);
+          }
         }
       }
     }
+    add_warp_terms<T, N>(c, lane, warp, active, X, WX, F, wfrac, A, Gkk, Gq, red);
   }
 
-  reduce_assemble<T, N>(c, g, active, X, WX, F, wfrac, A, Gkk, Gq, out, B, box);
+  assemble<T, N>(c, g, red, tot, out, B, box);
 }
 
 // The kernel of one tag: quad_kernel, or with kDirect numerical_kernel
@@ -751,16 +860,22 @@ constexpr auto numerical_instance() {
 template <typename T>
 using NumKernel = void (*)(const T*, T*, const unsigned char*, int, long long);
 
-// One launch: a block per box, a thread per outer node.
+// One launch: a block per box; numerical_kernel a thread per outer node
+// (at most NUM_MAX_G), quad_kernel up to NUM_BLOCK threads striding them
+// with `node_bytes` of dynamic shared memory past the configuration.
 template <typename T>
-int launch_num_kernel(NumKernel<T> kern, const void* mom, void* out,
+int launch_num_kernel(NumKernel<T> kern, bool direct, const void* mom, void* out,
                       const void* cfg, int cfg_bytes, long long B, int g_total,
-                      void* stream) {
-  if (cfg_bytes <= 0 || cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0 ||
-      g_total < 1 || g_total > NUM_MAX_G || B < 1 || B > 2147483647LL)
+                      size_t node_bytes, void* stream) {
+  if (cfg_bytes <= 0 || cfg_bytes % 16 != 0 || g_total < 1 ||
+      (direct && g_total > NUM_MAX_G) || B < 1 || B > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  const int threads = (g_total + 31) / 32 * 32;
-  kern<<<(unsigned)B, threads, cfg_bytes, (cudaStream_t)stream>>>(
+  const int lanes = (g_total + 31) / 32 * 32;
+  const int threads = lanes < NUM_BLOCK ? lanes : NUM_BLOCK;
+  const size_t smem = (size_t)cfg_bytes + node_bytes;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)mom, (T*)out, (const unsigned char*)cfg, cfg_bytes, B);
   return (int)cudaGetLastError();
 }
@@ -782,7 +897,9 @@ int launch_numerical(const void* mom, void* out, const void* cfg,
     default: return (int)cudaErrorInvalidValue;
   }
 #endif
-  return launch_num_kernel<T>(kern, mom, out, cfg, cfg_bytes, B, g_total, stream);
+  const size_t node_bytes = kDirect ? 0 : quad_node_bytes<T, N>(ktag, g_total);
+  return launch_num_kernel<T>(kern, kDirect, mom, out, cfg, cfg_bytes, B, g_total,
+                              node_bytes, stream);
 }
 
 }  // namespace cloudy
@@ -794,18 +911,44 @@ int launch_numerical(const void* mom, void* out, const void* cfg,
                                                   B, g_total, ktag, stream); \
   }
 
+// The C interface of a unit built at first use for N > NUM_MAX_MODES modes
+// in type T (quad_kernel only):
+//   cloudy_numerical_unit_launch(...): as cloudy_numerical_<T>_n<N>;
+//   cloudy_numerical_unit_layout(out): per-mode stride, moment orders,
+//     header size, as cloudy_numerical_layout;
+//   cloudy_numerical_unit_info(out): N, sizeof(T);
+//   cloudy_numerical_unit_error_string(err).
+#define CLOUDY_NUMERICAL_UNIT_ENTRY(T, N)                                    \
+  extern "C" {                                                               \
+  CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_unit_launch, T, N, false)          \
+  int cloudy_numerical_unit_layout(int* out) {                               \
+    const int v[] = {cloudy::num_stride<N>(), cloudy::NUM_MAX_NMOM,          \
+                     cloudy::NI_FAM};                                        \
+    for (int i = 0; i < 3; ++i) out[i] = v[i];                               \
+    return 3;                                                                \
+  }                                                                          \
+  int cloudy_numerical_unit_info(int* out) {                                 \
+    out[0] = N;                                                              \
+    out[1] = (int)sizeof(T);                                                 \
+    return 2;                                                                \
+  }                                                                          \
+  const char* cloudy_numerical_unit_error_string(int err) {                  \
+    return cudaGetErrorString((cudaError_t)err);                             \
+  }                                                                          \
+  }
+
 extern "C" {
 
 #if CLOUDY_IN_UNIT(0)
 CLOUDY_NUMERICAL_ENTRY(cloudy_numerical_f32_n1, float, 1, false)
 
-// The packed configuration's capacities and header size, for the host to
-// check against its own (ops/numerical_coalescence.py, LAYOUT).
+// The packed configuration's per-mode stride, moment orders and header
+// size, for the host to check against its own
+// (ops/numerical_coalescence.py, LAYOUT).
 int cloudy_numerical_layout(int* out) {
-  const int v[] = {cloudy::MAX_MODES, cloudy::NUM_MAX_G, cloudy::NUM_MAX_NMOM,
-                   cloudy::CFG_MAX_BYTES, cloudy::NI_FAM};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
-  return 5;
+  const int v[] = {cloudy::NUM_MAX_MODES, cloudy::NUM_MAX_NMOM, cloudy::NI_FAM};
+  for (int i = 0; i < 3; ++i) out[i] = v[i];
+  return 3;
 }
 #endif
 

@@ -213,7 +213,7 @@ template <typename T>
 int dispatch_launch(int chain, int ilp, const void* in, void* out, long long n,
                     int k, const void* cfg, int cfg_bytes, void* stream) {
   if (ilp != kIlp || n <= 0 || k < 0 || cfg_bytes <= 0 ||
-      cfg_bytes > CFG_MAX_BYTES || cfg_bytes % 16 != 0)
+      cfg_bytes > SMEM_NO_OPTIN || cfg_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (chain) {
 #define CLOUDY_CASE(id, name, Link) \

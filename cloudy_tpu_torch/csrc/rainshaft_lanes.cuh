@@ -22,16 +22,6 @@
 
 namespace cloudy {
 
-// Opts a kernel into more than 48 KB of dynamic shared memory where its
-// launch asks for that much (host code: before the launch and before an
-// occupancy query at the same size).
-template <class K> inline cudaError_t allow_smem(K kern, size_t smem) {
-  return smem > 48 * 1024
-             ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)
-             : cudaSuccess;
-}
-
 template <typename T> struct SmemStencil {
   T* sh;
   int t, nt;
@@ -63,13 +53,13 @@ template <bool kArms, bool kRef, class C, typename T>
 __device__ __forceinline__ void coal_lane(const C& c, const T* __restrict__ mom,
                                           T* __restrict__ out, long long B,
                                           long long lane) {
-  T m[MAX_NTOT], acc[MAX_NTOT], params[MAX_MODES][3];
+  T m[C::kNtot], acc[C::kNtot], params[C::kModes][3];
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
+  for (int o = 0; o < C::kNtot; ++o)
     if (o < c.n_tot) m[o] = mom[o * B + lane];
   coal_body<kArms, kRef>(c, m, acc, params);
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
+  for (int o = 0; o < C::kNtot; ++o)
     if (o < c.n_tot) out[o * B + lane] = acc[o];
 }
 
@@ -81,10 +71,10 @@ __device__ __forceinline__ void rhs_lane(const C& c, const T* __restrict__ mom,
                                          T* __restrict__ out, long long B,
                                          long long lane) {
   const T eps = Lim<T>::eps();
-  T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
+  T r[C::kNtot], acc[C::kNtot], flux[C::kNtot], params[C::kModes][3];
   bool empty = true;
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
+  for (int o = 0; o < C::kNtot; ++o) {
     if (o < c.n_tot) {
       r[o] = vmax(mom[o * B + lane], T(0)) * c.inv_norm[o];  // clip, normalize
       empty = empty && (r[o] < eps);
@@ -93,7 +83,7 @@ __device__ __forceinline__ void rhs_lane(const C& c, const T* __restrict__ mom,
   coal_body<kArms, kRef>(c, r, acc, params);
   sedi_flux<kArms, kRef>(c, params, flux);
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
+  for (int o = 0; o < C::kNtot; ++o) {
     if (o < c.n_tot) {
       out[o * B + lane] = (empty ? T(0) : acc[o]) * c.norm[o];
       out[(c.n_tot + o) * B + lane] = flux[o] * c.norm[o];
@@ -108,10 +98,10 @@ template <bool kArms, bool kScale, bool kRef, class C, class St, typename T>
 __device__ __forceinline__ void step_rhs(const C& c, const St& st, const T* y,
                                          T* rows, bool top, T s) {
   const T eps = Lim<T>::eps();
-  T r[MAX_NTOT], acc[MAX_NTOT], flux[MAX_NTOT], params[MAX_MODES][3];
+  T r[C::kNtot], acc[C::kNtot], flux[C::kNtot], params[C::kModes][3];
   bool empty = true;
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
+  for (int o = 0; o < C::kNtot; ++o) {
     if (o < c.n_tot) {
       r[o] = vmax(y[o], T(0)) * c.inv_norm[o];  // clip negatives, normalize
       empty = empty && (r[o] < eps);
@@ -120,7 +110,7 @@ __device__ __forceinline__ void step_rhs(const C& c, const St& st, const T* y,
   coal_body<kArms, kRef>(c, r, acc, params);
   sedi_flux<kArms, kRef>(c, params, flux);
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
+  for (int o = 0; o < C::kNtot; ++o) {
     if (o < c.n_tot) {
       flux[o] = flux[o] * c.norm[o];
       st.put(o, flux[o]);
@@ -128,7 +118,7 @@ __device__ __forceinline__ void step_rhs(const C& c, const St& st, const T* y,
   }
   st.sync();
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o) {
+  for (int o = 0; o < C::kNtot; ++o) {
     if (o < c.n_tot) {
       T coal = (empty ? T(0) : acc[o]) * c.norm[o];
       if (kScale) coal = coal * s;
@@ -153,43 +143,43 @@ __device__ __forceinline__ void step_lane(const C& c, const St& st,
                                           long long lane, bool active,
                                           bool top, T s) {
   const T dt = c.dt;
-  T y[MAX_NTOT], u1[MAX_NTOT], u2[MAX_NTOT], f[MAX_NTOT];
+  T y[C::kNtot], u1[C::kNtot], u2[C::kNtot], f[C::kNtot];
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
+  for (int o = 0; o < C::kNtot; ++o)
     if (o < c.n_tot) y[o] = active ? mom[o * B + lane] : T(0);
 
   if constexpr (kLoop) {
     // u2 carries each stage's input: y, then u1, then u2
 #pragma unroll
-    for (int o = 0; o < MAX_NTOT; ++o)
+    for (int o = 0; o < C::kNtot; ++o)
       if (o < c.n_tot) u2[o] = y[o];
 #pragma unroll 1
     for (int stage = 0; stage < 3; ++stage) {
       step_rhs<kArms, kScale, kRef>(c, st, u2, f, top, s);
       if (stage == 0) {
 #pragma unroll
-        for (int o = 0; o < MAX_NTOT; ++o)
+        for (int o = 0; o < C::kNtot; ++o)
           if (o < c.n_tot) u2[o] = y[o] + dt * f[o];
       } else if (stage == 1) {
 #pragma unroll
-        for (int o = 0; o < MAX_NTOT; ++o)
+        for (int o = 0; o < C::kNtot; ++o)
           if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u2[o] + dt * f[o]);
       }
     }
   } else {
     step_rhs<kArms, kScale, kRef>(c, st, y, f, top, s);
 #pragma unroll
-    for (int o = 0; o < MAX_NTOT; ++o)
+    for (int o = 0; o < C::kNtot; ++o)
       if (o < c.n_tot) u1[o] = y[o] + dt * f[o];
     step_rhs<kArms, kScale, kRef>(c, st, u1, f, top, s);
 #pragma unroll
-    for (int o = 0; o < MAX_NTOT; ++o)
+    for (int o = 0; o < C::kNtot; ++o)
       if (o < c.n_tot) u2[o] = T(0.75) * y[o] + T(0.25) * (u1[o] + dt * f[o]);
     step_rhs<kArms, kScale, kRef>(c, st, u2, f, top, s);
   }
   if (!active) return;
 #pragma unroll
-  for (int o = 0; o < MAX_NTOT; ++o)
+  for (int o = 0; o < C::kNtot; ++o)
     if (o < c.n_tot)
       out[o * B + lane] = y[o] / T(3) + c.two_thirds * (u2[o] + dt * f[o]);
 }

@@ -18,7 +18,10 @@ library and its ``build.log``), the hash taken over the generated text, the
 csrc/ sources, the flags and the rule that rebuilds a unit whose registers
 spilled (`gen_flags_digest`). Units are built at first use, several at once
 when asked for together (`build_generated`), and loaded by ctypes
-(`load_generated`).
+(`load_generated`). So are the units of configurations past the prebuilt
+library's capacities: a reference-tier kernel at capacities of its own
+(`load_ref`) and the quadrature kernel at more than three modes
+(`load_numerical`); each exports its layout, checked on load.
 """
 
 from __future__ import annotations
@@ -174,8 +177,10 @@ def load_library() -> ctypes.CDLL:
         f = getattr(lib, f"cloudy_coal_ref_threads_per_sm_{tag}")
         f.argtypes = [i, p]  # cfg bytes, out
         f.restype = i
-    lib.cloudy_device_sms.argtypes = [i, p]  # device, out
-    lib.cloudy_device_sms.restype = i
+    for name in ("cloudy_device_sms", "cloudy_device_smem_optin"):
+        f = getattr(lib, name)
+        f.argtypes = [i, p]  # device, out
+        f.restype = i
     lib.cloudy_error_string.argtypes = [i]
     lib.cloudy_error_string.restype = ctypes.c_char_p
     lib.cloudy_chain_name.argtypes = [i]
@@ -184,20 +189,34 @@ def load_library() -> ctypes.CDLL:
     if names != op_chains.NAMES or lib.cloudy_chain_name(len(names)) is not None:
         raise RuntimeError(f"{lib._name}: chain table {names} differs from the host's "
                            f"{op_chains.NAMES}")
-    got = (ctypes.c_int * 8)()
-    for export, module, names in (
-        (lib.cloudy_layout, fused_coalescence,
-         "MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, header ints"),
-        (lib.cloudy_numerical_layout, numerical_coalescence,
-         "MAX_MODES, MAX_G, MAX_NMOM, CFG_MAX_BYTES, header ints"),
+    for export, want, names in (
+        (lib.cloudy_layout, fused_coalescence.LAYOUT, "modes, moments, M, header ints"),
+        (lib.cloudy_numerical_layout, numerical_coalescence.LAYOUT,
+         "per-mode stride, moment orders, header ints"),
     ):
-        n = export(got)
-        if tuple(got[:n]) != module.LAYOUT:
-            raise RuntimeError(
-                f"{lib._name}: configuration layout {tuple(got[:n])} ({names}) "
-                f"differs from the host's {module.LAYOUT}"
-            )
+        _check_layout(lib._name, export, want, names)
     return lib
+
+
+def _check_layout(name: str, export, want: tuple, names: str) -> None:
+    """Refuse a library or unit whose packed-configuration layout, as it
+    exports it, differs from the host's `want`."""
+    got = (ctypes.c_int * 8)()
+    n = export(got)
+    if tuple(got[:n]) != tuple(want):
+        raise RuntimeError(f"{name}: configuration layout {tuple(got[:n])} ({names}) "
+                           f"differs from the host's {tuple(want)}")
+
+
+@functools.lru_cache(maxsize=None)
+def device_smem_optin(device: int) -> int:
+    """The shared memory a block of CUDA device `device` may opt into, in
+    bytes (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    out = ctypes.c_int(0)
+    err = load_library().cloudy_device_smem_optin(int(device), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"device attribute query failed: cudaError {err}")
+    return out.value
 
 
 #: one record per generated unit this process built (`build_generated`)
@@ -254,12 +273,15 @@ def _write(path: Path, text: str) -> None:
 
 
 def build_generated(units, max_jobs: int = None) -> list:
-    """Build every generated unit (`codegen.Unit`) whose library does not
-    exist yet: one ``nvcc -shared`` each, up to `max_jobs` (default twice
-    the CPU count) running at once. A unit whose ``ptxas`` report shows
-    stack or spills (`_spills`) is built once more with `GEN_RETRY_FLAG`
-    into ``lib.minblocks1.so`` (the first report kept as
-    ``build.first.log``); otherwise its library is ``lib.so``.
+    """Build every unit built at first use (`codegen.Unit`) whose library
+    does not exist yet: one ``nvcc -shared`` each, with the unit's own
+    flags, up to `max_jobs` (default twice the CPU count) running at once. A
+    generated kernel whose ``ptxas`` report shows stack or spills
+    (`_spills`) is built once more with `GEN_RETRY_FLAG` into
+    ``lib.minblocks1.so`` (the first report kept as ``build.first.log``);
+    otherwise, and for the first-use units of the table-driven sources
+    (whose local arrays the rule does not touch), its library is
+    ``lib.so``.
     Returns one record per unit: its label, library path, whether it was
     built here and retried, the seconds from the start to the exit of its
     ``nvcc`` runs and the compiler's report. A failed build raises."""
@@ -286,8 +308,8 @@ def build_generated(units, max_jobs: int = None) -> list:
             _write(d / "cfg.cuh", u.cfg)
             _write(d / "unit.cu", u.source)
             tmp = d / f"lib.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-shared", "-o", str(tmp),
-                   str(d / "unit.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, *u.flags, *extra, "-I", str(CSRC), "-shared", "-o",
+                   str(tmp), str(d / "unit.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             running.append((u, rec, extra, cmd, tmp, proc, time.perf_counter()))
@@ -304,7 +326,7 @@ def build_generated(units, max_jobs: int = None) -> list:
             failed = failed or (cmd, proc.returncode, out)
             tmp.unlink(missing_ok=True)
             continue
-        if not extra and _spills(out):
+        if not extra and _spills(out) and u.kind in _gen_kinds():
             _write(d / "build.first.log", out)
             tmp.unlink(missing_ok=True)
             rec["retried"] = True
@@ -322,36 +344,81 @@ def build_generated(units, max_jobs: int = None) -> list:
     return records
 
 
+def _gen_kinds():
+    from cloudy_tpu_torch.ops import codegen
+
+    return codegen.KINDS
+
+
 _GEN_LIBS: dict = {}
 
 
-def load_generated(u) -> ctypes.CDLL:
-    """Build `u` if needed, load it, declare its entry points (pointers and
-    the stream as ``c_void_p``) and check that it is the kernel the host
-    asked for (kind, n_tot, nz, type size, block size, stencil)."""
+def _load_unit(u, prefix: str, entries: dict, info: tuple):
+    """Build `u` if needed, load it, declare its entry points (`entries`:
+    name after `prefix` → argtypes, each returning an int; pointers and the
+    stream as ``c_void_p``) and its error string, and check that its info
+    export is `info`: the kernel the host asked for."""
     lib = _GEN_LIBS.get(u.digest)
     if lib is not None:
         return lib
     rec, = build_generated([u])
     lib = ctypes.CDLL(str(rec["path"]))
-    p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.cloudy_gen_launch.argtypes = [p, p, ll, p]  # mom, out, B, stream
-    lib.cloudy_gen_launch.restype = ctypes.c_int
-    lib.cloudy_gen_blocks_per_sm.argtypes = [p]
-    lib.cloudy_gen_blocks_per_sm.restype = ctypes.c_int
-    lib.cloudy_gen_info.argtypes = [p]
-    lib.cloudy_gen_info.restype = ctypes.c_int
-    lib.cloudy_gen_error_string.argtypes = [ctypes.c_int]
-    lib.cloudy_gen_error_string.restype = ctypes.c_char_p
+    for name, argtypes in {**entries, "info": [ctypes.c_void_p]}.items():
+        f = getattr(lib, f"{prefix}_{name}")
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    f = getattr(lib, f"{prefix}_error_string")
+    f.argtypes = [ctypes.c_int]
+    f.restype = ctypes.c_char_p
     got = (ctypes.c_int * 8)()
-    n = lib.cloudy_gen_info(got)
-    from cloudy_tpu_torch.ops import codegen
-
-    want = (codegen.KINDS[u.kind], u.n_tot, u.nz,
-            4 if u.dtype.itemsize == 4 else 8, u.threads, int(u.shfl))
-    if tuple(got[:n]) != want:
-        raise RuntimeError(f"{rec['path']}: kernel {tuple(got[:n])} is not the unit's {want}")
+    n = getattr(lib, f"{prefix}_info")(got)
+    if tuple(got[:n]) != tuple(info):
+        raise RuntimeError(f"{rec['path']}: kernel {tuple(got[:n])} is not the unit's {info}")
     _GEN_LIBS[u.digest] = lib
+    return lib
+
+
+def load_generated(u) -> ctypes.CDLL:
+    """Build the generated unit `u` if needed and load it, checking that it
+    is the kernel the host asked for (kind, n_tot, nz, type size, block
+    size, stencil, scaled)."""
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    info = (_gen_kinds()[u.kind], u.n_tot, u.nz, u.dtype.itemsize, u.threads,
+            int(u.shfl), int(u.scaled))
+    return _load_unit(u, "cloudy_gen", {"launch": [p, p, ll, p, p],  # mom, out, B, scale, stream
+                                        "blocks_per_sm": [p]}, info)
+
+
+def load_ref(u) -> ctypes.CDLL:
+    """Build the reference-tier unit `u` (`codegen.ref_unit`) if needed and
+    load it, checking its kind, type size and layout: the capacities it was
+    built at (`fused_coalescence.layout`)."""
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    kind = fc.REF_KINDS.index(u.kind[len("ref_"):])
+    lib = _load_unit(u, "cloudy_ref", {
+        # mom, out, cfg, cfg bytes, B, nz, scale, stream
+        "launch": [p, p, p, i, ll, i, p, p],
+        "layout": [p], "threads_per_sm": [i, p]}, (kind, u.dtype.itemsize))
+    _check_layout(u.label, lib.cloudy_ref_layout, fc.layout(u.caps),
+                  "modes, moments, M, header ints")
+    return lib
+
+
+def load_numerical(u) -> ctypes.CDLL:
+    """Build the quadrature-kernel unit `u` (`codegen.numerical_unit`) if
+    needed and load it, checking its modes, type size and layout
+    (`numerical_coalescence.layout`)."""
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+
+    n_modes, = u.caps
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = _load_unit(u, "cloudy_numerical_unit", {
+        "launch": [p, p, p, i, ll, i, i, p],  # mom, out, cfg, cfg bytes, B, G, ktag, stream
+        "layout": [p]}, (n_modes, u.dtype.itemsize))
+    _check_layout(u.label, lib.cloudy_numerical_unit_layout, nc.layout(n_modes),
+                  "per-mode stride, moment orders, header ints")
     return lib
 
 

@@ -30,14 +30,26 @@ straight-line statements:
   F2[a, b]); no threshold: mm) and the ``mm < eps`` zero, once per entry.
 
 `unit` wraps the configuration in one kernel (csrc/gen_kernels.cuh: the
-whole step with its warp-shuffle or shared-memory z-stencil, the fused
-RHS, or the coalescence RHS), with its block size and launch bounds. Its name is a hash of the
-generated text, the csrc/ sources, the compiler flags and the spill rule
-(`_build.gen_flags_digest`); `ops._build`
+whole step with its warp-shuffle or shared-memory z-stencil, with or
+without the per-lane kernel scale of B1s, the fused RHS, or the coalescence
+RHS), with its block size and launch bounds. The configuration type is
+sized from the plan: every per-lane array of the body holds the plan's
+modes and moments (its capacities `kModes`, `kNtot`, `kM`, with M at least
+`MAX_M`, the F2 rows' stride), so any number of modes and moments compiles.
+
+Two more kinds of unit are built at first use from the package's own
+sources, for configurations past what the prebuilt library holds:
+`ref_unit`, a table-driven reference-tier kernel at capacities past the
+library's (csrc/fused_coalescence.cu built with its own CLOUDY_CAP_*), and
+`numerical_unit`, the quadrature kernel (B5) at more modes than the
+library's three (csrc/numerical_coalescence.cu).
+
+A unit's name is a hash of the generated text, the csrc/ sources, the
+compiler flags and the spill rule (`_build.gen_flags_digest`); `ops._build`
 compiles each unit at first use under ``build/cloudy_tpu_torch/gen/<hash>/``
 (several at once when asked for together, `_build.build_generated`) and
-binds it by ctypes (`_build.load_generated`).
-Nothing generated is committed.
+binds it by ctypes (`_build.load_generated`, `load_ref`,
+`load_numerical`). Nothing generated is committed.
 """
 
 from __future__ import annotations
@@ -64,14 +76,18 @@ KINDS = {"step": 0, "rhs": 1, "coal": 2}
 #: evaluations as a loop over one inlined copy of the body
 #: (csrc/gen_kernels.cuh), both also chosen there.
 THREADS = 256
-#: the MAX_M of csrc/coal_body.cuh, for the packed (p, q) index `tri`
+#: the MAX_M of csrc/coal_body.cuh: the least stride of an F2 row (`_tri`)
 _MAX_M = fc.MAX_M
 
 
 @dataclasses.dataclass(frozen=True)
 class Unit:
-    """One generated build unit: a configuration header and the unit that
-    instantiates one kernel on it."""
+    """One build unit built at first use: a configuration header and the
+    unit that instantiates one kernel on it. `kind` is a generated kernel
+    (`KINDS`), ``"ref_<kind>"`` a reference-tier one (`ref_unit`) or
+    ``"numerical"`` (`numerical_unit`); `flags` are its extra nvcc flags,
+    `caps` the capacities a unit of the table-driven sources is built at
+    (modes, moments, M; a numerical unit: its modes)."""
 
     kind: str
     dtype: torch.dtype
@@ -82,10 +98,14 @@ class Unit:
     shfl: bool
     n_tot: int
     nz: int
+    scaled: bool = False
+    flags: Tuple[str, ...] = ()
+    caps: Tuple[int, ...] = ()
 
     @property
     def label(self) -> str:
-        return f"{self.kind}_{'f32' if self.dtype == torch.float32 else 'f64'}_{self.digest}"
+        kind = f"{self.kind}_scaled" if self.scaled else self.kind
+        return f"{kind}_{'f32' if self.dtype == torch.float32 else 'f64'}_{self.digest}"
 
 
 def literal(v: float, dtype: torch.dtype) -> str:
@@ -103,9 +123,17 @@ def literal(v: float, dtype: torch.dtype) -> str:
     return f"({s})" if s.startswith("-") else s
 
 
-def _tri(p: int, q: int) -> int:
-    """The packed (p, q), p ≤ q, slot of an F2 row (csrc/coal_body.cuh tri)."""
-    return p * (2 * _MAX_M - p - 1) // 2 + q
+def _cap_m(plan: fc.FusedPlan) -> int:
+    """The configuration type's capacity of M, the stride of its F2 rows:
+    the plan's M, but at least `_MAX_M` (the stride the prebuilt tables
+    and every configuration up to M = 5 keep)."""
+    return max(plan.M, _MAX_M)
+
+
+def _tri(p: int, q: int, kM: int = _MAX_M) -> int:
+    """The packed (p, q), p ≤ q, slot of an F2 row of stride kM
+    (csrc/coal_body.cuh tri)."""
+    return p * (2 * kM - p - 1) // 2 + q
 
 
 def _check(plan: fc.FusedPlan) -> None:
@@ -124,7 +152,7 @@ def _contract(plan: fc.FusedPlan, dtype: torch.dtype, real: str) -> List[str]:
     c·Mf[i]·Mf[j] with i = mode·M + p, then the wf terms (o, k, a, b, c),
     acc[o] += c·F2[k][a, b] with a ≤ b, its skipped terms left out
     (`build_plan`)."""
-    M = plan.M
+    M, kM = plan.M, _cap_m(plan)
     wb, wf = list(plan.wb_nz), list(plan.wf_nz)
     out = [f"const {real} eps = Lim<{real}>::eps();"]
     seen = set()
@@ -136,7 +164,7 @@ def _contract(plan: fc.FusedPlan, dtype: torch.dtype, real: str) -> List[str]:
         out.append(f"const {real} {mm} = mf[{k * M + a}] * mf[{k * M + b}];")
         kind = plan.f2_kind[k]
         if kind == fc.F2_WINDOW:
-            val = f"vmin({mm}, ftab[{k}][{_tri(a, b)}])"
+            val = f"vmin({mm}, ftab[{k}][{_tri(a, b, kM)}])"
         elif kind == fc.F2_EXACT:
             val = f"vmin({mm}, {mm} * ftab[{k}][{a + b}])"
         else:
@@ -170,12 +198,17 @@ def _table(name: str, ctype: str, vals: Sequence[str]) -> List[str]:
     ]
 
 
-def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") -> str:
+def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
+                  scaled: bool = False) -> str:
     """The configuration header of `plan` in `dtype` for kernel `kind`:
-    struct ``cloudy::gen::Cfg`` (csrc/coal_body.cuh, `C::kStatic`)."""
+    struct ``cloudy::gen::Cfg`` (csrc/coal_body.cuh, `C::kStatic`). A
+    `scaled` whole step carries ``kScale`` (csrc/gen_kernels.cuh `Scaled`);
+    an unscaled one's text has no such line."""
     _check(plan)
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {tuple(KINDS)}, not {kind!r}")
+    if scaled and kind != "step":
+        raise ValueError("only the whole step takes a kernel scale")
     real = "float" if dtype == torch.float32 else "double"
     threads, shfl = _block(plan, kind)
     r = fc.config_reals(plan)
@@ -201,11 +234,16 @@ def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") ->
         "static constexpr bool kStatic = true;",
         f"static constexpr bool kArms = {'true' if plan.arms else 'false'};",
         f"static constexpr int kKind = {KINDS[kind]};",
+        *(["static constexpr bool kScale = true;"] if scaled else []),
         f"static constexpr int kThreads = {threads};",
         f"static constexpr bool kShfl = {'true' if shfl else 'false'};",
         f"static constexpr int n_modes = {plan.n_modes};",
         f"static constexpr int n_tot = {plan.n_tot};",
         f"static constexpr int M = {plan.M};",
+        "// capacities: the per-lane arrays' sizes, M's the F2 rows' stride",
+        f"static constexpr int kModes = {plan.n_modes}, kNtot = {plan.n_tot}, "
+        f"kM = {_cap_m(plan)};",
+        "static constexpr int kS = 2 * kM - 1, kFtab = kM * (kM + 1) / 2;",
         f"static constexpr int n_gl = {plan.gl_nodes};",
         f"static constexpr int n_vel = {len(plan.vel_n)};",
         f"static constexpr int n_win = {plan.win_nodes};",
@@ -246,14 +284,27 @@ def _block(plan: fc.FusedPlan, kind: str) -> Tuple[int, bool]:
     return cols * nz, False
 
 
-def unit(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") -> Unit:
-    """The build unit of `plan`'s `kind` kernel in `dtype`."""
+def _digest(*texts: str) -> str:
     from cloudy_tpu_torch.ops import _build
 
-    cfg = config_source(plan, dtype, kind)
+    h = hashlib.sha256()
+    for t in texts:
+        h.update(t.encode())
+    h.update(_build.gen_flags_digest().encode())
+    return h.hexdigest()[:16]
+
+
+def unit(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
+         scaled: bool = False) -> Unit:
+    """The build unit of `plan`'s `kind` kernel in `dtype`; `scaled`: the
+    whole step with the per-lane kernel scale (B1s)."""
+    cfg = config_source(plan, dtype, kind, scaled)
     threads, shfl = _block(plan, kind)
     real = "float" if dtype == torch.float32 else "double"
     name = f"gen_{kind}"
+    args = f"const {real}* __restrict__ mom, {real}* __restrict__ out, long long B"
+    if scaled:
+        args += f", const {real}* __restrict__ scale"
     source = "\n".join([
         "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
         '#include "gen_kernels.cuh"',
@@ -262,18 +313,61 @@ def unit(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step") -> Unit:
         "namespace cloudy {",
         "namespace gen {",
         f"__global__ void CLOUDY_GEN_BOUNDS({threads})",
-        f"{name}(const {real}* __restrict__ mom, {real}* __restrict__ out, long long B) {{",
-        f"  gen_{kind}_body<Cfg>(mom, out, B);",
+        f"{name}({args}) {{",
+        f"  gen_{kind}_body<Cfg>(mom, out, B{', scale' if scaled else ''});",
         "}",
         "}  // namespace gen",
         "}  // namespace cloudy",
         "",
-        f"CLOUDY_GEN_ENTRY(cloudy::gen::Cfg, cloudy::gen::{name})",
+        f"CLOUDY_GEN_{'SCALED_' if scaled else ''}ENTRY(cloudy::gen::Cfg, cloudy::gen::{name})",
         "",
     ])
-    h = hashlib.sha256(cfg.encode())
-    h.update(source.encode())
-    h.update(_build.gen_flags_digest().encode())
-    return Unit(kind=kind, dtype=dtype, cfg=cfg, source=source, digest=h.hexdigest()[:16],
-                threads=threads, shfl=shfl, n_tot=plan.n_tot, nz=plan.nz)
+    return Unit(kind=kind, dtype=dtype, cfg=cfg, source=source, digest=_digest(cfg, source),
+                threads=threads, shfl=shfl, n_tot=plan.n_tot, nz=plan.nz, scaled=scaled)
+
+
+def _first_use_source(caps_defines, include: str, entry: str) -> str:
+    return "\n".join([
+        "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
+        *caps_defines,
+        "#define CLOUDY_UNIT (-1)",
+        f'#include "{include}"',
+        "",
+        entry,
+        "",
+    ])
+
+
+def ref_unit(caps, dtype: torch.dtype, kind: str) -> Unit:
+    """The unit of the table-driven reference-tier kernel `kind`
+    (`fused_coalescence.REF_KINDS`: the coalescence RHS with a thread or a
+    warp per box, the fused RHS, the whole step, the scaled whole step) at
+    capacities `caps` (modes, moments, M) in `dtype`: csrc/
+    fused_coalescence.cu with its CLOUDY_CAP_* set to `caps` and one
+    CLOUDY_REF_ENTRY. The whole steps are built without FMA contraction, as
+    the library's reference whole step (its units 12, 13, 16, 17)."""
+    if kind not in fc.REF_KINDS:
+        raise ValueError(f"kind must be one of {fc.REF_KINDS}, not {kind!r}")
+    modes, ntot, m = (int(v) for v in caps)
+    real = "float" if dtype == torch.float32 else "double"
+    source = _first_use_source(
+        [f"#define CLOUDY_CAP_MODES {modes}", f"#define CLOUDY_CAP_NTOT {ntot}",
+         f"#define CLOUDY_CAP_M {m}"],
+        "fused_coalescence.cu", f"CLOUDY_REF_ENTRY({real}, {kind.upper()})")
+    flags = ("-fmad=false",) if kind.startswith("step") else ()
+    return Unit(kind=f"ref_{kind}", dtype=dtype, cfg="", source=source,
+                digest=_digest(source, " ".join(flags)), threads=0, shfl=False,
+                n_tot=ntot, nz=0, flags=flags, caps=(modes, ntot, m))
+
+
+def numerical_unit(n_modes: int, dtype: torch.dtype) -> Unit:
+    """The unit of the quadrature kernel (B5, `quad_kernel`) at `n_modes`
+    modes in `dtype`, for more modes than the prebuilt library holds:
+    csrc/numerical_coalescence.cu with one CLOUDY_NUMERICAL_UNIT_ENTRY."""
+    real = "float" if dtype == torch.float32 else "double"
+    source = _first_use_source([], "numerical_coalescence.cu",
+                               f"CLOUDY_NUMERICAL_UNIT_ENTRY({real}, {int(n_modes)})")
+    return Unit(kind="numerical", dtype=dtype, cfg="", source=source,
+                digest=_digest(source), threads=0, shfl=False, n_tot=0, nz=0,
+                caps=(int(n_modes),))
 

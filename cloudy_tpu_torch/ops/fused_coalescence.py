@@ -25,14 +25,19 @@ one of two routes, chosen from the plan alone (the wrapper's `route`):
 - ``"generated"``: the whole step, the fused RHS and the coalescence RHS of
   a fast-tier plan run a kernel generated for that configuration and type
   (`ops.codegen`, csrc/gen_kernels.cuh), every table compiled in;
-- ``"table"``: the scaled whole step and every reference-tier plan run the
-  table-driven kernels (csrc/fused_coalescence.cu): the host packs the
-  configuration (`pack_config`) into a small byte buffer that each block
-  copies into shared memory.
+- ``"table"``: every reference-tier plan runs the table-driven kernels
+  (csrc/fused_coalescence.cu): the host packs the configuration
+  (`pack_config`) into a byte buffer that each block copies into shared
+  memory. A plan within the prebuilt capacities (`CAPS`: 3 modes, 9
+  moments, M 5) runs the prebuilt library; a plan past them runs units
+  built at first use with capacities of its own (`plan_caps`,
+  `codegen.ref_unit`).
 
-The table-driven fast instances of the three kernels are still built,
-reachable only through the constructors' private ``_table`` argument:
-`chip_smoke.py` times them beside the generated kernels.
+The whole step with a per-lane kernel scale (B1s) takes the same routes.
+The table-driven fast instances of the three kernels and of the scaled
+step are still built, reachable only through the constructors' private
+``_table`` argument: `chip_smoke.py` times them beside the generated
+kernels.
 
 Layout: the flat structure-of-arrays ``[n_tot, B]``, one CUDA thread per
 lane (one level of one column), z contiguous within each column. The
@@ -68,8 +73,10 @@ the same defaults):
   threshold θ, the closed-form F2 where θ < T/2, flux n·θ^e) — the default
   of every JAX kernel factory and the tier of every golden.
 
-More modes or moments than the capacities raise `NotImplementedError`
-naming the ROADMAP item that lifts them. Each kernel is compiled three
+Any number of modes and moments runs: the generated kernels are sized from
+the configuration, the table-driven ones from their capacities. The packed
+tables live in shared memory, up to the card's opt-in limit per block; a
+configuration past it raises, saying so. Each kernel is compiled three
 times: without the MovingThreshold and lognormal arms, with them, and with
 the reference tier besides; `FusedPlan.instance` picks one.
 """
@@ -88,15 +95,42 @@ from cloudy_tpu_torch.coalescence import LOGNORM_WINDOW_SIGMA, CoalescenceData
 from cloudy_tpu_torch.ops import special
 from cloudy_tpu_torch.ops.simpson import simpson_even_fast_weights
 
-# Capacities of csrc/coal_body.cuh and the int32 header slots of the packed
-# configuration; the library exports its own (`cloudy_layout`) and
-# `_build.load_library` refuses a library whose values differ from `LAYOUT`.
+# Capacities of the prebuilt table-driven kernels (csrc/coal_body.cuh
+# CLOUDY_CAP_*: modes, moments, moment orders M) and the int32 header slots
+# of the packed configuration, whose per-mode slots follow the capacities
+# (`header_ints`). A plan past them runs units built at first use with its
+# own (`plan_caps`). The library and each unit export their layout
+# (`cloudy_layout`, `cloudy_ref_layout`); `_build` refuses one whose values
+# differ from the host's `layout(caps)`, so that a buffer is never read with
+# another layout than it was packed with.
 MAX_MODES = 3
 MAX_NTOT = 9
 MAX_M = 5
-CFG_MAX_BYTES = 12288
-HEADER_INTS = 22
-LAYOUT = (MAX_MODES, MAX_NTOT, MAX_M, CFG_MAX_BYTES, HEADER_INTS)
+CAPS = (MAX_MODES, MAX_NTOT, MAX_M)
+
+
+def header_ints(caps=CAPS) -> int:
+    """Int32 slots before the per-mode family slots: 16 header slots and
+    the per-mode F2 kinds and grid lengths (csrc/coal_body.cuh I_FAM)."""
+    return 16 + 2 * caps[0]
+
+
+HEADER_INTS = header_ints()
+
+
+def layout(caps=CAPS) -> tuple:
+    """(modes, moments, M, header ints) of the kernels at `caps`, as their
+    library or unit exports them."""
+    return (*caps, header_ints(caps))
+
+
+LAYOUT = layout()
+
+
+def plan_caps(plan) -> tuple:
+    """The table-driven capacities `plan` runs at: the prebuilt `CAPS`, each
+    raised to the plan's own where it exceeds them."""
+    return (max(MAX_MODES, plan.n_modes), max(MAX_NTOT, plan.n_tot), max(MAX_M, plan.M))
 
 #: per-mode F2 evaluation (`FusedPlan.f2_kind`; csrc/coal_body.cuh F2_*):
 #: none, exact gamma/exponential, the lognormal window rule, a quadrature
@@ -231,18 +265,6 @@ def _thresholded(data: CoalescenceData, i: int) -> bool:
     return bool(data.moving or np.isfinite(data.thresholds[i]))
 
 
-def check_supported(data: CoalescenceData) -> None:
-    """Raise `NotImplementedError` for a configuration past the CUDA kernels'
-    capacities, naming the ROADMAP item that lifts them."""
-    fams = data.spec.families
-    if len(fams) > MAX_MODES or data.spec.n_tot > MAX_NTOT or data.M > MAX_M:
-        raise NotImplementedError(
-            f"configuration exceeds the kernels' capacities (modes ≤ {MAX_MODES}, "
-            f"n_tot ≤ {MAX_NTOT}, M ≤ {MAX_M}); per-configuration code "
-            "generation is ROADMAP B-codegen"
-        )
-
-
 def _threshold_constants(data: CoalescenceData):
     """(thr_flag, thr_const) per mode; see `FusedPlan`. The lognormal
     percentile constant Φ⁻¹(p) is evaluated in true double on the host and
@@ -322,8 +344,9 @@ def build_plan(
     """Tables of one configuration; `vel` and `norms` matter for the kernels
     that compute the sedimentation flux, `nz`, `dz`, `dt` for the whole-step
     kernel only. `coal_kwargs` are the per-call overrides of
-    `make_pallas_coal_fn` (`COAL_OVERRIDES`)."""
-    check_supported(data)
+    `make_pallas_coal_fn` (`COAL_OVERRIDES`). Every configuration the XLA
+    path takes is accepted (`pallas_supported`, pallas_coalescence.py:
+    105-108)."""
     kw = _overrides(data, coal_kwargs)
     spec = data.spec
     thr_flag, thr_const = _threshold_constants(data)
@@ -385,15 +408,16 @@ def build_plan(
     )
 
 
-def _per_mode(vals, fill=0):
-    return list(vals) + [fill] * (MAX_MODES - len(vals))
+def _per_mode(vals, fill=0, n=MAX_MODES):
+    return list(vals) + [fill] * (n - len(vals))
 
 
-def config_reals(plan: FusedPlan) -> dict:
-    """The configuration's real constants in host double, by name: every
-    kernel rounds each once to its type, as JAX folds Python floats. The
-    table-driven kernels read them packed (`pack_config`), the generated
-    ones as literals (`ops.codegen`)."""
+def config_reals(plan: FusedPlan, caps=CAPS) -> dict:
+    """The configuration's real constants in host double, by name, the
+    per-mode and per-moment ones padded to `caps`: every kernel rounds each
+    once to its type, as JAX folds Python floats. The table-driven kernels
+    read them packed (`pack_config`, at the plan's capacities), the
+    generated ones as literals (`ops.codegen`)."""
     gl_y, gl_w = (np.polynomial.legendre.leggauss(plan.gl_nodes) if plan.gl_nodes
                   else ((), ()))
     win_v, win_w = (np.polynomial.legendre.leggauss(plan.win_nodes)
@@ -406,9 +430,9 @@ def config_reals(plan: FusedPlan) -> dict:
                         else ((), ()))
     grids = [g or ((), (), 0.0) for g in plan.grids]
     norms = list(plan.mom_norms) or [1.0] * plan.n_tot
-    pad = [1.0] * (MAX_NTOT - plan.n_tot)
+    pad = [1.0] * (caps[1] - plan.n_tot)
     return {
-        "thr": _per_mode(plan.thr_const, 0.0),
+        "thr": _per_mode(plan.thr_const, 0.0, caps[0]),
         "norm": norms + pad,
         "inv_norm": [1.0 / v for v in norms] + pad,
         "wb_c": [c for (*_, c) in plan.wb_nz],
@@ -427,25 +451,31 @@ def config_reals(plan: FusedPlan) -> dict:
         "dt": plan.dt,
         "inv_dz": plan.inv_dz,
         "two_thirds": 2.0 / 3.0,
-        "grid_dx": _per_mode([g[2] for g in grids], 0.0),
+        "grid_dx": _per_mode([g[2] for g in grids], 0.0, caps[0]),
         "gauss_u": [float(u) for u in gauss_u],
         "gauss_w": [float(w) for w in gauss_w],
         "grids": [v for x, w, _ in grids for v in list(x) + list(w)],
     }
 
 
-def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
+def pack_config(plan: FusedPlan, dtype: torch.dtype, caps=None) -> np.ndarray:
     """The byte buffer the table-driven kernels read (layout:
-    csrc/coal_body.cuh, `Config::bind`). Real constants are computed in
-    double on the host (`config_reals`) and rounded once to the kernel's
-    type, as JAX folds Python floats. The FixedThreshold quadrature grids
-    (the Pallas kernels' `grid_inputs`) ride at its end, so each block reads
-    them from shared memory: a three-mode configuration with two Simpson
-    grids (76 and 86 points) takes 6,032 bytes in f32 and 8,480 in f64 of
-    the 12,288."""
+    csrc/coal_body.cuh, `Config::bind`), at capacities `caps` (default the
+    plan's own, `plan_caps`: the kernels it runs). Real constants are
+    computed in double on the host (`config_reals`) and rounded once to the
+    kernel's type, as JAX folds Python floats. The FixedThreshold quadrature
+    grids (the Pallas kernels' `grid_inputs`) ride at its end, so each block
+    reads them from shared memory: a three-mode configuration with two
+    Simpson grids (76 and 86 points) takes 6,032 bytes in f32 and 8,480 in
+    f64; the card's opt-in limit per block bounds it (`_KernelFn`)."""
     real_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     N = plan.n_modes
-    r = config_reals(plan)
+    caps = plan_caps(plan) if caps is None else tuple(caps)
+    if N > caps[0] or plan.n_tot > caps[1] or plan.M > caps[2]:
+        raise ValueError(f"plan (modes {N}, n_tot {plan.n_tot}, M {plan.M}) exceeds the "
+                         f"capacities {caps} it is packed for")
+    per_mode = lambda vals, fill=0: _per_mode(vals, fill, caps[0])  # noqa: E731
+    r = config_reals(plan, caps)
     grids = [g or ((), (), 0.0) for g in plan.grids]
 
     # header; slot 7 becomes the byte offset of the reals
@@ -456,13 +486,13 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     ints += [int(plan.quad_rule == "gauss"), plan.gammainc_iters,
              plan.thr_newton_iters, plan.thr_gammainc_iters, plan.n_points_max,
              len(r["gauss_u"])]
-    ints += _per_mode(plan.f2_kind)
-    ints += _per_mode([len(g[0]) for g in grids])
-    assert len(ints) == HEADER_INTS
-    ints += _per_mode(plan.families)
-    ints += _per_mode(plan.offsets)
-    ints += _per_mode(plan.nprog)
-    ints += _per_mode(plan.thr_flag)
+    ints += per_mode(plan.f2_kind)
+    ints += per_mode([len(g[0]) for g in grids])
+    assert len(ints) == header_ints(caps)
+    ints += per_mode(plan.families)
+    ints += per_mode(plan.offsets)
+    ints += per_mode(plan.nprog)
+    ints += per_mode(plan.thr_flag)
     for (o, i, j, _) in plan.wb_nz:
         ints += [o, i, j]
     for (o, k, a, b, _) in plan.wf_nz:
@@ -482,11 +512,6 @@ def pack_config(plan: FusedPlan, dtype: torch.dtype) -> np.ndarray:
     ints[7] = real_offset
     total = real_offset + np.dtype(real_t).itemsize * len(reals)
     total += (-total) % 16
-    if total > CFG_MAX_BYTES:
-        raise NotImplementedError(
-            f"configuration tables need {total} bytes > {CFG_MAX_BYTES}; "
-            "per-configuration code generation is ROADMAP B-codegen"
-        )
     buf = np.zeros(total, np.uint8)
     buf[:real_offset] = np.asarray(ints, np.int32).view(np.uint8)
     rb = np.asarray(reals, np.float64).astype(real_t).view(np.uint8)
@@ -1068,6 +1093,31 @@ class _KernelFn:
     def _pack(self) -> np.ndarray:
         return pack_config(self.plan, self.dtype)
 
+    def _smem_bytes(self, cfg_bytes: int) -> int:
+        """Dynamic shared memory of one launch with a packed configuration
+        of `cfg_bytes`: the configuration alone, unless the kernel adds rows
+        of its own."""
+        return cfg_bytes
+
+    def _config(self) -> torch.Tensor:
+        """The packed configuration on the card, packed and checked against
+        the card's opt-in limit of shared memory per block once."""
+        if self._cfg is None:
+            buf = self._pack()
+            need = self._smem_bytes(buf.size)
+            from cloudy_tpu_torch.ops import _build
+
+            limit = _build.device_smem_optin(self.device.index)
+            if need > limit:
+                raise RuntimeError(
+                    f"{type(self).__name__}: a block needs {need} bytes of shared memory "
+                    f"({buf.size} of them the packed configuration: quadrature grids, "
+                    f"weight tables), more than the {limit} a block of this card may opt "
+                    "into (cudaDevAttrMaxSharedMemoryPerBlockOptin); fewer modes, "
+                    "nodes or grid points fit")
+            self._cfg = torch.from_numpy(buf).to(self.device)
+        return self._cfg
+
     def _check(self, mom: torch.Tensor) -> None:
         if mom.device != self.device:
             raise ValueError(f"tensor on {mom.device}, wrapper built for {self.device}")
@@ -1080,48 +1130,66 @@ class _KernelFn:
         if not mom.is_contiguous():
             raise ValueError("expected a contiguous [n_tot, B] tensor")
 
-    def _launch(self, mom: torch.Tensor, n_out: int, *extra, symbol: str = None
-                ) -> torch.Tensor:
-        """Launch the kernel on ``[n_tot, B]`` into a new ``[n_out, B]``;
-        `extra` are the table-driven entry point's arguments between B and
-        the stream, `symbol` an entry point other than `_symbol`."""
-        if self.route == "generated":
-            return self._launch_generated(mom, n_out)
+    def _done(self, err: int, what: str, error_string) -> None:
+        if err != 0:
+            raise RuntimeError(
+                f"{what} launch failed: cudaError {err} ({error_string(err).decode()})")
+        self.launches += 1
+
+    def _launch(self, mom: torch.Tensor, n_out: int, *extra, symbol: str = None,
+                lib=None, error_string=None) -> torch.Tensor:
+        """Launch a table-driven kernel on ``[n_tot, B]`` into a new
+        ``[n_out, B]``: entry point `symbol` (default `_symbol`) of `lib`
+        (default the prebuilt library; a unit built at first use gives its
+        own `error_string`); `extra` are the entry point's arguments between
+        B and the stream."""
         from cloudy_tpu_torch.ops import _build
 
-        lib = _build.load_library()
+        if lib is None:
+            lib = _build.load_library()
+            error_string = lib.cloudy_error_string
         symbol = symbol or self._symbol
-        if self._cfg is None:
-            self._cfg = torch.from_numpy(self._pack()).to(self.device)
+        cfg = self._config()
         out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             err = getattr(lib, symbol)(
-                mom.data_ptr(), out.data_ptr(), self._cfg.data_ptr(),
-                self._cfg.numel(), mom.shape[1], *extra, stream,
+                mom.data_ptr(), out.data_ptr(), cfg.data_ptr(), cfg.numel(),
+                mom.shape[1], *extra, stream,
             )
-        if err != 0:
-            raise RuntimeError(
-                f"{symbol} launch failed: cudaError {err} "
-                f"({lib.cloudy_error_string(err).decode()})"
-            )
-        self.launches += 1
+        self._done(err, symbol, error_string)
         return out
+
+
+#: the kernels of a reference-tier unit built at first use, by the wrapper
+#: kind and layout that launch them (csrc/fused_coalescence.cu REF_*)
+REF_KINDS = ("coal", "warp", "rhs", "step", "step_scaled")
 
 
 class _GeneratedFn(_KernelFn):
     """A wrapper whose fast-tier plans launch the kernel generated for the
     configuration (`ops.codegen`) and whose reference-tier plans launch the
-    table-driven instance; the route follows from the plan alone. `_table`
-    (private) forces the table-driven fast instance: the same-call
-    yardstick of `chip_smoke.py`, reached by no public entry point."""
+    table-driven instance: the prebuilt library's within its capacities
+    (`CAPS`), else a unit built at first use at the plan's (`plan_caps`,
+    `codegen.ref_unit`); the route follows from the plan alone. `_table`
+    (private) forces the table-driven fast instance, which exists at the
+    prebuilt capacities only: the same-call yardstick of `chip_smoke.py`,
+    reached by no public entry point."""
 
     _kind = ""
+    _scaled = False
 
     def __init__(self, plan, device, dtype: torch.dtype, _table: bool = False):
         super().__init__(plan, device, dtype)
         self.route = "table" if (_table or plan.ref) else "generated"
+        #: the table-driven capacities (None on the generated route)
+        self.caps = plan_caps(plan) if self.route == "table" else None
+        if _table and not plan.ref and self.caps != CAPS:
+            raise ValueError(
+                f"the table-driven fast instances exist at the prebuilt capacities {CAPS} "
+                f"only; this plan needs {self.caps} (its route is the generated kernel)")
         self._unit = None
+        self._ref_units = {}
 
     @property
     def unit(self):
@@ -1132,25 +1200,53 @@ class _GeneratedFn(_KernelFn):
         if self._unit is None:
             from cloudy_tpu_torch.ops import codegen
 
-            self._unit = codegen.unit(self.plan, self.dtype, self._kind)
+            self._unit = codegen.unit(self.plan, self.dtype, self._kind, scaled=self._scaled)
         return self._unit
 
-    def _launch_generated(self, mom: torch.Tensor, n_out: int) -> torch.Tensor:
+    def ref_unit(self, kind: str):
+        """The reference-tier unit of kernel `kind` (`REF_KINDS`) at this
+        plan's capacities; None where the prebuilt library holds the
+        kernel."""
+        if self.route != "table" or self.caps == CAPS:
+            return None
+        if kind not in self._ref_units:
+            from cloudy_tpu_torch.ops import codegen
+
+            self._ref_units[kind] = codegen.ref_unit(self.caps, self.dtype, kind)
+        return self._ref_units[kind]
+
+    def build_units(self) -> list:
+        """Every unit built at first use that a CUDA call of this wrapper
+        may launch (to build several at once: `_build.build_generated`)."""
+        if self.route == "generated":
+            return [self.unit]
+        return [u for u in (self.ref_unit(k) for k in self._ref_kinds()) if u is not None]
+
+    def _ref_kinds(self):
+        return (self._kind,)
+
+    def _launch_generated(self, mom: torch.Tensor, n_out: int, scale=None) -> torch.Tensor:
         from cloudy_tpu_torch.ops import _build
 
         lib = _build.load_generated(self.unit)
         out = torch.empty((n_out, mom.shape[1]), dtype=mom.dtype, device=mom.device)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = lib.cloudy_gen_launch(mom.data_ptr(), out.data_ptr(), mom.shape[1], stream)
-        if err != 0:
-            raise RuntimeError(
-                f"generated {self.unit.label} launch failed: cudaError {err} "
-                f"({lib.cloudy_gen_error_string(err).decode()})"
-            )
-        self.launches += 1
+            err = lib.cloudy_gen_launch(mom.data_ptr(), out.data_ptr(), mom.shape[1],
+                                        None if scale is None else scale.data_ptr(), stream)
+        self._done(err, f"generated {self.unit.label}", lib.cloudy_gen_error_string)
         return out
 
+    def _launch_ref(self, mom: torch.Tensor, n_out: int, kind: str, nz: int = 0,
+                    scale=None) -> torch.Tensor:
+        """Launch kernel `kind` of the reference-tier unit at this plan's
+        capacities (built at first use)."""
+        from cloudy_tpu_torch.ops import _build
+
+        lib = _build.load_ref(self.ref_unit(kind))
+        return self._launch(mom, n_out, nz, None if scale is None else scale.data_ptr(),
+                            symbol="cloudy_ref_launch", lib=lib,
+                            error_string=lib.cloudy_ref_error_string)
 
 def coal_layout(plan: FusedPlan, B: int, n_sm: int, threads_per_sm: int) -> str:
     """The coalescence kernel's layout for `plan` at `B` boxes on a card of
@@ -1196,6 +1292,9 @@ class CoalFn(_GeneratedFn):
         self._layout = _layout
         self._slots = None
 
+    def _ref_kinds(self):
+        return ("coal", "warp") if F2_GRID in self.plan.f2_kind else ("coal",)
+
     def layout(self, B: int) -> str:
         """The layout of a launch on `B` boxes: ``"warp"`` or ``"thread"``
         (`coal_layout`; always ``"thread"`` on the fast tier and on the
@@ -1216,10 +1315,14 @@ class CoalFn(_GeneratedFn):
 
             lib = _build.load_library()
             n_sm, threads = ctypes.c_int(0), ctypes.c_int(0)
+            cfg_bytes = self._config().numel()  # packed and checked against the card
             with torch.cuda.device(self.device):
                 err = lib.cloudy_device_sms(self.device.index, ctypes.byref(n_sm))
-                err = err or getattr(lib, f"cloudy_coal_ref_threads_per_sm_{self._tag}")(
-                    int(self._pack().size), ctypes.byref(threads))
+                if self.caps == CAPS:
+                    query = getattr(lib, f"cloudy_coal_ref_threads_per_sm_{self._tag}")
+                else:
+                    query = _build.load_ref(self.ref_unit("coal")).cloudy_ref_threads_per_sm
+                err = err or query(cfg_bytes, ctypes.byref(threads))
             if err != 0:
                 raise RuntimeError(f"occupancy query failed: cudaError {err}")
             self._slots = (n_sm.value, threads.value)
@@ -1229,9 +1332,15 @@ class CoalFn(_GeneratedFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return coal_soa_plain(mom, self.plan)
-        if self.layout(mom.shape[1]) == "warp":
-            return self._launch(mom, self.plan.n_tot, symbol=f"cloudy_coal_warp_{self._tag}")
-        return self._launch(mom, self.plan.n_tot, self.plan.instance)
+        n_tot = self.plan.n_tot
+        if self.route == "generated":
+            return self._launch_generated(mom, n_tot)
+        warp = self.layout(mom.shape[1]) == "warp"
+        if self.caps != CAPS:
+            return self._launch_ref(mom, n_tot, "warp" if warp else "coal")
+        if warp:
+            return self._launch(mom, n_tot, symbol=f"cloudy_coal_warp_{self._tag}")
+        return self._launch(mom, n_tot, self.plan.instance)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T
@@ -1239,6 +1348,11 @@ class CoalFn(_GeneratedFn):
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
         return coal_soa_plain(mom, self.plan)
+
+
+#: threads per block the table-driven whole step aims at (csrc/
+#: fused_coalescence.cu STEP_TARGET_THREADS): blocks of whole columns
+STEP_TARGET_THREADS = 256
 
 
 class RainshaftStepFn(_GeneratedFn):
@@ -1257,30 +1371,47 @@ class RainshaftStepFn(_GeneratedFn):
         """The plain twin on any device (comparisons and timing)."""
         return rainshaft_step_soa_plain(mom, self.plan)
 
+    def _ref_kinds(self):
+        return ("step_scaled",) if self._scaled else ("step",)
+
+    def _smem_bytes(self, cfg_bytes: int) -> int:
+        # the configuration, then the flux rows of a block of whole columns
+        # (csrc/fused_coalescence.cu step_dims)
+        nz = self.plan.nz
+        threads = (1 if nz >= STEP_TARGET_THREADS else STEP_TARGET_THREADS // nz) * nz
+        return cfg_bytes + self.caps[1] * threads * self.dtype.itemsize
+
     def _step(self, mom: torch.Tensor, scale) -> torch.Tensor:
         self._check(mom)
-        if mom.shape[1] % self.plan.nz != 0:
-            raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={self.plan.nz}")
+        nz = self.plan.nz
+        if mom.shape[1] % nz != 0:
+            raise ValueError(f"B={mom.shape[1]} is not a multiple of nz={nz}")
         if mom.device.type == "cpu":
             return rainshaft_step_soa_plain(mom, self.plan, scale)
+        n_tot = self.plan.n_tot
+        if self.route == "generated":
+            return self._launch_generated(mom, n_tot, scale)
+        if self.caps != CAPS:
+            return self._launch_ref(mom, n_tot, self._ref_kinds()[0], nz, scale)
         extra = () if scale is None else (scale.data_ptr(),)
-        return self._launch(mom, self.plan.n_tot, self.plan.nz, self.plan.instance,
-                            *extra)
+        return self._launch(mom, n_tot, nz, self.plan.instance, *extra)
 
 
 class ScaledRainshaftStepFn(RainshaftStepFn):
     """The whole step with a per-lane kernel scale (replaces
-    `make_pallas_rainshaft_step_fn(kernel_scale=True)`, its ``fn_scaled``):
+    `make_pallas_rainshaft_step_fn(kernel_scale=True)`, its ``fn_scaled``,
+    pallas_coalescence.py:1022-1056, at either tier):
     ``fn(mom [n_tot, B], scale)``. `scale` is a number, a ``[B]`` or a
     ``[1, B]`` row; each lane's coalescence tendency is multiplied by its
     entry in every RHS evaluation. Scaling by ``s`` equals building the
-    configuration from the kernel tensor scaled by ``s``. Kernel
-    ``cloudy_step_scaled_*``."""
+    configuration from the kernel tensor scaled by ``s``. A fast-tier plan
+    launches the scaled kernel generated for it (a unit of its own, `route`
+    ``"generated"``), a reference-tier plan the table-driven scaled
+    reference instance (``cloudy_step_scaled_*``); `_table` forces the
+    table-driven fast instance (the same-call yardstick)."""
 
     _name = "cloudy_step_scaled"
-
-    def __init__(self, plan, device, dtype: torch.dtype):
-        super().__init__(plan, device, dtype, _table=True)  # table-driven only
+    _scaled = True
 
     def __call__(self, mom: torch.Tensor, scale) -> torch.Tensor:
         return self._step(mom, self.scale_row(mom, scale))
@@ -1313,7 +1444,12 @@ class RainshaftRhsFn(_GeneratedFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return rainshaft_rhs_soa_plain(mom, self.plan)
-        return self._launch(mom, 2 * self.plan.n_tot, self.plan.instance)
+        n_out = 2 * self.plan.n_tot
+        if self.route == "generated":
+            return self._launch_generated(mom, n_out)
+        if self.caps != CAPS:
+            return self._launch_ref(mom, n_out, "rhs")
+        return self._launch(mom, n_out, self.plan.instance)
 
     def plain(self, mom: torch.Tensor) -> torch.Tensor:
         """The plain twin on any device (comparisons and timing)."""
@@ -1355,16 +1491,10 @@ def make_rainshaft_step_fn(
 ) -> RainshaftStepFn:
     """Whole SSPRK33 rainshaft step on `device` in `dtype`; see
     `RainshaftStepFn`, and `ScaledRainshaftStepFn` for ``kernel_scale=True``
-    (fast tier only: the scaled kernel has no reference-tier instance, as
-    JAX's scaled kernel runs only at the fast tier). `vel` is the PHYSICAL
-    power-law velocity; `coal_kwargs` as for `make_coal_fn`."""
+    (at either tier, as JAX's ``fn_scaled``). `vel` is the PHYSICAL power-law
+    velocity; `coal_kwargs` as for `make_coal_fn`."""
     if nz < 2 or nz > 1024:
         raise ValueError(f"nz={nz} must lie in [2, 1024] (one block holds a column)")
     plan = build_plan(data, vel, norms, nz, dz, dt, **coal_kwargs)
-    if kernel_scale and plan.ref:
-        raise NotImplementedError(
-            "the scaled whole step is ported at the fast tier only "
-            "(f2_exact=True, gammainc_gl_nodes > 0)"
-        )
     cls = ScaledRainshaftStepFn if kernel_scale else RainshaftStepFn
     return cls(plan, device, dtype)

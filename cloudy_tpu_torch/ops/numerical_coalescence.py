@@ -18,7 +18,10 @@ needs only density evaluations, so it covers all four families and the four
 kernel functions of `kernels` (constant, linear, hydrodynamic, Long).
 
 Layout: the structure-of-arrays ``[n_tot, B]``; on the card one thread block
-per box and one thread per outer node. The kernel reads one packed
+per box, its outer nodes strided over up to 256 threads, so any node
+budget runs. The prebuilt library holds the kernel at one to three modes; a
+configuration of more runs a unit built at first use (`codegen.
+numerical_unit`). The kernel reads one packed
 configuration (`NumericalPlan` → `pack_config`): the spectrum, the node
 counts, the Gauss–Legendre rules, the panel cuts, the kernel function as a
 tag with up to three parameters (`kernel_descriptor`), and in f64 the logs
@@ -52,16 +55,31 @@ from cloudy_tpu_torch.ops.gauss import gauss_legendre
 
 _SQRT2PI = float(np.sqrt(2.0 * np.pi))
 
-# Capacities of csrc/numerical_coalescence.cu and the int32 header slots of
-# the packed configuration; the library exports its own
-# (`cloudy_numerical_layout`) and `_build.load_library` refuses a library
-# whose values differ from `LAYOUT`.
+# The prebuilt library's modes (also the least per-mode stride of the packed
+# configuration), the moment orders of a mode, the int32 header slots and the
+# outer nodes of the old body's block (`_direct`: one thread each); the
+# library and each unit export their layout (`cloudy_numerical_layout`,
+# `cloudy_numerical_unit_layout`) and `_build` refuses one whose values
+# differ from the host's `layout(n_modes)`.
 MAX_MODES = 3
-MAX_G = 256
 MAX_NMOM = 3
-CFG_MAX_BYTES = 12288
 HEADER_INTS = 10
-LAYOUT = (MAX_MODES, MAX_G, MAX_NMOM, CFG_MAX_BYTES, HEADER_INTS)
+DIRECT_MAX_G = 256
+
+
+def mode_stride(n_modes: int) -> int:
+    """Int32 slots per per-mode table of the packed configuration
+    (csrc/numerical_coalescence.cu `num_stride`)."""
+    return max(MAX_MODES, n_modes)
+
+
+def layout(n_modes: int = MAX_MODES) -> tuple:
+    """(per-mode stride, moment orders, header ints) of the kernel at
+    `n_modes` modes, as its library or unit exports them."""
+    return (mode_stride(n_modes), MAX_NMOM, HEADER_INTS)
+
+
+LAYOUT = layout()
 
 #: kernel-function classes the CUDA kernel evaluates, by tag (the kernel's
 #: KT_* constants), with the dataclass fields it reads as k0..k2
@@ -72,6 +90,11 @@ KERNEL_TAGS = (
     (K.LongKernelFunction, ("x_threshold", "coal_rate_below_threshold",
                             "coal_rate_above_threshold")),
 )
+
+
+#: the hydrodynamic kernel's tag (csrc KT_HYDRO): its launch adds each outer
+#: node's radius and WX·F_j to the block's shared memory
+KT_HYDRO = 2
 
 
 def kernel_descriptor(kernel_func) -> Tuple[int, Tuple[float, float, float]]:
@@ -144,11 +167,6 @@ def build_plan(spec: SpectrumSpec, kernel_func, n_outer: int = 96,
     n_pi = 2 * len(kinks) + 1
     g_outer = max(n_outer // n_po, 8) if kinks else n_outer
     g_inner = max(n_inner // n_pi, 8) if kinks else n_inner
-    if spec.n_modes > MAX_MODES or n_po * g_outer > MAX_G:
-        raise NotImplementedError(
-            f"configuration exceeds the kernel's capacities (modes <= {MAX_MODES}, "
-            f"outer nodes <= {MAX_G}: one thread each)"
-        )
     return NumericalPlan(
         families=tuple(int(f) for f in spec.families),
         offsets=spec.offsets,
@@ -192,7 +210,7 @@ def pack_config(plan: NumericalPlan, dtype: torch.dtype) -> np.ndarray:
     tables = inner_log_tables(s01) if dtype == torch.float64 else ()
 
     def per_mode(vals):
-        return list(vals) + [0] * (MAX_MODES - len(vals))
+        return list(vals) + [0] * (mode_stride(plan.n_modes) - len(vals))
 
     ints = [plan.n_modes, plan.n_tot, plan.n_mom, plan.n_po, plan.g_outer,
             plan.n_pi, plan.g_inner, plan.ktag, 0, 0]  # slot 8: real offset
@@ -209,11 +227,6 @@ def pack_config(plan: NumericalPlan, dtype: torch.dtype) -> np.ndarray:
         reals += list(t)
     total = real_offset + np.dtype(real_t).itemsize * len(reals)
     total += (-total) % 16
-    if total > CFG_MAX_BYTES:
-        raise NotImplementedError(
-            f"configuration tables need {total} bytes > {CFG_MAX_BYTES}: "
-            "fewer quadrature nodes fit the kernel's shared memory copy"
-        )
     buf = np.zeros(total, np.uint8)
     buf[:real_offset] = np.asarray(ints, np.int32).view(np.uint8)
     rb = np.asarray(reals, np.float64).astype(real_t).view(np.uint8)
@@ -405,15 +418,45 @@ class NumericalFn(_KernelFn):
     """Direct-quadrature coalescence RHS (replaces
     `make_pallas_numerical_fn`): ``fn(mom [B, n_tot])`` and
     ``fn.soa(mom [n_tot, B])`` on normalized moments. A CUDA call launches
-    ``quad_kernel``; `_direct` (private) launches the body it replaced,
-    ``numerical_kernel``: the same-call yardstick of `chip_smoke.py`."""
+    ``quad_kernel``: the prebuilt library's at one to three modes, else the
+    unit built at first use for the plan's modes (`unit`). `_direct`
+    (private) launches the body it replaced, ``numerical_kernel``, at the
+    prebuilt modes and node counts (one thread per outer node, at most
+    `DIRECT_MAX_G`): the same-call yardstick of `chip_smoke.py`."""
 
     def __init__(self, plan, device, dtype: torch.dtype, _direct: bool = False):
         super().__init__(plan, device, dtype)
+        if _direct and (plan.n_modes > MAX_MODES or plan.g_total > DIRECT_MAX_G):
+            raise ValueError(
+                f"the replaced body runs at most {MAX_MODES} modes and {DIRECT_MAX_G} outer "
+                f"nodes; this plan has {plan.n_modes} and {plan.g_total}")
         self._direct = _direct
+        self._unit = None
+
+    @property
+    def unit(self):
+        """The unit built at first use that a CUDA call launches (more modes
+        than the prebuilt library holds), else None."""
+        if self.plan.n_modes <= MAX_MODES:
+            return None
+        if self._unit is None:
+            from cloudy_tpu_torch.ops import codegen
+
+            self._unit = codegen.numerical_unit(self.plan.n_modes, self.dtype)
+        return self._unit
+
+    def build_units(self) -> list:
+        """Every unit built at first use that a CUDA call may launch."""
+        return [] if self.unit is None else [self.unit]
 
     def _pack(self) -> np.ndarray:
         return pack_config(self.plan, self.dtype)
+
+    def _smem_bytes(self, cfg_bytes: int) -> int:
+        # the hydrodynamic kernel's node tables (csrc quad_node_bytes)
+        if self._direct or self.plan.ktag != KT_HYDRO:
+            return cfg_bytes
+        return cfg_bytes + (self.plan.n_modes + 1) * self.plan.g_total * self.dtype.itemsize
 
     @property
     def _symbol(self) -> str:
@@ -424,7 +467,15 @@ class NumericalFn(_KernelFn):
         self._check(mom)
         if mom.device.type == "cpu":
             return numerical_soa_plain(mom, self.plan)
-        return self._launch(mom, self.plan.n_tot, self.plan.g_total, self.plan.ktag)
+        extra = (self.plan.g_total, self.plan.ktag)
+        if self.unit is None:
+            return self._launch(mom, self.plan.n_tot, *extra)
+        from cloudy_tpu_torch.ops import _build
+
+        lib = _build.load_numerical(self.unit)
+        return self._launch(mom, self.plan.n_tot, *extra,
+                            symbol="cloudy_numerical_unit_launch", lib=lib,
+                            error_string=lib.cloudy_numerical_unit_error_string)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T

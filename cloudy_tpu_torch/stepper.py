@@ -43,7 +43,12 @@ def integrate(
     state; ``save_every`` thins the saved trajectory. ``remat=True`` wraps
     each step in `torch.utils.checkpoint.checkpoint` (non-reentrant, so
     gradients reach tensors `f` closes over): autograd keeps only the step
-    inputs and recomputes the stages in the backward pass."""
+    inputs and recomputes the stages in the backward pass.
+
+    `t` is carried as a 0-d tensor in the state's dtype (on the host), as
+    JAX carries it in its scan (cloudy_tpu/stepper.py:178): each step adds
+    dt in that dtype, so an `f` that reads `t` sees JAX's values, rounding
+    included."""
     if n_steps % save_every != 0:
         raise ValueError("n_steps must be divisible by save_every")
     step = STEPPERS[method]
@@ -52,7 +57,7 @@ def integrate(
 
         step = functools.partial(checkpoint, step, use_reentrant=False)
     y = y0
-    t = t0
+    t = torch.tensor(t0, dtype=y0.dtype)
     ys = [y0]
     for s in range(1, n_steps + 1):
         y = step(f, y, t, dt)

@@ -57,14 +57,15 @@ def make_fns(variant: str, kind: str, device="cuda", dtype=torch.float32, nz: in
     return gen, table
 
 
-def table_report(kind: str, dtype, arms: int, plan) -> dict:
+def table_report(kind: str, dtype, arms: int, plan, scaled: bool = False) -> dict:
     """ptxas, SASS counts and blocks per SM of a table-driven fast
-    instance."""
+    instance (`scaled`: the whole step with the kernel scale, whose blocks
+    per SM the library does not report: None)."""
     lib = _build.load_library()
     so = _build.library_path()
     tag = "f" if dtype == torch.float32 else "d"
     if kind == "step":
-        pat = rf"step_kernelI{tag}Lb{arms}ELb0ELb0E"
+        pat = rf"step_kernelI{tag}Lb{arms}ELb{int(scaled)}ELb0E"
     else:
         pat = rf"{kind}_kernelI{tag}Lb{arms}ELb0E"
     sass = {k: v for k, v in _build.sass_counts(so).items() if re.search(pat, k)}
@@ -75,6 +76,10 @@ def table_report(kind: str, dtype, arms: int, plan) -> dict:
             keep = bool(re.search(pat, ln))
         if keep:
             pt += ln + "\n"
+    report = {"ptxas": _build.ptxas_report(pt), "sass": next(iter(sass.values()), {}),
+              "blocks_per_sm": None}
+    if scaled:
+        return report
     cfg_bytes = fc.pack_config(plan, dtype).size
     got = ctypes.c_int(0)
     t = "f32" if dtype == torch.float32 else "f64"
@@ -86,8 +91,7 @@ def table_report(kind: str, dtype, arms: int, plan) -> dict:
                                                               ctypes.byref(got))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return {"ptxas": _build.ptxas_report(pt), "sass": next(iter(sass.values()), {}),
-            "blocks_per_sm": got.value}
+    return {**report, "blocks_per_sm": got.value}
 
 
 def gen_report(unit, record) -> dict:
@@ -168,22 +172,28 @@ def pod_state(variant: str, n_columns: int, device, dtype):
     return torch.as_tensor(ic.T.copy(), dtype=dtype, device=device).repeat(1, n_columns)
 
 
-def time_turns(fns, kind, x, steps: int):
-    """ms per step (chains of `steps` whole steps from x) or per launch, of
-    each of two wrappers, in turns a, b, b, a; the median of each."""
+def time_turns(fns, kind, x, steps: int, scale=None):
+    """ms per step (chains of `steps` whole steps from x; scaled steps with
+    the [B] row `scale`) or per launch, of each of two wrappers, in turns
+    a, b, b, a; the median of each."""
+    def call(fn, y):
+        if kind != "step":
+            return fn.soa(y)
+        return fn(y) if scale is None else fn(y, scale[:y.shape[1]])
+
     def one(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         y = x
         start.record()
         for _ in range(steps):
-            y = fn(y) if kind == "step" else fn.soa(x)
+            y = call(fn, y) if kind == "step" else call(fn, x)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / steps
 
     for fn in fns:  # warm-up: builds, loads
-        fn(x[:, :NZ].contiguous()) if kind == "step" else fn.soa(x[:, :NZ].contiguous())
+        call(fn, x[:, :NZ].contiguous())
     torch.cuda.synchronize()
     times = {0: [], 1: []}
     for i in (0, 1, 1, 0):

@@ -273,7 +273,7 @@ def test_packed_config_arms():
     _, t3 = _data(("EXPONENTIAL", "LOGNORMAL", "GAMMA"), FIXED3)
     three = fc.build_plan(t3)
     assert three.f2_kind == (fc.F2_GRID, fc.F2_GRID, fc.F2_NONE)
-    assert fc.pack_config(three, torch.float64).size <= fc.CFG_MAX_BYTES
+    assert fc.pack_config(three, torch.float64).size <= 12288  # within 12 KB
 
 
 def test_moving_mono_f2_is_zero_and_knife_edge():
@@ -312,10 +312,19 @@ def test_opcount_family_matrix():
 
 @pytest.mark.parametrize("name", ["mono-gamma-closed", "lognorm-gamma-grid"])
 def test_scaled_step_refuses_the_reference_tier_arms(name):
-    """The scaled whole step (B1s) is ported at the fast tier only: a
-    monodisperse or Φ-grid configuration raises, as any reference-tier one
-    does (tests/test_torch_reference_tier.py)."""
+    """The scaled whole step (B1s) no longer refuses the reference tier: a
+    monodisperse or Φ-grid configuration builds the scaled step on the
+    table-driven reference instance (as JAX's `fn_scaled` takes any tier),
+    and at s = 1 its twin is the unscaled step's, bit for bit."""
     data, kw = wsa.case_data(name)
-    with pytest.raises(NotImplementedError, match="fast tier"):
-        fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=8, dz=375.0, dt=1.0,
-                                  device="cpu", kernel_scale=True, **kw)
+    args = (data, ((50.0, 1.0 / 6.0),), NORMS)
+    skw = dict(nz=8, dz=375.0, dt=1.0, device="cpu", dtype=torch.float64, **kw)
+    scaled = fc.make_rainshaft_step_fn(*args, kernel_scale=True, **skw)
+    assert isinstance(scaled, fc.ScaledRainshaftStepFn)
+    assert scaled.route == "table" and scaled.plan.instance == 2 and scaled.unit is None
+    x = torch.as_tensor(_moments(tuple(Family(int(f)).name for f in data.spec.families),
+                                 16, 3).T.copy()) * torch.tensor(
+                                     scaled.plan.mom_norms, dtype=torch.float64)[:, None]
+    unscaled = fc.make_rainshaft_step_fn(*args, **skw)
+    torch.testing.assert_close(scaled(x, 1.0), unscaled(x), rtol=0, atol=0)
+    assert scaled.launches == unscaled.launches == 0

@@ -100,7 +100,7 @@ using T = Cfg::real;
 extern "C" void host_coal(const T* mom, T* out, long long B) {
   const Cfg c{};
   for (long long lane = 0; lane < B; ++lane) {
-    T m[cloudy::MAX_NTOT], acc[cloudy::MAX_NTOT], params[cloudy::MAX_MODES][3];
+    T m[Cfg::kNtot], acc[Cfg::kNtot], params[Cfg::kModes][3];
     for (int o = 0; o < Cfg::n_tot; ++o) m[o] = mom[o * B + lane];
     cloudy::coal_body<Cfg::kArms, false>(c, m, acc, params);
     for (int o = 0; o < Cfg::n_tot; ++o) out[o * B + lane] = acc[o];
@@ -457,7 +457,11 @@ def test_routes_follow_the_plan():
     assert step.unit.shfl and step.unit.digest != rhs.unit.digest
     assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).route == "table"
     assert fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device="cpu").route == "table"
-    assert fc.make_rainshaft_step_fn(fast, VEL, NORMS, kernel_scale=True, **kw).route == "table"
+    scaled = fc.make_rainshaft_step_fn(fast, VEL, NORMS, kernel_scale=True, **kw)
+    assert scaled.route == "generated" and scaled.unit.scaled and scaled.unit.kind == "step"
+    assert scaled.unit.digest != step.unit.digest
+    assert fc.ScaledRainshaftStepFn(scaled.plan, "cpu", torch.float32, _table=True).route == "table"
+    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, kernel_scale=True, **kw).route == "table"
     coal = fc.make_coal_fn(fast, device="cpu")
     assert coal.route == "generated" and coal.unit.kind == "coal"
     assert fc.make_coal_fn(ref, device="cpu").route == "table"

@@ -66,7 +66,15 @@ def _generated_units():
     fns.append(fc.make_rainshaft_step_fn(_fast_data((Family.EXPONENTIAL, Family.GAMMA)), VEL,
                                          NORMS, nz=32, dz=93.75, dt=1.0, device="cuda",
                                          dtype=torch.float64))
-    _build.build_generated([f.unit for f in fns if f.route == "generated"])
+    for dtype in DTYPES:
+        fns += _four_mode_fns("cuda", dtype, fast=True) + _four_mode_fns("cuda", dtype, fast=False)
+        fns.append(nc.make_numerical_fn(SpectrumSpec((Family.GAMMA,) * 4), NUM_KERNELS["long"],
+                                        64, 32, device="cuda", dtype=dtype))
+        for variant in ("fixed2gamma", "moving", "lognorm"):
+            _, data = harness.pod_data(variant)
+            fns.append(fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                                 device="cuda", dtype=dtype, kernel_scale=True))
+    _build.build_generated([u for f in fns for u in f.build_units()])
 
 
 def _fast_data(families=(Family.GAMMA, Family.GAMMA)):
@@ -647,3 +655,187 @@ def test_mul_chain_above_the_floor(cuda, dtype):
     rec = om.measure("mul", dtype, x, reps=3)
     assert rec["k2_ms"] >= om.MIN_K2_MS
     assert rec["sec_per_elem_link"] >= om.floor_sec(dtype, cuda)
+
+
+# --------------------------------------------------------------------------
+# past the prebuilt capacities (four gamma modes), the scaled whole step on
+# the generated body and at the reference tier, B5's strided outer nodes
+# --------------------------------------------------------------------------
+
+
+def _four_mode_fns(device, dtype, fast=True, kernel_scale=False):
+    """[coal, rhs, step, scaled step] of the four-gamma-mode configuration
+    (tests/_four_modes_reference.py) at 8 levels."""
+    import _four_modes_reference as ref
+
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(SpectrumSpec((Family.GAMMA,) * 4), ker, ref.THR4,
+                                  norms=NORMS, fast_tier=fast)
+    kw = dict(device=device, dtype=dtype)
+    sk = dict(nz=ref.NZ, dz=ref.DZ, dt=1.0, **kw)
+    return [fc.make_coal_fn(data, **kw), fc.make_rainshaft_rhs_fn(data, VEL, NORMS, **kw),
+            fc.make_rainshaft_step_fn(data, VEL, NORMS, **sk),
+            fc.make_rainshaft_step_fn(data, VEL, NORMS, kernel_scale=True, **sk)]
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["generated", "reference_unit"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_four_mode_kernels_match_twins(cuda, dtype, fast):
+    """Four gamma modes (n_tot 12, past the prebuilt 3 modes and 9 moments)
+    through B3, B4, B1 and B1s: the fast tier's kernels generated for the
+    plan, the reference tier's units built at capacities (4, 12, 5), B3's
+    both layouts; 80 columns × 8 levels (a ragged last block), a different
+    scale per column."""
+    import _four_modes_reference as ref
+
+    coal, rhs, step, scaled = _four_mode_fns(cuda, dtype, fast)
+    assert {f.route for f in (coal, rhs, step, scaled)} == {"generated" if fast else "table"}
+    if not fast:
+        assert step.caps == (4, 12, 5) and step.build_units()[0].kind == "ref_step"
+    x = torch.as_tensor(ref.state(80, seed=7), dtype=dtype, device=cuda)
+    norm = torch.tensor(step.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
+    xn = (x.clamp_min(0) / norm).contiguous()
+    s = torch.linspace(0.4, 2.5, 80, dtype=dtype, device=cuda).repeat_interleave(ref.NZ)
+    layouts = [coal] if fast else [fc.CoalFn(coal.plan, cuda, dtype, _layout=lay)
+                                   for lay in ("thread", "warp")]
+    for fn in layouts:
+        got = fn.soa(xn)
+        assert fn.launches == 1 and bool(torch.isfinite(got).all())
+        assert _row_scaled(got, fn.plain(xn)) < TOL[dtype]
+    got = rhs.soa(x)
+    n2 = torch.cat([norm, norm])
+    assert _row_scaled(got / n2, rhs.plain(x) / n2) < TOL[dtype]
+    got = step(x)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm, step.plain(x) / norm) < TOL[dtype]
+    got = scaled(x, s)
+    assert _row_scaled(got / norm, scaled.plain(x, s) / norm) < TOL[dtype]
+    assert [f.launches for f in (rhs, step, scaled)] == [1, 1, 1]
+
+
+def test_four_mode_kernels_match_jax(cuda):
+    """The card's kernels in f64 against JAX's outputs stored by
+    tests/_four_modes_reference.py (the Pallas kernels in interpret mode,
+    JAX's XLA path for the reference tier): B3, B4 and B1 generated for four
+    gamma modes, the reference units' B3 and B1, B5 at four modes (its unit),
+    and B1s at the reference tier (the library's scaled reference
+    instance), row-scaled 1e-9."""
+    import _four_modes_reference as ref
+
+    st = ref.load()
+    f64 = torch.float64
+    t = {k: torch.as_tensor(v, dtype=f64, device=cuda) for k, v in st.items()}
+    coal, rhs, step, _ = _four_mode_fns(cuda, f64, fast=True)
+    rcoal, _, rstep, _ = _four_mode_fns(cuda, f64, fast=False)
+    norm = torch.tensor(step.plan.mom_norms, dtype=f64, device=cuda)[:, None]
+    n2 = torch.cat([norm, norm])
+    assert _row_scaled(coal.soa(t["coal_mom"]), t["coal_fast"]) < TOL[f64]
+    assert _row_scaled(rhs.soa(t["state"]) / n2, t["rhs_fast"] / n2) < TOL[f64]
+    assert _row_scaled(step(t["state"]) / norm, t["step_fast"] / norm) < TOL[f64]
+    assert _row_scaled(rcoal.soa(t["coal_mom"]) * norm, t["coal_ref_phys"]) < TOL[f64]
+    assert _row_scaled(rstep(t["state"]) / norm, t["step_ref"] / norm) < TOL[f64]
+    num = nc.make_numerical_fn(SpectrumSpec((Family.GAMMA,) * 4),
+                               K.LinearKernelFunction(5.0).normalized(NORMS), **ref.NUM_NODES,
+                               device=cuda, dtype=f64)
+    assert num.unit is not None
+    assert _row_scaled(num.soa(t["num_mom"]), t["num"]) < NUM_TOL[f64]
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    two = build_coalescence_data(SpectrumSpec(TWO_GAMMA), ker, ref.THR2, norms=NORMS)
+    scaled = fc.make_rainshaft_step_fn(two, VEL, NORMS, nz=ref.NZ, dz=ref.DZ, dt=1.0,
+                                       device=cuda, dtype=f64, kernel_scale=True,
+                                       gammainc_iters=ref.SCALED_REF_ITERS)
+    assert scaled.plan.instance == 2 and scaled.caps == fc.CAPS
+    got = scaled(t["scaled_state"], t["scale"])
+    norm2 = norm[:6]
+    assert _row_scaled(got / norm2, t["scaled_ref"] / norm2) < TOL[f64]
+
+
+@pytest.mark.parametrize("case", ["fixed_simpson", "moving_gauss", "exact_series_cf"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_scaled_reference_step_matches_twin(cuda, dtype, case):
+    """B1s at the reference tier (the library's scaled reference instance)
+    against its twin, a different scale per column; at s = 1.7 against the
+    unscaled reference kernel built from the 1.7-scaled tensor (f64)."""
+    bkw, ckw = REF_CASES[case]
+    data = _ref_data(**bkw)
+    kw = dict(nz=32, dz=93.75, dt=1.0, device=cuda, dtype=dtype, **ckw)
+    fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, kernel_scale=True, **kw)
+    assert fn.plan.instance == 2 and fn.route == "table"
+    x = _column_state(9, 32, seed=13).to(cuda, dtype)
+    s = torch.linspace(0.4, 2.5, 9, dtype=dtype, device=cuda).repeat_interleave(32)
+    got = fn(x, s)
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    assert _row_scaled(got, fn.plain(x, s)) < TOL[dtype]
+    if dtype == torch.float64:
+        ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+        data_s = build_coalescence_data(data.spec, K.CoalescenceTensor(1.7 * ker.array),
+                                        (0.9, 1.0) if bkw.get("moving") else (5e-10, np.inf),
+                                        norms=NORMS, **bkw)
+        want = fc.make_rainshaft_step_fn(data_s, VEL, NORMS, **kw)(x)
+        assert _row_scaled(fn(x, 1.7), want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("variant", ["fixed2gamma", "moving", "lognorm"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_scaled_step_matches_table_and_twin(cuda, dtype, variant):
+    """B1s on the generated body (route "generated", its own unit) against
+    the twin and the table-driven B1s (`_table`) on the same input; a scaled
+    unit refuses a null scale."""
+    _, data = harness.pod_data(variant)
+    fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0, device=cuda,
+                                   dtype=dtype, kernel_scale=True)
+    table = fc.ScaledRainshaftStepFn(fn.plan, cuda, dtype, _table=True)
+    assert (fn.route, table.route) == ("generated", "table") and fn.unit.scaled
+    x = _column_state(9, 32, seed=14).to(cuda, dtype)
+    s = torch.linspace(0.4, 2.5, 9, dtype=dtype, device=cuda).repeat_interleave(32)
+    got = fn(x, s)
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    want = fn.plain(x, s)
+    assert _row_scaled(got, want) < TOL[dtype]
+    assert _row_scaled(table(x, s), want) < TOL[dtype]
+    from cloudy_tpu_torch.ops import _build
+
+    lib = _build.load_generated(fn.unit)
+    out = torch.empty_like(x)
+    err = lib.cloudy_gen_launch(x.data_ptr(), out.data_ptr(), x.shape[1], None,
+                                torch.cuda.current_stream().cuda_stream)
+    assert err != 0  # cudaErrorInvalidValue: no scale row
+
+
+@pytest.mark.parametrize("families,kname", [
+    (TWO_GAMMA, "long"), (TWO_GAMMA, "hydro"), ((Family.GAMMA,) * 4, "long")],
+    ids=["two_gamma_long", "two_gamma_hydro", "four_gamma_long"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_numerical_kernel_strided_nodes_and_modes_match_twin(cuda, dtype, families, kname):
+    """B5 with more outer nodes than a block has threads (3 x 171 = 513 at
+    the Long kernel, 512 otherwise: two or three passes per thread) and at
+    four modes (the unit built for them), against the twin; two launches
+    agree bit for bit."""
+    spec = SpectrumSpec(families)
+    fn = nc.make_numerical_fn(spec, NUM_KERNELS[kname], 512, 16, device=cuda, dtype=dtype)
+    assert fn.plan.g_total > 256
+    assert (fn.unit is not None) == (spec.n_modes > 3)
+    x = _numerical_moments(families, 67, seed=15).to(cuda, dtype)
+    x[:, 7] = 0.0
+    got = fn.soa(x)
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    assert bool((got[:, 7] == 0).all())
+    assert _row_scaled(got, fn.plain(x)) < NUM_TOL[dtype]
+    assert torch.equal(got, fn.soa(x))
+
+
+def test_tables_past_the_card_limit_raise(cuda):
+    """A packed configuration larger than a block of the card may opt into
+    (a fixed Gauss grid of 20,000 nodes: 320 KB in f64) raises, saying so;
+    one that needs the opt-in (4,000 nodes, 64 KB) runs."""
+    data = _ref_data()
+    for nodes, fits in ((4000, True), (20000, False)):
+        fn = fc.make_coal_fn(data, device=cuda, dtype=torch.float64, quad_rule="gauss",
+                             gauss_nodes=nodes)
+        x = _param_moments(data.spec.families, 64, seed=16).to(cuda, torch.float64)
+        if fits:
+            assert fc.pack_config(fn.plan, torch.float64).size > 48 * 1024
+            assert _row_scaled(fn.soa(x), fn.plain(x)) < TOL[torch.float64]
+        else:
+            with pytest.raises(RuntimeError, match="opt"):
+                fn.soa(x)

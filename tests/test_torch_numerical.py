@@ -321,8 +321,9 @@ def test_foreign_callable_and_second_kink_raise():
         nc.make_numerical_fn(spec, _TwoKinkLong(1.0, 1e-3, 5e-3), device="cpu")
     plan = nc.build_plan(spec, K.LongKernelFunction(1.0, 1e-3, 5e-3))
     assert plan.outer_cuts == (1.0, 2.0)
-    with pytest.raises(NotImplementedError, match="capacities"):
-        nc.build_plan(spec, _kernel(K, "linear"), n_outer=512)
+    # more outer nodes than a block has threads: strided, not refused
+    wide = nc.build_plan(spec, _kernel(K, "linear"), n_outer=512)
+    assert wide.g_total == 512 and nc.pack_config(wide, torch.float32).size % 16 == 0
 
 
 def test_cuda_device_without_a_card_raises():
@@ -372,7 +373,7 @@ def test_packed_config_layout(dtype):
     csrc/numerical_coalescence.cu (`NumConfig::bind`) reads them."""
     plan = bench.numerical_fn(device="cpu").plan
     buf = nc.pack_config(plan, dtype)
-    assert buf.size % 16 == 0 and buf.size <= nc.CFG_MAX_BYTES
+    assert buf.size % 16 == 0 and buf.size <= 12288  # within 12 KB
     ints = buf.view(np.int32)
     assert list(ints[:8]) == [2, 6, 3, 3, 32, 3, 16, 3]
     h, m = nc.HEADER_INTS, nc.MAX_MODES

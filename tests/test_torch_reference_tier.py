@@ -311,9 +311,10 @@ def test_override_defaults_and_unknown_keys():
             make(quad_rul="gauss")
         with pytest.raises(ValueError, match="quad_rule"):
             make(quad_rule="simpson")
-    with pytest.raises(NotImplementedError, match="fast tier"):
-        fc.make_rainshaft_step_fn(td, vel, NORMS, nz=16, dz=1.0, dt=1.0, device="cpu",
-                                  kernel_scale=True)
+    # the scaled whole step takes the reference tier too (JAX's `fn_scaled`)
+    scaled = fc.make_rainshaft_step_fn(td, vel, NORMS, nz=16, dz=1.0, dt=1.0, device="cpu",
+                                       kernel_scale=True)
+    assert isinstance(scaled, fc.ScaledRainshaftStepFn) and scaled.plan.instance == 2
 
 
 def test_rainshaft_soa_kernel_route_matches_hook():
