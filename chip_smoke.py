@@ -132,7 +132,26 @@ Drives the port's main path once on the card and fails loudly:
    2^20], B5 at [12, 262144] (the unit built for four modes), the reference
    tier's B1, B3 and B4 at [12, 131072] (units built at capacities (4, 12,
    5)), and the scaled whole step at the reference tier in f64 at [6,
-   4096]; each against its twin, with its `kernels` entry.
+   4096]; each against its twin, with its `kernels` entry;
+26. A.13, the pod job's durability and output: `harness.run_scenario` with
+   a checkpoint directory and an output directory (under build/, its free
+   space checked first, removed afterwards) for the pod `fixed2gamma` at
+   2^20 columns x 32 levels x 120 f32 steps in segments of 40, cut after
+   the first segment and resumed: the resumed state bit for bit phase 6's,
+   the report's `n_steps_run` 80 and its rate over those steps, 40 + 80
+   launches; a re-run over the finished directory records 0 steps and a
+   null rate; the mean-profile NetCDF has 12 frames and its last is the
+   column mean of phase 6's state; the checkpoint's bytes, each save's
+   seconds and the resumed ms/step beside phase 6's;
+27. A.14, the long horizon (`tools.longhorizon`): at nz 32 (128 columns)
+   and nz 128 (32 columns), each [6, 4096], the generated f32 B1 on the
+   fast data against B1's f64 reference instance on the Simpson-tier data
+   for 1000 steps from the same spread start, held to the JAX gates'
+   bounds (scaled error < 1e-3 at t = 300, 600, 1000 at nz 32, < 2e-3 at
+   t = 500, 1000 at nz 128, |drift32 - drift64| < 1e-4 there, every state
+   finite); each kernel's ms/step; the f64 run at t = 100 against its twin
+   run on the card over the first 4 columns (< 1e-9), the f32 kernel
+   against its twin for one step at [6, 4096] (< 1e-4).
 
 From phase 3 on, the whole step (scaled or not), the fused RHS and the
 coalescence RHS of every fast-tier configuration launch the kernel
@@ -153,7 +172,10 @@ chain and each family-matrix case (`whole_step_ablation.run_case` zeroes the
 step's count after its warm-up and reports it with the record), in phase 21
 the timed sweep (`op_microbench.sweep` zeroes every chain kernel's count
 after the comparisons), in phase 22 each configuration's timed
-launches, and in phase 25 each kernel's timed run. The last two lines are a JSON
+launches, in phase 25 each kernel's timed run, in phase 26 the cut and the
+resumed run (each report counts its scenario's launches from its start), and
+in phase 27 each long run (`longhorizon.run_depth` zeroes each wrapper's
+count before its run). The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``source`` the kernel's file, for a
 generated kernel its shells with ``generator`` and ``unit`` beside;
@@ -169,6 +191,7 @@ result, when no CUDA device is present or the port's package is missing.
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -366,14 +389,15 @@ def generated_wrappers(dev):
     phase 16), the bench's coalescence RHS (phases 3, 7, 19) and
     `rainshaft_128`'s at the bench overrides (phase 18), the unscaled step
     from the 1.7-scaled tensor in f64 (phase 16), the family matrix's fast
-    cases in f32 (phase 20), the B-cover configurations (phase 22), and the
+    cases in f32 (phase 20), the B-cover configurations (phase 22), the
     four-gamma-mode configuration's kernels at both tiers and B5 (f32,
-    phase 25)."""
+    phase 25), and the long horizon's whole steps at nz 32 and 128 (phase
+    27)."""
     import torch
 
     from cloudy_tpu_torch import bench, harness
     from cloudy_tpu_torch.ops import fused_coalescence as fc
-    from cloudy_tpu_torch.tools import yardstick
+    from cloudy_tpu_torch.tools import longhorizon, yardstick
     from cloudy_tpu_torch.tools import whole_step_ablation as wsa
 
     fns = []
@@ -405,6 +429,7 @@ def generated_wrappers(dev):
     fns.append(fc.make_rainshaft_step_fn(scaled_tensor_data(spec), cfg.vel, cfg.norms, nz=NZ,
                                          dz=cfg.dz, dt=1.0, device=dev, dtype=torch.float64))
     fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
+    fns += [f for nz in longhorizon.DEPTHS.values() for f in longhorizon.make_steps(nz, dev)]
     return [f for f in fns if f.build_units()]
 
 
@@ -752,6 +777,8 @@ def main():
     coal_bound = bound("coal_rhs", coal32.plain, rhs_mom[:, :256].contiguous(),
                        bench.BENCH_COLUMNS, 6, 6)
     step_src = kernel_source(sc["step"])
+    # phase 26 resumes this run from a checkpoint and holds it to these
+    pod_final, pod_twin = y, yt
     del sc, y, yt
     print(f"phase 7 per call at main-path shapes: coal kernel {coal_ms:.4f} ms, "
           f"coal twin {coal_plain_ms:.4f} ms; step kernel "
@@ -1567,6 +1594,14 @@ def main():
 
     # ---- 25. C.1 and C.2: four gamma modes, the scaled reference step ----
     phase_25(dev, card, kernels, bound, {r["label"]: r for r in gen_records})
+
+    # ---- 26. A.13: checkpoint, resume and output of the pod job ---------
+    phase_26(dev, card, kernels, pod_final, pod_twin, b1_ms, step_plain_ms, step_bound)
+    del pod_final, pod_twin
+    torch.cuda.empty_cache()
+
+    # ---- 27. A.14: the long horizon, f32 generated B1 against f64 reference
+    phase_27(dev, card, kernels, bound)
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -2609,6 +2644,167 @@ def phase_25(dev, card, kernels, bound, gen_records):
     del sfn, x, got
     torch.cuda.empty_cache()
     print(f"phase 25 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_26(dev, card, kernels, pod_final, pod_twin, b1_ms, plain_ms, step_bound):
+    """Phase 26 (A.13): the pod `fixed2gamma` (2^20 x 32 x 120 f32) through
+    `harness.run_scenario` with checkpoints every 40 steps and an output
+    directory, cut after one segment and resumed; held bit for bit to phase
+    6's uninterrupted state `pod_final` and, over its first 4,096 columns,
+    to phase 6's twin run `pod_twin`. `b1_ms`, `plain_ms`, `step_bound`:
+    phase 6's ms/step and phase 7's twin time and bound of the same step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+
+    from cloudy_tpu_torch import harness
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.spec import get_moments_normalizing_factors
+    from cloudy_tpu_torch.utils import checkpoint as ck
+
+    t = time.perf_counter()
+    name, seg = "pod_ensemble", 40
+    n_ckpt = 120 // seg
+    ckpt_bytes = 6 * N_POD_COLUMNS * NZ * 4
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    need = n_ckpt * ckpt_bytes + (1 << 30)
+    check(free >= need, f"phase 26 needs {need} bytes free under {build} for {n_ckpt} "
+          f"checkpoints of {ckpt_bytes} bytes, has {free}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build))
+    print(f"phase 26 checkpoint directory {tmp}: {free} bytes free, {need} needed")
+    try:
+        ckd, out = str(tmp / "ckpt"), str(tmp / "out")
+        y, cut = harness.run_scenario(name, device=dev, ckpt_dir=ckd, outdir=out, segment=seg,
+                                      max_segments=1, n_columns=N_POD_COLUMNS)
+        check(y is None and not cut["completed"] and cut["n_steps_run"] == seg
+              and ck.latest_step(os.path.join(ckd, name)) == seg,
+              f"the cut run did not stop after one durable segment: {cut}")
+        state, rep = harness.run_scenario(name, device=dev, ckpt_dir=ckd, outdir=out,
+                                          segment=seg, n_columns=N_POD_COLUMNS)
+        resumed_ms = rep["seconds"] / rep["n_steps_run"] * 1e3
+        print(f"phase 26 cut after {cut['n_steps_run']} steps ({cut['launches']} launches), "
+              f"resumed from step {rep['resumed_from_step']}: {rep['n_steps_run']} steps, "
+              f"{rep['launches']} launches, {rep['seconds']:.4f} s ({rep['clock']}), "
+              f"{rep['column_updates_per_s']:.4e} column-updates/s over those steps; "
+              f"{resumed_ms:.4f} ms/step against phase 6's uninterrupted {b1_ms:.4f}; "
+              f"checkpoint {rep['checkpoint_bytes']} bytes, save_s per segment of this call "
+              f"{[round(s, 4) for s in rep['save_s']]} {card}")
+        check(rep["completed"] and rep["n_steps_run"] == 120 - seg
+              and rep["resumed_from_step"] == seg, f"resumed report {rep}")
+        check(cut["launches"] + rep["launches"] == 120,
+              f"B1 launched {cut['launches']} + {rep['launches']} times, not 120")
+        check(rep["column_updates_per_s"] == N_POD_COLUMNS * (120 - seg) / rep["seconds"],
+              "the resumed rate does not divide by the steps run")
+        check(rep["checkpoint_bytes"] >= ckpt_bytes, f"checkpoint of {rep['checkpoint_bytes']} B")
+        final = rs.to_soa(state)
+        check(torch.equal(final, pod_final),
+              "the resumed pod state is not bit for bit phase 6's uninterrupted one")
+        norm = torch.tensor(get_moments_normalizing_factors((3, 3), (1e6, 1e-9)),
+                            dtype=torch.float32, device=dev)[:, None]
+        err = row_scaled(final[:, :pod_twin.shape[1]] / norm, pod_twin / norm)
+        check(err[0] < TOL["float32"], f"the resumed state vs the twin {err[0]:.3e}")
+        print(f"phase 26 resumed state torch.equal to phase 6's: True; first {N_CMP_COLUMNS} "
+              f"columns vs phase 6's twin run row-scaled {err[0]:.3e}, max abs {err[1]:.3e} "
+              f"(normalized) {card}")
+        del state, final
+        _, again = harness.run_scenario(name, device=dev, ckpt_dir=ckd, segment=seg,
+                                        n_columns=N_POD_COLUMNS)
+        check(again["n_steps_run"] == 0 and again["column_updates_per_s"] is None
+              and again["launches"] == 0, f"re-run over the finished directory: {again}")
+        with netcdf_file(os.path.join(out, f"{name}_mean_profile.nc"), "r", mmap=False) as f:
+            mom = f.variables["moments"][:].astype(np.float64)
+            times = f.variables["time"][:].astype(np.float64)
+        last = np.concatenate([mom[-1, :, i, :] for i in range(2)], axis=-1)
+        want = harness.column_mean(pod_final, NZ).double().cpu().numpy()
+        check(mom.shape[0] == 12 and np.array_equal(times, 10.0 * np.arange(1, 13)),
+              f"mean profile frames {mom.shape}, times {times}")
+        check(np.array_equal(last, want),
+              "the mean profile's last frame is not the column mean of phase 6's state")
+        print(f"phase 26 re-run over the finished directory: n_steps_run "
+              f"{again['n_steps_run']}, rate {again['column_updates_per_s']}; "
+              f"{name}_mean_profile.nc: {mom.shape[0]} frames at t = {times[0]:g}..{times[-1]:g}, "
+              f"the last equal to the column mean of phase 6's state; files "
+              f"{sorted(os.listdir(out))}")
+        kernels.append({"name": "rainshaft_step[fixed2gamma, checkpointed]", "route": "cuda",
+                        "source": GEN_SOURCE, "generator": GEN_GENERATOR,
+                        "kernel_path": "generated", "replaces": B1_REPLACES,
+                        "launches": cut["launches"] + rep["launches"],
+                        "max_abs_err": err[1], "max_row_scaled_err": err[0], "ms": resumed_ms,
+                        "plain_ms": plain_ms, "save_s": rep["save_s"],
+                        "checkpoint_bytes": rep["checkpoint_bytes"], **step_bound})
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 26 seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_27(dev, card, kernels, bound):
+    """Phase 27 (A.14): `tools.longhorizon` at both depths, 1000 steps of
+    the generated f32 B1 and of B1's f64 reference instance at [6, 4096],
+    the JAX gates' bounds as checks; the f64 run's state at t = 100 against
+    the twin run on the card over the first 4 columns, the f32 kernel
+    against its twin for one step at [6, 4096]; a `kernels` entry each."""
+    import torch
+
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.tools import longhorizon as lh
+
+    t = time.perf_counter()
+    n_twin, n_cols = 100, 4
+    for name, nz in lh.DEPTHS.items():
+        fast, ref = lh.make_steps(nz, dev)
+        check(fast.route == "generated" and ref.route == "table" and ref.plan.ref
+              and ref.caps == fc.CAPS, f"long-horizon routes {fast.route}, {ref.route}")
+        rec, states = lh.run_depth(name, nz, fast, ref, n_steps=lh.N_STEPS)
+        print(json.dumps({"phase": 27, **rec}))
+        rows = {r["t"]: r for r in rec["checkpoints"]}
+        print(f"phase 27 nz {nz}, {rec['n_columns']} columns x {rec['n_steps']} steps: f32 "
+              f"generated B1 {rec['ms_per_step_f32']:.4f} ms/step, f64 reference B1 "
+              f"{rec['ms_per_step_f64']:.4f} ms/step at [6, {rec['n_columns'] * nz}]; scaled "
+              "error / drift32 - drift64 at gated t: "
+              + ", ".join(f"t={k} {rows[k]['traj_err_max_scaled']:.3e} / "
+                          f"{rows[k]['f32_mass_drift_vs_t0'] - rows[k]['f64_mass_drift_vs_t0']:.3e}"
+                          for k in lh.ERR_GATES[nz] if k in rows)
+              + f"; failures {rec['gate_failures']} {card}")
+        check(not rec["gate_failures"], f"long horizon nz {nz}: {rec['gate_failures']}")
+        check(rec["launches_f32"] == rec["launches_f64"] == rec["n_steps"],
+              f"long horizon launches {rec['launches_f32']}, {rec['launches_f64']}")
+        x0 = rs.to_soa(torch.as_tensor(lh.start_state(nz)))
+        k100 = [r["t"] for r in rec["checkpoints"]].index(n_twin)
+        for tag, fn, f64 in (("f32", fast, False), ("f64", ref, True)):
+            tol = TOL["float64" if f64 else "float32"]
+            norm = torch.tensor(fn.plan.mom_norms, dtype=torch.float64, device=dev)[:, None]
+            x = x0.to(dev, fn.dtype).contiguous()
+            if f64:  # the run's state at t = 100 against the twin's
+                y = x[:, :n_cols * nz].contiguous()
+                for _ in range(n_twin):
+                    y = fn.plain(y)
+                got = rs.to_soa(torch.as_tensor(states[tag][k100][:n_cols])).to(dev)
+                what = f"at t = {n_twin}, first {n_cols} columns"
+            else:  # one step at the run's shape (phase 6 holds this unit for 120 steps)
+                got, y = fn(x), fn.plain(x)
+                what = f"one step at [6, {x.shape[1]}]"
+            err = row_scaled(got.double() / norm, y.double() / norm)
+            print(f"phase 27 nz {nz} {tag} kernel vs twin on the card, {what}: row-scaled "
+                  f"{err[0]:.3e} (tol {tol:.0e}), max abs {err[1]:.3e} (normalized) {card}")
+            check(err[0] < tol, f"long horizon nz {nz} {tag} kernel vs twin {err[0]:.3e}")
+            label = (f"rainshaft_step[reference, f64, longhorizon nz{nz}]" if f64
+                     else f"rainshaft_step[longhorizon nz{nz} f32]")
+            kernels.append({"name": label, "route": "cuda", **kernel_source(fn),
+                            "replaces": B1_REPLACES, "launches": rec[f"launches_{tag}"],
+                            "max_abs_err": err[1], "max_row_scaled_err": err[0],
+                            "ms": rec[f"ms_per_step_{tag}"],
+                            "plain_ms": _time_ms(lambda: fn.plain(x), 1),
+                            **bound(label, fn.plain, x[:, :8 * nz].contiguous(), x.shape[1], 6,
+                                    6, f64=f64)})
+        del fast, ref, states
+    print(json.dumps({"phase": 27, "entries": kernels[-4:]}))
+    print(f"phase 27 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

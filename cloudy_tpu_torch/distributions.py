@@ -184,6 +184,49 @@ def moment(spec: SpectrumSpec, params, q) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def partial_moment(spec: SpectrumSpec, params, q, x_threshold) -> torch.Tensor:
+    """q-th moment truncated at ``x_threshold``, ``[..., n_modes]``
+    (reference `partial_moment_func`,
+    src/ParticleDistributions/ParticleDistributions.jl:226-285): exp and
+    gamma by the regularized incomplete gamma, mono n θ^q where θ ≤ T, and
+    lognormal by its closed form n exp(qμ + q²σ²/2) Φ((ln T − μ − qσ²)/σ),
+    T clamped at the type's smallest normal number."""
+    q = torch.as_tensor(q, dtype=params.dtype, device=params.device)
+    t = torch.as_tensor(x_threshold, dtype=params.dtype, device=params.device)
+    out = []
+    for i, fam in enumerate(spec.families):
+        n, p1, p2 = (params[..., i, j] for j in range(3))
+        if fam == Family.EXPONENTIAL:
+            m = (n * special.gammainc(q + 1.0, t / p1)
+                 * special.exp(q * torch.log(p1) + special.lgamma(q + 1.0)))
+        elif fam == Family.GAMMA:
+            m = (n * special.gammainc(q + p2, t / p1)
+                 * special.exp(q * torch.log(p1) + special.lgamma(q + p2)
+                               - special.lgamma(p2)))
+        elif fam == Family.MONODISPERSE:
+            m = torch.where(t < p1, torch.zeros_like(n), n * special.powx(p1, q))
+        else:  # LOGNORMAL
+            tsafe = torch.clamp(t, min=float(torch.finfo(params.dtype).tiny))
+            z = (torch.log(tsafe) - p1 - q * p2 ** 2) / (p2 * np.sqrt(2.0))
+            phi = 0.5 * (1.0 + special.erf(z))
+            m = n * special.exp(q * p1 + 0.5 * q ** 2 * p2 ** 2) * phi
+        out.append(m)
+    return torch.stack(out, dim=-1)
+
+
+def get_standard_N_q(spec: SpectrumSpec, params, size_cutoff=1e-6) -> dict:
+    """Cloud/rain partition at a size cutoff, summed over modes: number and
+    mass below (``N_liq``, ``M_liq``) and above (``N_rai``, ``M_rai``)
+    (reference `get_standard_N_q`,
+    src/ParticleDistributions/ParticleDistributions.jl:634-687)."""
+    n_below = torch.sum(partial_moment(spec, params, 0.0, size_cutoff), dim=-1)
+    m_below = torch.sum(partial_moment(spec, params, 1.0, size_cutoff), dim=-1)
+    n_tot = torch.sum(moment(spec, params, 0.0), dim=-1)
+    m_tot = torch.sum(moment(spec, params, 1.0), dim=-1)
+    return {"N_liq": n_below, "N_rai": n_tot - n_below,
+            "M_liq": m_below, "M_rai": m_tot - m_below}
+
+
 def compute_thresholds(
     spec: SpectrumSpec, params, percentiles: Union[float, Sequence[float]],
     fast_gl_nodes: int = 0,

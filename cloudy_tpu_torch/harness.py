@@ -50,7 +50,15 @@ twin on the CPU):
     python -m cloudy_tpu_torch.harness rainshaft_128 --device cpu
     python -m cloudy_tpu_torch.harness rainshaft_128 --hook --device cuda
 
-Each run prints one JSON report; ``--outdir DIR`` also appends it to DIR/runs.jsonl.
+Each run prints one JSON report. ``--outdir DIR`` also writes the run's
+NetCDF file there (``<name>.nc`` for a box or the rainshaft, the column-mean
+profile ``<name>_mean_profile.nc`` for a pod ensemble) and appends the report
+to DIR/runs.jsonl. ``--ckpt DIR`` runs a pod ensemble with a checkpoint
+after every save interval (10 steps) under DIR and resumes from the newest
+one there; the report's ``n_steps_run`` counts the steps this invocation
+ran, and its rate divides by them:
+
+    python -m cloudy_tpu_torch.harness pod_ensemble --columns 8 --device cpu --ckpt build/ck --outdir build/out
 """
 
 from __future__ import annotations
@@ -71,7 +79,8 @@ from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.models import box
 from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
-from cloudy_tpu_torch.utils import metrics
+from cloudy_tpu_torch.utils import checkpoint as ck
+from cloudy_tpu_torch.utils import io, metrics
 
 #: pod-scenario production variants (cloudy_tpu/harness.py:126-137):
 #: (families, thresholds, moving, extra build_coalescence_data kwargs)
@@ -125,23 +134,81 @@ def _scenario_pod_ensemble(
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
+    def advance(y, n: int):
+        """`n` whole steps from `y`; returns (state, seconds, clock). Seconds
+        come from CUDA events around the launches on a CUDA device."""
+        return metrics.timed_steps(step, y, n)
+
     def run(n: int = n_steps):
         """Advance `state0` by `n` whole steps; returns (state, seconds,
-        clock). Seconds come from CUDA events on a CUDA device."""
-        y = state0
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                y = step(y)
-            end.record()
-            end.synchronize()
-            return y, start.elapsed_time(end) / 1e3, "cuda_events"
-        t0 = time.perf_counter()
-        for _ in range(n):
-            y = step(y)
-        return y, time.perf_counter() - t0, "host"
+        clock)."""
+        return advance(state0, n)
+
+    # the column-mean profile every `save_every` steps: the per-level
+    # ensemble diagnostic a pod job monitors (the full state is GBs)
+    save_every = max(n_steps // 12, 1)
+    n_saves = n_steps // save_every
+
+    def diagnostics():
+        """(ts [n_saves], profiles [n_saves, nz, n_tot]) on the host: the
+        column mean reduced on the device every `save_every` steps, a pass
+        of its own outside `run` (cloudy_tpu/harness.py:255-261)."""
+        y, profs = state0, []
+        for _ in range(n_saves):
+            y, _, _ = advance(y, save_every)
+            profs.append(column_mean(y, nz))
+        ts = config.dt * save_every * np.arange(1.0, n_saves + 1.0)
+        return ts, torch.stack(profs).cpu().numpy()
+
+    def run_checkpointed(ckpt_path: str, segment: Optional[int] = None,
+                         max_segments: Optional[int] = None):
+        """The run at segment granularity (default `save_every` steps) with
+        a checkpoint after every segment, resumed from the newest checkpoint
+        under `ckpt_path` (cloudy_tpu/harness.py:269-305). A segment counts
+        once its state has been copied to the host and its file renamed into
+        place. `max_segments` stops after that many segments (simulated
+        preemption) and returns None. Otherwise returns (state, seconds,
+        clock, info): the seconds of this call's launches, and `info` with
+        the step it resumed from, ``n_steps_run`` (the steps this call ran),
+        the host seconds of each save (``save_s``), the bytes of one
+        checkpoint, and ``profiles``: `diagnostics`' (ts, profiles), taken
+        on the way at every `save_every` boundary and kept beside each
+        checkpoint, or None where the run resumed from a checkpoint without
+        them (one the JAX package wrote). The segments launch the kernel
+        `run` launches, in the same order, so a resumed run is bit for bit
+        an uninterrupted one."""
+        seg = int(segment or save_every)
+        y, start, profs = state0, 0, []
+        s0 = ck.latest_step(ckpt_path)
+        if s0 is not None:
+            y, start = ck.load_checkpoint(ckpt_path, s0, like=state0)
+            pf = _profile_file(ckpt_path, s0)
+            profs = list(np.load(pf)) if os.path.exists(pf) else None
+        done, seconds, save_s = start, 0.0, []
+        clock = "cuda_events" if device.type == "cuda" else "host"
+        n_bytes = 0 if s0 is None else os.path.getsize(ck.checkpoint_file(ckpt_path, s0))
+        while done < n_steps:
+            stop = min(done + seg, n_steps)
+            while done < stop:  # up to the segment's end or the next frame
+                k = min(stop, (done // save_every + 1) * save_every) - done
+                y, s, clock = advance(y, k)
+                seconds += s
+                done += k
+                if profs is not None and done % save_every == 0 and len(profs) < n_saves:
+                    profs.append(column_mean(y, nz).cpu().numpy())
+            t0 = time.perf_counter()
+            if profs is not None:
+                frames = np.asarray(profs).reshape(len(profs), nz, y.shape[0])
+                ck.write_atomic(_profile_file(ckpt_path, done), lambda f: np.save(f, frames))
+            ck.save_checkpoint(ckpt_path, y, done)
+            save_s.append(time.perf_counter() - t0)
+            n_bytes = os.path.getsize(ck.checkpoint_file(ckpt_path, done))
+            if max_segments is not None and len(save_s) >= max_segments:
+                return None
+        ts = config.dt * save_every * np.arange(1.0, n_saves + 1.0)
+        return y, seconds, clock, {"resumed_from_step": start, "n_steps_run": done - start,
+                                   "save_s": save_s, "checkpoint_bytes": n_bytes,
+                                   "profiles": None if profs is None else (ts, np.stack(profs))}
 
     return {
         "spec": spec,
@@ -152,8 +219,22 @@ def _scenario_pod_ensemble(
         "n_columns": n_columns,
         "n_steps": n_steps,
         "run": run,
+        "diagnostics": diagnostics,
+        "run_checkpointed": run_checkpointed,
         "kind": "ensemble",
     }
+
+
+def _profile_file(ckpt_path: str, step: int) -> str:
+    """The mean-profile frames up to `step` of a checkpointed pod run, kept
+    beside its checkpoint (`latest_step` does not read it)."""
+    return f"{ckpt_path}_profile_step{step}.npy"
+
+
+def column_mean(y: torch.Tensor, nz: int) -> torch.Tensor:
+    """The column-mean profile ``[nz, n_tot]`` of a SoA state ``[n_tot,
+    n_columns·nz]``, reduced where the state lies."""
+    return y.reshape(y.shape[0], -1, nz).mean(dim=1).T
 
 
 def _box_scenario(spec, config, rhs, mom0, device, data=None) -> Dict:
@@ -267,15 +348,33 @@ SCENARIOS: Dict[str, Callable] = {
 
 
 def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
-                 **scenario_args):
+                 ckpt_dir: Optional[str] = None, segment: Optional[int] = None,
+                 max_segments: Optional[int] = None, **scenario_args):
     """Build, run and report one named scenario in its stated precision (the
     pod ensembles f32, the boxes and the rainshaft f64). `scenario_args` go
     to the scenario's builder (`n_columns` for a pod ensemble; `hook`,
     `t_end` and the coalescence overrides for the rainshaft; a box takes
     none). Returns (state, report): the final ``[n_columns, nz, n_tot]``
     state of an ensemble, the saved trajectory of a box or of the rainshaft
-    (``[n_saves, nz, n_tot]``). The report is appended to
-    ``outdir/runs.jsonl`` only with `outdir`."""
+    (``[n_saves, nz, n_tot]``).
+
+    With `ckpt_dir` a pod ensemble runs `run_checkpointed` under
+    ``ckpt_dir/name`` (segments of `segment` steps, default its save
+    interval): it resumes from the newest checkpoint there, and with
+    `max_segments` it stops after that many segments and returns (None,
+    report). The report's ``n_steps_run`` counts the steps this call ran,
+    and the rate divides by them (null when it ran none); ``seconds`` are
+    the launches' device seconds, ``save_s`` the host seconds of each save.
+    Other scenarios ignore `ckpt_dir`, as in the JAX package.
+
+    With `outdir` the run writes what `cloudy_tpu.harness.run_scenario`
+    writes there: ``name.nc`` for a box or the rainshaft, the column-mean
+    profile ``name_mean_profile.nc`` for a pod ensemble, and the report
+    appended to ``runs.jsonl``. A checkpointed pod run takes the profile's
+    frames on the way and keeps them beside its checkpoints, so a resumed
+    run does not repeat the steps before its resume; otherwise (a plain
+    run, or one resumed from a checkpoint without frames) they come from
+    ``diagnostics``, a pass of its own after the timed run."""
     sc = SCENARIOS[name](device=device, **scenario_args)
     ensemble = sc["kind"] == "ensemble"
     hooked = sc.get("coal_fn") is not None
@@ -283,7 +382,24 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
         sc["step"].launches = 0
     if hooked:
         sc["coal_fn"].launches = 0
-    y, seconds, clock = sc["run"]()
+    ckpt = None
+    if ckpt_dir and ensemble:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, name)
+        before = ck.latest_step(path) or 0
+        out = sc["run_checkpointed"](path, segment=segment, max_segments=max_segments)
+        if out is None:
+            report = {"scenario": name, "n_steps": sc["n_steps"], "completed": False,
+                      "launches": sc["step"].launches,
+                      "n_steps_run": ck.latest_step(path) - before}
+            _log_report(report, outdir)
+            return None, report
+        y, seconds, clock, ckpt = out
+        n_run = ckpt["n_steps_run"]
+        profiles = ckpt.pop("profiles")
+    else:
+        y, seconds, clock = sc["run"]()
+        n_run, profiles = sc["n_steps"], None
     report = {
         "scenario": name,
         "device": (torch.cuda.get_device_name(y.device)
@@ -301,8 +417,12 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
             "n_columns": sc["n_columns"],
             "nz": nz,
             "launches": sc["step"].launches,
-            "column_updates_per_s": sc["n_columns"] * sc["n_steps"] / seconds,
+            "n_steps_run": n_run,
+            "column_updates_per_s": sc["n_columns"] * n_run / seconds if n_run else None,
         })
+        if ckpt is not None:
+            report["completed"] = True
+            report.update(ckpt)
     else:
         state, final = y, y[-1]
     if sc["kind"] == "rainshaft":
@@ -311,15 +431,36 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
         if hooked:
             report["launches"] = sc["coal_fn"].launches
     report.update(metrics.conservation_report(sc["spec"], final))
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        _write_output(name, sc, y, outdir, profiles)
     _log_report(report, outdir)
     return state, report
+
+
+def _write_output(name: str, sc: Dict, y: torch.Tensor, outdir: str,
+                  profiles=None) -> None:
+    """The NetCDF file of a run (cloudy_tpu/harness.py:368-389); a pod
+    ensemble's mean profile is `profiles` where a checkpointed run took
+    them, else `diagnostics`' own pass."""
+    cfg = sc["config"]
+    if sc["kind"] == "ensemble":
+        ts, profs = profiles if profiles is not None else sc["diagnostics"]()
+        io.rainshaft_output(os.path.join(outdir, f"{name}_mean_profile.nc"), sc["spec"], ts,
+                            cfg.z, profs, cfg.norms)
+        return
+    ts = cfg.dt * cfg.save_every * np.arange(y.shape[0], dtype=np.float64)
+    if sc["kind"] == "box":
+        io.box_output(os.path.join(outdir, f"{name}.nc"), sc["spec"], ts, y, cfg.norms)
+    else:
+        io.rainshaft_output(os.path.join(outdir, f"{name}.nc"), sc["spec"], ts, cfg.z, y,
+                            cfg.norms)
 
 
 def _log_report(report: Dict, outdir: Optional[str]) -> None:
     if outdir:
         os.makedirs(outdir, exist_ok=True)
-        with open(os.path.join(outdir, "runs.jsonl"), "a") as f:
-            f.write(json.dumps(report) + "\n")
+        metrics.JsonlLogger(os.path.join(outdir, "runs.jsonl")).log(report)
 
 
 def main(argv=None):
@@ -330,14 +471,17 @@ def main(argv=None):
     ap.add_argument("--hook", action="store_true",
                     help="rainshaft_128: coalescence through the kernel's wrapper")
     ap.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
-    ap.add_argument("--outdir", default=None)
+    ap.add_argument("--outdir", default=None,
+                    help="write the run's NetCDF file and append its report to runs.jsonl here")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="pod ensembles: checkpoint every save interval under DIR, and "
+                         "resume from the newest checkpoint there")
     args = ap.parse_args(argv)
     scenario_args = {} if args.columns is None else {"n_columns": args.columns}
     if args.hook:
         scenario_args["hook"] = True
-    _, report = run_scenario(
-        args.scenario, device=args.device, outdir=args.outdir, **scenario_args
-    )
+    _, report = run_scenario(args.scenario, device=args.device, outdir=args.outdir,
+                             ckpt_dir=args.ckpt, **scenario_args)
     print(json.dumps(report))
 
 

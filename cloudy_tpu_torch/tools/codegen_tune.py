@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
-import subprocess
 import threading
 import time
 
@@ -41,12 +40,7 @@ import torch
 
 from cloudy_tpu_torch.ops import _build
 from cloudy_tpu_torch.tools import yardstick as ys
-
-
-def smi_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+from cloudy_tpu_torch.utils.metrics import card_name
 
 
 def main(argv=None):
@@ -62,7 +56,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("codegen_tune: no CUDA device; the kernels run on the card only")
     dev = torch.device("cuda", 0)
-    card = smi_line()
+    card = card_name(dev)
     dtypes = {"f32": torch.float32, "f64": torch.float64}
     cases = [(variant, kind, dtypes[dname], *ys.make_fns(variant, kind, dev, dtypes[dname]))
              for variant, kind, dname in itertools.product(args.variants.split(","),

@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch.tools import opcount
 from cloudy_tpu_torch.tools.calibration_bench import _seconds
+from cloudy_tpu_torch.utils.metrics import card_name
 
 NORMS = (1e6, 1e-9)
 INF = float("inf")
@@ -144,16 +144,6 @@ def time_steps(step, state, device, reps: int = 5) -> dict:
     return {"seconds_per_step": sec, "n1": n1, "n2": n2, **out}
 
 
-def card(device: torch.device) -> str:
-    """The card's name and power limit as `nvidia-smi` gives them, or "cpu"."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", f"--id={device.index or 0}", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-    ).stdout.strip()
-
-
 def step_bound(step, state, n_lanes: int, nz: int) -> dict:
     """The least time the card could take for one step on `n_lanes` lanes:
     each state row read and written once against the twin's operations
@@ -203,7 +193,7 @@ def run_case(name: str, n_columns: int = 1 << 20, nz: int = 32, device="cuda",
         "bound_share": bnd["bound_ms"] / (sec * 1e3) if device.type == "cuda" else None,
         "finite": bool(torch.isfinite(timing["state"]).all()),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "card": smi if smi is not None else card(device),
+        "card": smi if smi is not None else card_name(device),
         "clock": "cuda_events" if device.type == "cuda" else "host",
     }
     return rec, step, state, timing
@@ -219,7 +209,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="also write the records to this JSON file")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
-    smi = card(device)
+    smi = card_name(device)
     records = []
     for name in CASE_NAMES if args.case is None else (args.case,):
         rec = run_case(name, args.columns, args.nz, device, args.reps, smi)[0]

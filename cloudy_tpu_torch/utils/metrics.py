@@ -1,14 +1,97 @@
-"""Observability: physics invariant monitors.
+"""Observability: step timing, physics invariant monitors, a JSONL log.
 
-Port of `cloudy_tpu.utils.metrics.conservation_report`; the reductions run
-where the state lies (on the card for a CUDA state).
+Port of `cloudy_tpu.utils.metrics` (`StepTimer`, `conservation_report`,
+`JsonlLogger`); the reductions run where the state lies (on the card for a
+CUDA state), and a call whose result is a CUDA tensor is timed by CUDA
+events.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import json
+import subprocess
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List
 
+import numpy as np
 import torch
+
+
+@dataclass
+class StepTimer:
+    """Accumulates per-call seconds: device seconds (CUDA events) for a call
+    that returns a CUDA tensor, host seconds otherwise."""
+
+    times: List[float] = field(default_factory=list)
+
+    @contextlib.contextmanager
+    def time_step(self):
+        """Host seconds of the block (the caller synchronises)."""
+        t0 = time.perf_counter()
+        yield
+        self.times.append(time.perf_counter() - t0)
+
+    def timed_call(self, fn, *args):
+        """``fn(*args)``, timed. The events bracket the call on the current
+        stream, so the time is the device's, the launch included."""
+        if torch.cuda.is_available():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if isinstance(out, torch.Tensor) and out.is_cuda:
+            end.record()
+            end.synchronize()
+            self.times.append(start.elapsed_time(end) / 1e3)
+        else:
+            self.times.append(time.perf_counter() - t0)
+        return out
+
+    def summary(self) -> Dict[str, float]:
+        """Statistics over the calls after the first (its build and warm-up),
+        over all of them when there is one."""
+        t = np.asarray(self.times[1:] or self.times)
+        return {
+            "n": len(self.times),
+            "mean_s": float(t.mean()),
+            "p50_s": float(np.percentile(t, 50)),
+            "p95_s": float(np.percentile(t, 95)),
+            "min_s": float(t.min()),
+        }
+
+
+def timed_steps(step, y: torch.Tensor, n: int):
+    """`n` applications of `step` from `y`; returns (state, seconds, clock):
+    the seconds from CUDA events around the launches for a CUDA state
+    (clock "cuda_events"), from the host clock otherwise ("host")."""
+    if y.is_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            y = step(y)
+        end.record()
+        end.synchronize()
+        return y, start.elapsed_time(end) / 1e3, "cuda_events"
+    t0 = time.perf_counter()
+    for _ in range(n):
+        y = step(y)
+    return y, time.perf_counter() - t0, "host"
+
+
+def card_name(device) -> str:
+    """The card's name and power limit as `nvidia-smi` gives them for a CUDA
+    `device`, or "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", f"--id={device.index or 0}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def conservation_report(spec, mom_flat) -> Dict[str, float]:
@@ -26,3 +109,14 @@ def conservation_report(spec, mom_flat) -> Dict[str, float]:
             torch.mean((~torch.isfinite(mom)).to(torch.float32))
         ),
     }
+
+
+class JsonlLogger:
+    """Append-only JSONL metrics log (one dict per line)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def log(self, record: Dict):
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record) + "\n")

@@ -28,6 +28,8 @@ from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.ops import numerical_coalescence as nc
 from cloudy_tpu_torch.ops import op_chains
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
+from cloudy_tpu_torch.tools import longhorizon
+from cloudy_tpu_torch.utils import checkpoint as ck
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,8 @@ def _generated_units():
             _, data = harness.pod_data(variant)
             fns.append(fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
                                                  device="cuda", dtype=dtype, kernel_scale=True))
+    for nz in longhorizon.DEPTHS.values():
+        fns += list(longhorizon.make_steps(nz, "cuda"))
     _build.build_generated([u for f in fns for u in f.build_units()])
 
 
@@ -839,3 +843,56 @@ def test_tables_past_the_card_limit_raise(cuda):
         else:
             with pytest.raises(RuntimeError, match="opt"):
                 fn.soa(x)
+
+
+@pytest.mark.parametrize("variant", ["pod_ensemble", "pod_ensemble_moving"])
+def test_pod_checkpoint_resume_on_the_card(cuda, variant, tmp_path):
+    """A pod run (4,096 columns x 32 levels, f32, the generated whole step)
+    cut after one 40-step segment and resumed is the uninterrupted run bit
+    for bit: the state crosses the host and the file exactly, and the kernel
+    is deterministic."""
+    sc = harness.SCENARIOS[variant](n_columns=4096, device=cuda)
+    path = str(tmp_path / "pod")
+    assert sc["run_checkpointed"](path, segment=40, max_segments=1) is None
+    assert ck.latest_step(path) == 40
+    sc["step"].launches = 0
+    y_res, seconds, clock, info = sc["run_checkpointed"](path, segment=40)
+    assert sc["step"].launches == 80 and info["n_steps_run"] == 80
+    assert clock == "cuda_events" and seconds > 0 and y_res.is_cuda
+    y, _, _ = sc["run"]()
+    assert torch.equal(y_res, y)
+
+
+@pytest.mark.parametrize("nz", sorted(longhorizon.DEPTHS.values()))
+def test_longhorizon_pair_matches_twins(cuda, nz):
+    """100 steps of the long-horizon pair at [6, 4096]: the generated f32
+    step and the f64 reference step against their twins run on the card
+    over every column (f32 1e-4, f64 1e-9), and the f32 run within the JAX
+    gate's bound of the f64 one."""
+    fast, ref = longhorizon.make_steps(nz, cuda)
+    assert fast.route == "generated" and ref.route == "table" and ref.plan.ref
+    name = {v: k for k, v in longhorizon.DEPTHS.items()}[nz]
+    rec, states = longhorizon.run_depth(name, nz, fast, ref, n_steps=100)
+    assert rec["launches_f32"] == rec["launches_f64"] == 100 and rec["finite"]
+    assert rec["checkpoints"][-1]["traj_err_max_scaled"] < longhorizon.ERR_GATES[nz][1000]
+    x0 = rs.to_soa(torch.as_tensor(longhorizon.start_state(nz)))
+    for tag, fn in (("f32", fast), ("f64", ref)):
+        y = x0.to(cuda, fn.dtype)
+        for _ in range(100):
+            y = fn.plain(y)
+        got = rs.to_soa(torch.as_tensor(states[tag][-1])).to(cuda)
+        assert _row_scaled(got, y) < TOL[fn.dtype], tag
+
+
+def test_step_timer_times_a_cuda_call_by_events(cuda):
+    """`StepTimer.timed_call` on a call that returns a CUDA tensor records
+    the device seconds between CUDA events around it."""
+    from cloudy_tpu_torch.utils import metrics
+
+    timer = metrics.StepTimer()
+    x = torch.ones(1 << 20, device=cuda)
+    for _ in range(3):
+        out = timer.timed_call(lambda v: v * 2.0, x)
+    assert out.is_cuda and float(out[0]) == 2.0
+    assert len(timer.times) == 3 and all(0.0 < s < 1.0 for s in timer.times)
+    assert timer.summary()["n"] == 3

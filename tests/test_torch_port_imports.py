@@ -47,7 +47,10 @@ def test_import_without_jax():
             "cloudy_tpu_torch.coalescence",
             "cloudy_tpu_torch.tools.whole_step_ablation",
             "cloudy_tpu_torch.ops.op_chains",
-            "cloudy_tpu_torch.tools.op_microbench"} <= set(modules)
+            "cloudy_tpu_torch.tools.op_microbench",
+            "cloudy_tpu_torch.utils.checkpoint", "cloudy_tpu_torch.utils.io",
+            "cloudy_tpu_torch.utils.metrics",
+            "cloudy_tpu_torch.tools.longhorizon"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"
