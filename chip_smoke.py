@@ -151,7 +151,28 @@ Drives the port's main path once on the card and fails loudly:
    t = 500, 1000 at nz 128, |drift32 - drift64| < 1e-4 there, every state
    finite); each kernel's ms/step; the f64 run at t = 100 against its twin
    run on the card over the first 4 columns (< 1e-9), the f32 kernel
-   against its twin for one step at [6, 4096] (< 1e-4).
+   against its twin for one step at [6, 4096] (< 1e-4);
+28. A.9: the adiabatic parcel (`models.parcel.run_parcel`) of each kind
+   (monodisperse, gamma, exponential + gamma) in f64 on the card against
+   the same call on the CPU (< 1e-10 relative), tests/test_parcel.py's
+   sanity checks and the Rogers (1975) curves at its bounds; the adaptive
+   parcel (`run_parcel_adaptive`, mixture) against the CPU's trials; the
+   condensation box over 100 steps against the CPU; host seconds each
+   (the path is torch ops on 5-10 numbers, no hand-written kernel);
+29. A.10, in child processes of this script (`--phase29 CASE ...`), so that
+   no process group outlives the phase: (a) the pod `fixed2gamma` at 2^20 x
+   32 x 120 f32 through the harness's sharded route
+   (`parallel.ensemble.ensemble_whole_step`) under a one-rank NCCL group
+   (torchrun's environment: `MASTER_ADDR=localhost`, a free port), its
+   state held to phase 6's by SHA-256 over each half's bytes, its ms/step
+   in turns against the unsharded step, the all-reduced mass against the
+   local sum; (b) the same under two gloo ranks on cuda:0, 2^19 columns
+   each, each shard held to (a)'s half; (c) the z-split step
+   (`parallel.halo`) over two gloo ranks on cuda:0, 4,096 columns x 32
+   levels as 2 x 16, one f64 step, against the unsplit AoS step; (d)
+   `tools.scaling_measure` (the fused-RHS route through B4 and
+   `ensemble_rainshaft_step_soa`) at 2^20 x 32, one rank, its record
+   printed, and B4 against its twin at that shape.
 
 From phase 3 on, the whole step (scaled or not), the fused RHS and the
 coalescence RHS of every fast-tier configuration launch the kernel
@@ -175,7 +196,9 @@ after the comparisons), in phase 22 each configuration's timed
 launches, in phase 25 each kernel's timed run, in phase 26 the cut and the
 resumed run (each report counts its scenario's launches from its start), and
 in phase 27 each long run (`longhorizon.run_depth` zeroes each wrapper's
-count before its run). The last two lines are a JSON
+count before its run), and in phase 29 each child's pod run
+(`harness.run_scenario` zeroes the step's count) and the scaling tool's
+timed chains (it zeroes B4's count after its warm-up). The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``source`` the kernel's file, for a
 generated kernel its shells with ``generator`` and ``unit`` beside;
@@ -259,6 +282,11 @@ N_FOUR_STEPS = 6  # timed whole steps or launches of each phase-25 kernel
 N_REF_COLUMNS = 4096  # the reference tier's columns in phase 25: [12, 131072]
 N_FOUR_NUM_BOXES = 262144  # B5's boxes at four modes (phase 25): the bench's width
 N_SCALED_TURN_STEPS = 20  # B1s steps per timed turn, generated vs table-driven (phase 16)
+PARCEL_KINDS = ("monodisperse", "gamma", "mixture")  # phase 28
+PARCEL_TOL = 1e-10  # f64 on the card vs the CPU, relative (phase 28)
+Z_COLUMNS = 4096  # the z-split step's columns (phase 29(c))
+Z_TOL = 1e-12  # the z-split step vs the unsplit one, per-moment-scaled (phase 29(c))
+N_SCALE_STEPS = 10  # steps per timed chain of tools.scaling_measure (phase 29(d))
 #: boxes of the reference coalescence kernel's layouts, timed in turns (phase 24)
 REF_LAYOUT_BOXES = (128, 1024, 8192, 32768, 65536, 131072, 262144)
 
@@ -391,13 +419,13 @@ def generated_wrappers(dev):
     from the 1.7-scaled tensor in f64 (phase 16), the family matrix's fast
     cases in f32 (phase 20), the B-cover configurations (phase 22), the
     four-gamma-mode configuration's kernels at both tiers and B5 (f32,
-    phase 25), and the long horizon's whole steps at nz 32 and 128 (phase
-    27)."""
+    phase 25), the long horizon's whole steps at nz 32 and 128 (phase
+    27), and `tools.scaling_measure`'s fused RHS (phase 29, the pod's)."""
     import torch
 
     from cloudy_tpu_torch import bench, harness
     from cloudy_tpu_torch.ops import fused_coalescence as fc
-    from cloudy_tpu_torch.tools import longhorizon, yardstick
+    from cloudy_tpu_torch.tools import longhorizon, scaling_measure, yardstick
     from cloudy_tpu_torch.tools import whole_step_ablation as wsa
 
     fns = []
@@ -430,6 +458,7 @@ def generated_wrappers(dev):
                                          dz=cfg.dz, dt=1.0, device=dev, dtype=torch.float64))
     fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
     fns += [f for nz in longhorizon.DEPTHS.values() for f in longhorizon.make_steps(nz, dev)]
+    fns.append(scaling_measure.build_step(True, None, dev)[3])
     return [f for f in fns if f.build_units()]
 
 
@@ -1597,11 +1626,19 @@ def main():
 
     # ---- 26. A.13: checkpoint, resume and output of the pod job ---------
     phase_26(dev, card, kernels, pod_final, pod_twin, b1_ms, step_plain_ms, step_bound)
+    pod_hashes = _shard_hashes(pod_final, 2)  # phase 29 holds the sharded pod to these
     del pod_final, pod_twin
     torch.cuda.empty_cache()
 
     # ---- 27. A.14: the long horizon, f32 generated B1 against f64 reference
     phase_27(dev, card, kernels, bound)
+
+    # ---- 28. A.9: condensation, the parcel, the adaptive stepper ---------
+    phase_28(dev, card)
+
+    # ---- 29. A.10: the sharded pod and the parallel package, in children --
+    torch.cuda.empty_cache()
+    phase_29(dev, card, kernels, pod_hashes, kernels[0], bound)
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -2807,6 +2844,361 @@ def phase_27(dev, card, kernels, bound):
     print(f"phase 27 seconds {time.perf_counter() - t:.3f}")
 
 
+def phase_28(dev, card):
+    """Phase 28 (A.9): the parcel and the condensation box in f64 on the
+    card, each against the same call on the CPU; the Rogers (1975) curves
+    at tests/test_parcel.py's bounds; the adaptive parcel's trials. The
+    path is torch ops on a state of 7-10 numbers: host-bound, no
+    hand-written kernel."""
+    import numpy as np
+    import torch
+
+    from cloudy_tpu_torch.models import box, parcel as pm
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    t = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for kind in PARCEL_KINDS:
+        spec, mom0, ml_v = pm.init_conditions(kind)
+        config = pm.ParcelConfig(spec=spec, w=10.0, dt=0.25, t_end=20.0)
+        Y0 = pm.initial_state(config, mom0, ml_v, p0=8e4, T0=273.15 + 7.0, S0=1.0)
+        (ts, ys), sec = host_s(lambda: pm.run_parcel(config, Y0, device=dev))
+        _, ys_cpu = pm.run_parcel(config, Y0, device=cpu)
+        n_ops = _count_ops(pm.make_parcel_rhs(config), ys[0], 0.0)
+        check(ys.device.type == "cuda" and ys.dtype == torch.float64, "parcel not on the card")
+        y = ys.cpu().numpy()
+        rel = float(np.max(np.abs(y - ys_cpu.numpy()) / np.abs(ys_cpu.numpy())))
+        S, p, T, qv = y[:, 0], y[:, 1], y[:, 2], y[:, 3]
+        sane = (np.all(np.isfinite(y)) and p[-1] < p[0] and T[-1] < T[0] and 1.0005 < S.max() < 1.02
+                and qv[-1] < qv[0] and y[-1, 5] > y[0, 5])
+        extra = ""
+        if kind == "gamma":
+            tn = ts.numpy()
+            got = np.interp(pm.ROGERS_TIME_SUPERSAT, tn, (S - 1.0) * 100.0)
+            r_um = (y[:, 5] / y[:, 4] / config.tps.rho_w * 3 / 4 / np.pi) ** (1 / 3) * 1e6
+            d_end = abs(got[-1] - pm.ROGERS_SUPERSAT[-1])
+            d_s = float(np.max(np.abs(got - pm.ROGERS_SUPERSAT)))
+            d_r = float(np.max(np.abs(np.interp(pm.ROGERS_TIME_RADIUS, tn, r_um)
+                                      - pm.ROGERS_RADIUS)))
+            extra = (f"; Rogers: end {d_end:.4f} (< 0.35), supersaturation {d_s:.4f} (< 0.45) "
+                     f"percentage points, radius {d_r:.4f} um (< 0.6)")
+            check(d_end < 0.35 and d_s < 0.45 and d_r < 0.6, f"parcel vs Rogers {extra}")
+        n_steps = len(ts) - 1
+        print(f"phase 28 run_parcel {kind} f64 on the card, {n_steps} SSPRK33 steps: "
+              f"{sec:.4f} host s ({sec / n_steps * 1e3:.4f} ms/step; {n_ops} torch operations "
+              f"per RHS, {sec / (3 * n_ops * n_steps) * 1e6:.2f} host us each), vs the CPU max rel "
+              f"{rel:.3e} (tol {PARCEL_TOL:.0e}), sane {sane}{extra} {card}")
+        check(sane, f"parcel {kind} fails tests/test_parcel.py's sanity checks")
+        check(rel < PARCEL_TOL, f"parcel {kind} on the card vs the CPU {rel:.3e}")
+
+    spec, mom0, ml_v = pm.init_conditions("mixture")
+    config = pm.ParcelConfig(spec=spec, w=10.0, dt=0.25, t_end=20.0)
+    Y0 = pm.initial_state(config, mom0, ml_v, p0=8e4, T0=273.15 + 7.0, S0=1.0)
+    (y_ad, st), sec = host_s(lambda: pm.run_parcel_adaptive(config, Y0, device=dev))
+    y_cpu, st_cpu = pm.run_parcel_adaptive(config, Y0, device=cpu)
+    trials = st["n_accept"] + st["n_reject"]
+    rel = float(((y_ad.cpu() - y_cpu).abs() / y_cpu.abs()).max())
+    print(f"phase 28 run_parcel_adaptive mixture f64 on the card: n_accept {st['n_accept']}, "
+          f"n_reject {st['n_reject']}, reached {st['reached']}, t_final "
+          f"{float(st['t_final'])}; {sec:.4f} host s, {sec / trials * 1e3:.4f} ms per trial "
+          f"(one host read each); the CPU's trials {st_cpu['n_accept']}/{st_cpu['n_reject']}, "
+          f"y max rel {rel:.3e} {card}")
+    check(st["reached"] and (st["n_accept"], st["n_reject"]) == (st_cpu["n_accept"],
+                                                                st_cpu["n_reject"]),
+          f"adaptive parcel trials {st} against the CPU's {st_cpu}")
+    check(rel < PARCEL_TOL, f"adaptive parcel on the card vs the CPU {rel:.3e}")
+
+    bspec = SpectrumSpec((Family.EXPONENTIAL, Family.GAMMA))
+    bcfg = box.BoxConfig(spec=bspec, t_end=100.0, dt=1.0)
+    rhs = box.make_box_condensation_rhs(bcfg, 0.01, 3.5e-3)
+    mom = [1e8, 1e-2, 1e6, 1e-3, 2e-15]
+    (_, ys), sec = host_s(lambda: box.run_box(
+        bcfg, rhs, torch.tensor(mom, dtype=torch.float64, device=dev)))
+    _, ys_cpu = box.run_box(bcfg, rhs, torch.tensor(mom, dtype=torch.float64))
+    rel = float(((ys.cpu() - ys_cpu).abs() / ys_cpu.abs()).max())
+    print(f"phase 28 condensation box (exp + gamma) f64 on the card, 100 steps: {sec:.4f} host "
+          f"s, vs the CPU max rel {rel:.3e} (tol {PARCEL_TOL:.0e}), finite "
+          f"{bool(torch.isfinite(ys).all())} {card}")
+    check(bool(torch.isfinite(ys).all()) and rel < PARCEL_TOL,
+          f"condensation box on the card vs the CPU {rel:.3e}")
+    print("phase 28: the parcel and the condensation box are torch ops on 5-10 numbers, "
+          "host-bound; no hand-written kernel is on this path")
+    print(f"phase 28 seconds {time.perf_counter() - t:.3f}")
+
+
+def _count_ops(fn, *args):
+    """The number of torch operations (ATen calls) of one ``fn(*args)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn(*args)
+    return Count.n
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _children(case, world, env_extra=None, timeout=600):
+    """Run phase 29's `case` in `world` child processes of this script (one
+    rank each, a free local port); returns each rank's JSON result. A child
+    that fails, or leaves no result, fails the phase (its output is shown)."""
+    import tempfile
+
+    port = _free_port()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_29_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(var, None)
+    env.update(env_extra or {})
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", str(ROOT / "chip_smoke.py"), "--phase29", case, str(port),
+         str(r), str(world), str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=str(ROOT)) for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        f = out / f"{case}_rank{r}.json"
+        if p.returncode != 0 or not f.exists():
+            print(text[-6000:])
+            raise SystemExit(f"chip_smoke: phase 29 child {case} rank {r} failed "
+                             f"(exit {p.returncode})")
+        results.append(json.loads(f.read_text()))
+    import shutil
+
+    shutil.rmtree(out)
+    return results
+
+
+def _shard_hashes(y, parts):
+    """SHA-256 of the bytes of each of `parts` equal column slices of a SoA
+    state ``[n_tot, B]`` (in column order)."""
+    import hashlib
+
+    w = y.shape[1] // parts
+    return [hashlib.sha256(y[:, i * w:(i + 1) * w].contiguous().cpu().numpy().tobytes())
+            .hexdigest() for i in range(parts)]
+
+
+def phase_29(dev, card, kernels, pod_hashes, step_row, bound):
+    """Phase 29 (A.10): the pod through the harness's sharded route and the
+    parallel package on the card, in child processes (no process group
+    outlives the phase): (a) W = 1 under NCCL, its state held to phase 6's
+    by SHA-256 over the bytes of each half, ms/step in turns against the
+    unsharded step, the all-reduced mass against the local sum; (b) W = 2
+    under gloo, both ranks on cuda:0, 2^19 columns each, each rank's shard
+    held to (a)'s half; (c) the z-split step over 2 gloo ranks on cuda:0,
+    4,096 columns x 32 levels split 2 x 16, f64, against the unsplit AoS
+    step; (d) `tools.scaling_measure` at W = 1 through B4. `pod_hashes`:
+    phase 6's state's halves; `step_row`: phase 7's B1 entry."""
+    import torch
+
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.tools import scaling_measure as sm
+
+    t = time.perf_counter()
+    (a,) = _children("a", 1, {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+                              "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"})
+    print(f"phase 29(a) W = 1 {a['backend']}: pod fixed2gamma {a['report']['n_columns']} x {NZ} "
+          f"x 120 f32 through ensemble_whole_step: {a['report']['seconds']:.4f} s, "
+          f"{a['report']['column_updates_per_s']:.4e} column-updates/s, launches "
+          f"{a['report']['launches']}; halves' SHA-256 equal to phase 6's: "
+          f"{a['hashes'] == pod_hashes}; ms/step in turns sharded / unsharded / unsharded / "
+          f"sharded {[round(x, 4) for x in a['turns_ms']]}; all-reduced mass "
+          f"{a['report']['total_mass']!r} vs local sum {a['local_mass']!r}; child host s "
+          f"{a['host_s']:.3f} {card}")
+    check(a["backend"] == "nccl" and a["report"]["world_size"] == 1, f"(a) ran {a['backend']}")
+    check(a["hashes"] == pod_hashes, "the W = 1 sharded pod state is not phase 6's")
+    check(a["report"]["launches"] == 120 and a["report"]["finite"]
+          and a["report"]["negative_fraction"] == 0.0, f"(a) report {a['report']}")
+    check(a["report"]["total_mass"] == a["local_mass"], "(a) all-reduced mass != local sum")
+    sharded_ms = min(a["turns_ms"][0], a["turns_ms"][3])
+    check(sharded_ms < 1.05 * min(a["turns_ms"][1:3]),
+          f"(a) the sharded route costs more than the unsharded step: {a['turns_ms']}")
+
+    b = _children("b", 2)
+    print(f"phase 29(b) W = 2 {b[0]['backend']} on cuda:0 (both ranks): "
+          f"{b[0]['report']['n_local_columns']} columns per rank, "
+          f"{b[0]['report']['seconds']:.4f} s (slowest rank, both on one card), "
+          f"{b[0]['report']['column_updates_per_s']:.4e} column-updates/s over "
+          f"{b[0]['report']['n_columns']} columns, launches per rank "
+          f"{[r['report']['launches'] for r in b]}; each shard's SHA-256 equal to (a)'s half: "
+          f"{[r['hashes'][0] for r in b] == a['hashes']}; total_mass {b[0]['report']['total_mass']!r} "
+          f"(a: {a['report']['total_mass']!r}) {card}")
+    check(all(r["backend"] == "gloo" and r["report"]["world_size"] == 2 for r in b),
+          "(b) did not run two gloo ranks")
+    check([r["hashes"][0] for r in b] == a["hashes"],
+          "the union of the W = 2 shards is not the W = 1 state")
+    check(all(r["report"]["launches"] == 120 for r in b), "(b) launches")
+    check(abs(b[0]["report"]["total_mass"] / a["report"]["total_mass"] - 1.0) < 1e-6,
+          "(b) total mass")
+
+    c = _children("c", 2)
+    print(f"phase 29(c) z split over 2 {c[0]['backend']} ranks on cuda:0, {Z_COLUMNS} columns x "
+          f"{NZ} levels as 2 x {NZ // 2}, one f64 step: equal to the unsplit AoS step bit for "
+          f"bit {[r['equal'] for r in c]}, max rel {max(r['max_rel'] for r in c):.3e} (bound "
+          f"{Z_TOL:.0e}); host s {[round(r['step_s'], 4) for r in c]} {card}")
+    check(all(r["max_rel"] <= Z_TOL for r in c), "(c) z-split step vs unsplit")
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-m", "cloudy_tpu_torch.tools.scaling_measure",
+                          "--device", "cuda", "--columns", str(N_POD_COLUMNS), "--steps",
+                          str(N_SCALE_STEPS), "--reps", "3"], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=600)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:])
+        raise SystemExit(f"chip_smoke: phase 29(d) scaling_measure failed ({res.returncode})")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    print(json.dumps({"phase": 29, **rec}))
+    check(rec["launches"] == 3 * 3 * N_SCALE_STEPS and rec["world_size"] == 1,
+          f"(d) B4 launches {rec['launches']}")
+    _, cfg, _, rfn = sm.build_step(True, None, dev)
+    state = sm.make_state(cfg, N_POD_COLUMNS, True, dev, torch.float32)
+    norm = torch.tensor(rfn.plan.mom_norms * 2, dtype=torch.float32, device=dev)[:, None]
+    rerr, rabs = row_scaled(rfn.soa(state) / norm, rfn.plain(state) / norm)
+    rhs_ms, rhs_plain = _time_ms(lambda: rfn.soa(state), 5), _time_ms(lambda: rfn.plain(state), 1)
+    print(f"phase 29(d) scaling_measure W = 1, fused-RHS route through "
+          f"ensemble_rainshaft_step_soa at {N_POD_COLUMNS} x {NZ}: {rec['ms_per_step']:.4f} "
+          f"ms/step, {rec['column_updates_per_s']:.4e} column-updates/s, B4 launches "
+          f"{rec['launches']}; B4 at [6, {N_POD_COLUMNS * NZ}] {rhs_ms:.4f} ms per launch, vs "
+          f"twin row-scaled {rerr:.3e}, max abs {rabs:.3e} (normalized), twin {rhs_plain:.4f} ms "
+          f"{card}")
+    check(rerr < TOL["float32"], f"(d) B4 vs twin {rerr:.3e}")
+    same = {k: step_row[k] for k in ("max_abs_err", "max_row_scaled_err", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
+    kernels.append({"name": "rainshaft_step[fixed2gamma, sharded W=1 nccl]", "route": "cuda",
+                    "source": GEN_SOURCE, "generator": GEN_GENERATOR,
+                    "kernel_path": "generated", "replaces": B1_REPLACES,
+                    "launches": a["report"]["launches"], "ms": sharded_ms, **same,
+                    "errors_from": "phase 7 (the state is phase 6's, byte for byte)"})
+    kernels.append({"name": "rainshaft_step[fixed2gamma, sharded W=2 gloo, one card]",
+                    "route": "cuda", "source": GEN_SOURCE, "generator": GEN_GENERATOR,
+                    "kernel_path": "generated", "replaces": B1_REPLACES,
+                    "launches": sum(r["report"]["launches"] for r in b),
+                    "ms": b[0]["report"]["seconds"] / 120 * 1e3, **same,
+                    "errors_from": "phase 7 (the shards' union is phase 6's state)"})
+    kernels.append({"name": "rainshaft_rhs[fixed2gamma, scaling_measure W=1]", "route": "cuda",
+                    **kernel_source(rfn), "replaces": B4_REPLACES, "launches": rec["launches"],
+                    "max_abs_err": rabs, "max_row_scaled_err": rerr, "ms": rhs_ms,
+                    "plain_ms": rhs_plain, "route_ms_per_step": rec["ms_per_step"],
+                    **bound("rainshaft_rhs[scaling_measure]", rfn.plain,
+                            state[:, :8 * NZ].contiguous(), N_POD_COLUMNS * NZ, 6, 12)})
+    del rfn, state
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": 29, "entries": kernels[-3:]}))
+    print(f"phase 29 seconds {time.perf_counter() - t:.3f}")
+
+
+def child_29(case, port, rank, world, outdir):
+    """One rank of a phase-29 case (see `phase_29`); writes its result to
+    OUTDIR/CASE_rank{RANK}.json."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from cloudy_tpu_torch import harness
+    from cloudy_tpu_torch.models import rainshaft as rs
+    from cloudy_tpu_torch.parallel import mesh as pmesh
+    from cloudy_tpu_torch.utils import metrics
+
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", 0)
+    if case == "a":  # torchrun's environment, set by the parent
+        pmesh.initialize_distributed(device=dev)
+    else:
+        pmesh.initialize_distributed(f"tcp://localhost:{port}", world, rank, device=dev,
+                                     backend="gloo")
+    out = {"backend": dist.get_backend(), "rank": rank}
+    try:
+        if case in ("a", "b"):
+            state, rep = harness.run_scenario("pod_ensemble", device=dev,
+                                              n_columns=N_POD_COLUMNS)
+            y = rs.to_soa(state)
+            out["report"], out["hashes"] = rep, _shard_hashes(y, 2 if case == "a" else 1)
+            m1 = state[..., 1] + state[..., 4]
+            out["local_mass"] = float(torch.sum(m1))
+            del state, y
+            if case == "a":
+                sc = harness.SCENARIOS["pod_ensemble"](n_columns=N_POD_COLUMNS, device=dev)
+                turns = []
+                for sharded in (True, False, False, True):
+                    fn = sc["run"] if sharded else (
+                        lambda: metrics.timed_steps(sc["step"], sc["state0"], sc["n_steps"]))
+                    _, s, _ = fn()
+                    turns.append(s / sc["n_steps"] * 1e3)
+                out["turns_ms"] = turns
+        else:  # "c": the z-split step against the unsplit one
+            import numpy as np
+
+            from cloudy_tpu_torch import kernels as K
+            from cloudy_tpu_torch import stepper
+            from cloudy_tpu_torch.coalescence import build_coalescence_data
+            from cloudy_tpu_torch.parallel import halo
+            from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+            spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+            ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+            data = build_coalescence_data(spec, ker, (5e-10, np.inf), norms=(1e6, 1e-9))
+            cfg = rs.RainshaftConfig(spec=spec, nz=NZ, zmax=3000.0, norms=(1e6, 1e-9), dt=1.0)
+            ic1 = rs.initial_condition(cfg.z, [1e8, 1e-2, 2e-12])
+            ic = np.concatenate([ic1, 0.3 * ic1], axis=-1)
+            amp = np.linspace(0.5, 1.5, Z_COLUMNS)[:, None, None]
+            full = torch.as_tensor(np.tile(ic[None], (Z_COLUMNS, 1, 1)) * amp, device=dev)
+            mesh = pmesh.make_mesh(("columns", "z"), (1, world))
+            rhs = halo.make_z_sharded_rainshaft_rhs(spec, data, cfg.dz, cfg.vel, cfg.norms,
+                                                    mesh=mesh)
+            nzl = NZ // world
+            block = full[:, rank * nzl:(rank + 1) * nzl].contiguous()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            got = halo.z_sharded_step(rhs, cfg.dt, mesh)(block)
+            torch.cuda.synchronize()
+            out["step_s"] = time.perf_counter() - ts
+            want = stepper.ssprk33_step(rs.make_rainshaft_rhs(cfg, data), full,
+                                        torch.zeros((), dtype=full.dtype), cfg.dt)
+            want = want[:, rank * nzl:(rank + 1) * nzl]
+            out["equal"] = bool(torch.equal(got, want))
+            scale = want.abs().amax(dim=(0, 1))
+            out["max_rel"] = float(((got - want).abs() / scale).max())
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out["host_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"{case}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"phase 29 child {case} rank {rank} done in {out['host_s']:.3f} s", flush=True)
+
+
 def _time_ms(fn, n):
     """Milliseconds per call on the card (CUDA events, one warm-up call)."""
     import torch
@@ -2823,4 +3215,7 @@ def _time_ms(fn, n):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase29"]:
+        child_29(*sys.argv[2:7])
+    else:
+        main()

@@ -21,6 +21,16 @@ the kernels and loads the module before anything is timed; the timed run is
 measured with CUDA events on a CUDA device (host clock on the CPU) and the
 rate divides by the steps actually run.
 
+The pod runs through `parallel.ensemble.ensemble_whole_step`, as the JAX
+harness runs it through `shard_map` (cloudy_tpu/harness.py:154-206): under
+a process group (`parallel.mesh.initialize_distributed`, e.g. started by
+torchrun) each of the W ranks advances its own ``n_columns / W`` columns on
+its own device, and the report, the mean profile and a checkpoint are
+global (all-reduced, or gathered to rank 0, which alone writes files and
+prints). Without a process group W = 1 and no collective runs:
+
+    torchrun --nproc_per_node=1 -m cloudy_tpu_torch.harness pod_ensemble --device cuda
+
     python -m cloudy_tpu_torch.harness pod_ensemble --columns 1048576 --device cuda
     python -m cloudy_tpu_torch.harness pod_ensemble_moving --columns 1048576 --device cuda
     python -m cloudy_tpu_torch.harness pod_ensemble_lognorm --columns 1048576 --device cuda
@@ -72,6 +82,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch import kernels as K
@@ -79,6 +90,8 @@ from cloudy_tpu_torch.coalescence import build_coalescence_data
 from cloudy_tpu_torch.models import box
 from cloudy_tpu_torch.models import rainshaft as rs
 from cloudy_tpu_torch.ops import fused_coalescence as fc
+from cloudy_tpu_torch.parallel import ensemble as pens
+from cloudy_tpu_torch.parallel import mesh as pmesh
 from cloudy_tpu_torch.utils import checkpoint as ck
 from cloudy_tpu_torch.utils import io, metrics
 
@@ -110,9 +123,17 @@ def _scenario_pod_ensemble(
     variant: str = "fixed2gamma",
 ) -> Dict:
     """The pod column ensemble in one of `POD_VARIANTS`: returns the
-    configuration, the whole-step function (built and warmed up), the
-    initial state (mode 1 seeded, mode 2 empty) and ``run``."""
-    device = torch.device(device)
+    configuration, the whole-step function (built and warmed up), this
+    rank's initial state (mode 1 seeded, mode 2 empty) and ``run``.
+
+    Under a process group of W ranks the ensemble is ``n_columns // W · W``
+    columns (at least W), split over a mesh of one axis, "columns"
+    (cloudy_tpu/harness.py:179-182); this rank's shard, ``state0``, is
+    ``[6, n_local·32]`` on its device (``cuda:{LOCAL_RANK}`` for a bare
+    "cuda"). Without one, W = 1 and the step is the wrapper's own call."""
+    world, rank = pmesh.world()
+    mesh = pmesh.make_mesh(("columns",)) if dist.is_initialized() else None
+    device = pmesh.rank_device(device) if mesh is not None else torch.device(device)
     spec, data = pod_data(variant)
     norms = (1e6, 1e-9)
     nz = 32
@@ -123,10 +144,13 @@ def _scenario_pod_ensemble(
         data, config.vel, config.norms, nz=nz, dz=config.dz, dt=config.dt,
         device=device, dtype=dtype,
     )
+    sharded = pens.ensemble_whole_step(step, mesh)
+    n_cols = max(n_columns // world, 1) * world
+    n_local = n_cols // world
     ic1 = rs.initial_condition(config.z, [1e8, 1e-2, 2e-12])
     ic = np.concatenate([ic1, np.zeros_like(ic1)], axis=-1)  # [nz, n_tot]
     column = torch.as_tensor(ic.T.copy(), dtype=dtype, device=device)
-    state0 = column.repeat(1, n_columns)  # [n_tot, n_columns·nz], z fastest
+    state0 = column.repeat(1, n_local)  # [n_tot, n_local·nz], z fastest
     n_steps = int(round(config.t_end / config.dt))
 
     # warm-up outside any timed window: builds the kernels, loads the module
@@ -137,12 +161,16 @@ def _scenario_pod_ensemble(
     def advance(y, n: int):
         """`n` whole steps from `y`; returns (state, seconds, clock). Seconds
         come from CUDA events around the launches on a CUDA device."""
-        return metrics.timed_steps(step, y, n)
+        return metrics.timed_steps(sharded, y, n)
 
     def run(n: int = n_steps):
         """Advance `state0` by `n` whole steps; returns (state, seconds,
         clock)."""
         return advance(state0, n)
+
+    def profile(y):
+        """The column-mean profile ``[nz, n_tot]`` over every rank's columns."""
+        return column_mean(y, nz, mesh, n_cols)
 
     # the column-mean profile every `save_every` steps: the per-level
     # ensemble diagnostic a pod job monitors (the full state is GBs)
@@ -156,7 +184,7 @@ def _scenario_pod_ensemble(
         y, profs = state0, []
         for _ in range(n_saves):
             y, _, _ = advance(y, save_every)
-            profs.append(column_mean(y, nz))
+            profs.append(profile(y))
         ts = config.dt * save_every * np.arange(1.0, n_saves + 1.0)
         return ts, torch.stack(profs).cpu().numpy()
 
@@ -176,12 +204,19 @@ def _scenario_pod_ensemble(
         checkpoint, or None where the run resumed from a checkpoint without
         them (one the JAX package wrote). The segments launch the kernel
         `run` launches, in the same order, so a resumed run is bit for bit
-        an uninterrupted one."""
+        an uninterrupted one.
+
+        Under W > 1 ranks a checkpoint is one file holding the global state
+        ``[6, n_columns·32]`` in JAX's format, as the JAX harness writes the
+        global array: rank 0 gathers the shards and writes it (and the
+        frames), then every rank waits at a barrier; on resume each rank
+        reads its own columns from the newest file. `ckpt_path` must be on
+        a file system every rank sees."""
         seg = int(segment or save_every)
         y, start, profs = state0, 0, []
         s0 = ck.latest_step(ckpt_path)
         if s0 is not None:
-            y, start = ck.load_checkpoint(ckpt_path, s0, like=state0)
+            y, start = _load_shard(ckpt_path, s0, state0, mesh)
             pf = _profile_file(ckpt_path, s0)
             profs = list(np.load(pf)) if os.path.exists(pf) else None
         done, seconds, save_s = start, 0.0, []
@@ -195,12 +230,17 @@ def _scenario_pod_ensemble(
                 seconds += s
                 done += k
                 if profs is not None and done % save_every == 0 and len(profs) < n_saves:
-                    profs.append(column_mean(y, nz).cpu().numpy())
+                    profs.append(profile(y).cpu().numpy())
             t0 = time.perf_counter()
-            if profs is not None:
-                frames = np.asarray(profs).reshape(len(profs), nz, y.shape[0])
-                ck.write_atomic(_profile_file(ckpt_path, done), lambda f: np.save(f, frames))
-            ck.save_checkpoint(ckpt_path, y, done)
+            full = pens.gather_columns(y, mesh)
+            if rank == 0:
+                if profs is not None:
+                    frames = np.asarray(profs).reshape(len(profs), nz, y.shape[0])
+                    ck.write_atomic(_profile_file(ckpt_path, done),
+                                    lambda f: np.save(f, frames))
+                ck.save_checkpoint(ckpt_path, full, done)
+            if mesh is not None:
+                dist.barrier()
             save_s.append(time.perf_counter() - t0)
             n_bytes = os.path.getsize(ck.checkpoint_file(ckpt_path, done))
             if max_segments is not None and len(save_s) >= max_segments:
@@ -215,8 +255,10 @@ def _scenario_pod_ensemble(
         "data": data,
         "config": config,
         "step": step,
+        "mesh": mesh,
         "state0": state0,
-        "n_columns": n_columns,
+        "n_columns": n_cols,
+        "n_local_columns": n_local,
         "n_steps": n_steps,
         "run": run,
         "diagnostics": diagnostics,
@@ -225,16 +267,64 @@ def _scenario_pod_ensemble(
     }
 
 
+def _load_shard(ckpt_path: str, step: int, like: torch.Tensor, mesh):
+    """(this rank's shard of the checkpoint at `step`, step): the whole
+    state without a mesh; else this rank's columns of the file's global
+    ``[n_tot, W·n_local·nz]`` state (a file of another width raises)."""
+    if mesh is None:
+        return ck.load_checkpoint(ckpt_path, step, like=like)
+    _, n, idx = pmesh.axis_group(mesh, "columns")
+    width = like.shape[1]
+    leaves, saved = ck.load_checkpoint(ckpt_path, step)
+    want = (like.shape[0], width * n)
+    if len(leaves) != 1 or leaves[0].shape != want:
+        raise ValueError(f"checkpoint {ck.checkpoint_file(ckpt_path, step)} holds "
+                         f"{[a.shape for a in leaves]}, not one state of shape {want}")
+    shard = torch.from_numpy(leaves[0][:, idx * width:(idx + 1) * width].copy())
+    return shard.to(device=like.device, dtype=like.dtype), saved
+
+
 def _profile_file(ckpt_path: str, step: int) -> str:
     """The mean-profile frames up to `step` of a checkpointed pod run, kept
     beside its checkpoint (`latest_step` does not read it)."""
     return f"{ckpt_path}_profile_step{step}.npy"
 
 
-def column_mean(y: torch.Tensor, nz: int) -> torch.Tensor:
+def column_mean(y: torch.Tensor, nz: int, mesh=None, n_columns: Optional[int] = None
+                ) -> torch.Tensor:
     """The column-mean profile ``[nz, n_tot]`` of a SoA state ``[n_tot,
-    n_columns·nz]``, reduced where the state lies."""
-    return y.reshape(y.shape[0], -1, nz).mean(dim=1).T
+    n_columns·nz]``, reduced where the state lies. With a `mesh`, `y` is
+    this rank's shard: its column sums are all-reduced over the ranks and
+    divided by the global `n_columns`."""
+    if mesh is None:
+        return y.reshape(y.shape[0], -1, nz).mean(dim=1).T
+    sums = y.reshape(y.shape[0], -1, nz).sum(dim=1).T.contiguous()
+    group, _, _ = pmesh.axis_group(mesh, "columns")
+    return pmesh.all_reduce(sums, group=group) / n_columns
+
+
+def global_report(spec, final: torch.Tensor, mesh, finite: bool) -> Dict:
+    """`metrics.conservation_report` and the finite flag of an ensemble
+    state over every rank: this rank's sums and counts (and whether it is
+    not finite) all-reduced, the fractions over the global element count.
+    Without a mesh, the local report itself."""
+    if mesh is None:
+        return {"finite": finite, **metrics.conservation_report(spec, final)}
+    group, _, _ = pmesh.axis_group(mesh, "columns")
+    m0 = sum(final[..., spec.dist_moment_ind(i, 0)] for i in range(spec.n_modes))
+    m1 = sum(final[..., spec.dist_moment_ind(i, 1)] for i in range(spec.n_modes))
+    sums = pmesh.all_reduce(torch.stack([torch.sum(m0), torch.sum(m1)]), group=group)
+    counts = pmesh.all_reduce(torch.stack([
+        torch.sum(final < 0), torch.sum(~torch.isfinite(final)),
+        torch.tensor(final.numel(), device=final.device),
+        torch.tensor(int(not finite), device=final.device)]), group=group).tolist()
+    return {
+        "finite": counts[3] == 0,
+        "total_number": float(sums[0]),
+        "total_mass": float(sums[1]),
+        "negative_fraction": counts[0] / counts[2],
+        "nonfinite_fraction": counts[1] / counts[2],
+    }
 
 
 def _box_scenario(spec, config, rhs, mom0, device, data=None) -> Dict:
@@ -374,9 +464,18 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
     frames on the way and keeps them beside its checkpoints, so a resumed
     run does not repeat the steps before its resume; otherwise (a plain
     run, or one resumed from a checkpoint without frames) they come from
-    ``diagnostics``, a pass of its own after the timed run."""
+    ``diagnostics``, a pass of its own after the timed run.
+
+    Under a process group every rank calls this for a pod ensemble and gets
+    its own shard as the state; the report is global (``n_columns`` the
+    global count, ``world_size`` and ``n_local_columns`` beside it;
+    ``seconds`` the slowest rank's, so the rate counts every rank's
+    columns; totals and fractions all-reduced) but for ``launches``, this
+    rank's count. Only rank 0 writes to `outdir`."""
     sc = SCENARIOS[name](device=device, **scenario_args)
     ensemble = sc["kind"] == "ensemble"
+    mesh = sc.get("mesh")
+    world, rank = pmesh.world()
     hooked = sc.get("coal_fn") is not None
     if ensemble:
         sc["step"].launches = 0
@@ -392,7 +491,8 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
             report = {"scenario": name, "n_steps": sc["n_steps"], "completed": False,
                       "launches": sc["step"].launches,
                       "n_steps_run": ck.latest_step(path) - before}
-            _log_report(report, outdir)
+            if rank == 0:
+                _log_report(report, outdir)
             return None, report
         y, seconds, clock, ckpt = out
         n_run = ckpt["n_steps_run"]
@@ -400,6 +500,9 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
     else:
         y, seconds, clock = sc["run"]()
         n_run, profiles = sc["n_steps"], None
+    finite = bool(torch.all(torch.isfinite(y)))
+    if mesh is not None:
+        seconds = pmesh.slowest(seconds, y.device, pmesh.axis_group(mesh, "columns")[0])
     report = {
         "scenario": name,
         "device": (torch.cuda.get_device_name(y.device)
@@ -408,13 +511,15 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
         "n_steps": sc["n_steps"],
         "seconds": seconds,
         "clock": clock,
-        "finite": bool(torch.all(torch.isfinite(y))),
+        "finite": finite,
     }
     if ensemble:
         nz = sc["config"].nz
-        state = final = rs.from_soa(y, nz)  # [n_columns, nz, n_tot] view
+        state = final = rs.from_soa(y, nz)  # [n_local_columns, nz, n_tot] view
         report.update({
             "n_columns": sc["n_columns"],
+            "world_size": world,
+            "n_local_columns": sc["n_local_columns"],
             "nz": nz,
             "launches": sc["step"].launches,
             "n_steps_run": n_run,
@@ -430,22 +535,27 @@ def run_scenario(name: str, device="cuda", outdir: Optional[str] = None,
                        "coalescence": "kernel hook" if hooked else "torch ops"})
         if hooked:
             report["launches"] = sc["coal_fn"].launches
-    report.update(metrics.conservation_report(sc["spec"], final))
-    if outdir:
+    if ensemble:
+        report.update(global_report(sc["spec"], final, mesh, finite))
+    else:
+        report.update(metrics.conservation_report(sc["spec"], final))
+    if outdir and ensemble and profiles is None:
+        profiles = sc["diagnostics"]()  # every rank: its reductions are collective
+    if outdir and rank == 0:
         os.makedirs(outdir, exist_ok=True)
         _write_output(name, sc, y, outdir, profiles)
-    _log_report(report, outdir)
+    if rank == 0:
+        _log_report(report, outdir)
     return state, report
 
 
 def _write_output(name: str, sc: Dict, y: torch.Tensor, outdir: str,
                   profiles=None) -> None:
     """The NetCDF file of a run (cloudy_tpu/harness.py:368-389); a pod
-    ensemble's mean profile is `profiles` where a checkpointed run took
-    them, else `diagnostics`' own pass."""
+    ensemble's mean profile is `profiles`, (ts, frames)."""
     cfg = sc["config"]
     if sc["kind"] == "ensemble":
-        ts, profs = profiles if profiles is not None else sc["diagnostics"]()
+        ts, profs = profiles
         io.rainshaft_output(os.path.join(outdir, f"{name}_mean_profile.nc"), sc["spec"], ts,
                             cfg.z, profs, cfg.norms)
         return
@@ -480,9 +590,17 @@ def main(argv=None):
     scenario_args = {} if args.columns is None else {"n_columns": args.columns}
     if args.hook:
         scenario_args["hook"] = True
-    _, report = run_scenario(args.scenario, device=args.device, outdir=args.outdir,
-                             ckpt_dir=args.ckpt, **scenario_args)
-    print(json.dumps(report))
+    # a launcher's environment (torchrun, SLURM, OpenMPI) brings up the
+    # process group; without one this initialises nothing
+    grouped = pmesh.initialize_distributed(device=args.device) or dist.is_initialized()
+    try:
+        _, report = run_scenario(args.scenario, device=args.device, outdir=args.outdir,
+                                 ckpt_dir=args.ckpt, **scenario_args)
+        if pmesh.world()[1] == 0:
+            print(json.dumps(report))
+    finally:
+        if grouped:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""0-D box model: pure collision–coalescence.
+"""0-D box model: collision–coalescence, or condensation alone.
 
 Port of `cloudy_tpu.models.box` (the reference's example helpers,
 test/examples/utils/box_model_helpers.jl:22-67, and its box_* example
-scripts): a config dataclass, the fixed-step time loop, and the Golovin
-analytic benchmark solution. The condensation-only box waits for the
-condensation module (ROADMAP A.9).
+scripts): a config dataclass, the coalescence and condensation right-hand
+sides, the fixed-step time loop, and the Golovin analytic benchmark
+solution.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from cloudy_tpu_torch import distributions as pdists
 from cloudy_tpu_torch import stepper
 from cloudy_tpu_torch.coalescence import CoalescenceData, get_coal_ints
 from cloudy_tpu_torch.coalescence_numerical import get_coal_ints_numerical
+from cloudy_tpu_torch.condensation import get_cond_evap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,11 +66,20 @@ def make_box_rhs(
 
 def make_box_condensation_rhs(config: BoxConfig, s: float, xi: float, rho_l=1000.0):
     """Condensation-only box RHS (reference `rhs_condensation!`,
-    box_model_helpers.jl:55-67): comes with the condensation module."""
-    raise NotImplementedError(
-        "A.9: the condensation-only box needs `condensation.get_cond_evap`, "
-        "which is not ported yet (ROADMAP A.9)"
-    )
+    box_model_helpers.jl:55-67): ξ is normalized by the mass scale^(2/3)
+    before `get_cond_evap` sees the normalized moments, and the tendencies
+    are denormalized by the moment norms."""
+    spec = config.spec
+    mom_norms = get_moments_normalizing_factors(spec.nprogmoms, config.norms)
+    xi_n = xi / config.norms[1] ** (2.0 / 3.0)
+
+    def rhs(mom, t):
+        del t
+        norm = torch.as_tensor(mom_norms, dtype=mom.dtype, device=mom.device)
+        params = pdists.params_from_moments(spec, mom / norm)
+        return get_cond_evap(spec, params, s, xi_n, rho_l) * norm
+
+    return rhs
 
 
 def run_box(config: BoxConfig, rhs, moments_init):

@@ -96,9 +96,37 @@ def test_box_rhs_numerical_matches_jax_package():
 
 
 def test_condensation_box_waits_for_its_module():
-    cfg = box.BoxConfig(spec=SpectrumSpec((Family.GAMMA,)))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        box.make_box_condensation_rhs(cfg, 0.01, 1e-2)
+    """The condensation-only box (its module came with A.9): the RHS and a
+    100-step `run_box` trajectory against JAX's, exponential + gamma at
+    norms (1e6, 1e-9), f64, 1e-12. ξ is normalized by the mass norm^(2/3)
+    as JAX's, so the RHS is the physical source on physical moments."""
+    from cloudy_tpu.spec import Family as JFamily, SpectrumSpec as JSpec
+    import jax.numpy as jnp
+
+    mom0 = [1e8, 1e-2, 1e6, 1e-3, 2e-15]
+    s_sat, xi = 0.01, 3.5e-3
+    jcfg = jbox.BoxConfig(spec=JSpec((JFamily.EXPONENTIAL, JFamily.GAMMA)), t_end=100.0,
+                          dt=1.0)
+    cfg = box.BoxConfig(spec=SpectrumSpec((Family.EXPONENTIAL, Family.GAMMA)), t_end=100.0,
+                        dt=1.0)
+    jrhs = jbox.make_box_condensation_rhs(jcfg, s_sat, xi)
+    rhs = box.make_box_condensation_rhs(cfg, s_sat, xi)
+    y0 = torch.tensor(mom0, dtype=torch.float64)
+    np.testing.assert_allclose(rhs(y0, 0.0).numpy(), np.asarray(jrhs(jnp.asarray(mom0), 0.0)),
+                               rtol=1e-12, atol=0.0)
+    jts, jys = jbox.run_box(jcfg, jrhs, mom0)
+    ts, ys = box.run_box(cfg, rhs, y0)
+    assert ys.shape == (101, 5) and bool(torch.isfinite(ys).all())
+    np.testing.assert_allclose(ts.numpy(), np.asarray(jts), rtol=1e-14)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(jys), rtol=1e-12, atol=0.0)
+    assert ys[-1, 1] > ys[0, 1] and ys[-1, 0] == ys[0, 0]  # mass grows, number kept
+    # normalized ξ on normalized moments is the physical source on physical
+    # moments (a raw ξ there would be norms[1]^(-2/3) = 1e6 off)
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch.condensation import get_cond_evap
+
+    phys = get_cond_evap(cfg.spec, pd.params_from_moments(cfg.spec, y0), s_sat, xi)
+    np.testing.assert_allclose(rhs(y0, 0.0).numpy(), phys.numpy(), rtol=1e-12)
 
 
 def test_scenarios_are_routed_by_kind_not_by_name(monkeypatch):
