@@ -172,7 +172,21 @@ Drives the port's main path once on the card and fails loudly:
    levels as 2 x 16, one f64 step, against the unsplit AoS step; (d)
    `tools.scaling_measure` (the fused-RHS route through B4 and
    `ensemble_rainshaft_step_soa`) at 2^20 x 32, one rank, its record
-   printed, and B4 against its twin at that shape.
+   printed, and B4 against its twin at that shape;
+30. (a) B5 with a traced kernel function (`ops.kernel_expr`, the
+   `KT_GEN` arm of its own unit): the Long kernel fitted as a tensor and a
+   torch lambda against the twin at 128 boxes, (64, 32) nodes, f32 and f64
+   (B5's tolerances), then the numerical bench chain through each at
+   [6, 262144] f32 (launches counted), each against the twin there, its
+   ms, the twin's, the unit's ptxas line and nvcc seconds, and B5's Long
+   in turns with both; (b) the native oracle (`native.coal_ints_golden`,
+   g++ on the host) on the card's f64 state against `get_coal_ints` on the
+   card (rtol 1e-8) and against B3's f64 reference tier at the Simpson
+   switches, 65,536 bench boxes; (c) five examples in FAST mode on the card,
+   each a child process with `--outdir` in a temporary directory, their
+   host seconds, and the calibration example once more in this process
+   under `torch.profiler` (its device busy share); (d)
+   `tools.whole_step_1m` (B1 at 2^20 x 32) beside phase 6's ms/step.
 
 From phase 3 on, the whole step (scaled or not), the fused RHS and the
 coalescence RHS of every fast-tier configuration launch the kernel
@@ -198,13 +212,16 @@ resumed run (each report counts its scenario's launches from its start), and
 in phase 27 each long run (`longhorizon.run_depth` zeroes each wrapper's
 count before its run), and in phase 29 each child's pod run
 (`harness.run_scenario` zeroes the step's count) and the scaling tool's
-timed chains (it zeroes B4's count after its warm-up). The last two lines are a JSON
+timed chains (it zeroes B4's count after its warm-up), in phase 30 each
+traced kernel function's chain and `whole_step_1m`'s timed chains (it zeroes
+the step's count after its warm-up). The last two lines are a JSON
 object of per-kernel numbers (errors from the main-path-shape comparison, the
 steps' in normalized moment units; ``source`` the kernel's file, for a
 generated kernel its shells with ``generator`` and ``unit`` beside;
 ``kernel_path`` "generated" or "table"; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
-the type, `cloudy_tpu_torch.tools.opcount`; ``library_ms`` null: no single
+the type, `cloudy_tpu_torch.tools.opcount`, a traced kernel function counted
+as the device function emitted from its trace computes it; ``library_ms`` null: no single
 PyTorch call computes any of these functions) and
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when no CUDA device is present or the port's package is missing.
@@ -287,6 +304,11 @@ PARCEL_TOL = 1e-10  # f64 on the card vs the CPU, relative (phase 28)
 Z_COLUMNS = 4096  # the z-split step's columns (phase 29(c))
 Z_TOL = 1e-12  # the z-split step vs the unsplit one, per-moment-scaled (phase 29(c))
 N_SCALE_STEPS = 10  # steps per timed chain of tools.scaling_measure (phase 29(d))
+#: the examples run on the card in FAST mode, each in a child process (phase 30(c))
+CARD_EXAMPLES = ("box_single_gamma", "n_particles_gamma", "rainshaft_single_gamma",
+                 "parcel_example", "calibration_example")
+NATIVE_BOXES = 65536  # native oracle vs get_coal_ints and B3's reference tier (phase 30(b))
+NATIVE_RTOL = 1e-8  # tests/test_native.py's bound
 #: boxes of the reference coalescence kernel's layouts, timed in turns (phase 24)
 REF_LAYOUT_BOXES = (128, 1024, 8192, 32768, 65536, 131072, 262144)
 
@@ -459,7 +481,33 @@ def generated_wrappers(dev):
     fns += [wsa.build_case(case, NZ, dev, torch.float32)[1] for case in wsa.CASE_NAMES]
     fns += [f for nz in longhorizon.DEPTHS.values() for f in longhorizon.make_steps(nz, dev)]
     fns.append(scaling_measure.build_step(True, None, dev)[3])
+    for dt in (torch.float32, torch.float64):
+        fns += [f for f in traced_numerical(dev, dt).values()]
     return [f for f in fns if f.build_units()]
+
+
+def traced_kernels():
+    """B5's traced kernel functions (phase 30): the Long kernel fitted as a
+    kernel tensor (order 2, normalized) and a torch lambda."""
+    import torch
+
+    from cloudy_tpu_torch import kernels as K
+
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
+    return {
+        "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized((1e6, 1e-9)),
+        "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
+    }
+
+
+def traced_numerical(dev, dtype, nodes=(96, 48)):
+    """B5's wrappers of the traced kernel functions, two gamma modes."""
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+
+    spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+    return {k: nc.make_numerical_fn(spec, kf, *nodes, device=dev, dtype=dtype)
+            for k, kf in traced_kernels().items()}
 
 
 def arm_moments(families, n, seed):
@@ -640,16 +688,19 @@ def main():
     spec, bdata = bench.bench_data()
     results = {}
 
-    def bound(label, twin, x_small, lanes, rows_in, rows_out, f64=False):
+    def bound(label, twin, x_small, lanes, rows_in, rows_out, f64=False,
+              count=opcount.count_ops):
         """The least time the card could take for one launch on `lanes`
         lanes: bytes (each input and output row once) over the memory rate
-        against the twin's operations, counted on `x_small` and scaled to
-        `lanes`, over the peak rate of the type (f32, or `f64`)."""
-        ops_per_lane = opcount.count_ops(twin, x_small) / x_small.shape[1]
+        against the twin's operations (`count`: `opcount.count_ops`, or
+        `count_ops_traced` of a B5 wrapper with a traced kernel function),
+        counted on `x_small` and scaled to `lanes`, over the peak rate of the
+        type (f32, or `f64`)."""
+        ops_per_lane = count(twin, x_small) / x_small.shape[1]
         n_bytes = (rows_in + rows_out) * lanes * (8 if f64 else 4)
         ms, by = opcount.bound_ms(n_bytes, ops_per_lane * lanes, f64=f64)
         rate = opcount.H100_F64_OPS_PER_S if f64 else opcount.H100_F32_OPS_PER_S
-        print(f"bound {label}: {ops_per_lane:.2f} twin operations per lane x {lanes} "
+        print(f"bound {label}: {ops_per_lane:.2f} operations per lane ({count.__name__}) x {lanes} "
               f"lanes at {rate:.3g} op/s, {n_bytes} bytes "
               f"at {opcount.H100_BYTES_PER_S:.3g} B/s: {ms:.4f} ms, bound by {by}")
         return {"bound_ms": ms, "bound_by": by, "library_ms": None}
@@ -1639,6 +1690,11 @@ def main():
     # ---- 29. A.10: the sharded pod and the parallel package, in children --
     torch.cuda.empty_cache()
     phase_29(dev, card, kernels, pod_hashes, kernels[0], bound)
+
+    # ---- 30. B5 with a traced kernel function, the native oracle,
+    # the examples and whole_step_1m on the card --------------------------
+    torch.cuda.empty_cache()
+    phase_30(dev, card, kernels, bound, b1_ms, log)
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -3197,6 +3253,215 @@ def child_29(case, port, rank, world, outdir):
     with open(os.path.join(outdir, f"{case}_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     print(f"phase 29 child {case} rank {rank} done in {out['host_s']:.3f} s", flush=True)
+
+
+def phase_30(dev, card, kernels, bound, b1_ms, log):
+    """Phase 30: (a) B5 with a traced kernel function against its
+    twin and in the bench chain, timed in turns with B5's Long; (b) the
+    native oracle against `get_coal_ints` and B3's reference tier on the
+    card's f64 state; (c) five examples on the card in child processes, and
+    the calibration example's forward under the profiler; (d)
+    `tools.whole_step_1m` beside phase 6's B1. Appends the traced kernel
+    functions' entries to `kernels`."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cloudy_tpu_torch import bench, native
+    from cloudy_tpu_torch import distributions as pd
+    from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.coalescence import build_coalescence_data, get_coal_ints
+    from cloudy_tpu_torch.examples import calibration_example
+    from cloudy_tpu_torch.ops import _build
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+    from cloudy_tpu_torch.spec import Family, SpectrumSpec
+    from cloudy_tpu_torch.tools import opcount, whole_step_1m
+    from cloudy_tpu_torch.utils import plotting
+
+    t = time.perf_counter()
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+    G2 = SpectrumSpec((Family.GAMMA, Family.GAMMA))
+
+    # (a) B5's traced arm against its twin at 128 boxes, (64, 32) nodes
+    rng = np.random.default_rng(5)
+    par = np.stack([np.stack([rng.uniform(10, 200, N_NUM_BOXES), rng.uniform(0.05, 5.0, N_NUM_BOXES),
+                              rng.uniform(0.5, 5.0, N_NUM_BOXES)], -1) for _ in range(2)], 1)
+    mom = pd.get_moments(G2, torch.as_tensor(par)).numpy().T.copy()
+    mom[:, 5] = 0.0  # an empty box
+    built = {r["label"]: r for r in _build.GEN_BUILDS}
+    for kname in traced_kernels():
+        for name, dt in dtypes.items():
+            fn = traced_numerical(dev, dt, NUM_NODES)[kname]
+            x = torch.as_tensor(mom, dtype=dt, device=dev)
+            got = fn.soa(x)
+            check(fn.launches == 1, f"[B5 gen {kname}] did not count one launch")
+            want = fn.plain(x)
+            err, abs_err = row_scaled(got, want)
+            finite = bool(torch.isfinite(got).all())
+            empty_zero = bool((got[:, 5] == 0).all())
+            repeat = bool(torch.equal(got, fn.soa(x)))
+            rec = built.get(fn.unit.label, {})
+            pt = _build.ptxas_report(rec.get("log", ""))
+            print(f"phase 30 (a) B5 gen [{kname}] {fn.unit.label} vs twin {name} at "
+                  f"[{x.shape[0]}, {x.shape[1]}], nodes {NUM_NODES}: row-scaled {err:.3e} (tol "
+                  f"{NUM_TOL[name]:.0e}), max abs {abs_err:.3e}, finite {finite}, empty box zero "
+                  f"{empty_zero}, second launch bit-identical {repeat}; nvcc "
+                  f"{rec.get('seconds', float('nan')):.3f} s (phase 2), ptxas {pt} {card}")
+            check(bool(rec), f"[B5 gen {kname}] {fn.unit.label} was not built in phase 2")
+            check(finite and empty_zero and repeat, f"[B5 gen {kname}] {name}: not finite, "
+                  "empty box not zero or two launches differ")
+            check(err < NUM_TOL[name], f"[B5 gen {kname}] {name} vs twin {err:.3e}")
+    for ln in ptxas_summary(log):
+        if ln.startswith("quad_kernel<") and "2 modes" in ln:
+            print(f"phase 30 (a) the tagged instances, ptxas (phase 2): {ln}")
+
+    # the numerical bench chain through each traced kernel function at
+    # [6, 262144] f32, (96, 48) nodes; B5's Long and both in turns
+    x = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32, device=dev)
+    n_box = x.shape[1]
+    fns = {"long": bench.numerical_fn(dev), **traced_numerical(dev, torch.float32)}
+    for kname in traced_kernels():
+        fn = fns[kname]
+        fn.soa(x[:, :64].contiguous())  # loads the unit, outside the count
+        torch.cuda.synchronize()
+        fn.launches = 0
+        s_chain = bench.time_chain(fn.soa, x, N_NUM_STEPS)
+        n_launch = fn.launches
+        check(n_launch == N_NUM_STEPS + 3,
+              f"[B5 gen {kname}] chain launched {n_launch} times, not {N_NUM_STEPS + 3}")
+        got = fn.soa(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fn.plain(x, chunk=NUM_CHUNK)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err, abs_err = row_scaled(got, want)
+        ms = _time_ms(lambda: fn.soa(x), 10)
+        print(f"phase 30 (a) numerical RHS chain [{kname}] {n_box} boxes f32, nodes "
+              f"{fn.plan.g_total} outer x {fn.plan.g_inner} inner: {s_chain * 1e3:.4f} ms per "
+              f"step, launches {n_launch}; kernel vs twin at [6, {n_box}] row-scaled {err:.3e} "
+              f"(tol {NUM_TOL['float32']:.0e}), max abs {abs_err:.3e}; kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms {card}")
+        check(bool(torch.isfinite(got).all()), f"[B5 gen {kname}] not finite at the bench shape")
+        check(err < NUM_TOL["float32"], f"[B5 gen {kname}] vs twin at the bench shape {err:.3e}")
+        kernels.append({"name": f"numerical_rhs_gen[{kname}]", "route": "cuda",
+                        **kernel_source(fn), "replaces": B5_REPLACES, "launches": n_launch,
+                        "max_abs_err": abs_err, "max_row_scaled_err": err, "ms": ms,
+                        "plain_ms": plain_ms,
+                        **bound(f"numerical_rhs_gen[{kname}]", fn, x[:, :64].contiguous(),
+                                n_box, 6, 6, count=opcount.count_ops_traced)})
+        del got, want
+    order = list(fns)
+    turns = {k: [] for k in order}
+    for seq in (order, order[::-1], order, order[::-1]):
+        for k in seq:
+            turns[k].append(_time_ms(lambda: fns[k].soa(x), 5))
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    print(f"phase 30 (a) B5 at [6, {n_box}] f32 in turns (5 launches per turn): "
+          + ", ".join(f"{k} {med[k]:.4f} ms {[round(v, 4) for v in turns[k]]}" for k in order)
+          + f" {card}")
+    print(json.dumps({"phase": 30, "kind": "numerical_gen_turns", "median_ms": med,
+                      "turns_ms": turns}))
+    del x, fns
+    torch.cuda.empty_cache()
+    print(f"phase 30 (a) seconds {time.perf_counter() - t:.3f}")
+
+    # (b) the native oracle on the card's f64 state, at the Simpson switches
+    t = time.perf_counter()
+    ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
+    data = build_coalescence_data(G2, ker, (5e-10, np.inf), norms=bench.NORMS)
+    m = torch.as_tensor(bench.bench_moments(NATIVE_BOXES, seed=1), dtype=torch.float64,
+                        device=dev)
+    t0 = time.perf_counter()
+    gold = native.coal_ints_golden(data, m)
+    native_s = time.perf_counter() - t0
+    gci = get_coal_ints(data, pd.params_from_moments(G2, m)).cpu().numpy()
+    ref = fc.make_coal_fn(data, device=dev, dtype=torch.float64)
+    check(ref.plan.ref, "B3 at the Simpson switches is not the reference tier")
+    b3 = ref.soa(m.T.contiguous()).T.cpu().numpy()
+    for label, other in (("get_coal_ints on the card", gci),
+                         (f"B3's reference tier (kernel, {ref.layout(NATIVE_BOXES)})", b3)):
+        close = bool(np.allclose(gold, other, rtol=NATIVE_RTOL, atol=1e-12))
+        col = np.abs(gold - other).max(axis=0) / np.maximum(np.abs(other).max(axis=0), 1e-300)
+        nz = other != 0.0
+        rel = float(np.max(np.abs(gold - other)[nz] / np.abs(other)[nz]))
+        print(f"phase 30 (b) native oracle ({NATIVE_BOXES} boxes f64, {native_s:.3f} host s) "
+              f"vs {label}: allclose rtol {NATIVE_RTOL:.0e} atol 1e-12 {close}, row-scaled "
+              f"{float(col.max()):.3e}, largest elementwise relative {rel:.3e} {card}")
+        check(close and bool(np.isfinite(other).all()),
+              f"native oracle vs {label}: row-scaled {float(col.max()):.3e}")
+    del m, gold, gci, b3, ref
+    torch.cuda.empty_cache()
+    print(f"phase 30 (b) seconds {time.perf_counter() - t:.3f}")
+
+    # (c) examples on the card in FAST mode, each a child process
+    t = time.perf_counter()
+    env = dict(os.environ, CLOUDY_EXAMPLE_FAST="1", PYTHONPATH=str(ROOT))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CARD_EXAMPLES:
+            out = Path(tmp) / name
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"cloudy_tpu_torch.examples.{name}", "--device", "cuda",
+                 "--outdir", str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            sec = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            check(proc.returncode == 0,
+                  f"example {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            check(any(k in proc.stdout for k in ("final moments", "total mass", "done")),
+                  f"example {name} printed none of its result lines")
+            # figures where matplotlib is installed (`plotting.available`), else
+            # the example says it skips them; the calibration draws none
+            pngs = len(list(out.glob("*.png")))
+            if name != "calibration_example":
+                check(pngs > 0 if plotting.available() else "figures skipped" in proc.stdout,
+                      f"example {name}: {pngs} figures, matplotlib installed "
+                      f"{plotting.available()}")
+            print(f"phase 30 (c) example {name} on the card (FAST, child process, its start "
+                  f"included): {sec:.3f} host s, {pngs} figures, "
+                  f"{len(list(out.glob('*.nc')))} NetCDF files; last line: "
+                  f"{lines[-1] if lines else ''} {card}")
+            if name == "calibration_example":
+                s_eki = float(re.search(r"EKI:\s+s = ([0-9.]+)", proc.stdout).group(1))
+                check(abs(s_eki - 1.7) / 1.7 < 0.02, f"calibration example EKI s = {s_eki}")
+    # the calibration example's batched forward (24 members) under the
+    # profiler: the device's share of its host time
+    forward, _, _ = calibration_example.make_forward(dev)
+    theta = torch.linspace(-0.7, 0.7, 24, dtype=torch.float64, device=dev)[:, None]
+    forward(theta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward(theta)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+    share = dev_ms / host_ms if dev_ms > 0 else None
+    print(f"phase 30 (c) calibration example forward (24 members, 15 SSPRK33 steps, f64) under "
+          f"the profiler: {host_ms:.3f} host ms, device activities {dev_ms:.3f} ms, busy share "
+          f"{'not measured (no device time in the trace)' if share is None else f'{share:.4f}'}"
+          f" {card}")
+    print(f"phase 30 (c) seconds {time.perf_counter() - t:.3f}")
+
+    # (d) tools.whole_step_1m: B1 at 2^20 x 32, beside phase 6's reading
+    t = time.perf_counter()
+    rec = whole_step_1m.measure(device=dev)
+    print(json.dumps(rec))
+    print(f"phase 30 (d) whole_step_1m {rec['n_columns']} x {rec['nz']} f32 ({rec['route']}): "
+          f"{rec['ms_per_step']:.4f} ms/step, {rec['column_updates_per_s']:.4e} column-updates/s, "
+          f"launches {rec['launches']}; phase 6 in this call {b1_ms:.4f} ms/step {card}")
+    check(rec["route"] == "generated" and rec["launches"] > 0, "whole_step_1m launched no kernel")
+    check(abs(rec["ms_per_step"] / b1_ms - 1.0) < 0.03,
+          f"whole_step_1m {rec['ms_per_step']:.4f} ms/step against phase 6's {b1_ms:.4f}")
+    torch.cuda.empty_cache()
+    print(f"phase 30 (d) seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

@@ -31,7 +31,10 @@
 // agree bit for bit; the order differs from the plain twin's torch.sum, so
 // the two agree to rounding and are compared row-scaled. The kernel function
 // is a tag and up to three parameters (constant, linear, hydrodynamic,
-// Long), compiled in as a template argument like the number of modes, so
+// Long; any other kernel function is traced on the host into the device
+// function cloudy_kernel_gen and built with CLOUDY_KERNEL_GEN into a unit
+// of its own, tag KT_GEN), compiled in as a template argument like the
+// number of modes, so
 // the inner loops carry no dispatch: read at run time instead, though
 // uniform over the launch, the tag cost 14.9 % at the bench shape and 25.3 %
 // with the hydrodynamic kernel on an NVIDIA H100 80GB HBM3 at 700 W
@@ -56,10 +59,14 @@
 // H100 80GB HBM3 at 700 W; a one-pass instance known at compile time took
 // 61 and no less time: PERF.md).
 //
-// The library holds both bodies at 1-3 modes. A configuration of more modes
-// runs quad_kernel from a unit built at first use (ops/codegen.py
-// `numerical_unit`): this file included with CLOUDY_UNIT -1 (every template,
-// no prebuilt instance or entry point), then CLOUDY_NUMERICAL_UNIT_ENTRY.
+// The library holds both bodies at 1-3 modes with the four tags. A
+// configuration of more modes, or a traced kernel function, runs quad_kernel
+// from a unit built at first use (ops/codegen.py `numerical_unit`): this
+// file included with CLOUDY_UNIT -1 (every template, no prebuilt instance or
+// entry point), then CLOUDY_NUMERICAL_UNIT_ENTRY; a traced unit includes its
+// cfg.cuh (cloudy_kernel_gen) first and holds the KT_GEN arm alone. Its R
+// takes the G x G loop over a node table of X and WX F_j, as the
+// hydrodynamic arm does over radii.
 
 #include <cmath>
 #include <type_traits>
@@ -91,8 +98,12 @@ constexpr int NUM_BLOCK = 256;
 constexpr int NUM_MAX_G = NUM_BLOCK;
 constexpr int NUM_MAX_WARPS = NUM_BLOCK / 32;
 
-// kernel-function tags (ops/numerical_coalescence.py, KERNEL_TAGS)
-constexpr int KT_CONSTANT = 0, KT_LINEAR = 1, KT_HYDRO = 2, KT_LONG = 3;
+// kernel-function tags (ops/numerical_coalescence.py, KERNEL_TAGS); KT_GEN
+// is any other kernel function, traced on the host into cloudy_kernel_gen
+// (ops/kernel_expr.py) and built into a unit of its own with
+// CLOUDY_KERNEL_GEN defined (codegen.numerical_unit): the library and the
+// other units have no KT_GEN arm.
+constexpr int KT_CONSTANT = 0, KT_LINEAR = 1, KT_HYDRO = 2, KT_LONG = 3, KT_GEN = 4;
 // Template value for "read the tag from the configuration": instantiated only
 // with -DCLOUDY_RUNTIME_KTAG, by which tools/dispatch_compare.py times what
 // compiling the kernel function in buys.
@@ -171,6 +182,9 @@ template <typename T> __device__ __forceinline__ T hydro_value(T k0, T r1, T r2)
 // fields after `.normalized(norms)`
 template <typename T, int KT>
 __device__ __forceinline__ T kernel_value(int ktag, T k0, T k1, T k2, T x, T y) {
+#ifdef CLOUDY_KERNEL_GEN
+  if constexpr (KT == KT_GEN) return cloudy_kernel_gen<T>(x, y);
+#endif
   const int kt = (KT == KT_RUNTIME) ? ktag : KT;
   if (kt == KT_CONSTANT) return k0;
   if (kt == KT_LINEAR) return k0 * (x + y);
@@ -578,12 +592,18 @@ __device__ __forceinline__ T block_total(const T (*part)[NUM_MAX_WARPS], int k,
   return t;
 }
 
+// Whether R runs the G x G loop over a node table in shared memory (the
+// hydrodynamic kernel and a traced one) instead of block sums.
+__host__ __device__ constexpr bool node_table(int kt) {
+  return kt == KT_HYDRO || kt == KT_GEN;
+}
+
 // The dynamic shared memory of a quad_kernel launch past its configuration:
-// with the hydrodynamic kernel, the radius and WX F_j of every outer node
-// (the G x G loop reads them all), none otherwise.
+// with a node table, each outer node's radius (hydrodynamic) or X (traced)
+// and WX F_j (the G x G loop reads them all), none otherwise.
 template <typename T, int N>
 constexpr size_t quad_node_bytes(int ktag, int g_total) {
-  return ktag == KT_HYDRO ? (size_t)(N + 1) * g_total * sizeof(T) : 0;
+  return node_table(ktag) ? (size_t)(N + 1) * g_total * sizeof(T) : 0;
 }
 
 template <typename T, int N, int KT>
@@ -616,8 +636,8 @@ __global__ void __launch_bounds__(NUM_BLOCK)
   const int n_pass = (G + blockDim.x - 1) / blockDim.x;
   const T k0 = c.kpar[0], k1 = c.kpar[1], k2 = c.kpar[2];
   const int kt = (KT == KT_RUNTIME) ? reinterpret_cast<const int*>(smem)[NH_KTAG] : KT;
-  // hydrodynamic kernel: each node's radius, then WX F_j, after the
-  // configuration (quad_node_bytes)
+  // node table (hydrodynamic: each node's radius; traced: its X), then
+  // WX F_j, after the configuration (quad_node_bytes)
   T* shR = reinterpret_cast<T*>(smem + cfg_bytes);
   T* shWF = shR + G;
 
@@ -675,9 +695,11 @@ __global__ void __launch_bounds__(NUM_BLOCK)
   //   Sb over the nodes below the threshold t = k0, Sa over the rest; each
   //   thread adds its nodes' values in pass order first.
   // The hydrodynamic kernel keeps the G x G loop over every node's radius
-  // and WX F_j, published here.
+  // and WX F_j, published here; a traced kernel function (KT_GEN) the same
+  // loop over every node's X and WX F_j, K(X, y) = cloudy_kernel_gen.
   // sums per mode (a run-time tag takes the most)
-  constexpr int NS = (KT == KT_CONSTANT) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
+  constexpr int NS =
+      (KT == KT_CONSTANT || KT == KT_GEN) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
   __shared__ T part[N * NS][NUM_MAX_WARPS];
   T v[N * NS];
 #pragma unroll
@@ -689,9 +711,9 @@ __global__ void __launch_bounds__(NUM_BLOCK)
     T X, WX;
     node(gg, X, WX);
     const T LX = D::lg(vmax(X, tiny));
-    if (kt == KT_HYDRO) {
+    if (node_table(kt)) {
       if (active) {
-        shR[gg] = hydro_radius(X);
+        shR[gg] = (kt == KT_HYDRO) ? hydro_radius(X) : X;
 #pragma unroll
         for (int j = 0; j < N; ++j) shWF[j * G + gg] = WX * (md[j].s * md[j].shape(X, LX));
       }
@@ -716,7 +738,7 @@ __global__ void __launch_bounds__(NUM_BLOCK)
       }
     }
   }
-  if (kt == KT_HYDRO)
+  if (node_table(kt))
     __syncthreads();
   else
     block_partials<T, N * NS>(v, lane, warp, part);
@@ -760,6 +782,14 @@ __global__ void __launch_bounds__(NUM_BLOCK)
         const T r1 = hydro_radius(X);
         for (int y = 0; y < G; ++y) {
           const T K = hydro_value(k0, r1, shR[y]);
+#pragma unroll
+          for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j * G + y] * K;
+        }
+      }
+    } else if (kt == KT_GEN) {
+      if (active) {
+        for (int y = 0; y < G; ++y) {
+          const T K = kernel_value<T, KT>(kt, k0, k1, k2, X, shR[y]);
 #pragma unroll
           for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j * G + y] * K;
         }
@@ -885,7 +915,11 @@ int launch_numerical(const void* mom, void* out, const void* cfg,
                      int cfg_bytes, long long B, int g_total, int ktag,
                      void* stream) {
   NumKernel<T> kern;
-#ifdef CLOUDY_RUNTIME_KTAG
+#if defined(CLOUDY_KERNEL_GEN)
+  // a unit of a traced kernel function holds its arm alone
+  if (ktag != KT_GEN) return (int)cudaErrorInvalidValue;
+  kern = numerical_instance<T, N, KT_GEN, kDirect>();
+#elif defined(CLOUDY_RUNTIME_KTAG)
   if (ktag < KT_CONSTANT || ktag > KT_LONG) return (int)cudaErrorInvalidValue;
   kern = numerical_instance<T, N, KT_RUNTIME, kDirect>();
 #else

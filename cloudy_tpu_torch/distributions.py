@@ -352,3 +352,94 @@ def threshold_log_grid(x_threshold, n_points_max: int, dtype=torch.float64,
     j = torch.arange(1, n_points_max + 1, dtype=dtype, device=t.device)
     x = torch.exp(x_min[..., None] + (j - 1.0) * dx[..., None])
     return x, dx, n_bins
+
+
+def moment_source_helper(spec: SpectrumSpec, params, mode: int, p1, p2, x_threshold,
+                         n_points_max: int = 256,
+                         n_bins_per_log_unit: int = 15) -> torch.Tensor:
+    """∫₀^T ∫₀^{T−x'} x^p1 x'^p2 f(x) f(x') dx dx' for one mode: the
+    S-term autoconversion integral (reference `moment_source_helper`,
+    src/ParticleDistributions/ParticleDistributions.jl:557-625; a copy of
+    `cloudy_tpu.distributions.moment_source_helper`). The inner integral is
+    the closed-form partial moment P_{p2}(T − x), so
+
+        I = ∫₀^T x^{p1} f(x) · partial_moment(p2, T − x) dx,
+
+    on the reference's log grid (`threshold_log_grid`) with the
+    Simpson-EvenFast weights. Monodisperse is closed form; lognormal takes
+    the same grid with its exact partial moment. `params` ``[..., n_modes,
+    3]``; p1, p2 and the threshold may be tensors of its batch shape; `mode`
+    is static."""
+    from cloudy_tpu_torch.ops.simpson import (integrate_simpson_even_fast,
+                                              simpson_even_fast_weights_dynamic)
+
+    fam = spec.families[mode]
+    params = torch.as_tensor(params)
+    dtype, dev = params.dtype, params.device
+    n, th, k = (params[..., mode, j] for j in range(3))
+    p1 = torch.as_tensor(p1, dtype=dtype, device=dev)
+    p2 = torch.as_tensor(p2, dtype=dtype, device=dev)
+    t = torch.as_tensor(x_threshold, dtype=dtype, device=dev)
+
+    if fam == Family.MONODISPERSE:  # closed form (reference :557-564)
+        return torch.where(th < t / 2.0, n ** 2 * th ** (p1 + p2), torch.zeros_like(n))
+
+    x, dx, n_bins = threshold_log_grid(t, n_points_max, dtype, n_bins_per_log_unit)
+    x, dx, n_bins = x.to(dev), dx.to(dev), n_bins.to(dev)
+    w = simpson_even_fast_weights_dynamic(n_points_max, n_bins, dtype)
+    j = torch.arange(1, n_points_max + 1, device=dev)
+    mask = (j <= n_bins[..., None]).to(dtype)  # the reference's y is 0 past n_bins
+
+    rem = torch.clamp(t[..., None] - x, min=0.0)
+    if fam == Family.EXPONENTIAL:
+        # x^{p1+1} e^{-x/θ} P(p2+1, (T-x)/θ) Γ(p2+1), prefactor n² θ^{p2-1}
+        # (reference :567-587); the extra x is the log grid's Jacobian
+        g = special.gammainc(p2[..., None] + 1.0, rem / th[..., None])
+        y = special.powx(x, p1[..., None] + 1.0) * special.exp(-x / th[..., None]) * g
+        pref = n ** 2 * special.exp((p2 - 1.0) * torch.log(th) + special.lgamma(p2 + 1.0))
+    elif fam == Family.GAMMA:  # reference :589-612
+        g = special.gammainc(p2[..., None] + k[..., None], rem / th[..., None])
+        y = (special.powx(x, p1[..., None] + k[..., None])
+             * special.exp(-x / th[..., None]) * g)
+        pref = n ** 2 * special.exp((p2 - k) * torch.log(th) + special.lgamma(p2 + k)
+                                    - 2.0 * special.lgamma(k))
+    elif fam == Family.LOGNORMAL:
+        mu, sig = th, k  # (n, μ, σ) layout
+        tiny = float(torch.finfo(dtype).tiny)
+        xs = torch.clamp(x, min=tiny)
+        fx = (special.exp(-((torch.log(xs) - mu[..., None]) ** 2)
+                          / (2.0 * sig[..., None] ** 2))
+              / (xs * sig[..., None] * np.sqrt(2.0 * np.pi)))
+        rems = torch.clamp(rem, min=tiny)
+        z = ((torch.log(rems) - mu[..., None] - p2[..., None] * sig[..., None] ** 2)
+             / (sig[..., None] * np.sqrt(2.0)))
+        pm = (special.exp(p2[..., None] * mu[..., None]
+                          + 0.5 * p2[..., None] ** 2 * sig[..., None] ** 2)
+              * 0.5 * (1.0 + special.erf(z)))
+        pm = torch.where(rem > 0.0, pm, torch.zeros_like(pm))
+        y = special.powx(x, p1[..., None] + 1.0) * fx * pm  # with the Jacobian x
+        pref = n ** 2
+    else:
+        raise ValueError(fam)
+    return pref * integrate_simpson_even_fast(mask * y, dx, w)
+
+
+def check_moment_consistency(m: Sequence[float]) -> None:
+    """Host-side validation: nonnegative moments and nonnegative implied even
+    central moments (reference `check_moment_consistency`,
+    src/ParticleDistributions/ParticleDistributions.jl:437-449). Raises
+    ValueError; a tensor on any device is read to the host."""
+    from math import comb
+
+    if isinstance(m, torch.Tensor):
+        m = m.detach().cpu().numpy()
+    m = np.asarray(m, dtype=np.float64)
+    if np.any(m < 0.0):
+        raise ValueError("all moments need to be nonnegative")
+    for order in range(2, len(m), 2):
+        cm = sum(
+            comb(order, i) * (-1.0) ** i * (m[1] / m[0]) ** i * (m[order - i] / m[0])
+            for i in range(order + 1)
+        )
+        if cm < 0.0:
+            raise ValueError(f"order-{order} central moment must be nonnegative")

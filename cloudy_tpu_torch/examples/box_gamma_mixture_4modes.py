@@ -1,0 +1,23 @@
+"""Four gamma modes (reference box_gamma_mixture_4modes.jl).
+
+Port of examples/box_gamma_mixture_4modes.py."""
+
+import numpy as np
+
+from cloudy_tpu_torch.examples.common import Family, K, SpectrumSpec, parse_args, run_box_example
+
+
+def main(argv=None):
+    return run_box_example(
+        "box_gamma_mixture_4modes",
+        SpectrumSpec((Family.GAMMA,) * 4),
+        [1e8, 1e-2, 2e-12, 1.0, 1e-8, 2e-16, 1e-4, 1e-13, 2e-22, 1e-8, 1e-18, 2e-28],
+        kernel=K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6),
+        thresholds=(5e-10, 5e-9, 5e-8, np.inf),
+        dt=1.0,
+        **parse_args(argv, __doc__),
+    )
+
+
+if __name__ == "__main__":
+    main()

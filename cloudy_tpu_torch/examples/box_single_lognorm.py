@@ -1,0 +1,19 @@
+"""Single lognormal mode (reference box_single_lognorm.jl).
+
+Port of examples/box_single_lognorm.py."""
+
+from cloudy_tpu_torch.examples.common import Family, K, SpectrumSpec, parse_args, run_box_example
+
+
+def main(argv=None):
+    return run_box_example(
+        "box_single_lognorm",
+        SpectrumSpec((Family.LOGNORMAL,)),
+        [1e8, 1e-2, 2e-12],
+        kernel=K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6),
+        **parse_args(argv, __doc__),
+    )
+
+
+if __name__ == "__main__":
+    main()

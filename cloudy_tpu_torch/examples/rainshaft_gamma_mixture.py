@@ -1,0 +1,22 @@
+"""1-D rainshaft, two gamma modes (reference rainshaft_gamma_mixture.jl).
+
+Port of examples/rainshaft_gamma_mixture.py."""
+
+import numpy as np
+
+from cloudy_tpu_torch.examples.common import Family, K, SpectrumSpec, parse_args, run_rainshaft_example
+
+
+def main(argv=None):
+    return run_rainshaft_example(
+        "rainshaft_gamma_mixture",
+        SpectrumSpec((Family.GAMMA, Family.GAMMA)),
+        [1e8, 1e-2, 2e-12],
+        kernel=K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6),
+        thresholds=(5e-10, np.inf),
+        **parse_args(argv, __doc__),
+    )
+
+
+if __name__ == "__main__":
+    main()

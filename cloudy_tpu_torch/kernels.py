@@ -4,8 +4,9 @@ Port of `cloudy_tpu.kernels` (reference src/Kernels/KernelFunctions.jl,
 src/Kernels/KernelTensors.jl). Kernel *functions* K(x, y) are frozen
 dataclasses callable on numpy arrays, Python floats and torch tensors (the
 numerical-quadrature path, `coalescence_numerical`, evaluates them on the
-device; the CUDA quadrature kernel reads them as a tag and parameters,
-`ops.numerical_coalescence.kernel_descriptor`).
+device; the CUDA quadrature kernel reads the four classes here as a tag and
+parameters, `ops.numerical_coalescence.kernel_descriptor`, and any other
+callable from its trace, `ops.kernel_expr`).
 Kernel *tensors* approximate K by a symmetric polynomial
 ``K(x,y) ≈ Σ c[a,b] x^a y^b`` fitted at init time by linear least squares,
 exactly as the JAX package fits them.
@@ -28,7 +29,9 @@ DEFAULT_NORMS = (1e6, 1e-9)  # number scale 1/m^3, mass scale kg
 
 
 def _is_tensor(x, y) -> bool:
-    return isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor)
+    """Whether x or y takes torch functions: a tensor, or the symbolic
+    operand of `ops.kernel_expr.trace`."""
+    return hasattr(type(x), "__torch_function__") or hasattr(type(y), "__torch_function__")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +60,7 @@ class ConstantKernelFunction(KernelFunction):
 
     def __call__(self, x, y):
         if _is_tensor(x, y):
-            x, y = torch.broadcast_tensors(torch.as_tensor(x), torch.as_tensor(y))
-            return torch.full_like(x, self.coll_coal_rate)
+            return torch.full_like(x + y, self.coll_coal_rate)
         return np.broadcast_to(
             np.asarray(self.coll_coal_rate),
             np.broadcast_shapes(np.shape(x), np.shape(y)),
@@ -130,6 +132,11 @@ class LongKernelFunction(KernelFunction):
     @property
     def x_kinks(self):
         return (self.x_threshold,)
+
+
+def get_normalized_kernel_func(kern: KernelFunction, norms) -> KernelFunction:
+    """`kern` in nondimensional units (`KernelFunction.normalized`)."""
+    return kern.normalized(tuple(norms))
 
 
 # --------------------------------------------------------------------------
@@ -276,3 +283,8 @@ class CoalescenceTensor:
                 if arr[a, b] != 0.0:
                     out = out + arr[a, b] * x**a * y**b
         return out
+
+
+def get_normalized_kernel_tensor(kernel: CoalescenceTensor, norms) -> CoalescenceTensor:
+    """`kernel` in nondimensional units (`CoalescenceTensor.normalized`)."""
+    return kernel.normalized(tuple(norms))

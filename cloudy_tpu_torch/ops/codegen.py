@@ -42,7 +42,8 @@ sources, for configurations past what the prebuilt library holds:
 `ref_unit`, a table-driven reference-tier kernel at capacities past the
 library's (csrc/fused_coalescence.cu built with its own CLOUDY_CAP_*), and
 `numerical_unit`, the quadrature kernel (B5) at more modes than the
-library's three (csrc/numerical_coalescence.cu).
+library's three, or with a traced kernel function (its ``KT_GEN`` arm, the
+device function emitted by `kernel_expr`; csrc/numerical_coalescence.cu).
 
 A unit's name is a hash of the generated text, the csrc/ sources, the
 compiler flags and the spill rule (`_build.gen_flags_digest`); `ops._build`
@@ -360,14 +361,36 @@ def ref_unit(caps, dtype: torch.dtype, kind: str) -> Unit:
                 n_tot=ntot, nz=0, flags=flags, caps=(modes, ntot, m))
 
 
-def numerical_unit(n_modes: int, dtype: torch.dtype) -> Unit:
+def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
     """The unit of the quadrature kernel (B5, `quad_kernel`) at `n_modes`
-    modes in `dtype`, for more modes than the prebuilt library holds:
-    csrc/numerical_coalescence.cu with one CLOUDY_NUMERICAL_UNIT_ENTRY."""
+    modes in `dtype`: csrc/numerical_coalescence.cu with one
+    CLOUDY_NUMERICAL_UNIT_ENTRY. Without `kernel`, for more modes than the
+    prebuilt library holds, with the four tagged kernel functions. With
+    `kernel`, a traced kernel function (`kernel_expr.trace`), at any number
+    of modes: its device function ``cloudy_kernel_gen`` (constants rounded
+    once to `dtype`) in the unit's ``cfg.cuh`` and the kernel's ``KT_GEN``
+    arm alone (CLOUDY_KERNEL_GEN); the digest covers the emitted text, so
+    each distinct kernel function builds once."""
     real = "float" if dtype == torch.float32 else "double"
-    source = _first_use_source([], "numerical_coalescence.cu",
-                               f"CLOUDY_NUMERICAL_UNIT_ENTRY({real}, {int(n_modes)})")
-    return Unit(kind="numerical", dtype=dtype, cfg="", source=source,
-                digest=_digest(source), threads=0, shfl=False, n_tot=0, nz=0,
-                caps=(int(n_modes),))
+    cfg, defines = "", []
+    if kernel is not None:
+        from cloudy_tpu_torch.ops import kernel_expr
 
+        cfg = "\n".join([
+            "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
+            "// The kernel function K(x, y), traced (ops/kernel_expr.py).",
+            "#pragma once",
+            "",
+            '#include "common.cuh"',
+            "",
+            "namespace cloudy {",
+            kernel_expr.device_source(kernel, lambda v: literal(v, dtype)),
+            "}  // namespace cloudy",
+            "",
+        ])
+        defines = ["#define CLOUDY_KERNEL_GEN 1", '#include "cfg.cuh"']
+    source = _first_use_source(defines, "numerical_coalescence.cu",
+                               f"CLOUDY_NUMERICAL_UNIT_ENTRY({real}, {int(n_modes)})")
+    return Unit(kind="numerical", dtype=dtype, cfg=cfg, source=source,
+                digest=_digest(cfg, source), threads=0, shfl=False, n_tot=0, nz=0,
+                caps=(int(n_modes),))

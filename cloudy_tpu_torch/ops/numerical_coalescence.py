@@ -14,23 +14,29 @@ kernel *function* K(x, y), fusing
 so that a box reads ``n_tot`` values and writes ``n_tot``. The einsum path
 (`coalescence_numerical.get_coal_ints_numerical`) is quadrature-identical but
 holds its ``[B, G_outer, G_inner]`` intermediates in device memory. The path
-needs only density evaluations, so it covers all four families and the four
-kernel functions of `kernels` (constant, linear, hydrodynamic, Long).
+needs only density evaluations, so it covers all four families and any
+kernel function, as JAX's kernel does: the four of `kernels` (constant,
+linear, hydrodynamic, Long) by tag, any other callable (a
+`CoalescenceTensor`, a lambda, a subclass of a tagged class) by its trace
+(`kernel_expr`), built into a unit of its own.
 
 Layout: the structure-of-arrays ``[n_tot, B]``; on the card one thread block
 per box, its outer nodes strided over up to 256 threads, so any node
 budget runs. The prebuilt library holds the kernel at one to three modes; a
 configuration of more runs a unit built at first use (`codegen.
-numerical_unit`). The kernel reads one packed
-configuration (`NumericalPlan` → `pack_config`): the spectrum, the node
-counts, the Gauss–Legendre rules, the panel cuts, the kernel function as a
-tag with up to three parameters (`kernel_descriptor`), and in f64 the logs
+numerical_unit`), and so does a traced kernel function (the ``KT_GEN`` arm,
+its device function ``cloudy_kernel_gen`` generated from the trace). The
+kernel reads one packed configuration (`NumericalPlan` → `pack_config`):
+the spectrum, the node counts, the Gauss–Legendre rules, the panel cuts,
+the kernel function as a tag with up to three parameters
+(`kernel_descriptor`), and in f64 the logs
 of the inner nodes that the kernel adds to a per-panel offset instead of
 taking them per node (`inner_log_tables`). The kernel a CUDA call launches,
 ``quad_kernel``, runs its densities in base 2 on the card's special
 function unit in f32 (IEEE exp/log in f64) with their divides hoisted per
 box, and for the constant, linear and Long kernels takes R from block sums
-instead of the G × G loop (csrc/numerical_coalescence.cu).
+instead of the G × G loop (the hydrodynamic and traced kernels keep the
+loop over a node table; csrc/numerical_coalescence.cu).
 
 Beside the kernel sits its plain twin `numerical_soa_plain`: the same
 operations in the Pallas body's order on ``[G, B]`` tiles (the y-loop for R,
@@ -92,24 +98,24 @@ KERNEL_TAGS = (
 )
 
 
-#: the hydrodynamic kernel's tag (csrc KT_HYDRO): its launch adds each outer
-#: node's radius and WX·F_j to the block's shared memory
+#: the hydrodynamic kernel's tag (csrc KT_HYDRO) and a traced kernel
+#: function's (KT_GEN): their launches add each outer node's radius or X
+#: and WX·F_j to the block's shared memory
 KT_HYDRO = 2
+KT_GEN = 4
 
 
 def kernel_descriptor(kernel_func) -> Tuple[int, Tuple[float, float, float]]:
-    """(tag, (k0, k1, k2)) of an already normalized kernel function. Any
-    callable outside `KERNEL_TAGS` (a `CoalescenceTensor`, a lambda) raises:
-    the CUDA kernel cannot call back into Python (ROADMAP B5-callable)."""
+    """(tag, (k0, k1, k2)) of an already normalized kernel function: an
+    instance whose type is exactly one of `KERNEL_TAGS` gets its tag and
+    fields; any other callable (a `CoalescenceTensor`, a lambda, a subclass
+    of a tagged class, whose own ``__call__`` JAX's kernel would call) is
+    ``KT_GEN``, evaluated from its trace (`kernel_expr`)."""
     for tag, (cls, fields) in enumerate(KERNEL_TAGS):
         if type(kernel_func) is cls:
             vals = [float(getattr(kernel_func, f)) for f in fields]
             return tag, tuple(vals + [0.0] * (3 - len(vals)))
-    raise NotImplementedError(
-        f"B5-callable: the CUDA quadrature kernel evaluates only "
-        f"{', '.join(cls.__name__ for cls, _ in KERNEL_TAGS)}; "
-        f"{type(kernel_func).__name__} is not one of them (ROADMAP B-arms)"
-    )
+    return KT_GEN, (0.0, 0.0, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,31 +424,47 @@ class NumericalFn(_KernelFn):
     """Direct-quadrature coalescence RHS (replaces
     `make_pallas_numerical_fn`): ``fn(mom [B, n_tot])`` and
     ``fn.soa(mom [n_tot, B])`` on normalized moments. A CUDA call launches
-    ``quad_kernel``: the prebuilt library's at one to three modes, else the
-    unit built at first use for the plan's modes (`unit`). `_direct`
+    ``quad_kernel``: the prebuilt library's at one to three modes with a
+    tagged kernel function, else the unit built at first use for the plan's
+    modes and, for a traced kernel function, its expression (`unit`); a
+    kernel function the tracer could not follow raises when a CUDA wrapper
+    is made (its CPU twin calls it). `_direct`
     (private) launches the body it replaced, ``numerical_kernel``, at the
     prebuilt modes and node counts (one thread per outer node, at most
     `DIRECT_MAX_G`): the same-call yardstick of `chip_smoke.py`."""
 
     def __init__(self, plan, device, dtype: torch.dtype, _direct: bool = False):
+        trace = None
+        if torch.device(device).type == "cuda" and plan.ktag == KT_GEN:
+            if _direct:
+                raise ValueError("the replaced body has no arm for a traced kernel function")
+            from cloudy_tpu_torch.ops import kernel_expr
+
+            # KernelTraceError names the operation the tracer does not cover
+            trace = kernel_expr.trace(plan.kernel_func)
         super().__init__(plan, device, dtype)
         if _direct and (plan.n_modes > MAX_MODES or plan.g_total > DIRECT_MAX_G):
             raise ValueError(
                 f"the replaced body runs at most {MAX_MODES} modes and {DIRECT_MAX_G} outer "
                 f"nodes; this plan has {plan.n_modes} and {plan.g_total}")
         self._direct = _direct
+        self._trace = trace
         self._unit = None
 
     @property
     def unit(self):
-        """The unit built at first use that a CUDA call launches (more modes
-        than the prebuilt library holds), else None."""
-        if self.plan.n_modes <= MAX_MODES:
+        """The unit built at first use that a CUDA call launches (a traced
+        kernel function, or more modes than the prebuilt library holds),
+        else None."""
+        gen = self.plan.ktag == KT_GEN
+        if self.plan.n_modes <= MAX_MODES and not gen:
             return None
         if self._unit is None:
-            from cloudy_tpu_torch.ops import codegen
+            from cloudy_tpu_torch.ops import codegen, kernel_expr
 
-            self._unit = codegen.numerical_unit(self.plan.n_modes, self.dtype)
+            if gen and self._trace is None:
+                self._trace = kernel_expr.trace(self.plan.kernel_func)
+            self._unit = codegen.numerical_unit(self.plan.n_modes, self.dtype, self._trace)
         return self._unit
 
     def build_units(self) -> list:
@@ -453,8 +475,9 @@ class NumericalFn(_KernelFn):
         return pack_config(self.plan, self.dtype)
 
     def _smem_bytes(self, cfg_bytes: int) -> int:
-        # the hydrodynamic kernel's node tables (csrc quad_node_bytes)
-        if self._direct or self.plan.ktag != KT_HYDRO:
+        # the node tables of the hydrodynamic and traced kernels (csrc
+        # quad_node_bytes)
+        if self._direct or self.plan.ktag not in (KT_HYDRO, KT_GEN):
             return cfg_bytes
         return cfg_bytes + (self.plan.n_modes + 1) * self.plan.g_total * self.dtype.itemsize
 

@@ -149,6 +149,24 @@ def count_ops_by_class(fn, *args, data_only: bool = False) -> dict:
     return out
 
 
+def count_ops_traced(fn, mom: torch.Tensor) -> int:
+    """`count_ops` of the twin of a B5 wrapper whose kernel function is
+    traced (``KT_GEN``), its kernel function evaluated as the device function
+    emitted from the trace computes it (`kernel_expr.evaluate`): the twin
+    calls the callable as written (a tensor's ``x**0``, its multiply by one,
+    a product computed again in each term), which the emitted
+    ``cloudy_kernel_gen`` folds or shares."""
+    import dataclasses
+
+    from cloudy_tpu_torch.ops import kernel_expr
+    from cloudy_tpu_torch.ops import numerical_coalescence as nc
+
+    expr = kernel_expr.trace(fn.plan.kernel_func)
+    plan = dataclasses.replace(fn.plan,
+                               kernel_func=lambda x, y: kernel_expr.evaluate(expr, x, y))
+    return count_ops(nc.numerical_soa_plain, mom, plan)
+
+
 def bound_ms(n_bytes: float, n_ops: float, f64: bool = False):
     """(bound in ms, "bytes" or "operations"): the least time one H100 could
     take to move `n_bytes` or to do `n_ops` float32 (`f64`: float64)

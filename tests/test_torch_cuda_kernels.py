@@ -72,6 +72,8 @@ def _generated_units():
         fns += _four_mode_fns("cuda", dtype, fast=True) + _four_mode_fns("cuda", dtype, fast=False)
         fns.append(nc.make_numerical_fn(SpectrumSpec((Family.GAMMA,) * 4), NUM_KERNELS["long"],
                                         64, 32, device="cuda", dtype=dtype))
+        fns += [nc.make_numerical_fn(SpectrumSpec(TWO_GAMMA), kf, 64, 32, device="cuda",
+                                     dtype=dtype) for kf in _traced_kernels().values()]
         for variant in ("fixed2gamma", "moving", "lognorm"):
             _, data = harness.pod_data(variant)
             fns.append(fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
@@ -395,6 +397,41 @@ def test_numerical_kernel_matches_twin(cuda, dtype, families, kname):
     assert _row_scaled(got, fn.plain(x), cancelling) < NUM_TOL[dtype]
     assert torch.equal(got, fn.soa(x))  # fixed summation order: bit for bit
     assert torch.equal(fn(x.T.contiguous()), got.T)
+
+
+class _ScaledLinear(K.LinearKernelFunction):
+    """A subclass of a tagged class with a K(x, y) of its own (traced)."""
+
+    def __call__(self, x, y):
+        return 2.0 * super().__call__(x, y) + self.coll_coal_rate * x * y
+
+
+def _traced_kernels():
+    """The kernel functions of B5's generated arm (KT_GEN): the Long kernel
+    fitted as a tensor (order 2, normalized), a torch lambda, a subclass."""
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
+    return {
+        "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized(NORMS),
+        "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
+        "subclass": _ScaledLinear(5e-3),
+    }
+
+
+@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_traced_kernel_function_matches_twin(cuda, dtype, kname):
+    """B5 with a kernel function traced into its generated unit against the
+    twin, which calls the callable itself."""
+    fn = nc.make_numerical_fn(SpectrumSpec(TWO_GAMMA), _traced_kernels()[kname], 64, 32,
+                              device=cuda, dtype=dtype)
+    assert fn.plan.ktag == nc.KT_GEN and fn.unit is not None
+    x = _numerical_moments(TWO_GAMMA, 131, seed=5).to(cuda, dtype)
+    x[:, 7] = 0.0
+    got = fn.soa(x)
+    assert fn.launches == 1
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 7] == 0).all())
+    assert _row_scaled(got, fn.plain(x)) < NUM_TOL[dtype]
+    assert torch.equal(got, fn.soa(x))
 
 
 @pytest.mark.parametrize("families,kname", [

@@ -307,6 +307,11 @@ class _TwoKinkLong(K.LongKernelFunction):
 
 
 def test_foreign_callable_and_second_kink_raise():
+    """A callable outside the four tagged classes is traced into the
+    kernel's generated arm (KT_GEN), as JAX's kernel calls any callable;
+    only one the tracer cannot follow raises, on a CUDA wrapper, naming
+    the operation (tests/test_torch_b5_callable.py holds the traced ones
+    against JAX). A second kink raises, as in JAX."""
     spec = SpectrumSpec(TWO_GAMMA)
     tensor = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
 
@@ -315,8 +320,10 @@ def test_foreign_callable_and_second_kink_raise():
             return 2.0 * super().__call__(x, y)
 
     for foreign in (tensor, lambda x, y: x + y, Scaled(1.0)):
-        with pytest.raises(NotImplementedError, match="B5-callable"):
-            nc.make_numerical_fn(spec, foreign, device="cpu")
+        fn = nc.make_numerical_fn(spec, foreign, device="cpu")
+        assert fn.plan.ktag == nc.KT_GEN and "cloudy_kernel_gen" in fn.unit.cfg
+    with pytest.raises(NotImplementedError, match="torch.sin"):
+        nc.make_numerical_fn(spec, lambda x, y: torch.sin(x + y), device="cuda")
     with pytest.raises(NotImplementedError, match="<=1 kink"):
         nc.make_numerical_fn(spec, _TwoKinkLong(1.0, 1e-3, 5e-3), device="cpu")
     plan = nc.build_plan(spec, K.LongKernelFunction(1.0, 1e-3, 5e-3))

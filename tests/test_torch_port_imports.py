@@ -50,7 +50,15 @@ def test_import_without_jax():
             "cloudy_tpu_torch.tools.op_microbench",
             "cloudy_tpu_torch.utils.checkpoint", "cloudy_tpu_torch.utils.io",
             "cloudy_tpu_torch.utils.metrics",
-            "cloudy_tpu_torch.tools.longhorizon"} <= set(modules)
+            "cloudy_tpu_torch.tools.longhorizon",
+            "cloudy_tpu_torch.native", "cloudy_tpu_torch.utils.plotting",
+            "cloudy_tpu_torch.ops.kernel_expr", "cloudy_tpu_torch.tools.whole_step_1m",
+            "cloudy_tpu_torch.examples.common",
+            "cloudy_tpu_torch.examples.calibration_example",
+            "cloudy_tpu_torch.examples.parcel_example"} <= set(modules)
+    from cloudy_tpu_torch.examples import EXAMPLES
+
+    assert {f"cloudy_tpu_torch.examples.{n}" for n in EXAMPLES} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"
