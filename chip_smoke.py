@@ -6,10 +6,10 @@ Drives the port's main path once on the card and fails loudly:
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the table-driven CUDA kernels from cloudy_tpu_torch/csrc
    and, started with them, every kernel generated per configuration
-   (`ops.codegen`: the fast-tier whole step and fused RHS of each
-   configuration and type the phases launch, one nvcc each), printing each
-   generated unit's nvcc seconds and `ptxas` line (f32: 0 B of stack and
-   spills, checked);
+   (`ops.codegen`: the whole step and fused RHS of each configuration, tier
+   and type the phases launch, one nvcc each), printing each generated
+   unit's nvcc seconds and `ptxas` line
+   (f32: 0 B of stack and spills, checked);
 3. coalescence-RHS kernel vs its plain twin (bench.py's inputs, 65,536
    boxes, f32 and f64);
 4. whole-step kernel vs its plain twin (4,096 columns x 32 levels, one step,
@@ -69,13 +69,18 @@ Drives the port's main path once on the card and fails loudly:
    the fixed Simpson and Gauss grids, the moving Simpson grid (lanes with
    T < 1 and T > 1, the twin's bin counts printed) and Gauss grid, exact F2
    on series/CF and an exponential mode; the whole-step and fused-RHS
-   kernels' reference instances against their twins at 4,096 columns x 32
-   levels, one step, f32 and f64, and their times at that shape;
+   kernels' reference tier (generated for each configuration) against
+   their twins at 4,096 columns x 32 levels, one step, f32 and f64, and
+   (the fixed Simpson arm, the kernels line's rows) against the twin and
+   timed at that shape on `rainshaft_small`'s own states
+   (`reference_tune.small_trajectory`: column c after 20 (c mod 7) of its
+   120 steps), its bound counted on those states;
 18. the goldens at their own tier: `rainshaft_128` through the coalescence
    kernel's `coal_fn` hook for 300 s, f64 at the reference tier (< 1e-6)
    and f32 at tests/test_golden.py's bench overrides (< 1e-3);
    `rainshaft_small` through the reference whole-step kernel and through
-   the fused-RHS route, 128 columns x 120 steps, f64 (< 1e-6) and f32
+   the fused-RHS route, 128 columns x 120 steps, f64 (< 1e-6; the whole
+   step also against its twin over those steps, 4 columns, < 1e-9) and f32
    (< 1e-3); `box_exp_gamma_mixture` through the coalescence kernel, f64 at
    the reference tier (< 1e-6) and f32 at bench.py's quadrature fallback
    (< 1e-3);
@@ -89,10 +94,12 @@ Drives the port's main path once on the card and fails loudly:
    mono, lognormal + gamma on the fixed Simpson grid (series erf) and Gauss
    grid (12, rational erf), on the moving Simpson and Gauss grids, and
    exponential + lognormal + gamma; each arm's Euler chain at 2^20 boxes and
-   a comparison there; the whole-step and fused-RHS kernels against their
-   twins at 4,096 columns x 32 levels, one step, f32 and f64, for the family
-   matrix's `mono-gamma-closed` and `lognorm-gamma-grid`, and the f64
-   anchor of each (128 columns x 40 steps); then the family matrix
+   a comparison there; the whole-step and fused-RHS kernels (generated for
+   each configuration; the monodisperse units without FMA contraction)
+   against their twins at 4,096 columns x 32 levels, one step, f32 and f64,
+   for the family matrix's `mono-gamma-closed` and `lognorm-gamma-grid`,
+   and the f64 anchor of each (128 columns x 40 steps); then the family
+   matrix
    (`tools.whole_step_ablation`, all nine cases at 2^20 columns x 32 levels,
    f32), each case's first 4,096 columns after its timed chain held against
    the twin run on the card, beside the twin's own spread from a start one
@@ -130,9 +137,10 @@ Drives the port's main path once on the card and fails loudly:
    kernels' 3 modes and 9 moments) through B1 generated for it at 2^20
    columns x 32 levels (ms/step, column-updates/s), B3 and B4 at [12,
    2^20], B5 at [12, 262144] (the unit built for four modes), the reference
-   tier's B1, B3 and B4 at [12, 131072] (units built at capacities (4, 12,
-   5)), and the scaled whole step at the reference tier in f64 at [6,
-   4096]; each against its twin, with its `kernels` entry;
+   tier's B1 and B4 (generated for the plan) and B3 (units built at
+   capacities (4, 12, 5)) at [12, 131072], and the scaled whole step at the
+   reference tier in f64 at [6, 4096]; each against its twin, with its
+   `kernels` entry;
 26. A.13, the pod job's durability and output: `harness.run_scenario` with
    a checkpoint directory and an output directory (under build/, its free
    space checked first, removed afterwards) for the pod `fixed2gamma` at
@@ -145,7 +153,7 @@ Drives the port's main path once on the card and fails loudly:
    seconds and the resumed ms/step beside phase 6's;
 27. A.14, the long horizon (`tools.longhorizon`): at nz 32 (128 columns)
    and nz 128 (32 columns), each [6, 4096], the generated f32 B1 on the
-   fast data against B1's f64 reference instance on the Simpson-tier data
+   fast data against B1's f64 reference tier (generated) on the Simpson-tier data
    for 1000 steps from the same spread start, held to the JAX gates'
    bounds (scaled error < 1e-3 at t = 300, 600, 1000 at nz 32, < 2e-3 at
    t = 500, 1000 at nz 128, |drift32 - drift64| < 1e-4 there, every state
@@ -186,15 +194,28 @@ Drives the port's main path once on the card and fails loudly:
    each a child process with `--outdir` in a temporary directory, their
    host seconds, and the calibration example once more in this process
    under `torch.profiler` (its device busy share); (d)
-   `tools.whole_step_1m` (B1 at 2^20 x 32) beside phase 6's ms/step.
+   `tools.whole_step_1m` (B1 at 2^20 x 32) beside phase 6's ms/step;
+31. ROADMAP B.5, the reference tier of B1, B1s and B4 generated per
+   configuration (`tools.reference_tune`): each reading (B1 at
+   `rainshaft_small`'s configuration [6, 131072] f32 and f64 on that run's
+   own states, as phase 17 times its rows, and at the long horizon's [6,
+   4096] f64 on its start, nz 32 and 128; B4 [6, 131072] f32 and f64 on
+   `rainshaft_small`'s states; B1s
+   [6, 4096] f64; the four-gamma-mode B1 and B4 [12, 131072] f32; the family
+   matrix's Φ-grid and `mono-gamma-closed` cases at 2^20 x 32 f32) against
+   the table-driven instance of the same plan (`_table`) in turns, each
+   unit's `ptxas` line and SASS counts (LDL and STL checked 0 for the
+   generated ones), both against the twin; the series early exit against
+   the fixed loop on 2^20 lanes of both branches per type (bit for bit,
+   csrc/series_check.cuh, a unit of its own).
 
-From phase 3 on, the whole step (scaled or not), the fused RHS and the
-coalescence RHS of every fast-tier configuration launch the kernel
-generated for it (the wrappers' `route` "generated", printed with each
-main path's launch counts); the reference tier launches the table-driven
-kernels, the reference coalescence RHS with a warp per box at small
-batches (phase 18's `rainshaft_128` hook: 128 boxes), past the prebuilt
-capacities from units built at first use.
+From phase 3 on, the whole step (scaled or not) and the fused RHS of every
+configuration, and the coalescence RHS of every fast-tier configuration,
+launch the kernel generated for it (the wrappers' `route` "generated",
+printed with each main path's launch counts); the reference tier's
+coalescence RHS launches the table-driven kernels, with a warp per box at
+small batches (phase 18's `rainshaft_128` hook: 128 boxes), past the
+prebuilt capacities from units built at first use.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after: phases 6-7 (the fixed2gamma whole step and coalescence kernels), each
@@ -221,7 +242,9 @@ generated kernel its shells with ``generator`` and ``unit`` beside;
 ``kernel_path`` "generated" or "table"; ``bound_ms`` the larger of the bytes moved
 over 3.35 TB/s and the twin's operation count over the card's peak rate for
 the type, `cloudy_tpu_torch.tools.opcount`, a traced kernel function counted
-as the device function emitted from its trace computes it; ``library_ms`` null: no single
+as the device function emitted from its trace computes it, a generated
+reference-tier kernel with each lane's series stopped where the kernel
+stops it; ``library_ms`` null: no single
 PyTorch call computes any of these functions) and
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when no CUDA device is present or the port's package is missing.
@@ -311,6 +334,21 @@ NATIVE_BOXES = 65536  # native oracle vs get_coal_ints and B3's reference tier (
 NATIVE_RTOL = 1e-8  # tests/test_native.py's bound
 #: boxes of the reference coalescence kernel's layouts, timed in turns (phase 24)
 REF_LAYOUT_BOXES = (128, 1024, 8192, 32768, 65536, 131072, 262144)
+
+
+#: the reference tier's arms (phase 17): build and call keywords of each
+REF_CASES = {
+    "fixed Simpson": ({}, {}),
+    "fixed Gauss": ({}, {"quad_rule": "gauss"}),
+    "moving Simpson": ({"moving": True}, {}),
+    "moving Gauss": ({"moving": True}, {"quad_rule": "gauss"}),
+    "exact F2, series/CF": ({"f2_exact": True}, {}),
+    "exponential + gamma": ({"families": ("EXPONENTIAL", "GAMMA")}, {}),
+}
+#: the arms phase 17 runs through the whole step and the fused RHS
+REF_STEP_CASES = ("fixed Simpson", "moving Simpson", "moving Gauss", "exact F2, series/CF")
+#: the family matrix's reference-tier cases (phase 20)
+MATRIX_REF_CASES = ("mono-gamma-closed", "lognorm-gamma-grid")
 
 
 def kernel_source(fn, B=None):
@@ -441,14 +479,18 @@ def generated_wrappers(dev):
     from the 1.7-scaled tensor in f64 (phase 16), the family matrix's fast
     cases in f32 (phase 20), the B-cover configurations (phase 22), the
     four-gamma-mode configuration's kernels at both tiers and B5 (f32,
-    phase 25), the long horizon's whole steps at nz 32 and 128 (phase
-    27), and `tools.scaling_measure`'s fused RHS (phase 29, the pod's)."""
+    phase 25) and its scaled reference step (f64, phase 25), the long
+    horizon's whole steps at nz 32 and 128 (phase 27), `tools.scaling_measure`'s
+    fused RHS (phase 29, the pod's), and the reference tier's whole steps
+    and fused RHS of phases 17, 18 and 20 (f32 and f64). Phase 31's units
+    are `tools.reference_tune.build_units`."""
     import torch
 
     from cloudy_tpu_torch import bench, harness
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.tools import longhorizon, scaling_measure, yardstick
     from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+    from cloudy_tpu_torch.tools.reference_tune import ref_data
 
     fns = []
     for dt in (torch.float32, torch.float64):
@@ -483,6 +525,15 @@ def generated_wrappers(dev):
     fns.append(scaling_measure.build_step(True, None, dev)[3])
     for dt in (torch.float32, torch.float64):
         fns += [f for f in traced_numerical(dev, dt).values()]
+    fns.append(scaled_reference_step(dev, torch.float64))
+    for dt in (torch.float32, torch.float64):
+        cases = [(ref_data(**REF_CASES[c][0]), REF_CASES[c][1]) for c in REF_STEP_CASES]
+        cases += [wsa.case_data(c) for c in MATRIX_REF_CASES]
+        for data, kw in cases:
+            fns.append(fc.make_rainshaft_step_fn(data, cfg.vel, cfg.norms, nz=NZ, dz=cfg.dz,
+                                                 dt=1.0, device=dev, dtype=dt, **kw))
+            fns.append(fc.make_rainshaft_rhs_fn(data, cfg.vel, cfg.norms, device=dev,
+                                                dtype=dt, **kw))
     return [f for f in fns if f.build_units()]
 
 
@@ -617,7 +668,7 @@ def main():
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
     from cloudy_tpu_torch.spec import Family, SpectrumSpec, get_moments_normalizing_factors
-    from cloudy_tpu_torch.tools import opcount, yardstick
+    from cloudy_tpu_torch.tools import opcount, reference_tune, yardstick
     from cloudy_tpu_torch.utils import metrics
 
     dev = torch.device("cuda", 0)
@@ -657,7 +708,8 @@ def main():
     lib_thread = threading.Thread(target=build_library)
     lib_thread.start()
     gen_fns = generated_wrappers(dev)
-    gen_records = _build.build_generated([u for f in gen_fns for u in f.build_units()])
+    gen_records = _build.build_generated([u for f in gen_fns for u in f.build_units()]
+                                         + reference_tune.build_units(dev, ablations=False))
     gen_s = time.perf_counter() - t
     lib_thread.join()
     if lib_err:
@@ -689,18 +741,24 @@ def main():
     results = {}
 
     def bound(label, twin, x_small, lanes, rows_in, rows_out, f64=False,
-              count=opcount.count_ops):
+              count=opcount.count_ops, series_exit=None):
         """The least time the card could take for one launch on `lanes`
         lanes: bytes (each input and output row once) over the memory rate
         against the twin's operations (`count`: `opcount.count_ops`, or
         `count_ops_traced` of a B5 wrapper with a traced kernel function),
         counted on `x_small` and scaled to `lanes`, over the peak rate of the
-        type (f32, or `f64`)."""
-        ops_per_lane = count(twin, x_small) / x_small.shape[1]
+        type (f32, or `f64`). `series_exit`: count the lower series as a
+        kernel that stops it early sums it (default: as the wrapper whose
+        bound twin `twin` is)."""
+        kw = {} if series_exit is None else {"series_exit": series_exit}
+        ops_per_lane = count(twin, x_small, **kw) / x_small.shape[1]
+        if series_exit is None:
+            series_exit = getattr(getattr(twin, "__self__", None), "series_exit", False)
         n_bytes = (rows_in + rows_out) * lanes * (8 if f64 else 4)
         ms, by = opcount.bound_ms(n_bytes, ops_per_lane * lanes, f64=f64)
         rate = opcount.H100_F64_OPS_PER_S if f64 else opcount.H100_F32_OPS_PER_S
-        print(f"bound {label}: {ops_per_lane:.2f} operations per lane ({count.__name__}) x {lanes} "
+        print(f"bound {label}: {ops_per_lane:.2f} operations per lane ({count.__name__}"
+              f"{', series stopped per lane' if series_exit else ''}) x {lanes} "
               f"lanes at {rate:.3g} op/s, {n_bytes} bytes "
               f"at {opcount.H100_BYTES_PER_S:.3g} B/s: {ms:.4f} ms, bound by {by}")
         return {"bound_ms": ms, "bound_by": by, "library_ms": None}
@@ -1382,11 +1440,7 @@ def main():
     print(f"phase 17 unscaled B1 fixed2gamma in this call (phase 6, generated): {b1_ms:.4f} "
           f"ms/step (table-driven, recorded: 27.15-27.50) {card}")
 
-    def ref_data(families=(Family.GAMMA, Family.GAMMA), moving=False, **kw):
-        """The default (reference) tier, Golovin 5.0 at order 1."""
-        return build_coalescence_data(SpectrumSpec(families), ker,
-                                      (0.9, 1.0) if moving else (5e-10, np.inf),
-                                      norms=(1e6, 1e-9), moving=moving, **kw)
+    from cloudy_tpu_torch.tools.reference_tune import ref_data, small_trajectory
 
     def param_moments(families, n, seed):
         """Normalized moments [n_tot, n], parameters drawn first: moving
@@ -1396,15 +1450,7 @@ def main():
                                   rng.uniform(0.5, 5.0, n)], -1) for _ in families], axis=1)
         return pd.get_moments(SpectrumSpec(families), torch.as_tensor(par)).numpy().T.copy()
 
-    ref_cases = {
-        "fixed Simpson": ({}, {}),
-        "fixed Gauss": ({}, {"quad_rule": "gauss"}),
-        "moving Simpson": ({"moving": True}, {}),
-        "moving Gauss": ({"moving": True}, {"quad_rule": "gauss"}),
-        "exact F2, series/CF": ({"f2_exact": True}, {}),
-        "exponential + gamma": ({"families": (Family.EXPONENTIAL, Family.GAMMA)}, {}),
-    }
-    for case, (bkw, ckw) in ref_cases.items():
+    for case, (bkw, ckw) in REF_CASES.items():
         data = ref_data(**bkw)
         mom_np = param_moments(data.spec.families, N_REF_BOXES, seed=11)
         for name, dt in dtypes.items():
@@ -1432,19 +1478,21 @@ def main():
                   f"{abs_err:.3e}, finite {finite}; kernel {ms:.4f} ms{bins} {card}")
             check(finite, f"reference coal kernel [{case}] {name} not finite")
             check(err < TOL[name], f"reference coal kernel [{case}] {name} vs twin {err:.3e}")
-    step_cases = {k: ref_cases[k] for k in ("fixed Simpson", "moving Simpson", "moving Gauss",
-                                             "exact F2, series/CF")}
+    step_cases = {k: REF_CASES[k] for k in REF_STEP_CASES}
     ref_times = {}
     for case, (bkw, ckw) in step_cases.items():
         data = ref_data(**bkw)
         for name, dt in dtypes.items():
             x = torch.as_tensor(state_np, dtype=dt, device=dev)
+            xt = None  # rainshaft_small's states, side by side (the rows' timing)
             step = fc.make_rainshaft_step_fn(data, sc_cfg.vel, sc_cfg.norms, nz=NZ,
                                              dz=sc_cfg.dz, dt=1.0, device=dev, dtype=dt, **ckw)
             rfn = fc.make_rainshaft_rhs_fn(data, sc_cfg.vel, sc_cfg.norms, device=dev,
                                            dtype=dt, **ckw)
             check(step.plan.instance == 2 and rfn.plan.instance == 2,
                   f"[{case}] does not select the reference tier")
+            check(step.route == rfn.route == "generated",
+                  f"[{case}] reference step and RHS routes {step.route}, {rfn.route}")
             norm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
             for kind, fn, nrm in (("step", step, norm), ("rhs", rfn, torch.cat([norm, norm]))):
                 call = fn if kind == "step" else fn.soa
@@ -1454,21 +1502,33 @@ def main():
                 torch.cuda.synchronize()
                 err, abs_err = row_scaled(got / nrm, want / nrm)
                 finite = bool(torch.isfinite(got).all())
-                print(f"phase 17 {kind} kernel [reference, {case}] vs twin {name} at [6, "
-                      f"{N_CMP_COLUMNS * NZ}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max abs "
-                      f"{abs_err:.3e} (normalized), finite {finite} {card}")
+                print(f"phase 17 {kind} kernel [reference, {case}] ({fn.unit.label}) vs twin "
+                      f"{name} at [6, {N_CMP_COLUMNS * NZ}]: row-scaled {err:.3e} (tol "
+                      f"{TOL[name]:.0e}), max abs {abs_err:.3e} (normalized), finite {finite} "
+                      f"{card}")
                 check(finite, f"reference {kind} kernel [{case}] {name} not finite")
                 check(err < TOL[name], f"reference {kind} kernel [{case}] {name} vs twin {err:.3e}")
                 if case == "fixed Simpson":
-                    ms = _time_ms(lambda: call(x), 5)
-                    plain_ms = _time_ms(lambda: fn.plain(x), 1)
+                    # the kernels line's row: rainshaft_small's own states (the
+                    # path phase 18 counts), column c after 20 (c mod 7) steps
+                    if xt is None:
+                        xt = small_trajectory(step, N_CMP_COLUMNS)
+                    got, want = call(xt), fn.plain(xt)
+                    torch.cuda.synchronize()
+                    err, abs_err = row_scaled(got / nrm, want / nrm)
+                    check(err < TOL[name], f"reference {kind} kernel {name} on rainshaft_small's "
+                          f"states vs twin {err:.3e}")
+                    ms = _time_ms(lambda: call(xt), 5)
+                    plain_ms = _time_ms(lambda: fn.plain(xt), 1)
                     rows_out = 6 if kind == "step" else 12
                     ref_times[(kind, name)] = (
-                        err, abs_err, ms, plain_ms,
-                        bound(f"{kind}[reference, {name}]", fn.plain, x[:, :8 * NZ].contiguous(),
+                        kernel_source(fn), err, abs_err, ms, plain_ms,
+                        bound(f"{kind}[reference, {name}]", fn.plain, xt[:, :7 * NZ].contiguous(),
                               N_CMP_COLUMNS * NZ, 6, rows_out, f64=name == "float64"))
-                    print(f"phase 17 per call at [6, {N_CMP_COLUMNS * NZ}] {name}: {kind} kernel "
-                          f"[reference, fixed Simpson] {ms:.4f} ms, twin {plain_ms:.4f} ms {card}")
+                    print(f"phase 17 per call at [6, {N_CMP_COLUMNS * NZ}] {name} on rainshaft_small's "
+                          f"states: {kind} kernel [reference, fixed Simpson] {ms:.4f} ms, twin "
+                          f"{plain_ms:.4f} ms; vs twin row-scaled {err:.3e}, max abs {abs_err:.3e} "
+                          f"(normalized) {card}")
             del step, rfn, x
     torch.cuda.empty_cache()
     print(f"phase 17 seconds {time.perf_counter() - t:.3f}")
@@ -1552,8 +1612,20 @@ def main():
                     gerr = max(gerr, float((np.abs(got - ys_small[s_ // 20][None])
                                             / scale_small).max()))
             n_launch = fn.launches
+            if kind == "step" and dt == torch.float64:
+                # the f64 kernel against its twin over the same 120 steps, 4 columns
+                yt = y0[:, :4 * NZ].contiguous()
+                for _ in range(120):
+                    yt = step.plain(yt)
+                nrm = torch.tensor(step.plan.mom_norms, dtype=dt, device=dev)[:, None]
+                terr, _ = row_scaled(y[:, :4 * NZ] / nrm, yt / nrm)
+                print(f"phase 18 rainshaft_small reference-tier whole step f64 vs its twin on "
+                      f"the card after 120 steps, 4 columns: row-scaled {terr:.3e} (tol "
+                      f"{TOL['float64']:.0e}) {card}")
+                check(terr < TOL["float64"], f"reference step f64 vs twin over 120 steps {terr:.3e}")
             want_launch = 120 if kind == "step" else 360
             route = "whole-step kernel" if kind == "step" else "fused-RHS route (rhs kernel)"
+            route += f", {fn.route} {fn.unit.label}"
             print(f"phase 18 rainshaft_small through the reference-tier {route} {name}, "
                   f"{N_ANCHOR_COLUMNS} columns x 120 steps: per-moment-scaled {gerr:.3e} vs its "
                   f"golden (tol {tol:.0e}), launches {n_launch} {card}")
@@ -1604,11 +1676,11 @@ def main():
                     "plain_ms": hook_plain_ms,
                     **bound("coal_rhs[reference, f64]", hook_fn.plain, x128, 128, 6, 6,
                             f64=True)})
-    for (kind, name), (err, abs_err, ms, plain_ms, bnd) in ref_times.items():
+    for (kind, name), (src, err, abs_err, ms, plain_ms, bnd) in ref_times.items():
         dt = dtypes[name]
         kernels.append({"name": f"{'rainshaft_step' if kind == 'step' else 'rainshaft_rhs'}"
                                 f"[reference, {'f32' if name == 'float32' else 'f64'}]",
-                        "route": "cuda", "source": SOURCE,
+                        "route": "cuda", **src,
                         "replaces": B1_REPLACES if kind == "step" else B4_REPLACES,
                         "launches": golden_launches[(kind, dt)], "max_abs_err": abs_err,
                         "max_row_scaled_err": err, "ms": ms, "plain_ms": plain_ms, **bnd})
@@ -1695,6 +1767,10 @@ def main():
     # the examples and whole_step_1m on the card --------------------------
     torch.cuda.empty_cache()
     phase_30(dev, card, kernels, bound, b1_ms, log)
+
+    # ---- 31. the generated reference tier against the table-driven one ----
+    torch.cuda.empty_cache()
+    phase_31(dev, card)
     late = _build.GEN_BUILDS[n_gen_built:]
     print(f"generated units built after phase 2: {len(late)} "
           f"{[r['label'] for r in late]}")
@@ -1825,7 +1901,7 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
         st[1, NZ // 2 + 1, :] = -1e-3
         return rs.to_soa(torch.as_tensor(st))
 
-    for case in ("mono-gamma-closed", "lognorm-gamma-grid"):
+    for case in MATRIX_REF_CASES:
         data, kw = wsa.case_data(case)
         st = arm_state(data.spec, N_CMP_COLUMNS, seed=2)
         for name, dt in dtypes.items():
@@ -1844,9 +1920,11 @@ def phase_20(dev, card, smi, log, b1_ms, kernels, bound, sc_cfg):
                 torch.cuda.synchronize()
                 err, abs_err = row_scaled(got / nrm, want / nrm)
                 finite = bool(torch.isfinite(got).all())
-                print(f"phase 20 {kind} kernel [{case}] vs twin {name} at [{data.spec.n_tot}, "
+                print(f"phase 20 {kind} kernel [{case}] ({fn.route} {fn.unit.label}, flags "
+                      f"{list(fn.unit.flags)}) vs twin {name} at [{data.spec.n_tot}, "
                       f"{N_CMP_COLUMNS * NZ}]: row-scaled {err:.3e} (tol {TOL[name]:.0e}), max "
-                      f"abs {abs_err:.3e} (normalized), finite {finite} {card}")
+                      f"abs {abs_err:.3e} (normalized), bit-identical {bool(torch.equal(got, want))}"
+                      f", finite {finite} {card}")
                 check(finite, f"arm {kind} kernel [{case}] {name} not finite")
                 check(err < TOL[name], f"arm {kind} kernel [{case}] {name} vs twin {err:.3e}")
         # the f64 anchor: the kernel against the twin over 40 steps from the pulse
@@ -2666,8 +2744,10 @@ def phase_25(dev, card, kernels, bound, gen_records):
     # (b) the reference tier at capacities (4, 12, 5): B1, B3, B4 at [12, 131072]
     fns = four_mode_wrappers(dev, f32, fast=False)
     step, rhs, coal = fns["step"], fns["rhs"], fns["coal"]
-    check(all(f.route == "table" and f.caps == (4, 12, 5) for f in fns.values()),
-          "four-mode reference tier not on units at capacities (4, 12, 5)")
+    check(coal.route == "table" and coal.caps == (4, 12, 5)
+          and all(f.route == "generated" and f.unit.n_tot == 12 for f in (step, rhs)),
+          "four-mode reference tier: B3 not on units at capacities (4, 12, 5), or B1 and B4 "
+          "not generated for the plan")
     x = four_mode_state(N_REF_COLUMNS, seed=28).to(dev, f32)
     xn = (x.clamp_min(0) / norm).contiguous()
     lanes = x.shape[1]
@@ -2708,8 +2788,8 @@ def phase_25(dev, card, kernels, bound, gen_records):
     # (c) the scaled whole step at the reference tier, f64, [6, 4096]
     f64 = torch.float64
     sfn = scaled_reference_step(dev, f64)
-    check(sfn.plan.instance == 2 and sfn.route == "table" and sfn.caps == fc.CAPS,
-          "the scaled reference step is not the library's reference instance")
+    check(sfn.plan.instance == 2 and sfn.route == "generated" and sfn.unit.scaled,
+          "the scaled reference step is not the scaled unit generated for its plan")
     n_cols = 4096 // NZ
     z = (np.arange(NZ) + 0.5) * 3000.0 / NZ
     ic = np.concatenate([rs.initial_condition(z, [1e8, 1e-2, 2e-12]),
@@ -2723,7 +2803,7 @@ def phase_25(dev, card, kernels, bound, gen_records):
     norm6 = norm[:6].to(f64)
     err = row_scaled(got / norm6, sfn.plain(x, srow) / norm6)
     plain_ms = _time_ms(lambda: sfn.plain(x, srow), 1)
-    print(f"phase 25 [scaled whole step, reference tier] at [6, {x.shape[1]}] f64, scale "
+    print(f"phase 25 [scaled whole step, reference tier, {sfn.unit.label}] at [6, {x.shape[1]}] f64, scale "
           f"0.4-2.5 per column: {s_ms:.4f} ms per launch (launches {launches}), twin "
           f"{plain_ms:.4f} ms; vs twin row-scaled {err[0]:.3e} (tol {TOL['float64']:.0e}), "
           f"max abs {err[1]:.3e} (normalized) {card}")
@@ -2732,7 +2812,7 @@ def phase_25(dev, card, kernels, bound, gen_records):
     entry("rainshaft_step[scaled, reference, f64]", sfn, B1S_REPLACES, launches, err, s_ms,
           plain_ms, bound("rainshaft_step[scaled, reference, f64]",
                           lambda v: sfn.plain(v, srow[:8 * NZ]), x[:, :8 * NZ].contiguous(),
-                          x.shape[1], 7, 6, f64=True))
+                          x.shape[1], 7, 6, f64=True, series_exit=sfn.series_exit))
     print(json.dumps({"phase": 25, "entries": kernels[-8:]}))
     del sfn, x, got
     torch.cuda.empty_cache()
@@ -2837,22 +2917,21 @@ def phase_26(dev, card, kernels, pod_final, pod_twin, b1_ms, plain_ms, step_boun
 
 def phase_27(dev, card, kernels, bound):
     """Phase 27 (A.14): `tools.longhorizon` at both depths, 1000 steps of
-    the generated f32 B1 and of B1's f64 reference instance at [6, 4096],
+    the generated f32 B1 and of the generated f64 reference-tier B1 at [6, 4096],
     the JAX gates' bounds as checks; the f64 run's state at t = 100 against
     the twin run on the card over the first 4 columns, the f32 kernel
     against its twin for one step at [6, 4096]; a `kernels` entry each."""
     import torch
 
     from cloudy_tpu_torch.models import rainshaft as rs
-    from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.tools import longhorizon as lh
 
     t = time.perf_counter()
     n_twin, n_cols = 100, 4
     for name, nz in lh.DEPTHS.items():
         fast, ref = lh.make_steps(nz, dev)
-        check(fast.route == "generated" and ref.route == "table" and ref.plan.ref
-              and ref.caps == fc.CAPS, f"long-horizon routes {fast.route}, {ref.route}")
+        check(fast.route == "generated" and ref.route == "generated" and ref.plan.ref,
+              f"long-horizon routes {fast.route}, {ref.route}")
         rec, states = lh.run_depth(name, nz, fast, ref, n_steps=lh.N_STEPS)
         print(json.dumps({"phase": 27, **rec}))
         rows = {r["t"]: r for r in rec["checkpoints"]}
@@ -3462,6 +3541,53 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
           f"whole_step_1m {rec['ms_per_step']:.4f} ms/step against phase 6's {b1_ms:.4f}")
     torch.cuda.empty_cache()
     print(f"phase 30 (d) seconds {time.perf_counter() - t:.3f}")
+
+
+def phase_31(dev, card):
+    """Phase 31: the reference tier of B1, B1s and B4 generated per
+    configuration against the table-driven instances they replace
+    (`tools.reference_tune`): each reading's units (`ptxas`, SASS counts of
+    LDL, STL and CALL), both instances against the twin and their ms in
+    turns; the series early exit against the fixed loop on 2^20 lanes per
+    type. The block sizes and the step without the exit are the tool's
+    alone (`python -m cloudy_tpu_torch.tools.reference_tune`)."""
+    import torch
+
+    from cloudy_tpu_torch.tools import reference_tune as rt
+
+    t = time.perf_counter()
+
+    def line(rep):
+        pt, sass = rep["ptxas"], rep["sass"]
+        return (f"{pt.get('registers')} registers, {pt.get('stack')} B stack, "
+                f"{pt.get('spill_stores')}/{pt.get('spill_loads')} B spills; SASS LDL "
+                f"{sass.get('LDL')} STL {sass.get('STL')} CALL {sass.get('CALL')} of "
+                f"{sass.get('total')}")
+
+    for r in rt.readings(dev):
+        rec = rt.run_reading(r, card)
+        tol = TOL["float32" if r.gen.dtype == torch.float32 else "float64"]
+        print(json.dumps({"phase": 31, **rec}))
+        print(f"phase 31 [{r.label}] on {rec['state']}: generated {rec['unit']} (flags {rec['flags']}, "
+              f"{rec['threads']} threads; {line(rec['generated'])}, {rec['generated']['blocks_per_sm']} "
+              f"blocks per SM) {rec['generated_ms']:.4f} ms against table-driven "
+              f"({line(rec['table'])}) {rec['table_ms']:.4f} ms per "
+              f"{'step' if r.kind == 'step' else 'launch'} in turns ({rec['speedup']:.3f}x); vs "
+              f"twin {rec['generated_vs_twin']:.3e} / {rec['table_vs_twin']:.3e} (tol "
+              f"{tol:.0e}) {card}")
+        check(rec["generated_finite"] and rec["generated_vs_twin"] < tol,
+              f"[{r.label}] generated vs twin {rec['generated_vs_twin']:.3e}")
+        check(rec["generated"]["sass"].get("LDL") == 0 and rec["generated"]["sass"].get("STL") == 0,
+              f"[{r.label}] generated unit reads or writes local memory: {rec['generated']['sass']}")
+    for rec in rt.series_check(dev, card):
+        print(json.dumps({"phase": 31, **rec}))
+        print(f"phase 31 series early exit vs fixed loop, {rec['dtype']}, {rec['lanes']} lanes "
+              f"({rec['series_lanes']} series, {rec['cf_lanes']} continued fraction): bit for "
+              f"bit {rec['bit_for_bit']} ({rec['lanes_differing']} lanes differ); fixed "
+              f"{rec['fixed_ms']:.4f} ms, exit {rec['exit_ms']:.4f} ms {card}")
+        check(rec["bit_for_bit"], f"series early exit differs in {rec['lanes_differing']} "
+              f"{rec['dtype']} lanes")
+    print(f"phase 31 seconds {time.perf_counter() - t:.3f}")
 
 
 def _time_ms(fn, n):

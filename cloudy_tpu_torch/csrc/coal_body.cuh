@@ -29,8 +29,12 @@
 //   (`each`) has a compile-time bound and is fully unrolled, every index
 //   folds to a constant, so the per-lane arrays live in registers, and a
 //   branch the configuration rules out compiles to nothing. The Q/R/S
-//   contraction is the generated straight-line `C::contract`. The fast tier
-//   of B1 and B4 runs it (csrc/gen_kernels.cuh).
+//   contraction is the generated straight-line `C::contract`. Both tiers of
+//   B1, B1s and B4 and the fast tier of B3 run it (csrc/gen_kernels.cuh); a
+//   reference-tier configuration also carries its rule, iteration counts,
+//   grid sizes and F2 kinds as constants, and its fixed grids and Gauss base
+//   nodes, which the node loops index at run time, as `__constant__` tables
+//   of its unit (read at one address per warp: broadcasts).
 //
 // Real constants are computed in double on the host and rounded once to T,
 // as JAX folds Python floats into weakly typed constants. Operation order
@@ -44,25 +48,35 @@
 // kernels' `kArms = true` instances: the host launches the `false` instance
 // for a FixedThreshold gamma/exponential configuration (`FusedPlan.arms`),
 // which then carries neither arm's registers nor its stack. The reference
-// tier (`kRef = true`, always with kArms and the table-driven
-// configuration) adds the gamma/exponential and the
+// tier (`kRef = true`, always with kArms) adds the gamma/exponential and the
 // lognormal (Phi) F2 on a quadrature grid (fixed grids packed by the host,
 // moving Simpson and Gauss grids built per lane, QuadGrid), the
 // series/continued-fraction incomplete gamma and erf, the damped-Newton
 // percentile inverse, the Lanczos-pair flux and monodisperse modes (the
 // recurrence M theta, the moving threshold theta, the closed-form F2 where
-// theta < T/2, the flux n theta^e); inside it the rule, the grid, GL or
-// series/CF, the erf and the F2 kind are runtime switches of the
-// configuration. The fast instances compile to the code they had without
-// it.
+// theta < T/2, the flux n theta^e); in the table-driven configuration the
+// rule, the grid, GL or series/CF, the erf and the F2 kind are runtime
+// switches, in a compiled-in one constants. The fast instances compile to
+// the code they had without it.
 //
 // No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
 
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cloudy {
+
+// Whether a configuration ends the series incomplete gamma's loop where a
+// term no longer changes the sum (gammainc_sc's kExit): a generated
+// reference-tier configuration's `kSeriesExit`; the table-driven
+// configuration, which has none, runs the fixed loop.
+template <class C, class = void> struct SeriesExit : std::false_type {};
+template <class C>
+struct SeriesExit<C, std::void_t<decltype(C::kSeriesExit)>>
+    : std::integral_constant<bool, C::kSeriesExit> {};
 
 // Capacities. A configuration type `C` carries its own as `C::kModes`,
 // `C::kNtot` and `C::kM` (modes, moments, moment orders M: the size of every
@@ -369,8 +383,8 @@ __device__ __forceinline__ T gammaincinv_gl(const C& c, T a, T p) {
 
 // special.gammaincinv_impl: x with P(a, x) = p; Wilson-Hilferty start with
 // the small-a fallback, n_newton damped Newton steps on the series/CF
-// P(a, x) of n_iters iterations
-template <typename T>
+// P(a, x) of n_iters iterations (kExit: gammainc_sc's)
+template <bool kExit, typename T>
 __device__ __forceinline__ T gammaincinv_newton(T a, T p, int n_newton,
                                                 int n_iters) {
   const T tiny = Lim<T>::tiny();
@@ -381,11 +395,12 @@ __device__ __forceinline__ T gammaincinv_newton(T a, T p, int n_newton,
   const T x_small = dexp((dlog(p) + lgamma_lanczos(a + T(1))) / a);
   T x = vmax((t > T(0) && x0 > T(1e3) * tiny) ? x0 : x_small, tiny);
   const T lg = lgamma_lanczos(a);
+#pragma unroll 1
   for (int it = 0; it < n_newton; ++it) {
     const T lx = dlog(vmax(x, tiny));
     // gammainc_impl's own log, of x clamped at 1e6
     const T lxc = (x > T(1e6)) ? dlog(T(1e6)) : lx;
-    const T f = gammainc_sc(a, x, n_iters, lg, lxc) - p;
+    const T f = gammainc_sc<kExit>(a, x, n_iters, lg, lxc) - p;
     const T logdf = (a - T(1)) * lx - x - lg;
     T step = f * dexp(-logdf);
     step = vclip(step, T(-9) * x, T(0.9) * x);
@@ -408,11 +423,11 @@ template <typename T> __device__ __forceinline__ T erf_approx(T x) {
 // special.erf_impl: sign(z) * P(1/2, z^2) by the series/CF incomplete gamma
 // at n_iters (its log of z^2 taken after the clamp at 1e6, as gammainc_impl
 // takes it); lg_half = lgamma(1/2), hoisted by the caller
-template <typename T>
+template <bool kExit, typename T>
 __device__ __forceinline__ T erf_series(T z, int n_iters, T lg_half) {
   const T x = z * z;
   const T log_x = dlog(vmax(vmin(x, T(1e6)), Lim<T>::tiny()));
-  return vsign(z) * gammainc_sc(T(0.5), x, n_iters, lg_half, log_x);
+  return vsign(z) * gammainc_sc<kExit>(T(0.5), x, n_iters, lg_half, log_x);
 }
 
 // _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2; the top order
@@ -444,7 +459,8 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
   if constexpr (kRef) {
     if (sc) {
       const T a_top = a0 + T(2 * M - 2);
-      gi = gammainc_sc(a_top, x, c.gi_iters, lgamma_lanczos(a_top), log_x);
+      gi = gammainc_sc<SeriesExit<C>::value>(a_top, x, c.gi_iters,
+                                             lgamma_lanczos(a_top), log_x);
     } else {
       gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
     }
@@ -572,7 +588,9 @@ template <typename T> __device__ __forceinline__ T simpson_weight(T j, T nb) {
 // 1e-5 T), log T] with nb = min(floor(15 log10(T / x_lo)), n_pts - 1) bins
 // (log10 as jnp.log10: log times 1/ln 10 in T; the division, the log, the
 // product by 15 and the floor in the twin's order). Shared by the gamma and
-// the lognormal grid F2.
+// the lognormal grid F2. A compiled-in configuration's fixed grids and
+// Gauss base nodes are `__constant__` tables of its unit (`grid`,
+// `gauss_u`, `gauss_w`), its rule, sizes and dx constants.
 template <class C, typename T> struct QuadGrid {
   int G;
   T dx = T(1), ga = T(0), ghalf = T(0), x_min = T(0), nb = T(0);
@@ -664,7 +682,8 @@ __device__ __forceinline__ void f2_gamma_grid(const C& c, int i, T thr, T n,
     for (int q = 1; q < C::kM - 1; ++q)
       if (q < M - 1) deltas[q] = deltas[q - 1] * rem / (k + T(q));
     T gi = (c.n_gl > 0) ? gammainc_gl(c, a_top, rem, lg_top)
-                        : gammainc_sc(a_top, rem, c.gi_iters, lg_top, log_rem);
+                        : gammainc_sc<SeriesExit<C>::value>(a_top, rem, c.gi_iters,
+                                                            lg_top, log_rem);
     T gis[C::kM];  // the top order, then downward (unrolled: registers)
 #pragma unroll
     for (int q = C::kM - 1; q >= 0; --q) {
@@ -735,7 +754,8 @@ __device__ __forceinline__ void f2_lognormal_grid(const C& c, int i, T thr, T n,
     for (int q = 0; q < C::kM; ++q) {
       if (q < M) {
         const T z = (logrem - mu - T(q) * s2) / sig_r2;
-        const T erf_z = approx ? erf_approx(z) : erf_series(z, c.gi_iters, lg_half);
+        const T erf_z = approx ? erf_approx(z)
+                               : erf_series<SeriesExit<C>::value>(z, c.gi_iters, lg_half);
         pm[q] = eq[q] * T(0.5) * (T(1) + erf_z);
       }
     }
@@ -774,8 +794,8 @@ __device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
   } else if (fam == FAM_GAMMA) {
     if constexpr (kRef) {
       thr = (c.n_gl == 0)
-                ? p1 * gammaincinv_newton(p2, c.thr[i], c.newton_iters,
-                                          c.thr_gi_iters)
+                ? p1 * gammaincinv_newton<SeriesExit<C>::value>(
+                           p2, c.thr[i], c.newton_iters, c.thr_gi_iters)
                 : p1 * gammaincinv_gl(c, p2, c.thr[i]);
     } else {
       thr = p1 * gammaincinv_gl(c, p2, c.thr[i]);
@@ -795,7 +815,6 @@ __device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
 template <bool kArms, bool kRef, class C, typename T, class Sp = Serial>
 __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
                                           T (*params)[3], const Sp& sp = Sp{}) {
-  static_assert(!(kRef && C::kStatic), "the reference tier is table-driven");
   const T eps = Lim<T>::eps();
   const int M = c.M;
   T mf[C::kModes * C::kM];

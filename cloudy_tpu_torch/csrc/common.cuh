@@ -105,7 +105,15 @@ template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
 // branch the lane selects is evaluated (gammainc_impl evaluates both at safe
 // arguments and keeps one). lga = lgamma(a); log_x is the caller's log of x
 // (the prefactor's), x itself is clamped at 1e6.
-template <typename T>
+//
+// kExit: the lower series stops at the first term that leaves the sum as it
+// was (total + term == total under round-to-nearest). Below a + 1 every term
+// is positive and smaller than the one before (x / ap < 1), so no later term
+// can change the sum either: the result is the fixed loop's, bit for bit,
+// and a lane leaves the loop (a TPU lane cannot: JAX runs all n_iters,
+// special.py:209-216) before its terms go subnormal. The continued fraction
+// keeps its fixed count.
+template <bool kExit = false, typename T>
 __device__ __forceinline__ T gammainc_sc(T a, T x, int n_iters, T lga,
                                          T log_x) {
   x = vmin(x, T(1e6));
@@ -117,7 +125,9 @@ __device__ __forceinline__ T gammainc_sc(T a, T x, int n_iters, T lga,
     for (int i = 0; i < n_iters; ++i) {
       ap = ap + T(1);
       term = term * x / ap;
-      total = total + term;
+      const T next = total + term;
+      if (kExit && next == total) break;
+      total = next;
     }
     out = total * dexp(a * log_x - x - lga);
   } else {

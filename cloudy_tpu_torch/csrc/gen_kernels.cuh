@@ -2,9 +2,12 @@
 // whole SSPRK33 step (B1, replaces pallas_coalescence.py:876
 // make_pallas_rainshaft_step_fn; with the per-lane kernel scale, B1s, its
 // `fn_scaled`, pallas_coalescence.py:1022), the fused per-level RHS (B4, replaces
-// pallas_coalescence.py:771 make_pallas_rainshaft_rhs_fn) and the
-// coalescence RHS on normalized moments (B3, replaces
-// pallas_coalescence.py:662 make_pallas_coal_fn) at the fast tier.
+// pallas_coalescence.py:771 make_pallas_rainshaft_rhs_fn), at either tier
+// (`C::kRef`: the reference tier's quadrature-grid F2, series/CF incomplete
+// gamma, Newton inverse, Lanczos flux and monodisperse modes, its switches
+// constants of the configuration), and the coalescence RHS on normalized
+// moments (B3, replaces pallas_coalescence.py:662 make_pallas_coal_fn) at
+// the fast tier.
 //
 // A generated unit defines one compiled-in configuration `Cfg`
 // (coal_body.cuh: static constexpr members, the straight-line Q/R/S
@@ -72,14 +75,14 @@ __device__ __forceinline__ void gen_step_body(const typename C::real* __restrict
   const T s = (kScale && active) ? scale[lane] : T(1);
   if constexpr (C::kShfl) {
     const ShflStencil<C::nz> st{};
-    step_lane<C::kArms, kScale, false, true>(c, st, mom, out, B, lane, active,
-                                            top, s);
+    step_lane<C::kArms, kScale, C::kRef, true>(c, st, mom, out, B, lane, active,
+                                              top, s);
   } else {
     extern __shared__ __align__(16) unsigned char gen_smem[];
     const SmemStencil<T> st{reinterpret_cast<T*>(gen_smem), (int)threadIdx.x,
                             C::kThreads};
-    step_lane<C::kArms, kScale, false, true>(c, st, mom, out, B, lane, active,
-                                            top, s);
+    step_lane<C::kArms, kScale, C::kRef, true>(c, st, mom, out, B, lane, active,
+                                              top, s);
   }
 }
 
@@ -90,7 +93,7 @@ __device__ __forceinline__ void gen_rhs_body(const typename C::real* __restrict_
   const C c{};
   const long long lane = (long long)blockIdx.x * C::kThreads + threadIdx.x;
   if (lane >= B) return;  // no barrier follows
-  rhs_lane<C::kArms, false>(c, mom, out, B, lane);
+  rhs_lane<C::kArms, C::kRef>(c, mom, out, B, lane);
 }
 
 // The coalescence RHS: one thread per box, no flux and no stencil.

@@ -22,22 +22,24 @@ The kernels share the device physics of csrc/coal_body.cuh, the counterpart
 of `_make_coal_body`, `_invert_rows` and `_sedi_flux_rows`, and reach it by
 one of two routes, chosen from the plan alone (the wrapper's `route`):
 
-- ``"generated"``: the whole step, the fused RHS and the coalescence RHS of
-  a fast-tier plan run a kernel generated for that configuration and type
-  (`ops.codegen`, csrc/gen_kernels.cuh), every table compiled in;
-- ``"table"``: every reference-tier plan runs the table-driven kernels
-  (csrc/fused_coalescence.cu): the host packs the configuration
-  (`pack_config`) into a byte buffer that each block copies into shared
-  memory. A plan within the prebuilt capacities (`CAPS`: 3 modes, 9
-  moments, M 5) runs the prebuilt library; a plan past them runs units
-  built at first use with capacities of its own (`plan_caps`,
+- ``"generated"``: the whole step and the fused RHS of every plan, and the
+  coalescence RHS of a fast-tier plan, run a kernel generated for that
+  configuration and type (`ops.codegen`, csrc/gen_kernels.cuh), every
+  table compiled in; a reference-tier plan's switches (quadrature rule,
+  iteration counts, F2 kinds) with them;
+- ``"table"``: the coalescence RHS of a reference-tier plan runs the
+  table-driven kernels (csrc/fused_coalescence.cu): the host packs the
+  configuration (`pack_config`) into a byte buffer that each block copies
+  into shared memory. A plan within the prebuilt capacities (`CAPS`: 3
+  modes, 9 moments, M 5) runs the prebuilt library; a plan past them runs
+  units built at first use with capacities of its own (`plan_caps`,
   `codegen.ref_unit`).
 
-The whole step with a per-lane kernel scale (B1s) takes the same routes.
-The table-driven fast instances of the three kernels and of the scaled
-step are still built, reachable only through the constructors' private
-``_table`` argument: `chip_smoke.py` times them beside the generated
-kernels.
+The whole step with a per-lane kernel scale (B1s) takes the same route as
+the whole step. The table-driven instances of the whole step, the scaled
+step and the fused RHS (both tiers) and of the fast coalescence RHS are
+still built, reachable only through the constructors' private ``_table``
+argument: `chip_smoke.py` times them beside the generated kernels.
 
 Layout: the flat structure-of-arrays ``[n_tot, B]``, one CUDA thread per
 lane (one level of one column), z contiguous within each column. The
@@ -83,6 +85,8 @@ the reference tier besides; `FusedPlan.instance` picks one.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Sequence, Tuple
@@ -556,6 +560,44 @@ def _invert_rows(fam: int, rows, eps: float):
     return n, special.select(valid, theta, 1.0), special.select(valid, k, 1.0)
 
 
+#: within `series_exit()`: the twins stop the lower series lane by lane
+_SERIES_EXIT = contextvars.ContextVar("cloudy_series_exit", default=False)
+
+
+@contextlib.contextmanager
+def series_exit():
+    """Within it the twins' lower series (`_gammainc_sel`) stop each lane
+    at the first term that leaves its sum as it was, as the generated
+    reference-tier kernels do (csrc/common.cuh `gammainc_sc`, ``kExit``),
+    and work on the lanes still summing only. The sums are the fixed
+    loop's, bit for bit; what changes is the work, which `tools.opcount`
+    counts under it for a kernel that stops early."""
+    token = _SERIES_EXIT.set(True)
+    try:
+        yield
+    finally:
+        _SERIES_EXIT.reset(token)
+
+
+def _series_sum_exit(a, x, n_iters: int):
+    """`special._gammainc_series_sum` of 1-D `a`, `x` with each lane
+    stopped where ``total + term == total``: the terms are positive and
+    shrink below a + 1, so no later term changes that lane's sum."""
+    term = 1.0 / a
+    total = term.clone()
+    ap, live, tot = a, torch.arange(a.numel(), device=a.device), term
+    for _ in range(n_iters):
+        ap = ap + 1.0
+        term = term * x / ap
+        nxt = tot + term
+        keep = nxt != tot
+        live, ap, x, term, tot = live[keep], ap[keep], x[keep], term[keep], nxt[keep]
+        if live.numel() == 0:
+            break
+        total[live] = tot
+    return total
+
+
 def _gammainc_sel(a, x, n_iters: int, log_x):
     """P(a, x) of `special.gammainc_impl` (``log_x`` the caller's log of x)
     with each lane's series or continued fraction evaluated only where it
@@ -576,7 +618,8 @@ def _gammainc_sel(a, x, n_iters: int, log_x):
         aa, xx = a[idx], x[idx]
         pre = special.exp(aa * log_x[idx] - xx - lga[idx])
         if series:
-            v = special._gammainc_series_sum(aa, xx, n_iters) * pre
+            series_sum = _series_sum_exit if _SERIES_EXIT.get() else special._gammainc_series_sum
+            v = series_sum(aa, xx, n_iters) * pre
         else:
             v = 1.0 - special._gammainc_contfrac_h(aa, xx, n_iters) * pre
         out[idx] = torch.clamp(v, 0.0, 1.0)
@@ -1057,6 +1100,8 @@ class _KernelFn:
     configuration (`_pack`)."""
 
     _name = ""
+    #: whether the kernel stops the lower series early (`series_exit`)
+    series_exit = False
 
     def __init__(self, plan, device, dtype: torch.dtype):
         if dtype not in (torch.float32, torch.float64):
@@ -1167,21 +1212,25 @@ REF_KINDS = ("coal", "warp", "rhs", "step", "step_scaled")
 
 
 class _GeneratedFn(_KernelFn):
-    """A wrapper whose fast-tier plans launch the kernel generated for the
-    configuration (`ops.codegen`) and whose reference-tier plans launch the
-    table-driven instance: the prebuilt library's within its capacities
-    (`CAPS`), else a unit built at first use at the plan's (`plan_caps`,
-    `codegen.ref_unit`); the route follows from the plan alone. `_table`
-    (private) forces the table-driven fast instance, which exists at the
-    prebuilt capacities only: the same-call yardstick of `chip_smoke.py`,
-    reached by no public entry point."""
+    """A wrapper whose plans launch the kernel generated for the
+    configuration (`ops.codegen`), except where its kind's reference tier
+    is table-driven (`_ref_generated` False: B3), whose reference-tier
+    plans launch the table-driven instance: the prebuilt library's within
+    its capacities (`CAPS`), else a unit built at first use at the plan's
+    (`plan_caps`, `codegen.ref_unit`); the route follows from the plan
+    alone. `_table` (private) forces the table-driven instance (the fast
+    one exists at the prebuilt capacities only): the same-call yardstick of
+    `chip_smoke.py`, reached by no public entry point."""
 
     _kind = ""
     _scaled = False
+    #: whether a reference-tier plan runs a generated unit
+    _ref_generated = True
 
     def __init__(self, plan, device, dtype: torch.dtype, _table: bool = False):
         super().__init__(plan, device, dtype)
-        self.route = "table" if (_table or plan.ref) else "generated"
+        table = _table or (plan.ref and not self._ref_generated)
+        self.route = "table" if table else "generated"
         #: the table-driven capacities (None on the generated route)
         self.caps = plan_caps(plan) if self.route == "table" else None
         if _table and not plan.ref and self.caps != CAPS:
@@ -1190,6 +1239,13 @@ class _GeneratedFn(_KernelFn):
                 f"only; this plan needs {self.caps} (its route is the generated kernel)")
         self._unit = None
         self._ref_units = {}
+
+    @property
+    def series_exit(self) -> bool:
+        """A generated reference-tier unit stops the lower series early
+        (`codegen` ``kSeriesExit``); a table-driven instance runs every
+        term."""
+        return self.route == "generated" and self.plan.ref
 
     @property
     def unit(self):
@@ -1283,6 +1339,7 @@ class CoalFn(_GeneratedFn):
 
     _name = "cloudy_coal"
     _kind = "coal"
+    _ref_generated = False
 
     def __init__(self, plan, device, dtype: torch.dtype, _table: bool = False,
                  _layout: str = None):
@@ -1358,8 +1415,8 @@ STEP_TARGET_THREADS = 256
 class RainshaftStepFn(_GeneratedFn):
     """Whole SSPRK33 rainshaft step (replaces
     `make_pallas_rainshaft_step_fn`): ``fn(mom [n_tot, B])``, physical
-    moments, ``B % nz == 0``. A fast-tier plan launches the generated kernel
-    (`route` ``"generated"``), a reference-tier plan the table-driven one."""
+    moments, ``B % nz == 0``. Every plan launches the kernel generated for
+    it (`route` ``"generated"``); `_table` the table-driven instance."""
 
     _name = "cloudy_step"
     _kind = "step"
@@ -1404,11 +1461,10 @@ class ScaledRainshaftStepFn(RainshaftStepFn):
     ``fn(mom [n_tot, B], scale)``. `scale` is a number, a ``[B]`` or a
     ``[1, B]`` row; each lane's coalescence tendency is multiplied by its
     entry in every RHS evaluation. Scaling by ``s`` equals building the
-    configuration from the kernel tensor scaled by ``s``. A fast-tier plan
+    configuration from the kernel tensor scaled by ``s``. Every plan
     launches the scaled kernel generated for it (a unit of its own, `route`
-    ``"generated"``), a reference-tier plan the table-driven scaled
-    reference instance (``cloudy_step_scaled_*``); `_table` forces the
-    table-driven fast instance (the same-call yardstick)."""
+    ``"generated"``); `_table` forces the table-driven scaled instance
+    (``cloudy_step_scaled_*``, the same-call yardstick)."""
 
     _name = "cloudy_step_scaled"
     _scaled = True
@@ -1434,8 +1490,8 @@ class RainshaftRhsFn(_GeneratedFn):
     `make_pallas_rainshaft_rhs_fn`): ``fn.soa(mom [n_tot, B])`` on physical
     moments → ``[2·n_tot, B]``, the physical coalescence tendencies over the
     physical sedimentation fluxes. The caller applies the upwind stencil
-    (`models.rainshaft.make_rainshaft_rhs_fused`). A fast-tier plan launches
-    the generated kernel, a reference-tier plan the table-driven one."""
+    (`models.rainshaft.make_rainshaft_rhs_fused`). Every plan launches the
+    kernel generated for it; `_table` the table-driven instance."""
 
     _name = "cloudy_rhs"
     _kind = "rhs"

@@ -13,7 +13,7 @@ advance the same start:
 - the f32 fast tier (exact F2 with the GL-12 incomplete gamma,
   ``gammainc_iters=12``): on the card the kernel generated for it;
 - the f64 reference tier (the masked Simpson F2 grid, series/CF incomplete
-  gamma): on the card the table-driven reference instance.
+  gamma): on the card the kernel generated for it too.
 
 Both run over every column. At each of 10 checkpoints the record holds the
 scaled trajectory error max |f32 − f64| / max |f64| (per moment over

@@ -22,7 +22,11 @@ the card's measured cost per class.
 
 The twins evaluate each lane's series or continued fraction (the
 incomplete gamma, and erf through P(½, z²)) only where the lane selects it,
-so a count covers what the data needs. Run as a script it prints the count
+so a count covers what the data needs. The twin of a wrapper whose kernel
+stops the lower series early (its `series_exit`: a generated reference-tier
+unit) is counted with each lane's series stopped where the kernel stops it
+(`fused_coalescence.series_exit`); every other twin runs its fixed count.
+Run as a script it prints the count
 per box of the numerical bench's twin and its split between the Q/S inner
 loop, the R loop and the rest, fitted from counts at other node budgets
 (no device needed):
@@ -32,6 +36,7 @@ loop, the R loop and the rest, fitted from counts at other node budgets
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -110,33 +115,41 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-def _run(fn, args, data_only: bool) -> _Counter:
+def _run(fn, args, data_only: bool, series_exit=None) -> _Counter:
+    from cloudy_tpu_torch.ops import fused_coalescence as fc
+
+    if series_exit is None:  # a wrapper's twin: as its kernel sums the series
+        series_exit = getattr(getattr(fn, "__self__", None), "series_exit", False)
     data = [a for a in args if isinstance(a, torch.Tensor)] if data_only else None
-    with _Counter(data) as counter:
-        fn(*args)
+    with fc.series_exit() if series_exit else contextlib.nullcontext():
+        with _Counter(data) as counter:
+            fn(*args)
     return counter
 
 
-def count_ops(fn, *args, data_only: bool = False) -> int:
+def count_ops(fn, *args, data_only: bool = False, series_exit: bool = None) -> int:
     """Floating-point elements produced by the arithmetic operations of
     ``fn(*args)``. `data_only` counts only the operations whose result
     depends on the tensors of `args`: an operation on constants alone (a
     scalar parameter broadcast to the data's shape) is one a kernel does
-    once, not per element."""
-    return _run(fn, args, data_only).ops
+    once, not per element. `series_exit` counts the lower series stopped
+    lane by lane (`fused_coalescence.series_exit`); by default it follows
+    the wrapper of which `fn` is the bound twin (its `series_exit`), and is
+    off for any other callable."""
+    return _run(fn, args, data_only, series_exit).ops
 
 
-def count_ops_by_class(fn, *args, data_only: bool = False) -> dict:
+def count_ops_by_class(fn, *args, data_only: bool = False, series_exit: bool = None) -> dict:
     """`count_ops` split by the chain benchmark's primitive classes (mul,
     add, div, exp, log, sqrt, sel): ``{class: n, ..., "other": {op: n},
     "predicate": {op: n}}``. The classes and ``other`` (the floating-point
     operations of no class, by aten name) add up to `count_ops`;
     ``predicate`` holds the operations with a boolean result (comparisons,
     logical operations), which `count_ops` does not count and the class model
-    prices as adds. `data_only` as in `count_ops`."""
+    prices as adds. `data_only` and `series_exit` as in `count_ops`."""
     from cloudy_tpu_torch.ops.op_chains import PRIMITIVE_CLASSES
 
-    counter = _run(fn, args, data_only)
+    counter = _run(fn, args, data_only, series_exit)
     out = {c: 0 for c in PRIMITIVE_CLASSES}
     other = {}
     for op, n in sorted(counter.by_op.items()):

@@ -15,7 +15,8 @@ the pod ensemble:
   tool passes them, and are not read at ``gammainc_gl_nodes > 0``);
 - ``lognorm-gamma-grid``: the lognormal Φ grid on 12 Gauss nodes with the
   rational erf, and ``mono-gamma-closed``: the monodisperse closed form (the
-  reference-tier instance, whose switches are read at run time).
+  reference tier, generated for the configuration as the others are; the
+  monodisperse unit without FMA contraction).
 
 Each case's data is built with ``gammainc_iters=12, f2_exact=<case>,
 gammainc_gl_nodes=12`` (and the case's ``lognorm_gl_nodes``) as the JAX tool

@@ -29,8 +29,9 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
 def pod_config(variant: str, nz: int = NZ):
     """(spec, data, RainshaftConfig) of a pod variant at nz levels, as
     `harness._scenario_pod_ensemble` builds them, or of a family-matrix case
-    (`tools.whole_step_ablation.CASE_NAMES`; its kernel keywords are for the
-    reference tier and a generated kernel reads none)."""
+    (`tools.whole_step_ablation.CASE_NAMES`; its kernel keywords are not
+    passed, so a reference-tier case runs here at the keywords' defaults:
+    `tools.reference_tune` runs those cases as the matrix does)."""
     if variant in wsa.CASE_NAMES:
         data, _ = wsa.case_data(variant)
         spec = data.spec
@@ -57,29 +58,37 @@ def make_fns(variant: str, kind: str, device="cuda", dtype=torch.float32, nz: in
     return gen, table
 
 
-def table_report(kind: str, dtype, arms: int, plan, scaled: bool = False) -> dict:
-    """ptxas, SASS counts and blocks per SM of a table-driven fast
-    instance (`scaled`: the whole step with the kernel scale, whose blocks
-    per SM the library does not report: None)."""
-    lib = _build.load_library()
-    so = _build.library_path()
+def table_report(kind: str, dtype, arms: int, plan, scaled: bool = False, ref: bool = False,
+                 units=()) -> dict:
+    """ptxas, SASS counts and blocks per SM of a table-driven instance: the
+    fast one, or with `ref` the reference tier's, from the unit built at
+    first use among `units` where the wrapper has one (its
+    `build_units()`), else from the library. The scaled whole step
+    (`scaled`) and a reference instance report no blocks per SM (None)."""
     tag = "f" if dtype == torch.float32 else "d"
-    if kind == "step":
-        pat = rf"step_kernelI{tag}Lb{arms}ELb{int(scaled)}ELb0E"
+    if units:
+        rec, = _build.build_generated(units)
+        so, log = rec["path"], rec.get("log", "")
     else:
-        pat = rf"{kind}_kernelI{tag}Lb{arms}ELb0E"
+        _build.load_library()
+        so = _build.library_path()
+        log = so.with_suffix(".log").read_text()
+    if kind == "step":
+        pat = rf"step_kernelI{tag}Lb{arms}ELb{int(scaled)}ELb{int(ref)}E"
+    else:
+        pat = rf"{kind}_kernelI{tag}Lb{arms}ELb{int(ref)}E"
     sass = {k: v for k, v in _build.sass_counts(so).items() if re.search(pat, k)}
-    log = so.with_suffix(".log").read_text()
-    lines, keep, pt = log.splitlines(), False, ""
-    for ln in lines:
+    keep, pt = False, ""
+    for ln in log.splitlines():
         if "Compiling entry function" in ln:
             keep = bool(re.search(pat, ln))
         if keep:
             pt += ln + "\n"
     report = {"ptxas": _build.ptxas_report(pt), "sass": next(iter(sass.values()), {}),
               "blocks_per_sm": None}
-    if scaled:
+    if scaled or ref:
         return report
+    lib = _build.load_library()
     cfg_bytes = fc.pack_config(plan, dtype).size
     got = ctypes.c_int(0)
     t = "f32" if dtype == torch.float32 else "f64"
@@ -136,15 +145,31 @@ def coal_moments(variant: str, n: int, device, dtype, seed: int = 0) -> torch.Te
     return pd.get_moments(spec, torch.as_tensor(par)).T.contiguous().to(device, dtype)
 
 
+def twin_errors(fns, kind, x, scale=None) -> list:
+    """[(row-scaled error, finite)] of one launch of each wrapper of one
+    plan in `fns` against the twin on `x` (the whole step and the fused RHS
+    in normalized units; a scaled whole step with the [B] row `scale`)."""
+    plan = fns[0].plan
+    if kind == "coal":
+        want, outs, norm = fns[0].plain(x), [fn.soa(x) for fn in fns], 1.0
+    else:
+        norm = torch.tensor(plan.mom_norms, dtype=x.dtype, device=x.device)[:, None]
+        if kind == "step":
+            args = (x,) if scale is None else (x, scale)
+            want, outs = fns[0].plain(*args), [fn(*args) for fn in fns]
+        else:
+            want, outs, norm = fns[0].plain(x), [fn.soa(x) for fn in fns], torch.cat([norm, norm])
+    torch.cuda.synchronize()
+    return [(_row_scaled(got / norm, want / norm), bool(torch.isfinite(got).all()))
+            for got in outs]
+
+
 def check_vs_twin(fn, kind, variant, device, dtype, n_cols: int = 4096, nz: int = NZ):
     """Row-scaled error (normalized units) of one launch against the twin on
     a seeded two-mode state with a negative moment and an empty level (the
     coalescence RHS: on `coal_moments` of n_cols · nz boxes)."""
     if kind == "coal":
-        x = coal_moments(variant, n_cols * nz, device, dtype, seed=2)
-        got, want = fn.soa(x), fn.plain(x)
-        torch.cuda.synchronize()
-        return _row_scaled(got, want), bool(torch.isfinite(got).all())
+        return twin_errors([fn], kind, coal_moments(variant, n_cols * nz, device, dtype, seed=2))[0]
     spec, _, cfg = pod_config(variant, nz)
     amps = ([1e8, 1e-2, 2e-12], [1e7, 1e-3, 2e-13], [1e6, 1e-4, 2e-14])
     ic = np.concatenate([rs.initial_condition(cfg.z, a)[:, :n]
@@ -154,13 +179,7 @@ def check_vs_twin(fn, kind, variant, device, dtype, n_cols: int = 4096, nz: int 
     st[0, nz // 2, 0] *= -1.0
     st[1, nz // 2 + 1, :] = -1e-3
     x = rs.to_soa(torch.as_tensor(st)).to(device, dtype).contiguous()
-    norm = torch.tensor(fn.plan.mom_norms, dtype=dtype, device=device)[:, None]
-    if kind == "step":
-        got, want = fn(x), fn.plain(x)
-    else:
-        got, want, norm = fn.soa(x), fn.plain(x), torch.cat([norm, norm])
-    torch.cuda.synchronize()
-    return _row_scaled(got / norm, want / norm), bool(torch.isfinite(got).all())
+    return twin_errors([fn], kind, x)[0]
 
 
 def pod_state(variant: str, n_columns: int, device, dtype):
@@ -172,6 +191,28 @@ def pod_state(variant: str, n_columns: int, device, dtype):
     return torch.as_tensor(ic.T.copy(), dtype=dtype, device=device).repeat(1, n_columns)
 
 
+def turns(calls, x, steps: int, chain: bool = True):
+    """ms per call of each of `calls` (``call(y)`` → y'), in turns 0, 1, …,
+    1, 0, the median of each: chains of `steps` calls from x (`chain`), or
+    `steps` calls on x. Returns (medians, {i: [ms per turn]})."""
+    def one(call):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        y = x
+        start.record()
+        for _ in range(steps):
+            y = call(y) if chain else call(x)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / steps
+
+    order = list(range(len(calls)))
+    times = {i: [] for i in order}
+    for i in order + order[::-1]:
+        times[i].append(one(calls[i]))
+    return [float(np.median(times[i])) for i in order], times
+
+
 def time_turns(fns, kind, x, steps: int, scale=None):
     """ms per step (chains of `steps` whole steps from x; scaled steps with
     the [B] row `scale`) or per launch, of each of two wrappers, in turns
@@ -181,21 +222,7 @@ def time_turns(fns, kind, x, steps: int, scale=None):
             return fn.soa(y)
         return fn(y) if scale is None else fn(y, scale[:y.shape[1]])
 
-    def one(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        y = x
-        start.record()
-        for _ in range(steps):
-            y = call(fn, y) if kind == "step" else call(fn, x)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / steps
-
-    for fn in fns:  # warm-up: builds, loads
-        call(fn, x[:, :NZ].contiguous())
+    for fn in fns:  # warm-up: builds, loads (a whole step: one column)
+        call(fn, x[:, :fn.plan.nz if kind == "step" else NZ].contiguous())
     torch.cuda.synchronize()
-    times = {0: [], 1: []}
-    for i in (0, 1, 1, 0):
-        times[i].append(one(fns[i]))
-    return [float(np.median(times[i])) for i in (0, 1)], times
+    return turns([lambda y, fn=fn: call(fn, y) for fn in fns], x, steps, chain=kind == "step")

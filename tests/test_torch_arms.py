@@ -313,15 +313,15 @@ def test_opcount_family_matrix():
 @pytest.mark.parametrize("name", ["mono-gamma-closed", "lognorm-gamma-grid"])
 def test_scaled_step_refuses_the_reference_tier_arms(name):
     """The scaled whole step (B1s) no longer refuses the reference tier: a
-    monodisperse or Φ-grid configuration builds the scaled step on the
-    table-driven reference instance (as JAX's `fn_scaled` takes any tier),
-    and at s = 1 its twin is the unscaled step's, bit for bit."""
+    monodisperse or Φ-grid configuration builds the scaled step on a unit
+    generated for its reference-tier plan (as JAX's `fn_scaled` takes any
+    tier), and at s = 1 its twin is the unscaled step's, bit for bit."""
     data, kw = wsa.case_data(name)
     args = (data, ((50.0, 1.0 / 6.0),), NORMS)
     skw = dict(nz=8, dz=375.0, dt=1.0, device="cpu", dtype=torch.float64, **kw)
     scaled = fc.make_rainshaft_step_fn(*args, kernel_scale=True, **skw)
     assert isinstance(scaled, fc.ScaledRainshaftStepFn)
-    assert scaled.route == "table" and scaled.plan.instance == 2 and scaled.unit is None
+    assert scaled.route == "generated" and scaled.plan.instance == 2 and scaled.unit.scaled
     x = torch.as_tensor(_moments(tuple(Family(int(f)).name for f in data.spec.families),
                                  16, 3).T.copy()) * torch.tensor(
                                      scaled.plan.mom_norms, dtype=torch.float64)[:, None]

@@ -455,22 +455,23 @@ def test_routes_follow_the_plan():
     assert (step.route, rhs.route) == ("generated", "generated")
     assert step.unit.kind == "step" and rhs.unit.kind == "rhs"
     assert step.unit.shfl and step.unit.digest != rhs.unit.digest
-    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).route == "table"
-    assert fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device="cpu").route == "table"
+    # the reference tier of the whole step and the fused RHS is generated too
+    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).route == "generated"
+    assert fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device="cpu").route == "generated"
     scaled = fc.make_rainshaft_step_fn(fast, VEL, NORMS, kernel_scale=True, **kw)
     assert scaled.route == "generated" and scaled.unit.scaled and scaled.unit.kind == "step"
     assert scaled.unit.digest != step.unit.digest
     assert fc.ScaledRainshaftStepFn(scaled.plan, "cpu", torch.float32, _table=True).route == "table"
-    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, kernel_scale=True, **kw).route == "table"
+    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, kernel_scale=True, **kw).route == "generated"
     coal = fc.make_coal_fn(fast, device="cpu")
     assert coal.route == "generated" and coal.unit.kind == "coal"
     assert fc.make_coal_fn(ref, device="cpu").route == "table"
     assert fc.make_coal_fn(ref, device="cpu").unit is None
     assert fc.CoalFn(coal.plan, "cpu", torch.float32, _table=True).route == "table"
     assert fc.RainshaftStepFn(step.plan, "cpu", torch.float32, _table=True).route == "table"
-    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).unit is None
+    assert fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw).unit.kind == "step"
     with pytest.raises(ValueError):
-        codegen.unit(fc.build_plan(ref, VEL, NORMS, NZ, DZ, DT), torch.float32)
+        codegen.unit(fc.build_plan(ref), torch.float32, "coal")
     x = torch.ones(6, NZ)  # on the host the twin runs and nothing launches
     step(x), rhs.soa(x), coal.soa(x)
     assert step.launches == rhs.launches == coal.launches == 0

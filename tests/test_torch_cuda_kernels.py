@@ -80,6 +80,7 @@ def _generated_units():
                                                  device="cuda", dtype=dtype, kernel_scale=True))
     for nz in longhorizon.DEPTHS.values():
         fns += list(longhorizon.make_steps(nz, "cuda"))
+    fns += _reference_fns("cuda")
     _build.build_generated([u for f in fns for u in f.build_units()])
 
 
@@ -286,8 +287,8 @@ def test_generated_rhs_matches_twin(cuda, dtype, variant):
 
 
 def test_routes_on_the_card(cuda):
-    """A fast-tier plan launches the generated kernel, a reference-tier plan
-    the table-driven one; each wrapper counts its own launches."""
+    """The whole step and the fused RHS launch the kernel generated for the
+    plan at either tier; each wrapper counts its own launches."""
     ker = K.CoalescenceTensor.from_function(K.LinearKernelFunction(5.0), 1, 1e-6)
     ref = build_coalescence_data(SpectrumSpec((Family.GAMMA, Family.GAMMA)), ker,
                                  (5e-10, np.inf), norms=NORMS)
@@ -296,8 +297,8 @@ def test_routes_on_the_card(cuda):
     ref_step = fc.make_rainshaft_step_fn(ref, VEL, NORMS, **kw)
     fast_rhs = fc.make_rainshaft_rhs_fn(_fast_data(), VEL, NORMS, device=cuda)
     ref_rhs = fc.make_rainshaft_rhs_fn(ref, VEL, NORMS, device=cuda)
-    assert [f.route for f in (fast_step, ref_step, fast_rhs, ref_rhs)] == [
-        "generated", "table", "generated", "table"]
+    assert [f.route for f in (fast_step, ref_step, fast_rhs, ref_rhs)] == ["generated"] * 4
+    assert "kRef = true" in ref_step.unit.cfg and "kRef = false" in fast_step.unit.cfg
     x = _column_state(4, 32, seed=11).to(cuda, torch.float32)
     for f in (fast_step, ref_step):
         assert _row_scaled(f(x), f.plain(x)) < TOL[torch.float32]
@@ -537,13 +538,14 @@ def test_reference_coal_kernel_matches_twin(cuda, dtype, case):
 @pytest.mark.parametrize("moving", [False, True], ids=["fixed", "moving"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_reference_step_and_rhs_kernels_match_twins(cuda, dtype, moving):
-    """B1's and B4's reference-tier instances (series/CF, Lanczos flux)
-    against their twins, 9 columns × 32 levels."""
+    """B1's and B4's reference tier (series/CF, Lanczos flux), generated
+    for the plan, against their twins, 9 columns × 32 levels."""
     data = _ref_data(moving=moving)
     step = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
                                      device=cuda, dtype=dtype)
     rhs = fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device=cuda, dtype=dtype)
     assert step.plan.instance == 2 and rhs.plan.instance == 2
+    assert step.route == rhs.route == "generated"
     x = _column_state(9, 32, seed=4).to(cuda, dtype)
     norm = torch.tensor(step.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
     got = step(x)
@@ -724,15 +726,17 @@ def _four_mode_fns(device, dtype, fast=True, kernel_scale=False):
 def test_four_mode_kernels_match_twins(cuda, dtype, fast):
     """Four gamma modes (n_tot 12, past the prebuilt 3 modes and 9 moments)
     through B3, B4, B1 and B1s: the fast tier's kernels generated for the
-    plan, the reference tier's units built at capacities (4, 12, 5), B3's
-    both layouts; 80 columns × 8 levels (a ragged last block), a different
-    scale per column."""
+    plan at either tier, the reference tier's B3 from units built at
+    capacities (4, 12, 5) in both layouts; 80 columns × 8 levels (a ragged
+    last block), a different scale per column."""
     import _four_modes_reference as ref
 
     coal, rhs, step, scaled = _four_mode_fns(cuda, dtype, fast)
-    assert {f.route for f in (coal, rhs, step, scaled)} == {"generated" if fast else "table"}
+    assert {f.route for f in (rhs, step, scaled)} == {"generated"}
+    assert coal.route == ("generated" if fast else "table")
+    assert step.unit.n_tot == 12 and scaled.unit.scaled
     if not fast:
-        assert step.caps == (4, 12, 5) and step.build_units()[0].kind == "ref_step"
+        assert coal.caps == (4, 12, 5) and coal.build_units()[0].kind == "ref_coal"
     x = torch.as_tensor(ref.state(80, seed=7), dtype=dtype, device=cuda)
     norm = torch.tensor(step.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
     xn = (x.clamp_min(0) / norm).contiguous()
@@ -758,9 +762,9 @@ def test_four_mode_kernels_match_jax(cuda):
     """The card's kernels in f64 against JAX's outputs stored by
     tests/_four_modes_reference.py (the Pallas kernels in interpret mode,
     JAX's XLA path for the reference tier): B3, B4 and B1 generated for four
-    gamma modes, the reference units' B3 and B1, B5 at four modes (its unit),
-    and B1s at the reference tier (the library's scaled reference
-    instance), row-scaled 1e-9."""
+    gamma modes, the reference tier's B3 (its units) and B1 (generated), B5
+    at four modes (its unit), and B1s at the reference tier (generated),
+    row-scaled 1e-9."""
     import _four_modes_reference as ref
 
     st = ref.load()
@@ -785,7 +789,7 @@ def test_four_mode_kernels_match_jax(cuda):
     scaled = fc.make_rainshaft_step_fn(two, VEL, NORMS, nz=ref.NZ, dz=ref.DZ, dt=1.0,
                                        device=cuda, dtype=f64, kernel_scale=True,
                                        gammainc_iters=ref.SCALED_REF_ITERS)
-    assert scaled.plan.instance == 2 and scaled.caps == fc.CAPS
+    assert scaled.plan.instance == 2 and scaled.route == "generated" and scaled.unit.scaled
     got = scaled(t["scaled_state"], t["scale"])
     norm2 = norm[:6]
     assert _row_scaled(got / norm2, t["scaled_ref"] / norm2) < TOL[f64]
@@ -794,14 +798,14 @@ def test_four_mode_kernels_match_jax(cuda):
 @pytest.mark.parametrize("case", ["fixed_simpson", "moving_gauss", "exact_series_cf"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_scaled_reference_step_matches_twin(cuda, dtype, case):
-    """B1s at the reference tier (the library's scaled reference instance)
+    """B1s at the reference tier (the scaled unit generated for the plan)
     against its twin, a different scale per column; at s = 1.7 against the
     unscaled reference kernel built from the 1.7-scaled tensor (f64)."""
     bkw, ckw = REF_CASES[case]
     data = _ref_data(**bkw)
     kw = dict(nz=32, dz=93.75, dt=1.0, device=cuda, dtype=dtype, **ckw)
     fn = fc.make_rainshaft_step_fn(data, VEL, NORMS, kernel_scale=True, **kw)
-    assert fn.plan.instance == 2 and fn.route == "table"
+    assert fn.plan.instance == 2 and fn.route == "generated" and fn.unit.scaled
     x = _column_state(9, 32, seed=13).to(cuda, dtype)
     s = torch.linspace(0.4, 2.5, 9, dtype=dtype, device=cuda).repeat_interleave(32)
     got = fn(x, s)
@@ -907,7 +911,7 @@ def test_longhorizon_pair_matches_twins(cuda, nz):
     over every column (f32 1e-4, f64 1e-9), and the f32 run within the JAX
     gate's bound of the f64 one."""
     fast, ref = longhorizon.make_steps(nz, cuda)
-    assert fast.route == "generated" and ref.route == "table" and ref.plan.ref
+    assert fast.route == "generated" and ref.route == "generated" and ref.plan.ref
     name = {v: k for k, v in longhorizon.DEPTHS.items()}[nz]
     rec, states = longhorizon.run_depth(name, nz, fast, ref, n_steps=100)
     assert rec["launches_f32"] == rec["launches_f64"] == 100 and rec["finite"]
@@ -919,6 +923,86 @@ def test_longhorizon_pair_matches_twins(cuda, nz):
             y = fn.plain(y)
         got = rs.to_soa(torch.as_tensor(states[tag][-1])).to(cuda)
         assert _row_scaled(got, y) < TOL[fn.dtype], tag
+
+
+# --------------------------------------------------------------------------
+# the reference tier generated per configuration against the table-driven
+# instances it replaced
+# --------------------------------------------------------------------------
+
+#: (reference case of `REF_CASES` or family-matrix case, kernel)
+GEN_REF = [(c, k) for c in ("fixed_simpson", "moving_simpson", "moving_gauss", "exact_series_cf",
+                            "exp_gamma") for k in ("step", "scaled", "rhs")]
+GEN_REF += [(c, k) for c in ("mono-gamma-closed", "lognorm-gamma-grid")
+            for k in ("step", "scaled", "rhs")]
+
+
+def _gen_ref_pair(case, kind, device, dtype):
+    """(generated, table-driven) wrappers of one reference-tier plan."""
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    if case in REF_CASES:
+        bkw, ckw = REF_CASES[case]
+        data = _ref_data(**bkw)
+    else:
+        data, ckw = wsa.case_data(case)
+    if kind == "rhs":
+        gen = fc.make_rainshaft_rhs_fn(data, VEL, NORMS, device=device, dtype=dtype, **ckw)
+    else:
+        gen = fc.make_rainshaft_step_fn(data, VEL, NORMS, nz=32, dz=93.75, dt=1.0,
+                                        device=device, dtype=dtype,
+                                        kernel_scale=kind == "scaled", **ckw)
+    return gen, type(gen)(gen.plan, device, dtype, _table=True)
+
+
+def _reference_fns(device):
+    return [f for dt in DTYPES for c, k in GEN_REF for f in _gen_ref_pair(c, k, device, dt)]
+
+
+@pytest.mark.parametrize("case,kind", GEN_REF)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_reference_kernels_match_twin_and_table(cuda, dtype, case, kind):
+    """B1, B1s and B4 at the reference tier, generated for the plan, against
+    their twins and against the table-driven instance (`_table`) on the same
+    input, 9 columns × 32 levels of two seeded modes; a monodisperse plan's
+    unit carries no FMA contraction."""
+    gen, table = _gen_ref_pair(case, kind, cuda, dtype)
+    assert (gen.route, table.route) == ("generated", "table") and gen.plan.ref
+    assert ("-fmad=false" in gen.unit.flags) == (Family.MONODISPERSE in gen.plan.families)
+    n1 = gen.plan.nprog[0]
+    z = (np.arange(32) + 0.5) * 93.75
+    ic = np.concatenate([rs.initial_condition(z, [1e8, 1e-2, 2e-12])[:, :n1],
+                         rs.initial_condition(z, [1e7, 1e-3, 2e-13])], axis=-1)
+    amp = np.random.default_rng(21).uniform(0.5, 1.5, (9, 1, 1))
+    x = rs.to_soa(torch.as_tensor(np.tile(ic[None], (9, 1, 1)) * amp)).to(cuda, dtype)
+    norm = torch.tensor(gen.plan.mom_norms, dtype=dtype, device=cuda)[:, None]
+    s = torch.linspace(0.4, 2.5, 9, dtype=dtype, device=cuda).repeat_interleave(32)
+    if kind == "rhs":
+        norm = torch.cat([norm, norm])
+        got, want, ref = gen.soa(x), gen.plain(x), table.soa(x)
+    else:
+        args = (x,) if kind == "step" else (x, s)
+        got, want, ref = gen(*args), gen.plain(*args), table(*args)
+    assert gen.launches == table.launches == 1 and bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm, want / norm) < TOL[dtype]
+    assert _row_scaled(got / norm, ref / norm) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_generated_mono_trajectory_is_the_twins(cuda, dtype):
+    """The family matrix's `mono-gamma-closed` pulse, 128 columns × 40
+    steps: the generated unit (no FMA contraction) keeps the twin's
+    trajectory bit for bit, as the table-driven reference step did: the
+    pulse is ill-conditioned (ROADMAP.md §C), so any other rounding would
+    leave it."""
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    config, step = wsa.build_case("mono-gamma-closed", 32, cuda, dtype)
+    assert step.route == "generated" and step.unit.flags == ("-fmad=false",)
+    y = yt = wsa.initial_state(config, 128, cuda, dtype)
+    for _ in range(40):
+        y, yt = step(y), step.plain(yt)
+    assert bool(torch.isfinite(y).all()) and torch.equal(y, yt)
 
 
 def test_step_timer_times_a_cuda_call_by_events(cuda):

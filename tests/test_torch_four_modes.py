@@ -90,17 +90,21 @@ def _row_scaled(got, want, norm=None):
 
 
 def test_four_mode_plans_route_and_pack():
-    """Both tiers build; the fast tier's kernels are generated for the plan,
-    the reference tier's run units at capacities (4, 12, 5); the packed
-    configuration holds four per-mode slots and the layout of those
-    capacities."""
+    """Both tiers build; the whole step, its scaled form and the fused RHS
+    are generated for the plan at either tier, the reference tier's
+    coalescence RHS and the table-driven yardsticks run units at capacities
+    (4, 12, 5); the packed configuration holds four per-mode slots and the
+    layout of those capacities."""
     _, fast = ref.data()
     _, refd = ref.data(fast=False)
     step = fc.make_rainshaft_step_fn(fast, VEL, NORMS, nz=NZ, dz=DZ, dt=1.0, device="cpu")
     assert step.route == "generated" and step.caps is None
     assert step.unit.n_tot == 12 and "kModes = 4, kNtot = 12, kM = 5;" in step.unit.cfg
     rstep = fc.make_rainshaft_step_fn(refd, VEL, NORMS, nz=NZ, dz=DZ, dt=1.0, device="cpu")
-    assert rstep.route == "table" and rstep.caps == (4, 12, 5) and rstep.unit is None
+    assert rstep.route == "generated" and rstep.caps is None and rstep.unit.n_tot == 12
+    assert "kModes = 4, kNtot = 12, kM = 5;" in rstep.unit.cfg and "kRef = true" in rstep.unit.cfg
+    rtable = fc.RainshaftStepFn(rstep.plan, "cpu", torch.float32, _table=True)
+    assert rtable.route == "table" and rtable.caps == (4, 12, 5) and rtable.unit is None
     plan = rstep.plan
     assert (plan.n_modes, plan.n_tot, plan.M) == (4, 12, 4)
     assert [len(g[0]) for g in plan.grids[:3]] == [76, 86, 101] and plan.grids[3] is None
@@ -116,9 +120,13 @@ def test_four_mode_plans_route_and_pack():
              "scaled": fc.make_rainshaft_step_fn(refd, VEL, NORMS, nz=NZ, dz=DZ, dt=1.0,
                                                  device="cpu", kernel_scale=True)}
     assert {k: [u.kind for u in fn.build_units()] for k, fn in kinds.items()} == {
-        "coal": ["ref_coal", "ref_warp"], "rhs": ["ref_rhs"], "step": ["ref_step"],
-        "scaled": ["ref_step_scaled"]}
-    su = kinds["scaled"].build_units()[0]
+        "coal": ["ref_coal", "ref_warp"], "rhs": ["rhs"], "step": ["step"], "scaled": ["step"]}
+    assert kinds["scaled"].build_units()[0].scaled
+    tables = {k: type(fn)(fn.plan, "cpu", torch.float32, _table=True)
+              for k, fn in kinds.items() if k != "coal"}
+    assert {k: [u.kind for u in fn.build_units()] for k, fn in tables.items()} == {
+        "rhs": ["ref_rhs"], "step": ["ref_step"], "scaled": ["ref_step_scaled"]}
+    su = tables["scaled"].build_units()[0]
     assert su.flags == ("-fmad=false",) and "CLOUDY_CAP_NTOT 12" in su.source
     assert "CLOUDY_REF_ENTRY(float, STEP_SCALED)" in su.source
 
@@ -395,7 +403,7 @@ def test_scaled_reference_step_matches_pallas():
     fn = fc.make_rainshaft_step_fn(td, VEL, NORMS, nz=NZ, dz=DZ, dt=1.0, device="cpu",
                                    dtype=torch.float64, kernel_scale=True, **kw)
     assert isinstance(fn, fc.ScaledRainshaftStepFn)
-    assert fn.plan.instance == 2 and fn.route == "table" and fn.caps == fc.CAPS
+    assert fn.plan.instance == 2 and fn.route == "generated" and fn.unit.scaled
     got = fn(state, torch.as_tensor(s_row)).numpy()
     assert _row_scaled(got, want, fn.plan.mom_norms) < TOL
     assert fn.launches == 0

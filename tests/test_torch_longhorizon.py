@@ -23,7 +23,7 @@ HORIZON = 200
 def test_f32_fast_twin_holds_the_f64_reference_twin():
     fast, ref = lh.make_steps(32, "cpu")
     assert (fast.route, fast.dtype, ref.route, ref.dtype) == (
-        "generated", torch.float32, "table", torch.float64)
+        "generated", torch.float32, "generated", torch.float64)
     assert not fast.plan.ref and ref.plan.ref
     rec, states = lh.run_depth("pod", 32, fast, ref, n_steps=HORIZON, columns=4)
     assert rec["n_columns"] == 4 and rec["card"] == "cpu" and rec["clock"] == "host"

@@ -166,10 +166,11 @@ def test_wrapper_rejects_wrong_dtype_shape_layout():
 def test_unsupported_configuration_raises(case):
     """Configurations past the prebuilt kernels' capacities (four gamma
     modes: 4 modes, n_tot 12) no longer raise: the generated kernels are
-    sized from the plan, and the table-driven reference tier runs units
-    built at its own capacities (`plan_caps`). What still raises is the
-    private table-driven fast yardstick at such a plan (it exists at the
-    prebuilt capacities only)."""
+    sized from the plan at either tier, and the table-driven reference
+    instances (the yardstick, `_table`) run units built at their own
+    capacities (`plan_caps`). What still raises is the private table-driven
+    fast yardstick at such a plan (it exists at the prebuilt capacities
+    only)."""
     data = _data((Family.GAMMA,) * 4, (5e-10,) * 3 + (np.inf,))
     coal = fc.make_coal_fn(data, device="cpu")
     step = fc.make_rainshaft_step_fn(data, ((50.0, 1.0 / 6.0),), NORMS, nz=32,
@@ -181,8 +182,10 @@ def test_unsupported_configuration_raises(case):
     ref = _data((Family.GAMMA,) * 4, (5e-10,) * 3 + (np.inf,), fast_tier=False)
     ref_step = fc.make_rainshaft_step_fn(ref, ((50.0, 1.0 / 6.0),), NORMS, nz=32,
                                          dz=93.75, dt=1.0, device="cpu")
-    assert ref_step.route == "table" and ref_step.caps == (4, 12, 5)
-    assert [u.kind for u in ref_step.build_units()] == ["ref_step"]
+    assert ref_step.route == "generated" and ref_step.unit.n_tot == 12
+    ref_table = fc.RainshaftStepFn(ref_step.plan, "cpu", torch.float32, _table=True)
+    assert ref_table.route == "table" and ref_table.caps == (4, 12, 5)
+    assert [u.kind for u in ref_table.build_units()] == ["ref_step"]
 
 
 @pytest.mark.parametrize(
