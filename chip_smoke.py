@@ -182,18 +182,20 @@ Drives the port's main path once on the card and fails loudly:
    `ensemble_rainshaft_step_soa`) at 2^20 x 32, one rank, its record
    printed, and B4 against its twin at that shape;
 30. (a) B5 with a traced kernel function (`ops.kernel_expr`, the
-   `KT_GEN` arm of its own unit): the Long kernel fitted as a tensor and a
-   torch lambda against the twin at 128 boxes, (64, 32) nodes, f32 and f64
+   `KT_GEN` arm of its own unit): the Long kernel fitted as a tensor, a
+   torch lambda, a collection efficiency (tanh, erf) and the coverage unit
+   (every elementwise form the tracer covers; `tools.traced_kernels`)
+   against the twin at 128 boxes, (64, 32) nodes, f32 and f64
    (B5's tolerances), then the numerical bench chain through each at
    [6, 262144] f32 (launches counted), each against the twin there, its
    ms, the twin's, the unit's ptxas line and nvcc seconds, and B5's Long
-   in turns with both; (b) the native oracle (`native.coal_ints_golden`,
+   in turns with all four; (b) the native oracle (`native.coal_ints_golden`,
    g++ on the host) on the card's f64 state against `get_coal_ints` on the
    card (rtol 1e-8) and against B3's f64 reference tier at the Simpson
    switches, 65,536 bench boxes; (c) five examples in FAST mode on the card,
-   each a child process with `--outdir` in a temporary directory, their
-   host seconds, and the calibration example once more in this process
-   under `torch.profiler` (its device busy share); (d)
+   each a child process with `--outdir` in a temporary directory, all five
+   at once, their host seconds, and the calibration example once more in
+   this process under `torch.profiler` (its device busy share); (d)
    `tools.whole_step_1m` (B1 at 2^20 x 32) beside phase 6's ms/step;
 31. ROADMAP B.5, the reference tier of B1, B1s and B4 generated per
    configuration (`tools.reference_tune`): each reading (B1 at
@@ -539,15 +541,20 @@ def generated_wrappers(dev):
 
 def traced_kernels():
     """B5's traced kernel functions (phase 30): the Long kernel fitted as a
-    kernel tensor (order 2, normalized) and a torch lambda."""
+    kernel tensor (order 2, normalized), a torch lambda, and
+    `tools.traced_kernels`' collection efficiency (tanh, erf, `torch.mul`
+    and method forms) and coverage unit (every elementwise form the tracer
+    covers, one term each)."""
     import torch
 
     from cloudy_tpu_torch import kernels as K
+    from cloudy_tpu_torch.tools import traced_kernels as tk
 
     kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
     return {
         "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized((1e6, 1e-9)),
         "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
+        **tk.KERNELS,
     }
 
 
@@ -3478,36 +3485,52 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
     torch.cuda.empty_cache()
     print(f"phase 30 (b) seconds {time.perf_counter() - t:.3f}")
 
-    # (c) examples on the card in FAST mode, each a child process
+    # (c) examples on the card in FAST mode, each a child process, all five
+    # at once (their starts and host-bound steps overlap on the host's cores)
     t = time.perf_counter()
     env = dict(os.environ, CLOUDY_EXAMPLE_FAST="1", PYTHONPATH=str(ROOT))
     with tempfile.TemporaryDirectory() as tmp:
+        procs, secs = {}, {}
+        try:
+            for name in CARD_EXAMPLES:
+                out = Path(tmp) / name
+                out.mkdir()
+                with open(out / "stdout.txt", "w") as fo, open(out / "stderr.txt", "w") as fe:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", f"cloudy_tpu_torch.examples.{name}", "--device",
+                         "cuda", "--outdir", str(out)], cwd=ROOT, env=env, stdout=fo, stderr=fe)
+            while len(secs) < len(procs):
+                for name, proc in procs.items():
+                    if name not in secs and proc.poll() is not None:
+                        secs[name] = time.perf_counter() - t
+                check(time.perf_counter() - t < 600, "the examples ran past 600 s")
+                time.sleep(0.05)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         for name in CARD_EXAMPLES:
             out = Path(tmp) / name
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", f"cloudy_tpu_torch.examples.{name}", "--device", "cuda",
-                 "--outdir", str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
-                timeout=600)
-            sec = time.perf_counter() - t0
-            lines = proc.stdout.strip().splitlines()
-            check(proc.returncode == 0,
-                  f"example {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
-            check(any(k in proc.stdout for k in ("final moments", "total mass", "done")),
+            stdout = (out / "stdout.txt").read_text()
+            lines = stdout.strip().splitlines()
+            check(procs[name].returncode == 0, f"example {name} exited {procs[name].returncode}: "
+                  f"{(out / 'stderr.txt').read_text()[-2000:]}")
+            check(any(k in stdout for k in ("final moments", "total mass", "done")),
                   f"example {name} printed none of its result lines")
             # figures where matplotlib is installed (`plotting.available`), else
             # the example says it skips them; the calibration draws none
             pngs = len(list(out.glob("*.png")))
             if name != "calibration_example":
-                check(pngs > 0 if plotting.available() else "figures skipped" in proc.stdout,
+                check(pngs > 0 if plotting.available() else "figures skipped" in stdout,
                       f"example {name}: {pngs} figures, matplotlib installed "
                       f"{plotting.available()}")
             print(f"phase 30 (c) example {name} on the card (FAST, child process, its start "
-                  f"included): {sec:.3f} host s, {pngs} figures, "
+                  f"included, five at once): {secs[name]:.3f} host s, {pngs} figures, "
                   f"{len(list(out.glob('*.nc')))} NetCDF files; last line: "
                   f"{lines[-1] if lines else ''} {card}")
             if name == "calibration_example":
-                s_eki = float(re.search(r"EKI:\s+s = ([0-9.]+)", proc.stdout).group(1))
+                s_eki = float(re.search(r"EKI:\s+s = ([0-9.]+)", stdout).group(1))
                 check(abs(s_eki - 1.7) / 1.7 < 0.02, f"calibration example EKI s = {s_eki}")
     # the calibration example's batched forward (24 members) under the
     # profiler: the device's share of its host time

@@ -47,6 +47,79 @@ __device__ __forceinline__ float dfloor(float x) { return floorf(x); }
 __device__ __forceinline__ double dfloor(double x) { return ::floor(x); }
 __device__ __forceinline__ double dpow(double x, double y) { return pow(x, y); }
 
+// The elementwise functions a traced kernel function may call
+// (ops/kernel_expr.py), each in the unit's type and with torch's semantics
+// where it differs from C's: round is rint (half to even), sign is 0 at NaN
+// and +0 at -0, remainder takes the divisor's sign, floor_divide is the
+// divmod-corrected quotient (c10 div_floor_floating), sigmoid its closed
+// form. IEEE routines, no approximate intrinsics: these also compile as host
+// C++ in the tests (tests/test_torch_kernel_expr.py).
+#define CLOUDY_MATH1(name, f32, f64)                                          \
+  __device__ __forceinline__ float name(float x) { return f32(x); }          \
+  __device__ __forceinline__ double name(double x) { return f64(x); }
+#define CLOUDY_MATH2(name, f32, f64)                                          \
+  __device__ __forceinline__ float name(float x, float y) { return f32(x, y); } \
+  __device__ __forceinline__ double name(double x, double y) { return f64(x, y); }
+CLOUDY_MATH1(dsin, sinf, sin)
+CLOUDY_MATH1(dcos, cosf, cos)
+CLOUDY_MATH1(dtan, tanf, tan)
+CLOUDY_MATH1(dasin, asinf, asin)
+CLOUDY_MATH1(dacos, acosf, acos)
+CLOUDY_MATH1(datan, atanf, atan)
+CLOUDY_MATH1(dsinh, sinhf, sinh)
+CLOUDY_MATH1(dcosh, coshf, cosh)
+CLOUDY_MATH1(dtanh, tanhf, tanh)
+CLOUDY_MATH1(dasinh, asinhf, asinh)
+CLOUDY_MATH1(dacosh, acoshf, acosh)
+CLOUDY_MATH1(datanh, atanhf, atanh)
+CLOUDY_MATH1(derf, erff, erf)
+CLOUDY_MATH1(derfc, erfcf, erfc)
+CLOUDY_MATH1(dlgamma, lgammaf, lgamma)
+CLOUDY_MATH1(dexpm1, expm1f, expm1)
+CLOUDY_MATH1(dlog1p, log1pf, log1p)
+CLOUDY_MATH1(dexp2, exp2f, exp2)
+CLOUDY_MATH1(dlog2, log2f, log2)
+CLOUDY_MATH1(dlog10, log10f, log10)
+CLOUDY_MATH1(dceil, ceilf, ::ceil)
+CLOUDY_MATH1(dtrunc, truncf, ::trunc)
+CLOUDY_MATH1(drint, rintf, ::rint)
+CLOUDY_MATH2(datan2, atan2f, atan2)
+CLOUDY_MATH2(dhypot, hypotf, hypot)
+CLOUDY_MATH2(dcopysign, copysignf, ::copysign)
+CLOUDY_MATH2(dfmod, fmodf, ::fmod)
+CLOUDY_MATH2(dfmin, fminf, ::fmin)
+CLOUDY_MATH2(dfmax, fmaxf, ::fmax)
+#undef CLOUDY_MATH1
+#undef CLOUDY_MATH2
+// a template, so that a host build of this header needs an erfinv (glibc
+// has none) only where a kernel function calls it
+template <typename T> __device__ __forceinline__ T derfinv(T x) {
+  if constexpr (sizeof(T) == sizeof(float)) return erfinvf(x);
+  else return erfinv(x);
+}
+template <typename T> __device__ __forceinline__ T drsqrt(T x) { return T(1) / dsqrt(x); }
+template <typename T> __device__ __forceinline__ T dsign(T x) {
+  return T((x > T(0)) - (x < T(0)));
+}
+template <typename T> __device__ __forceinline__ T dsigmoid(T x) {
+  return T(1) / (T(1) + dexp(-x));
+}
+template <typename T> __device__ __forceinline__ T dremainder(T a, T b) {
+  T mod = dfmod(a, b);
+  if (mod != T(0) && (b < T(0)) != (mod < T(0))) mod += b;
+  return mod;
+}
+template <typename T> __device__ __forceinline__ T dfloordiv(T a, T b) {
+  if (b == T(0)) return a / b;
+  const T mod = dfmod(a, b);
+  T div = (a - mod) / b;
+  if (mod != T(0) && (b < T(0)) != (mod < T(0))) div -= T(1);
+  if (div == T(0)) return dcopysign(T(0), a / b);
+  T floordiv = dfloor(div);
+  if (div - floordiv > T(0.5)) floordiv += T(1);
+  return floordiv;
+}
+
 // jnp.maximum / jnp.minimum / jnp.clip semantics: NaN propagates
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
   return (a > b || a != a) ? a : b;

@@ -18,7 +18,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from cloudy_tpu_torch.spec import Family, SpectrumSpec
+from cloudy_tpu_torch.spec import NPROG, Family, SpectrumSpec
 from cloudy_tpu_torch.ops import special
 
 # Default shape-parameter clipping range for the gamma closure inversion
@@ -27,6 +27,12 @@ GAMMA_K_RANGE = (None, 10.0)  # (eps(dtype), 10.0)
 
 def _eps(dtype):
     return torch.finfo(dtype).eps
+
+
+def nparams(family: Family) -> int:
+    """Number of settable parameters (reference `nparams`,
+    src/ParticleDistributions/ParticleDistributions.jl:425-427)."""
+    return NPROG[Family(family)]
 
 
 # --------------------------------------------------------------------------

@@ -18,19 +18,46 @@ quadrature kernel's ``KT_GEN`` arm around it (csrc/numerical_coalescence.cu).
 `evaluate` computes a trace on tensors as that function does, for
 `tools.opcount`'s count of the operations it needs.
 
-What the operands cover: ``+ - * / **`` and their reflected forms, unary
-minus, ``abs``, the comparisons and ``& | ~`` on their results (the masks of
-`torch.where`), and through `__torch_function__` the torch functions in
-`TORCH_FUNCTIONS`. Integer powers become products. A numpy scalar on the
-left (`kernels.CoalescenceTensor.__call__` multiplies a ``numpy.float64``
-coefficient by ``x**a``) hands the operation to the operand's reflected
-method, because the operand sets ``__array_ufunc__ = None``. Anything else,
-and any Python branch on an operand's value, raises `KernelTraceError`
-naming the operation.
+What the operands cover, each in the unit's type through a helper of
+csrc/common.cuh with the torch semantics (not C's where they differ):
+
+- ``+ - * / ** % //`` and their reflected forms, unary minus, ``abs``, the
+  comparisons and ``& | ~`` on their results (the masks of `torch.where`);
+  integer powers become products;
+- torch functions, found by identity (so `torch.special` aliases and the
+  `torch.Tensor` methods and dunders a 0-d tensor on the left reaches
+  resolve): add, sub, mul, div (``rounding_mode`` too), true_divide, neg,
+  square, reciprocal, pow, abs, minimum, maximum, fmin, fmax, clamp,
+  clamp_min, clamp_max, where, ones_like, zeros_like, full_like,
+  broadcast_tensors, the comparisons and logical_and/or/not; exp, log,
+  sqrt, rsqrt, sin, cos, tan, asin, acos, atan, atan2, sinh, cosh, tanh,
+  asinh, acosh, atanh, erf, erfc, erfinv, lgamma (gammaln), expm1, log1p,
+  exp2, log2, log10, hypot, floor, ceil, trunc (fix), round (half to even,
+  as torch), sign (0 at NaN and +0 at -0, as torch), copysign, fmod,
+  remainder (Python's sign rule), floor_divide (torch's divmod-corrected
+  quotient) and sigmoid (expit, as its closed form 1/(1 + exp(-x))), with
+  their numpy-style aliases (arcsin, multiply, negative, ...);
+- the method form of each (``x.exp()``, ``x.clamp(min=...)``, ``x.pow(y)``,
+  ``x.where(cond, other)``, which is ``torch.where(cond, x, other)``);
+- ``x.dtype`` (the type being traced: `trace`'s `dtype`) and ``x.device``
+  (the CPU), so that ``torch.as_tensor(c, dtype=x.dtype, device=x.device)``
+  is a constant of that type; a 0-d tensor or a numpy scalar is a constant
+  (a numpy scalar on the left hands the operation to the operand's
+  reflected method, because the operand sets ``__array_ufunc__ = None``).
+
+Everything else raises `KernelTraceError` naming the operation: a Python
+branch on an operand's value, reductions (``x.sum()``, `torch.cumsum`),
+indexing and shape changes, in-place methods (``x.add_``), dtype changes
+(``x.double()``, `torch.float_power`), random draws, ``alpha`` scaling of
+add/sub, and any function not listed (those with no CUDA device version,
+such as `torch.special.digamma`, and the composites of `torch.special`:
+ndtr, logit, xlogy, the Bessel and polynomial families, ...).
 """
 
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -43,8 +70,12 @@ class KernelTraceError(NotImplementedError):
 def _unsupported(what: str) -> KernelTraceError:
     return KernelTraceError(
         f"the kernel-function tracer does not cover {what}: the CUDA quadrature "
-        "kernel evaluates K(x, y) from a trace of + - * / **, abs, comparisons, "
-        "& | ~ and " + ", ".join(f"torch.{n}" for n in sorted(_TORCH_NAMES)))
+        "kernel evaluates K(x, y) from a trace of the elementwise forms that "
+        "cloudy_tpu_torch.ops.kernel_expr lists")
+
+
+#: the type being traced: what ``x.dtype`` answers inside `trace`
+_DTYPE = contextvars.ContextVar("kernel_expr_dtype", default=torch.float64)
 
 
 class Expr:
@@ -92,14 +123,26 @@ class Expr:
     def __rpow__(self, o):
         return _pow(o, self)
 
+    def __mod__(self, o):
+        return _call("remainder", self, o)
+
+    def __rmod__(self, o):
+        return _call("remainder", o, self)
+
+    def __floordiv__(self, o):
+        return _call("floor_divide", self, o)
+
+    def __rfloordiv__(self, o):
+        return _call("floor_divide", o, self)
+
     def __neg__(self):
-        return Expr("neg", (self,))
+        return _call("neg", self)
 
     def __pos__(self):
         return self
 
     def __abs__(self):
-        return Expr("abs", (self,))
+        return _call("abs", self)
 
     # ---- masks -------------------------------------------------------------
     def __lt__(self, o):
@@ -131,9 +174,25 @@ class Expr:
     __ror__ = __or__
 
     def __invert__(self):
-        if not self.boolean:
-            raise _unsupported("~ on a value that is not a mask")
-        return Expr("not", (self,), True)
+        return _not(self)
+
+    # ---- what a tensor answers ---------------------------------------------
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPE.get()
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("cpu")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        method = _METHODS.get(name)
+        if method is None:
+            kind = "the in-place method" if name.endswith("_") else "the attribute or method"
+            raise _unsupported(f"{kind} .{name}")
+        return functools.partial(method, self)
 
     # ---- what a trace cannot follow ----------------------------------------
     def __bool__(self):
@@ -145,34 +204,26 @@ class Expr:
     def __index__(self):
         raise _unsupported("an integer from x or y")
 
-    def __mod__(self, o):
-        raise _unsupported("%")
+    def __getitem__(self, key):
+        raise _unsupported("indexing x[...] or y[...]")
 
-    __rmod__ = __mod__
-
-    def __floordiv__(self, o):
-        raise _unsupported("//")
-
-    __rfloordiv__ = __floordiv__
+    def __setitem__(self, key, value):
+        raise _unsupported("indexing x[...] or y[...]")
 
     def __matmul__(self, o):
         raise _unsupported("@")
 
     __rmatmul__ = __matmul__
 
-    def __getattr__(self, name):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise _unsupported(f"the attribute or method .{name}")
-
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = getattr(func, "__name__", repr(func))
-        rule = TORCH_FUNCTIONS.get(name)
-        if rule is None or getattr(torch, name, None) is not func:
-            raise _unsupported(f"torch.{name}")
-        return rule(*args, **kwargs)
+        rule = _RULES.get(func)
+        if rule is None:
+            raise _unsupported(_qualname(func))
+        try:
+            return rule(*args, **(kwargs or {}))
+        except TypeError:
+            raise _unsupported(f"{_qualname(func)} called with these arguments") from None
 
 
 def const(v) -> Expr:
@@ -216,6 +267,14 @@ def _bin(op: str, a, b) -> Expr:
     return Expr(op, (a, b))
 
 
+def _call(op: str, *args) -> Expr:
+    """The elementwise function `op` (`_CALL_C`) of values."""
+    args = tuple(_wrap(a) for a in args)
+    if any(a.boolean for a in args):
+        raise _unsupported(f"{op} of a mask")
+    return Expr(op, args)
+
+
 def _cmp(op: str, a, b) -> Expr:
     a, b = _wrap(a), _wrap(b)
     return Expr(op, (a, b), True)
@@ -226,6 +285,13 @@ def _logic(op: str, a, b) -> Expr:
     if not (a.boolean and b.boolean):
         raise _unsupported(f"{'&' if op == 'and' else '|'} on values that are not masks")
     return Expr(op, (a, b), True)
+
+
+def _not(a) -> Expr:
+    a = _wrap(a)
+    if not a.boolean:
+        raise _unsupported("~ on a value that is not a mask")
+    return Expr("not", (a,), True)
 
 
 def _pow(a, b) -> Expr:
@@ -241,7 +307,7 @@ def _pow(a, b) -> Expr:
         for _ in range(abs(n) - 1):
             p = Expr("mul", (p, a))
         return Expr("div", (const(1.0), p)) if n < 0 else p
-    return Expr("pow", (a, b))
+    return _call("pow", a, b)
 
 
 def _where(cond, a, b) -> Expr:
@@ -254,37 +320,164 @@ def _where(cond, a, b) -> Expr:
 def _clamp(x, min=None, max=None):
     out = _wrap(x)
     if min is not None:
-        out = Expr("max", (out, _wrap(min)))
+        out = _call("max", out, min)
     if max is not None:
-        out = Expr("min", (out, _wrap(max)))
+        out = _call("min", out, max)
     return out
 
 
+def _add_sub(op):
+    def rule(a, b, *, alpha=1):
+        if alpha != 1:
+            raise _unsupported(f"torch.{op} with alpha")
+        return _bin(op, a, b)
+    return rule
+
+
+def _div(a, b, *, rounding_mode=None):
+    if rounding_mode is None:
+        return _bin("div", a, b)
+    if rounding_mode == "floor":
+        return _call("floor_divide", a, b)
+    if rounding_mode == "trunc":
+        return _call("trunc", _bin("div", a, b))
+    raise _unsupported(f"torch.div with rounding_mode={rounding_mode!r}")
+
+
+def _round(x, *, decimals=0):
+    if decimals != 0:
+        raise _unsupported("torch.round with decimals")
+    return _call("round", x)
+
+
+def _like(x, fill_value, *, dtype=None, **kw):
+    """ones_like / zeros_like / full_like: a constant of the traced type."""
+    if dtype is not None and dtype != _DTYPE.get():
+        raise _unsupported(f"a constant of another type ({dtype})")
+    return const(torch.tensor(fill_value, dtype=_DTYPE.get()).item())
+
+
 def _unary(op):
-    return lambda x, **kw: Expr(op, (_wrap(x),))
+    return lambda x: _call(op, x)
 
 
-#: the torch functions a kernel function may call on x and y, by name
+def _binary(op):
+    return lambda a, b: _call(op, a, b)
+
+
+_UNARY_CALLS = ("exp", "log", "sqrt", "abs", "rsqrt", "sin", "cos", "tan", "asin", "acos",
+                "atan", "sinh", "cosh", "tanh", "asinh", "acosh", "atanh", "erf", "erfc",
+                "erfinv", "lgamma", "expm1", "log1p", "exp2", "log2", "log10", "floor",
+                "ceil", "trunc", "sign", "sigmoid")
+_BINARY_CALLS = ("atan2", "hypot", "copysign", "fmod", "remainder", "floor_divide", "fmin",
+                 "fmax")
+#: the elementwise functions emitted as a call of a csrc/common.cuh helper,
+#: ``d<op>`` but for jnp's and torch's NaN-propagating min/max (``vmin``,
+#: ``vmax``), torch.round's half to even (``drint``) and ``dfloordiv``
+_CALL_C = {**{op: f"d{op}" for op in _UNARY_CALLS + _BINARY_CALLS + ("pow",)},
+           "min": "vmin", "max": "vmax", "round": "drint", "floor_divide": "dfloordiv"}
+
+#: the torch functions a kernel function may call on x and y, by name in
+#: `torch`, `torch.special` and as `torch.Tensor` methods (each found there
+#: by identity); `_ALIASES` adds their other names
 TORCH_FUNCTIONS: Dict[str, Callable] = {
-    "exp": _unary("exp"),
-    "log": _unary("log"),
-    "sqrt": _unary("sqrt"),
-    "abs": _unary("abs"),
+    **{op: _unary(op) for op in _UNARY_CALLS},
+    **{op: _binary(op) for op in _BINARY_CALLS},
+    "add": _add_sub("add"),
+    "sub": _add_sub("sub"),
+    "mul": lambda a, b: _bin("mul", a, b),
+    "div": _div,
+    "true_divide": lambda a, b: _bin("div", a, b),
+    "neg": _unary("neg"),
+    "square": lambda x: _bin("mul", x, x),
+    "reciprocal": lambda x: _bin("div", 1.0, x),
     "pow": lambda a, b: _pow(a, b),
-    "where": _where,
-    "minimum": lambda a, b: Expr("min", (_wrap(a), _wrap(b))),
-    "maximum": lambda a, b: Expr("max", (_wrap(a), _wrap(b))),
+    "round": _round,
+    "minimum": lambda a, b: _call("min", a, b),
+    "maximum": lambda a, b: _call("max", a, b),
     "clamp": _clamp,
+    "clamp_min": lambda x, min: _clamp(x, min=min),
+    "clamp_max": lambda x, max: _clamp(x, max=max),
+    "where": _where,
+    "ones_like": lambda x, **kw: _like(x, 1.0, **kw),
+    "zeros_like": lambda x, **kw: _like(x, 0.0, **kw),
+    "full_like": _like,
     "broadcast_tensors": lambda *xs: tuple(xs),
-    "full_like": lambda x, fill_value, **kw: const(fill_value),
+    **{op: functools.partial(_cmp, op) for op in ("lt", "le", "gt", "ge", "eq", "ne")},
+    "logical_and": lambda a, b: _logic("and", a, b),
+    "logical_or": lambda a, b: _logic("or", a, b),
+    "logical_not": _not,
 }
-_TORCH_NAMES = tuple(TORCH_FUNCTIONS)
+_ALIASES = {"absolute": "abs", "arcsin": "asin", "arccos": "acos", "arctan": "atan",
+            "arctan2": "atan2", "arcsinh": "asinh", "arccosh": "acosh", "arctanh": "atanh",
+            "fix": "trunc", "gammaln": "lgamma", "expit": "sigmoid", "negative": "neg",
+            "multiply": "mul", "divide": "div", "subtract": "sub", "clip": "clamp",
+            "less": "lt", "less_equal": "le", "greater": "gt", "greater_equal": "ge",
+            "not_equal": "ne"}
+#: the Tensor dunders a 0-d tensor on the left may reach (``t // x`` reaches
+#: ``__floordiv__``; the others reach the methods in this torch)
+_DUNDERS = {"__add__": "add", "__sub__": "sub", "__mul__": "mul", "__truediv__": "div",
+            "__div__": "div", "__pow__": "pow", "__mod__": "remainder",
+            "__floordiv__": "floor_divide", "__neg__": "neg", "__abs__": "abs",
+            "__lt__": "lt", "__le__": "le", "__gt__": "gt", "__ge__": "ge", "__eq__": "eq",
+            "__ne__": "ne"}
 
 
-def trace(kernel_func: Callable) -> Expr:
-    """K(x, y) as an expression of the variables ``x`` and ``y``."""
-    out = kernel_func(Expr("var", ("x",)), Expr("var", ("y",)))
-    out = _wrap(out)
+def _method_where(self, condition, other):
+    # Tensor.where(cond, other) is torch.where(cond, self, other)
+    return _where(condition, self, other)
+
+
+def _tables():
+    """(rules by function object, method rules by name, names by function
+    object)."""
+    rules, methods, names = {}, {}, {}
+    forms = {**TORCH_FUNCTIONS, **{a: TORCH_FUNCTIONS[n] for a, n in _ALIASES.items()}}
+    for name, rule in forms.items():
+        for owner, prefix in ((torch, "torch"), (torch.special, "torch.special")):
+            f = getattr(owner, name, None)
+            if f is not None:
+                rules[f], names[f] = rule, f"{prefix}.{name}"
+        f = getattr(torch.Tensor, name, None)
+        if f is not None:
+            method = _method_where if name == "where" else rule
+            rules[f], names[f] = method, f"torch.Tensor.{name}"
+            methods[name] = method
+    for dunder, name in _DUNDERS.items():
+        f = getattr(torch.Tensor, dunder, None)
+        if f is not None:
+            rules[f], names[f] = forms[name], f"torch.Tensor.{dunder}"
+    return rules, methods, names
+
+
+_RULES, _METHODS, _NAMES = _tables()
+
+
+def _qualname(func) -> str:
+    """``torch.special.digamma`` for `torch.special.digamma` (whose
+    ``__name__`` is ``special_digamma``), ``torch.cumsum``, ..."""
+    if func in _NAMES:
+        return _NAMES[func]
+    name = getattr(func, "__name__", None)
+    if name is None:
+        return repr(func)
+    for owner, prefix in ((torch.special, "torch.special"), (torch, "torch"),
+                          (torch.Tensor, "torch.Tensor")):
+        for n in (name.removeprefix("special_"), name):
+            if getattr(owner, n, None) is func:
+                return f"{prefix}.{n}"
+    return f"torch.{name}"
+
+
+def trace(kernel_func: Callable, dtype: torch.dtype = torch.float64) -> Expr:
+    """K(x, y) as an expression of the variables ``x`` and ``y``, traced at
+    `dtype` (what ``x.dtype`` answers: a constant made at the operand's type
+    is rounded to it)."""
+    token = _DTYPE.set(dtype)
+    try:
+        out = _wrap(kernel_func(Expr("var", ("x",)), Expr("var", ("y",))))
+    finally:
+        _DTYPE.reset(token)
     if out.boolean:
         raise _unsupported("a mask as the kernel's value")
     return out
@@ -297,8 +490,6 @@ def trace(kernel_func: Callable) -> Expr:
 _BINARY_C = {"add": "+", "sub": "-", "mul": "*", "div": "/",
              "lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!=",
              "and": "&&", "or": "||"}
-_CALL_C = {"exp": "dexp", "log": "dlog", "sqrt": "dsqrt", "abs": "dabs",
-           "pow": "dpow", "min": "vmin", "max": "vmax"}
 
 
 def statements(expr: Expr, literal: Callable[[float], str]) -> Tuple[List[str], str]:
@@ -343,9 +534,9 @@ _TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch
               "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
               "eq": torch.eq, "ne": torch.ne, "and": torch.logical_and,
               "or": torch.logical_or, "not": torch.logical_not, "neg": torch.neg,
-              "abs": torch.abs, "exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt,
               "pow": torch.pow, "min": torch.minimum, "max": torch.maximum,
-              "where": torch.where}
+              "where": torch.where, "round": torch.round,
+              **{op: getattr(torch, op) for op in _UNARY_CALLS + _BINARY_CALLS}}
 
 
 def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -426,9 +426,9 @@ class NumericalFn(_KernelFn):
     ``fn.soa(mom [n_tot, B])`` on normalized moments. A CUDA call launches
     ``quad_kernel``: the prebuilt library's at one to three modes with a
     tagged kernel function, else the unit built at first use for the plan's
-    modes and, for a traced kernel function, its expression (`unit`); a
-    kernel function the tracer could not follow raises when a CUDA wrapper
-    is made (its CPU twin calls it). `_direct`
+    modes and, for a traced kernel function, its expression traced at the
+    wrapper's type (`unit`); a kernel function the tracer could not follow
+    raises when a CUDA wrapper is made (its CPU twin calls it). `_direct`
     (private) launches the body it replaced, ``numerical_kernel``, at the
     prebuilt modes and node counts (one thread per outer node, at most
     `DIRECT_MAX_G`): the same-call yardstick of `chip_smoke.py`."""
@@ -441,7 +441,7 @@ class NumericalFn(_KernelFn):
             from cloudy_tpu_torch.ops import kernel_expr
 
             # KernelTraceError names the operation the tracer does not cover
-            trace = kernel_expr.trace(plan.kernel_func)
+            trace = kernel_expr.trace(plan.kernel_func, dtype)
         super().__init__(plan, device, dtype)
         if _direct and (plan.n_modes > MAX_MODES or plan.g_total > DIRECT_MAX_G):
             raise ValueError(
@@ -463,7 +463,7 @@ class NumericalFn(_KernelFn):
             from cloudy_tpu_torch.ops import codegen, kernel_expr
 
             if gen and self._trace is None:
-                self._trace = kernel_expr.trace(self.plan.kernel_func)
+                self._trace = kernel_expr.trace(self.plan.kernel_func, self.dtype)
             self._unit = codegen.numerical_unit(self.plan.n_modes, self.dtype, self._trace)
         return self._unit
 

@@ -18,7 +18,10 @@ depend on the device, so it can be taken on a few lanes and scaled.
 `count_ops_by_class` splits the same count by the primitive operation
 classes of the chain benchmark (B6: mul, add, div, exp, log, sqrt, sel),
 so that `tools.op_microbench.predict_ms` can price a twin's arithmetic at
-the card's measured cost per class.
+the card's measured cost per class; an operation of no class (the
+trigonometric, error-function, rounding and modulus functions a traced
+kernel function may call, `ops.kernel_expr`, each one operation) stands
+under ``other`` by its aten name.
 
 The twins evaluate each lane's series or continued fraction (the
 incomplete gamma, and erf through P(½, z²)) only where the lane selects it,
@@ -68,7 +71,8 @@ _NO_ARITHMETIC = (
 _CLASS_OF = {
     "mul": "mul",
     "add": "add", "sub": "add", "rsub": "add", "neg": "add", "minimum": "add",
-    "maximum": "add", "clamp": "add", "clamp_min": "add", "clamp_max": "add",
+    "maximum": "add", "fmin": "add", "fmax": "add", "clamp": "add", "clamp_min": "add",
+    "clamp_max": "add",
     "sum": "add",
     "div": "div", "reciprocal": "div",
     "exp": "exp",
@@ -101,7 +105,9 @@ class _Counter(TorchDispatchMode):
                 return out
             self.data.update((id(t), t) for t in tree_leaves(out)
                              if isinstance(t, torch.Tensor))
-        if not isinstance(out, torch.Tensor) or name.startswith(_NO_ARITHMETIC):
+        # copysign starts as a copy does, and is arithmetic
+        if not isinstance(out, torch.Tensor) or (name.startswith(_NO_ARITHMETIC)
+                                                 and not name.startswith("copysign")):
             return out
         op = name.split(".")[0].rstrip("_")
         if out.is_floating_point():
@@ -174,7 +180,7 @@ def count_ops_traced(fn, mom: torch.Tensor) -> int:
     from cloudy_tpu_torch.ops import kernel_expr
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
 
-    expr = kernel_expr.trace(fn.plan.kernel_func)
+    expr = kernel_expr.trace(fn.plan.kernel_func, fn.dtype)
     plan = dataclasses.replace(fn.plan,
                                kernel_func=lambda x, y: kernel_expr.evaluate(expr, x, y))
     return count_ops(nc.numerical_soa_plain, mom, plan)

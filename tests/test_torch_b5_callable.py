@@ -33,6 +33,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from cloudy_tpu import coalescence_numerical as jcn
@@ -168,23 +169,24 @@ def test_plans_tags_and_units():
 
 def test_unsupported_operation_raises_with_its_name():
     spec = SpectrumSpec(TWO_GAMMA)
-    sin_kernel = lambda x, y: torch.sin(x) * y + 1e-3  # noqa: E731
-    with pytest.raises(kernel_expr.KernelTraceError, match="torch.sin"):
-        kernel_expr.trace(sin_kernel)
-    plan = nc.build_plan(spec, sin_kernel, 32, 16)
+    digamma_kernel = lambda x, y: torch.special.digamma(1.0 + x) * y + 1e-3  # noqa: E731
+    with pytest.raises(kernel_expr.KernelTraceError, match="torch.special.digamma"):
+        kernel_expr.trace(digamma_kernel)
+    plan = nc.build_plan(spec, digamma_kernel, 32, 16)
     assert plan.ktag == nc.KT_GEN
-    with pytest.raises(NotImplementedError, match="torch.sin"):
+    with pytest.raises(NotImplementedError, match="torch.special.digamma"):
         nc.NumericalFn(plan, "cuda", torch.float32)
     # the CPU twin calls the callable itself, as JAX's kernel does
     mom = _moments(TWO_GAMMA, 8, seed=2)
     got = nc.NumericalFn(plan, "cpu", torch.float64)(torch.as_tensor(mom)).numpy()
-    want = _jax_einsum(lambda x, y: jnp.sin(x) * y + 1e-3, mom, 32, 16)
+    want = _jax_einsum(lambda x, y: jax.scipy.special.digamma(1.0 + x) * y + 1e-3, mom, 32, 16)
     assert _row_scaled(got, want) < TOL
-    # Python branches, methods and other operators name what they are
+    # Python branches, reductions, in-place methods and torch functions
+    # outside the covered forms name what they are
     for f, what in ((lambda x, y: x if x < y else y, "Python branch"),
-                    (lambda x, y: x.exp() + y, ".exp"),
-                    (lambda x, y: x % y, "%"),
-                    (lambda x, y: torch.tanh(x + y), "torch.tanh")):
+                    (lambda x, y: x.sum() + y, r"\.sum"),
+                    (lambda x, y: x.add_(y), r"in-place method \.add_"),
+                    (lambda x, y: torch.cumsum(x + y, 0), "torch.cumsum")):
         with pytest.raises(kernel_expr.KernelTraceError, match=f"{what}"):
             kernel_expr.trace(f)
 

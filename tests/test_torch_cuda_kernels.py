@@ -28,7 +28,7 @@ from cloudy_tpu_torch.ops import fused_coalescence as fc
 from cloudy_tpu_torch.ops import numerical_coalescence as nc
 from cloudy_tpu_torch.ops import op_chains
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
-from cloudy_tpu_torch.tools import longhorizon
+from cloudy_tpu_torch.tools import longhorizon, traced_kernels
 from cloudy_tpu_torch.utils import checkpoint as ck
 
 pytestmark = pytest.mark.cuda
@@ -409,16 +409,19 @@ class _ScaledLinear(K.LinearKernelFunction):
 
 def _traced_kernels():
     """The kernel functions of B5's generated arm (KT_GEN): the Long kernel
-    fitted as a tensor (order 2, normalized), a torch lambda, a subclass."""
+    fitted as a tensor (order 2, normalized), a torch lambda, a subclass,
+    and `tools.traced_kernels`' collection efficiency and the unit that
+    calls every form the tracer covers."""
     kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
     return {
         "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized(NORMS),
         "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
         "subclass": _ScaledLinear(5e-3),
+        **traced_kernels.KERNELS,
     }
 
 
-@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass"])
+@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass", "efficiency", "coverage"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_traced_kernel_function_matches_twin(cuda, dtype, kname):
     """B5 with a kernel function traced into its generated unit against the
