@@ -76,8 +76,9 @@ Drives the port's main path once on the card and fails loudly:
    (`reference_tune.small_trajectory`: column c after 20 (c mod 7) of its
    120 steps), its bound counted on those states;
 18. the goldens at their own tier: `rainshaft_128` through the coalescence
-   kernel's `coal_fn` hook for 300 s, f64 at the reference tier (< 1e-6)
-   and f32 at tests/test_golden.py's bench overrides (< 1e-3);
+   kernel's `coal_fn` hook for 150 s (the golden's frames t = 0-150 s of
+   its 300), f64 at the reference tier (< 1e-6) and f32 at
+   tests/test_golden.py's bench overrides (< 1e-3);
    `rainshaft_small` through the reference whole-step kernel and through
    the fused-RHS route, 128 columns x 120 steps, f64 (< 1e-6; the whole
    step also against its twin over those steps, 4 columns, < 1e-9) and f32
@@ -183,13 +184,16 @@ Drives the port's main path once on the card and fails loudly:
    printed, and B4 against its twin at that shape;
 30. (a) B5 with a traced kernel function (`ops.kernel_expr`, the
    `KT_GEN` arm of its own unit): the Long kernel fitted as a tensor, a
-   torch lambda, a collection efficiency (tanh, erf) and the coverage unit
-   (every elementwise form the tracer covers; `tools.traced_kernels`)
-   against the twin at 128 boxes, (64, 32) nodes, f32 and f64
-   (B5's tolerances), then the numerical bench chain through each at
-   [6, 262144] f32 (launches counted), each against the twin there, its
-   ms, the twin's, the unit's ptxas line and nvcc seconds, and B5's Long
-   in turns with all four; (b) the native oracle (`native.coal_ints_golden`,
+   torch lambda, a collection efficiency (tanh, erf), the coverage unit
+   (the arithmetic, trigonometric, error, rounding and modulus forms) and
+   the special unit (the special functions, closed forms, masks and
+   cleanups; `tools.traced_kernels`) against the twin at 128 boxes, (64, 32)
+   nodes, f32 and f64 (B5's tolerances), then the numerical bench chain
+   through each at [6, 262144] f32 (the special unit at the most boxes, a
+   power of two, at which one launch stays within 100 ms; launches
+   counted), each against the twin there, its ms, the twin's, the unit's
+   ptxas line and nvcc seconds, and B5's Long in turns with all five (and
+   at the special unit's width); (b) the native oracle (`native.coal_ints_golden`,
    g++ on the host) on the card's f64 state against `get_coal_ints` on the
    card (rtol 1e-8) and against B3's f64 reference tier at the Simpson
    switches, 65,536 bench boxes; (c) five examples in FAST mode on the card,
@@ -274,6 +278,9 @@ N_FUSED_STEPS = 20  # fused-RHS route vs whole step (phase 10)
 N_VARIANT_STEPS = 40  # pod steps of the moving and lognorm runs (phases 11-12)
 N_ANCHOR_COLUMNS = 128
 N_NUM_STEPS = 20  # Euler chain steps of the numerical bench (phase 14)
+#: phase 18's runs of `rainshaft_128` stop here (model seconds; the golden
+#: holds 300 s in frames every 30 s, and the runs are held on those they reach)
+GOLDEN_128_T_END = 150.0
 N_NUM_BOXES = 128  # quadrature kernel vs twin (phase 13)
 NUM_NODES = (64, 32)
 NUM_CHUNK = 32768  # boxes per twin call at the full bench width
@@ -543,8 +550,9 @@ def traced_kernels():
     """B5's traced kernel functions (phase 30): the Long kernel fitted as a
     kernel tensor (order 2, normalized), a torch lambda, and
     `tools.traced_kernels`' collection efficiency (tanh, erf, `torch.mul`
-    and method forms) and coverage unit (every elementwise form the tracer
-    covers, one term each)."""
+    and method forms), coverage unit (the arithmetic, trigonometric, error,
+    rounding and modulus forms, one term each) and special unit (the
+    special functions, closed forms, masks and cleanups, one term each)."""
     import torch
 
     from cloudy_tpu_torch import kernels as K
@@ -556,6 +564,24 @@ def traced_kernels():
         "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
         **tk.KERNELS,
     }
+
+
+#: the traced kernel functions whose bench chain runs at fewer boxes where
+#: one launch at the bench's 262,144 would pass CAPPED_LAUNCH_MS (phase 30(a))
+CAPPED = ("special",)
+CAPPED_LAUNCH_MS = 100.0
+
+
+def capped_width(fn, x):
+    """`x` [6, n] cut to the most boxes, a power of two and at least 1,024,
+    at which one launch of `fn` stays within CAPPED_LAUNCH_MS, from one
+    timed launch at 4,096 boxes (the time per box there, scaled)."""
+    xp = x[:, :4096].contiguous()
+    per_box = _time_ms(lambda: fn.soa(xp), 1) / 4096
+    n = x.shape[1]
+    while n > 1024 and per_box * n > CAPPED_LAUNCH_MS:
+        n //= 2
+    return x[:, :n].contiguous()
 
 
 def traced_numerical(dev, dtype, nodes=(96, 48)):
@@ -1545,6 +1571,8 @@ def main():
     with np.load(ROOT / "tests" / "golden" / "rainshaft_128.npz") as z:
         ys128 = z["ys"]  # [11, 128, 6]: every 30th of 300 f64 Simpson-tier steps
     scale128 = np.abs(ys128).max(axis=(0, 1))
+    # the runs stop at GOLDEN_128_T_END and are held on the frames they reach
+    ys128 = ys128[:int(GOLDEN_128_T_END) // 30 + 1]
     # tests/test_golden.py:168-191 runs the bench overrides with x64 on (f64);
     # in f32 the reference's own trajectory leaves 1e-3 of the golden at
     # t = 180 s (tests/test_torch_rainshaft.py), so the f32 run is held
@@ -1556,7 +1584,8 @@ def main():
     }
     golden_launches = {}
     for label, (dt, kw, tol) in hook_runs.items():
-        sc = harness.SCENARIOS["rainshaft_128"](device=dev, dtype=dt, hook=True, **kw)
+        sc = harness.SCENARIOS["rainshaft_128"](device=dev, dtype=dt, hook=True,
+                                                t_end=GOLDEN_128_T_END, **kw)
         sc["coal_fn"].launches = 0
         ys, secs, _ = sc["run"]()
         n_launch = sc["coal_fn"].launches
@@ -1571,7 +1600,9 @@ def main():
         if hook_route == "table":
             hook_route += f", a {sc['coal_fn'].layout(128)} per box"
         print(f"phase 18 rainshaft_128 through the coal kernel hook [{label}, instance "
-              f"{sc['coal_fn'].plan.instance}, {hook_route}], 128 levels x 300 s: per-moment-scaled "
+              f"{sc['coal_fn'].plan.instance}, {hook_route}], 128 levels x "
+              f"{GOLDEN_128_T_END:g} s (frames t = 0-{GOLDEN_128_T_END:g} s of the golden's 300): "
+              f"per-moment-scaled "
               f"{gerr:.3e} vs its golden (largest at t = {30 * int(frames.argmax())} s"
               f"{f', tol {tol:.0e}' if tol else ''}), launches {n_launch}, {secs:.3f} s "
               f"(host clock) {card}")
@@ -3405,14 +3436,23 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
             print(f"phase 30 (a) the tagged instances, ptxas (phase 2): {ln}")
 
     # the numerical bench chain through each traced kernel function at
-    # [6, 262144] f32, (96, 48) nodes; B5's Long and both in turns
-    x = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32, device=dev)
-    n_box = x.shape[1]
+    # [6, 262144] f32, (96, 48) nodes (`special` at fewer boxes where one
+    # launch there would pass CAPPED_LAUNCH_MS); B5's Long and both in turns
+    x_bench = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32,
+                              device=dev)
     fns = {"long": bench.numerical_fn(dev), **traced_numerical(dev, torch.float32)}
+    xs = {"long": x_bench}
     for kname in traced_kernels():
         fn = fns[kname]
-        fn.soa(x[:, :64].contiguous())  # loads the unit, outside the count
+        fn.soa(x_bench[:, :64].contiguous())  # loads the unit, outside the count
         torch.cuda.synchronize()
+        x = xs[kname] = capped_width(fn, x_bench) if kname in CAPPED else x_bench
+        n_box = x.shape[1]
+        if n_box < x_bench.shape[1]:
+            print(f"phase 30 (a) [{kname}] one launch at [6, {x_bench.shape[1]}] would pass "
+                  f"{CAPPED_LAUNCH_MS} ms: its chain and turns run at [6, {n_box}], beside B5's "
+                  f"Long at that width")
+            xs[f"long@{n_box}"], fns[f"long@{n_box}"] = x, fns["long"]
         fn.launches = 0
         s_chain = bench.time_chain(fn.soa, x, N_NUM_STEPS)
         n_launch = fn.launches
@@ -3446,14 +3486,15 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
     turns = {k: [] for k in order}
     for seq in (order, order[::-1], order, order[::-1]):
         for k in seq:
-            turns[k].append(_time_ms(lambda: fns[k].soa(x), 5))
+            turns[k].append(_time_ms(lambda: fns[k].soa(xs[k]), 5))
     med = {k: float(np.median(v)) for k, v in turns.items()}
-    print(f"phase 30 (a) B5 at [6, {n_box}] f32 in turns (5 launches per turn): "
-          + ", ".join(f"{k} {med[k]:.4f} ms {[round(v, 4) for v in turns[k]]}" for k in order)
+    print(f"phase 30 (a) B5 f32 in turns (5 launches per turn; [6, {x_bench.shape[1]}] unless "
+          "named): " + ", ".join(f"{k} [6, {xs[k].shape[1]}] {med[k]:.4f} ms "
+                                 f"{[round(v, 4) for v in turns[k]]}" for k in order)
           + f" {card}")
     print(json.dumps({"phase": 30, "kind": "numerical_gen_turns", "median_ms": med,
-                      "turns_ms": turns}))
-    del x, fns
+                      "turns_ms": turns, "boxes": {k: xs[k].shape[1] for k in order}}))
+    del x, xs, x_bench, fns
     torch.cuda.empty_cache()
     print(f"phase 30 (a) seconds {time.perf_counter() - t:.3f}")
 

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -89,6 +90,7 @@ CLOUDY_MATH2(dcopysign, copysignf, ::copysign)
 CLOUDY_MATH2(dfmod, fmodf, ::fmod)
 CLOUDY_MATH2(dfmin, fminf, ::fmin)
 CLOUDY_MATH2(dfmax, fmaxf, ::fmax)
+CLOUDY_MATH2(dnextafter, nextafterf, ::nextafter)
 #undef CLOUDY_MATH1
 #undef CLOUDY_MATH2
 // a template, so that a host build of this header needs an erfinv (glibc
@@ -129,6 +131,94 @@ template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
 }
 template <typename T> __device__ __forceinline__ T vclip(T x, T lo, T hi) {
   return vmin(vmax(x, lo), hi);
+}
+
+// More of a traced kernel function's forms, closed forms over the routines
+// above with torch's semantics at 0, +-inf, NaN and the poles (its CPU
+// kernels': heaviside is 0 at NaN, relu keeps -0 and NaN, angle of a real is
+// pi below 0 and NaN at NaN, xlogy is NaN where y is and 0 where x is 0).
+// The masks return bool, as the comparisons do. The special functions with
+// series and tables (digamma, zeta, the incomplete gammas, the Bessel
+// functions, log_ndtr) are in special_functions.cuh, which a unit includes
+// only where its trace calls one.
+template <typename T> __device__ __forceinline__ bool disnan(T x) { return x != x; }
+template <typename T> __device__ __forceinline__ bool disinf(T x) {
+  return dabs(x) == T(INFINITY);
+}
+template <typename T> __device__ __forceinline__ bool disfinite(T x) {
+  return dabs(x) < T(INFINITY);
+}
+template <typename T> __device__ __forceinline__ bool disposinf(T x) { return x == T(INFINITY); }
+template <typename T> __device__ __forceinline__ bool disneginf(T x) { return x == -T(INFINITY); }
+template <typename T> __device__ __forceinline__ bool dsignbit(T x) {
+  return dcopysign(T(1), x) < T(0);
+}
+template <typename T>
+__device__ __forceinline__ T dnan_to_num(T x, T nan, T posinf, T neginf) {
+  return x != x ? nan : (x == T(INFINITY) ? posinf : (x == -T(INFINITY) ? neginf : x));
+}
+template <typename T> __device__ __forceinline__ T dheaviside(T x, T v) {
+  return x == T(0) ? v : T(x > T(0));
+}
+template <typename T> __device__ __forceinline__ T dfrac(T x) { return x - dtrunc(x); }
+// torch.ldexp is x * 2**e
+template <typename T> __device__ __forceinline__ T dldexp(T x, T e) {
+  return x * dpow(T(2), e);
+}
+template <typename T> __device__ __forceinline__ T dangle(T x) {
+  return x != x ? x : (x < T(0) ? T(3.14159265358979323846) : T(0));
+}
+template <typename T> __device__ __forceinline__ T drelu(T x) { return x < T(0) ? T(0) : x; }
+// torch's elu kernel: (expm1(x * input_scale)) * alpha * scale at x <= 0,
+// x * scale above; selu and celu are two of its settings
+template <typename T>
+__device__ __forceinline__ T delu(T x, T negcoef, T negiptcoef, T poscoef) {
+  return x <= T(0) ? dexpm1(x * negiptcoef) * negcoef : x * poscoef;
+}
+template <typename T> __device__ __forceinline__ T dselu(T x) {
+  const T alpha = T(1.6732632423543772848170429916717);
+  const T scale = T(1.0507009873554804934193349852946);
+  return delu(x, alpha * scale, T(1), scale);
+}
+template <typename T> __device__ __forceinline__ T dcelu(T x, T alpha, T inv_alpha) {
+  return delu(x, alpha, inv_alpha, T(1));
+}
+template <typename T> __device__ __forceinline__ T dxlogy(T x, T y) {
+  return y != y ? y : (x == T(0) ? T(0) : x * dlog(y));
+}
+template <typename T> __device__ __forceinline__ T dxlog1py(T x, T y) {
+  return y != y ? y : (x == T(0) ? T(0) : x * dlog1p(y));
+}
+template <typename T> __device__ __forceinline__ T dentr(T x) {
+  if (x != x) return x;
+  if (x > T(0)) return -x * dlog(x);
+  return x == T(0) ? T(0) : -T(INFINITY);
+}
+template <typename T> __device__ __forceinline__ T dlogit(T x) { return dlog(x / (T(1) - x)); }
+// logit with eps: x clamped to [eps, 1 - eps] first (NaN stays)
+template <typename T> __device__ __forceinline__ T dlogit(T x, T eps) {
+  const T hi = T(1) - eps;
+  const T z = x < eps ? eps : (x > hi ? hi : x);
+  return dlog(z / (T(1) - z));
+}
+template <typename T> __device__ __forceinline__ T dsinc(T x) {
+  if (x == T(0)) return T(1);
+  const T p = T(3.14159265358979323846) * x;
+  return dsin(p) / p;
+}
+template <typename T> __device__ __forceinline__ T dlogaddexp(T a, T b) {
+  if (dabs(a) == T(INFINITY) && a == b) return a;
+  const T m = vmax(a, b);
+  return m + dlog1p(dexp(-dabs(a - b)));
+}
+template <typename T> __device__ __forceinline__ T dlogaddexp2(T a, T b) {
+  if (dabs(a) == T(INFINITY) && a == b) return a;
+  const T m = vmax(a, b);
+  return m + dlog1p(dexp2(-dabs(a - b))) * T(1.4426950408889634074);
+}
+// torch.special.ndtr: (1 + erf(x / sqrt 2)) / 2
+template <typename T> __device__ __forceinline__ T dndtr(T x) {
+  return (T(1) + derf(x * T(0.70710678118654752440))) * T(0.5);
 }
 
 // Opts a kernel into more than SMEM_NO_OPTIN bytes of dynamic shared memory

@@ -463,8 +463,9 @@ def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
     `kernel`, a traced kernel function (`kernel_expr.trace`), at any number
     of modes: its device function ``cloudy_kernel_gen`` (constants rounded
     once to `dtype`) in the unit's ``cfg.cuh`` and the kernel's ``KT_GEN``
-    arm alone (CLOUDY_KERNEL_GEN); the digest covers the emitted text, so
-    each distinct kernel function builds once."""
+    arm alone (CLOUDY_KERNEL_GEN), with csrc/special_functions.cuh included
+    where the trace calls one of its functions; the digest covers the
+    emitted text, so each distinct kernel function builds once."""
     real = "float" if dtype == torch.float32 else "double"
     cfg, defines = "", []
     if kernel is not None:
@@ -475,7 +476,7 @@ def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
             "// The kernel function K(x, y), traced (ops/kernel_expr.py).",
             "#pragma once",
             "",
-            '#include "common.cuh"',
+            *(f'#include "{h}"' for h in kernel_expr.includes(kernel)),
             "",
             "namespace cloudy {",
             kernel_expr.device_source(kernel, lambda v: literal(v, dtype)),

@@ -37,27 +37,51 @@ csrc/common.cuh with the torch semantics (not C's where they differ):
   remainder (Python's sign rule), floor_divide (torch's divmod-corrected
   quotient) and sigmoid (expit, as its closed form 1/(1 + exp(-x))), with
   their numpy-style aliases (arcsin, multiply, negative, ...);
+- the closed forms, with torch's values at 0, ±inf, NaN and the poles:
+  xlogy, xlog1py, entr, logit (with ``eps``), sinc, logaddexp, logaddexp2,
+  heaviside, deg2rad, rad2deg, frac, ldexp, nextafter, positive, rsub, sgn,
+  angle (of a real), relu, selu, celu (also as `torch.nn.functional`'s
+  relu, selu, celu), ndtr; the masks isnan, isinf, isfinite, isposinf,
+  isneginf, signbit (bool, usable in `where` and ``& | ~``) and
+  nan_to_num (its defaults the traced type's largest and lowest values);
+- torch's special functions, its own algorithms copied into
+  csrc/special_functions.cuh: log_ndtr, digamma (psi), polygamma,
+  zeta (Hurwitz), igamma/igammac (gammainc/gammaincc), mvlgamma
+  (multigammaln, as torch's sum of lgammas), i0, i0e, i1, i1e,
+  modified_bessel_i0/i1, bessel_j0/j1. polygamma's n and mvlgamma's p are
+  a Python int or a 0-d integer tensor, compile-time constants of the
+  emitted text;
 - the method form of each (``x.exp()``, ``x.clamp(min=...)``, ``x.pow(y)``,
-  ``x.where(cond, other)``, which is ``torch.where(cond, x, other)``);
+  ``x.where(cond, other)``, which is ``torch.where(cond, x, other)``,
+  ``x.polygamma(n)``, which is ``torch.polygamma(n, x)``);
 - ``x.dtype`` (the type being traced: `trace`'s `dtype`) and ``x.device``
   (the CPU), so that ``torch.as_tensor(c, dtype=x.dtype, device=x.device)``
   is a constant of that type; a 0-d tensor or a numpy scalar is a constant
   (a numpy scalar on the left hands the operation to the operand's
   reflected method, because the operand sets ``__array_ufunc__ = None``).
 
-Everything else raises `KernelTraceError` naming the operation: a Python
-branch on an operand's value, reductions (``x.sum()``, `torch.cumsum`),
-indexing and shape changes, in-place methods (``x.add_``), dtype changes
-(``x.double()``, `torch.float_power`), random draws, ``alpha`` scaling of
-add/sub, and any function not listed (those with no CUDA device version,
-such as `torch.special.digamma`, and the composites of `torch.special`:
-ndtr, logit, xlogy, the Bessel and polynomial families, ...).
+So every elementwise kernel function that JAX's kernel takes runs here
+too. Everything else raises `KernelTraceError` naming the operation:
+
+- `torch.special.ndtri`: JAX's kernel refuses `jax.scipy.special.ndtri`
+  (its coefficient arrays are captured constants Pallas does not take);
+- the forms with no JAX counterpart: `torch.special.erfcx`, bessel_y0/y1,
+  the modified_bessel_k* and scaled_modified_bessel_k* families,
+  spherical_bessel_j0, airy_ai, the polynomial families;
+- a Python branch on an operand's value, reductions (``x.sum()``,
+  `torch.cumsum`), indexing and shape changes, in-place methods
+  (``x.add_``), dtype changes (``x.double()``, `torch.float_power`), random
+  draws, losses, `torch.isclose` / `torch.isin`, ``alpha`` scaling of
+  add/sub/rsub, an operand as polygamma's n or mvlgamma's p;
+- `torch.nn.functional`'s forms outside the `torch` namespace (softplus,
+  gelu, ...), and any other function not listed.
 """
 
 from __future__ import annotations
 
 import contextvars
 import functools
+import math
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -357,6 +381,67 @@ def _like(x, fill_value, *, dtype=None, **kw):
     return const(torch.tensor(fill_value, dtype=_DTYPE.get()).item())
 
 
+def _int_arg(v, what: str) -> int:
+    """`what` (polygamma's n, mvlgamma's p): a Python int or a 0-d integer
+    tensor, a compile-time constant of the emitted text."""
+    if isinstance(v, torch.Tensor) and v.numel() == 1 and not v.is_floating_point() \
+            and v.dtype != torch.bool:
+        return int(v.item())
+    if isinstance(v, int) and not isinstance(v, bool):
+        return v
+    raise _unsupported(f"{what} that is not a Python int or a 0-d integer tensor "
+                       "(an operand or a float in that place)")
+
+
+def _mask(op: str, x) -> Expr:
+    """torch.isnan / isinf / isfinite / isposinf / isneginf / signbit: a
+    mask of a value, as the comparisons are."""
+    x = _wrap(x)
+    if x.boolean:
+        raise _unsupported(f"{op} of a mask")
+    return Expr(op, (x,), True)
+
+
+def _nan_to_num(x, nan=0.0, posinf=None, neginf=None):
+    """NaN, +inf and -inf replaced; the defaults of the infinities are the
+    traced type's largest and lowest finite values, as torch's."""
+    info = torch.finfo(_DTYPE.get())
+    return _call("nan_to_num", x, 0.0 if nan is None else nan,
+                 info.max if posinf is None else posinf, info.min if neginf is None else neginf)
+
+
+def _logit(x, eps=None):
+    return _call("logit", x) if eps is None else _call("logit", x, eps)
+
+
+def _celu(x, alpha=1.0):
+    # torch.celu is elu with input scale 1/alpha (taken in double, then
+    # rounded to the tensor's type, as torch's Scalar is)
+    return _call("celu", x, alpha, 1.0 / float(alpha))
+
+
+def _polygamma(n, x) -> Expr:
+    n = _int_arg(n, "torch.polygamma's order n")
+    if n < 0:
+        raise _unsupported("torch.polygamma of a negative order")
+    return _call("polygamma", Expr("int", (n,)), x)
+
+
+def _mvlgamma(x, p) -> Expr:
+    """torch.mvlgamma(x, p) as torch computes it: the sum of lgamma(x -
+    j/2) over j = p-1, ..., 0, plus p(p-1)/4 log(pi) (a closed form over
+    lgamma; where x <= (p-1)/2 torch raises, the device gives the sum)."""
+    p = _int_arg(p, "torch.mvlgamma's p")
+    if p < 1:
+        raise _unsupported("torch.mvlgamma with p < 1")
+    x = _wrap(x)
+    total = None
+    for j in range(p - 1, -1, -1):
+        term = _call("lgamma", x if j == 0 else _bin("add", x, -0.5 * j))
+        total = term if total is None else _bin("add", total, term)
+    return _bin("add", total, p * (p - 1) * math.log(math.pi) / 4.0)
+
+
 def _unary(op):
     return lambda x: _call(op, x)
 
@@ -368,14 +453,35 @@ def _binary(op):
 _UNARY_CALLS = ("exp", "log", "sqrt", "abs", "rsqrt", "sin", "cos", "tan", "asin", "acos",
                 "atan", "sinh", "cosh", "tanh", "asinh", "acosh", "atanh", "erf", "erfc",
                 "erfinv", "lgamma", "expm1", "log1p", "exp2", "log2", "log10", "floor",
-                "ceil", "trunc", "sign", "sigmoid")
+                "ceil", "trunc", "sign", "sigmoid",
+                # closed forms over the helpers above
+                "ndtr", "entr", "sinc", "frac", "angle", "relu", "selu",
+                # special_functions.cuh: torch's series and tables
+                "log_ndtr", "digamma", "i0", "i0e", "i1", "i1e", "modified_bessel_i0",
+                "modified_bessel_i1", "bessel_j0", "bessel_j1")
 _BINARY_CALLS = ("atan2", "hypot", "copysign", "fmod", "remainder", "floor_divide", "fmin",
-                 "fmax")
-#: the elementwise functions emitted as a call of a csrc/common.cuh helper,
-#: ``d<op>`` but for jnp's and torch's NaN-propagating min/max (``vmin``,
-#: ``vmax``), torch.round's half to even (``drint``) and ``dfloordiv``
-_CALL_C = {**{op: f"d{op}" for op in _UNARY_CALLS + _BINARY_CALLS + ("pow",)},
-           "min": "vmin", "max": "vmax", "round": "drint", "floor_divide": "dfloordiv"}
+                 "fmax", "xlogy", "xlog1py", "logaddexp", "logaddexp2", "heaviside",
+                 "nextafter", "ldexp", "zeta", "igamma", "igammac")
+#: the masks of a value (bool, as the comparisons)
+_MASK_CALLS = ("isnan", "isinf", "isfinite", "isposinf", "isneginf", "signbit")
+#: the elementwise functions emitted as a call of a csrc/common.cuh (or
+#: special_functions.cuh) helper, ``d<op>`` but for jnp's and torch's
+#: NaN-propagating min/max (``vmin``, ``vmax``), torch.round's half to even
+#: (``drint``), ``dfloordiv``, digamma (``dpsi``), the incomplete gammas
+#: (``dgammainc``, ``dgammaincc``) and modified_bessel_i0, which is i0's
+#: arithmetic; ``logit`` takes an ``eps``, ``celu`` its alpha and 1/alpha,
+#: ``nan_to_num`` its three replacements, ``polygamma`` its order as a
+#: template argument
+_CALL_C = {**{op: f"d{op}" for op in _UNARY_CALLS + _BINARY_CALLS + _MASK_CALLS
+              + ("pow", "logit", "celu", "nan_to_num", "polygamma")},
+           "min": "vmin", "max": "vmax", "round": "drint", "floor_divide": "dfloordiv",
+           "digamma": "dpsi", "igamma": "dgammainc", "igammac": "dgammaincc",
+           "modified_bessel_i0": "di0"}
+#: the operations whose helpers are in csrc/special_functions.cuh, which a
+#: unit includes only where its trace calls one (`includes`)
+_SPECIAL_OPS = frozenset({"log_ndtr", "digamma", "polygamma", "zeta", "igamma", "igammac",
+                         "i0", "i0e", "i1", "i1e", "modified_bessel_i0", "modified_bessel_i1",
+                         "bessel_j0", "bessel_j1"})
 
 #: the torch functions a kernel function may call on x and y, by name in
 #: `torch`, `torch.special` and as `torch.Tensor` methods (each found there
@@ -407,13 +513,26 @@ TORCH_FUNCTIONS: Dict[str, Callable] = {
     "logical_and": lambda a, b: _logic("and", a, b),
     "logical_or": lambda a, b: _logic("or", a, b),
     "logical_not": _not,
+    **{op: functools.partial(_mask, op) for op in _MASK_CALLS},
+    "nan_to_num": _nan_to_num,
+    "logit": _logit,
+    "celu": _celu,
+    "polygamma": _polygamma,
+    "mvlgamma": _mvlgamma,
+    "positive": _wrap,
+    "sgn": _unary("sign"),
+    "rsub": lambda a, b, *, alpha=1: _add_sub("sub")(b, a, alpha=alpha),
+    # torch multiplies by the double pi/180 (180/pi) rounded to the type
+    "deg2rad": lambda x: _bin("mul", x, math.pi / 180.0),
+    "rad2deg": lambda x: _bin("mul", x, 180.0 / math.pi),
 }
 _ALIASES = {"absolute": "abs", "arcsin": "asin", "arccos": "acos", "arctan": "atan",
             "arctan2": "atan2", "arcsinh": "asinh", "arccosh": "acosh", "arctanh": "atanh",
             "fix": "trunc", "gammaln": "lgamma", "expit": "sigmoid", "negative": "neg",
             "multiply": "mul", "divide": "div", "subtract": "sub", "clip": "clamp",
             "less": "lt", "less_equal": "le", "greater": "gt", "greater_equal": "ge",
-            "not_equal": "ne"}
+            "not_equal": "ne", "psi": "digamma", "gammainc": "igamma",
+            "gammaincc": "igammac", "multigammaln": "mvlgamma"}
 #: the Tensor dunders a 0-d tensor on the left may reach (``t // x`` reaches
 #: ``__floordiv__``; the others reach the methods in this torch)
 _DUNDERS = {"__add__": "add", "__sub__": "sub", "__mul__": "mul", "__truediv__": "div",
@@ -423,9 +542,32 @@ _DUNDERS = {"__add__": "add", "__sub__": "sub", "__mul__": "mul", "__truediv__":
             "__ne__": "ne"}
 
 
+def _no_inplace(rule):
+    def functional(x, *args, inplace=False, **kw):
+        if inplace:
+            raise _unsupported("an in-place torch.nn.functional form")
+        return rule(x, *args, **kw)
+    return functional
+
+
+#: the torch.nn.functional forms of covered torch functions (the others,
+#: such as softplus or gelu, stay refused)
+_FUNCTIONAL = {"relu": _no_inplace(_unary("relu")), "selu": _no_inplace(_unary("selu")),
+               "celu": _no_inplace(_celu)}
+
+
 def _method_where(self, condition, other):
     # Tensor.where(cond, other) is torch.where(cond, self, other)
     return _where(condition, self, other)
+
+
+def _method_polygamma(self, n):
+    # Tensor.polygamma(n) is torch.polygamma(n, self)
+    return _polygamma(n, self)
+
+
+#: the methods whose arguments come in another order than the function's
+_METHOD_ORDER = {"where": _method_where, "polygamma": _method_polygamma}
 
 
 def _tables():
@@ -440,9 +582,12 @@ def _tables():
                 rules[f], names[f] = rule, f"{prefix}.{name}"
         f = getattr(torch.Tensor, name, None)
         if f is not None:
-            method = _method_where if name == "where" else rule
+            method = _METHOD_ORDER.get(name, rule)
             rules[f], names[f] = method, f"torch.Tensor.{name}"
             methods[name] = method
+    for name in _FUNCTIONAL:
+        f = getattr(torch.nn.functional, name)
+        rules[f], names[f] = _FUNCTIONAL[name], f"torch.nn.functional.{name}"
     for dunder, name in _DUNDERS.items():
         f = getattr(torch.Tensor, dunder, None)
         if f is not None:
@@ -454,15 +599,16 @@ _RULES, _METHODS, _NAMES = _tables()
 
 
 def _qualname(func) -> str:
-    """``torch.special.digamma`` for `torch.special.digamma` (whose
-    ``__name__`` is ``special_digamma``), ``torch.cumsum``, ..."""
+    """``torch.special.ndtri`` for `torch.special.ndtri` (whose
+    ``__name__`` is ``special_ndtri``), ``torch.cumsum``, ..."""
     if func in _NAMES:
         return _NAMES[func]
     name = getattr(func, "__name__", None)
     if name is None:
         return repr(func)
     for owner, prefix in ((torch.special, "torch.special"), (torch, "torch"),
-                          (torch.Tensor, "torch.Tensor")):
+                          (torch.Tensor, "torch.Tensor"),
+                          (torch.nn.functional, "torch.nn.functional")):
         for n in (name.removeprefix("special_"), name):
             if getattr(owner, n, None) is func:
                 return f"{prefix}.{n}"
@@ -507,9 +653,13 @@ def statements(expr: Expr, literal: Callable[[float], str]) -> Tuple[List[str], 
             ref = e.args[0]
         elif e.op == "const":
             ref = literal(e.args[0])
+        elif e.op == "int":
+            ref = str(e.args[0])
         else:
             args = [emit(a) for a in e.args]
-            if e.op in _BINARY_C:
+            if e.op == "polygamma":
+                rhs = f"{_CALL_C[e.op]}<{args[0]}>({args[1]})"
+            elif e.op in _BINARY_C:
                 rhs = f"{args[0]} {_BINARY_C[e.op]} {args[1]}"
             elif e.op == "neg":
                 rhs = f"-{args[0]}"
@@ -530,13 +680,22 @@ def statements(expr: Expr, literal: Callable[[float], str]) -> Tuple[List[str], 
     return lines, emit(expr)
 
 
+def _torch_op(op: str):
+    return getattr(torch, op, None) or getattr(torch.special, op)
+
+
 _TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
               "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
               "eq": torch.eq, "ne": torch.ne, "and": torch.logical_and,
               "or": torch.logical_or, "not": torch.logical_not, "neg": torch.neg,
               "pow": torch.pow, "min": torch.minimum, "max": torch.maximum,
               "where": torch.where, "round": torch.round,
-              **{op: getattr(torch, op) for op in _UNARY_CALLS + _BINARY_CALLS}}
+              **{op: _torch_op(op) for op in _UNARY_CALLS + _BINARY_CALLS + _MASK_CALLS},
+              "logit": lambda x, eps=None: torch.logit(x, None if eps is None else float(eps)),
+              "celu": lambda x, alpha, inv_alpha: torch.celu(x, float(alpha)),
+              "nan_to_num": lambda x, nan, posinf, neginf: torch.nan_to_num(
+                  x, float(nan), float(posinf), float(neginf)),
+              "polygamma": torch.polygamma}
 
 
 def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -552,6 +711,8 @@ def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if e.op == "const":
             v = e.args[0]
             return torch.tensor(v, dtype=x.dtype, device=x.device), repr(v)
+        if e.op == "int":
+            return e.args[0], f"int{e.args[0]}"
         vals, keys = zip(*(ev(a) for a in e.args))
         key = f"{e.op}({','.join(keys)})"
         if key not in memo:
@@ -560,6 +721,21 @@ def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     out, _ = ev(expr)
     return out.expand(torch.broadcast_shapes(x.shape, y.shape, out.shape))
+
+
+def includes(expr: Expr) -> List[str]:
+    """The csrc headers the emitted function needs: common.cuh, and
+    special_functions.cuh where the trace calls one of `_SPECIAL_OPS` (so
+    that no other unit's text changes)."""
+    seen, stack, special = set(), [expr], False
+    while stack and not special:
+        e = stack.pop()
+        if id(e) in seen or e.op in ("var", "const", "int"):
+            continue
+        seen.add(id(e))
+        special = e.op in _SPECIAL_OPS
+        stack.extend(e.args)
+    return ["common.cuh", "special_functions.cuh"] if special else ["common.cuh"]
 
 
 def device_source(expr: Expr, literal: Callable[[float], str]) -> str:

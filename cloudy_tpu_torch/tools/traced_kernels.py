@@ -1,4 +1,4 @@
-"""Two kernel functions K(x, y) that B5's traced arm (`ops.kernel_expr`,
+"""Three kernel functions K(x, y) that B5's traced arm (`ops.kernel_expr`,
 the ``KT_GEN`` arm of csrc/numerical_coalescence.cu) is checked and timed
 with, beside the Long kernel fitted as a tensor and a sqrt lambda
 (`chip_smoke.py` phase 30, tests/test_torch_kernel_expr.py,
@@ -11,7 +11,12 @@ tests/test_torch_cuda_kernels.py).
   a sum of small non-negative terms (`COVERAGE_TERMS`), each on arguments
   inside its function's domain (away from the jumps of the rounding forms)
   and of order one, so that nothing cancels: one unit per type instead of
-  one per form.
+  one per form;
+- `special`: the same for the special functions, closed forms, masks and
+  cleanups the tracer took after `coverage` (`SPECIAL_TERMS`): the normal
+  distribution, the gamma family (digamma, polygamma, zeta, the incomplete
+  gammas, mvlgamma), the Bessel functions, and each in every regime its
+  algorithm switches between.
 """
 
 from __future__ import annotations
@@ -126,6 +131,111 @@ COVERAGE_TERMS = {
 }
 
 
+def _ldexp_const(u, v):
+    return torch.ldexp(u, torch.tensor(-1.0, dtype=u.dtype, device=u.device))
+
+
+def _nextafter(u, v):
+    return torch.nextafter(u, torch.tensor(2.0, dtype=u.dtype, device=u.device))
+
+
+def _heaviside_const(u, v):
+    return torch.heaviside(u + 0.5, torch.tensor(0.5, dtype=u.dtype, device=u.device))
+
+
+#: one term per form the tracer added for `special`, of (u, v) in [0, 1):
+#: non-negative, of order one, each inside its function's domain; the
+#: masks, heaviside, signbit, frac and nextafter a unit away from their
+#: jumps (as `COVERAGE_TERMS`' rounding forms); the incomplete gammas'
+#: series, continued fraction, series of Q and asymptotic regimes,
+#: digamma's reflection, the Bessel functions' both ranges and log_ndtr's
+#: erfcx tail reached by some (u, v). Three of torch's algorithms are less
+#: accurate than JAX's counterparts in part of their range (trigamma below
+#: ~30, its 6-term asymptotic series: 5e-10 relative; the incomplete
+#: gammas' asymptotic regime, whose 1/sqrt(2 pi a) takes pi in float: 6e-10
+#: at a = 25; bessel_j0/j1 just above 5: 1e-7): their terms sit where the
+#: two agree to the quadrature's 1e-12, and tests/test_torch_kernel_expr.py
+#: holds the port to torch across the rest
+SPECIAL_TERMS = {
+    # closed forms
+    "xlogy": lambda u, v: torch.xlogy(u, 2.0 + v),
+    "special_xlogy": lambda u, v: torch.special.xlogy(v, 1.5 + u),
+    "xlog1py": lambda u, v: torch.special.xlog1py(u, v),
+    "entr": lambda u, v: torch.special.entr(0.1 + 0.3 * u),
+    "logit": lambda u, v: torch.logit(0.55 + 0.4 * u),
+    "logit_eps": lambda u, v: (0.5 + 0.5 * v).logit(eps=0.1),
+    "special_logit": lambda u, v: torch.special.logit(0.6 + 0.3 * v),
+    "sinc": lambda u, v: torch.sinc(0.5 * u),
+    "special_sinc": lambda u, v: torch.special.sinc(0.5 * v),
+    "logaddexp": lambda u, v: torch.logaddexp(u, v),
+    "logaddexp2": lambda u, v: torch.logaddexp2(u, -v),
+    "heaviside": _heaviside_const,
+    "heaviside_operand": lambda u, v: 1.0 + torch.heaviside(-0.5 - v, u),
+    "deg2rad": lambda u, v: torch.deg2rad(30.0 * u),
+    "rad2deg": lambda u, v: torch.rad2deg(0.02 * v),
+    "frac": lambda u, v: torch.frac(0.5 * u + 2.25),
+    "ldexp": _ldexp_const,
+    "ldexp_operand": lambda u, v: torch.ldexp(v, u),
+    "nextafter": _nextafter,
+    "positive": lambda u, v: torch.positive(v),
+    "rsub": lambda u, v: torch.rsub(u, 2.0),
+    "sgn": lambda u, v: 2.0 + torch.sgn(-0.5 - u),
+    "angle": lambda u, v: torch.angle(-0.5 - v) + torch.angle(u + 0.5),
+    "relu": lambda u, v: torch.relu(u + 0.1),
+    "selu": lambda u, v: 1.0 + torch.selu(u - 0.5),
+    "celu": lambda u, v: 1.0 + torch.celu(v - 0.5, alpha=0.5),
+    # masks and cleanup
+    "isnan": lambda u, v: torch.where(torch.isnan(u), 0.0, u),
+    "isinf": lambda u, v: torch.where(torch.isinf(v), 0.0, v),
+    "isfinite": lambda u, v: torch.where(torch.isfinite(u), v, 0.0),
+    "isposinf": lambda u, v: torch.where(torch.isposinf(u), 0.0, 1.0 - u),
+    "isneginf": lambda u, v: torch.where(v.isneginf(), 0.0, 1.0 - v),
+    "signbit": lambda u, v: torch.where(torch.signbit(-0.5 - u), 1.0, 0.0),
+    "nan_to_num": lambda u, v: torch.nan_to_num(u),
+    "nan_to_num_values": lambda u, v: torch.nan_to_num(v, nan=0.0, posinf=1.0, neginf=-1.0),
+    # the normal distribution
+    "ndtr": lambda u, v: torch.special.ndtr(u - 0.5),
+    "log_ndtr_tail": lambda u, v: -torch.special.log_ndtr(-1.5 - u),
+    "log_ndtr": lambda u, v: -torch.special.log_ndtr(v),
+    # the gamma family
+    "digamma": lambda u, v: torch.digamma(1.5 + u),
+    "special_digamma": lambda u, v: torch.special.digamma(2.0 + v),
+    "psi": lambda u, v: torch.special.psi(3.0 + u),
+    "digamma_reflection": lambda u, v: torch.digamma(-0.5 + 0.2 * v),
+    "polygamma": lambda u, v: 30.0 * torch.polygamma(1, 30.0 + u),
+    "special_polygamma": lambda u, v: -torch.special.polygamma(2, 1.0 + v),
+    "polygamma_method": lambda u, v: (2.0 + u).polygamma(3),
+    "zeta": lambda u, v: torch.special.zeta(2.0 + u, 1.0 + v),
+    "igamma": lambda u, v: torch.igamma(1.0 + u, 0.5 + v),
+    "gammainc": lambda u, v: torch.special.gammainc(2.0 + v, 1.0 + u),
+    "gammainc_asymptotic": lambda u, v: torch.special.gammainc(1e4 + 100.0 * u,
+                                                               1e4 + 100.0 * v),
+    "igammac": lambda u, v: torch.igammac(1.5 + v, 2.0 + u),
+    "gammaincc": lambda u, v: torch.special.gammaincc(0.5 + u, 0.25 + v),
+    "mvlgamma": lambda u, v: torch.mvlgamma(2.0 + u, p=2),
+    "multigammaln": lambda u, v: torch.special.multigammaln(2.5 + v, 3),
+    # Bessel functions
+    "i0": lambda u, v: torch.i0(u),
+    "special_i0": lambda u, v: torch.special.i0(v),
+    "i0e": lambda u, v: torch.special.i0e(2.0 * u),
+    "i0e_large": lambda u, v: 3.0 * torch.special.i0e(9.0 + v),
+    "i1": lambda u, v: torch.special.i1(u),
+    "i1e": lambda u, v: torch.special.i1e(v),
+    "modified_bessel_i0": lambda u, v: torch.special.modified_bessel_i0(u),
+    "modified_bessel_i1": lambda u, v: torch.special.modified_bessel_i1(v),
+    "bessel_j0": lambda u, v: torch.special.bessel_j0(0.1 + 2.0 * u),
+    "bessel_j0_large": lambda u, v: 1.0 + torch.special.bessel_j0(20.0 + v),
+    "bessel_j1": lambda u, v: torch.special.bessel_j1(0.1 + 2.0 * v),
+    "bessel_j1_large": lambda u, v: 1.0 + torch.special.bessel_j1(20.0 + u),
+}
+
+
+def special(x, y):
+    """1e-3 times the sum of `SPECIAL_TERMS` at u = x/(1 + x), v = y/(1 + y)."""
+    u, v = unit_interval(x), unit_interval(y)
+    return 1e-3 * functools.reduce(operator.add, (t(u, v) for t in SPECIAL_TERMS.values()))
+
+
 def unit_interval(x):
     """x / (1 + x): a mass in [0, 1)."""
     return x / (1.0 + x)
@@ -138,4 +248,4 @@ def coverage(x, y):
 
 
 #: the traced kernel functions these modules add, by name
-KERNELS = {"efficiency": efficiency, "coverage": coverage}
+KERNELS = {"efficiency": efficiency, "coverage": coverage, "special": special}

@@ -169,17 +169,19 @@ def test_plans_tags_and_units():
 
 def test_unsupported_operation_raises_with_its_name():
     spec = SpectrumSpec(TWO_GAMMA)
-    digamma_kernel = lambda x, y: torch.special.digamma(1.0 + x) * y + 1e-3  # noqa: E731
-    with pytest.raises(kernel_expr.KernelTraceError, match="torch.special.digamma"):
-        kernel_expr.trace(digamma_kernel)
-    plan = nc.build_plan(spec, digamma_kernel, 32, 16)
+    # ndtri stays refused: JAX's Pallas kernel refuses jax.scipy.special.ndtri
+    ndtri_kernel = lambda x, y: torch.special.ndtri(0.5 + 0.4 * x / (1.0 + x)) * y + 1e-3  # noqa: E731,E501
+    with pytest.raises(kernel_expr.KernelTraceError, match="torch.special.ndtri"):
+        kernel_expr.trace(ndtri_kernel)
+    plan = nc.build_plan(spec, ndtri_kernel, 32, 16)
     assert plan.ktag == nc.KT_GEN
-    with pytest.raises(NotImplementedError, match="torch.special.digamma"):
+    with pytest.raises(NotImplementedError, match="torch.special.ndtri"):
         nc.NumericalFn(plan, "cuda", torch.float32)
-    # the CPU twin calls the callable itself, as JAX's kernel does
+    # the CPU twin calls the callable itself, as JAX's einsum path does
     mom = _moments(TWO_GAMMA, 8, seed=2)
     got = nc.NumericalFn(plan, "cpu", torch.float64)(torch.as_tensor(mom)).numpy()
-    want = _jax_einsum(lambda x, y: jax.scipy.special.digamma(1.0 + x) * y + 1e-3, mom, 32, 16)
+    want = _jax_einsum(lambda x, y: jax.scipy.special.ndtri(0.5 + 0.4 * x / (1.0 + x)) * y
+                       + 1e-3, mom, 32, 16)
     assert _row_scaled(got, want) < TOL
     # Python branches, reductions, in-place methods and torch functions
     # outside the covered forms name what they are

@@ -410,8 +410,10 @@ class _ScaledLinear(K.LinearKernelFunction):
 def _traced_kernels():
     """The kernel functions of B5's generated arm (KT_GEN): the Long kernel
     fitted as a tensor (order 2, normalized), a torch lambda, a subclass,
-    and `tools.traced_kernels`' collection efficiency and the unit that
-    calls every form the tracer covers."""
+    and `tools.traced_kernels`' collection efficiency, the unit that calls
+    the arithmetic, trigonometric, error, rounding and modulus forms
+    (`coverage`) and the one that calls the special functions, closed
+    forms, masks and cleanups (`special`)."""
     kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
     return {
         "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized(NORMS),
@@ -421,7 +423,8 @@ def _traced_kernels():
     }
 
 
-@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass", "efficiency", "coverage"])
+@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass", "efficiency", "coverage",
+                                   "special"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_traced_kernel_function_matches_twin(cuda, dtype, kname):
     """B5 with a kernel function traced into its generated unit against the
