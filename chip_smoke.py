@@ -183,17 +183,21 @@ Drives the port's main path once on the card and fails loudly:
    `ensemble_rainshaft_step_soa`) at 2^20 x 32, one rank, its record
    printed, and B4 against its twin at that shape;
 30. (a) B5 with a traced kernel function (`ops.kernel_expr`, the
-   `KT_GEN` arm of its own unit): the Long kernel fitted as a tensor, a
-   torch lambda, a collection efficiency (tanh, erf), the coverage unit
-   (the arithmetic, trigonometric, error, rounding and modulus forms) and
-   the special unit (the special functions, closed forms, masks and
-   cleanups; `tools.traced_kernels`) against the twin at 128 boxes, (64, 32)
-   nodes, f32 and f64 (B5's tolerances), then the numerical bench chain
-   through each at [6, 262144] f32 (the special unit at the most boxes, a
-   power of two, at which one launch stays within 100 ms; launches
-   counted), each against the twin there, its ms, the twin's, the unit's
-   ptxas line and nvcc seconds, and B5's Long in turns with all five (and
-   at the special unit's width); (b) the native oracle (`native.coal_ints_golden`,
+   `KT_GEN` arm of its own unit, R from the trace's factored form): the
+   Long kernel fitted as a tensor, a torch lambda, a collection efficiency
+   (tanh, erf), the coverage unit (the arithmetic, trigonometric, error,
+   rounding and modulus forms), the special unit (the special functions,
+   closed forms, masks and cleanups) and the activations unit
+   (`torch.nn.functional`'s activations; `tools.traced_kernels`) against
+   the twin on the CPU at 128 boxes, (64, 32) nodes, f32 and f64 (B5's
+   tolerances),
+   each unit's registers, stack and spills, whether R took block sums and
+   how many, the remainder's operations per pair and the y values it
+   tables (the tensor: block sums alone, checked), then the numerical bench
+   chain through each at [6, 262144] f32 (the special unit at 4,096
+   boxes, `tools.traced_kernels.CAPPED`; launches counted), each against the twin there, its ms, the twin's, the
+   unit's ptxas line and nvcc seconds, and B5's Long in turns with all six
+   (and at the special unit's width); (b) the native oracle (`native.coal_ints_golden`,
    g++ on the host) on the card's f64 state against `get_coal_ints` on the
    card (rtol 1e-8) and against B3's f64 reference tier at the Simpson
    switches, 65,536 bench boxes; (c) five examples in FAST mode on the card,
@@ -288,9 +292,9 @@ BOX_SCENARIOS = ("box_single_gamma_golovin", "box_exp_gamma_mixture",
                  "box_long_numerical")
 VARIANTS = {"moving": "pod_ensemble_moving", "lognorm": "pod_ensemble_lognorm"}
 TOL = {"float32": 1e-4, "float64": 1e-9}  # kernel vs twin, row-scaled
-# the quadrature kernel sums its nodes in another order than the twin and its
-# assembly subtracts sums of like size
-NUM_TOL = {"float32": 1e-3, "float64": 1e-9}
+#: the quadrature kernel vs its twin, row-scaled: tools/traced_kernels.py's
+#: NUM_TOL, set in main()
+NUM_TOL = None
 BOX_TOL = 1e-6  # box scenarios vs the stored f64 trajectories (rtol)
 GOLDEN_TOL = 1e-3  # fast tier vs the stored f64 Simpson-tier trajectory
 B1_REPLACES = "cloudy_tpu/ops/pallas_coalescence.py:876"
@@ -551,37 +555,13 @@ def traced_kernels():
     kernel tensor (order 2, normalized), a torch lambda, and
     `tools.traced_kernels`' collection efficiency (tanh, erf, `torch.mul`
     and method forms), coverage unit (the arithmetic, trigonometric, error,
-    rounding and modulus forms, one term each) and special unit (the
-    special functions, closed forms, masks and cleanups, one term each)."""
-    import torch
-
-    from cloudy_tpu_torch import kernels as K
+    rounding and modulus forms, one term each), special unit (the special
+    functions, closed forms, masks and cleanups, one term each) and
+    activations unit (`torch.nn.functional`'s activations, one term each):
+    `tools.traced_kernels.traced`."""
     from cloudy_tpu_torch.tools import traced_kernels as tk
 
-    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
-    return {
-        "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized((1e6, 1e-9)),
-        "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
-        **tk.KERNELS,
-    }
-
-
-#: the traced kernel functions whose bench chain runs at fewer boxes where
-#: one launch at the bench's 262,144 would pass CAPPED_LAUNCH_MS (phase 30(a))
-CAPPED = ("special",)
-CAPPED_LAUNCH_MS = 100.0
-
-
-def capped_width(fn, x):
-    """`x` [6, n] cut to the most boxes, a power of two and at least 1,024,
-    at which one launch of `fn` stays within CAPPED_LAUNCH_MS, from one
-    timed launch at 4,096 boxes (the time per box there, scaled)."""
-    xp = x[:, :4096].contiguous()
-    per_box = _time_ms(lambda: fn.soa(xp), 1) / 4096
-    n = x.shape[1]
-    while n > 1024 and per_box * n > CAPPED_LAUNCH_MS:
-        n //= 2
-    return x[:, :n].contiguous()
+    return tk.traced()
 
 
 def traced_numerical(dev, dtype, nodes=(96, 48)):
@@ -677,6 +657,7 @@ def row_scaled(got, want, cancelling=()):
 
 
 def main():
+    global NUM_TOL
     t_all = time.perf_counter()
     import torch
 
@@ -702,8 +683,10 @@ def main():
     from cloudy_tpu_torch.ops import numerical_coalescence as nc
     from cloudy_tpu_torch.spec import Family, SpectrumSpec, get_moments_normalizing_factors
     from cloudy_tpu_torch.tools import opcount, reference_tune, yardstick
+    from cloudy_tpu_torch.tools import traced_kernels as tk
     from cloudy_tpu_torch.utils import metrics
 
+    NUM_TOL = tk.NUM_TOL
     dev = torch.device("cuda", 0)
     dtypes = {"float32": torch.float32, "float64": torch.float64}
 
@@ -878,6 +861,9 @@ def main():
     rhs_mom = torch.as_tensor(bench.bench_moments(bench.BENCH_COLUMNS).T.copy(),
                               dtype=torch.float32, device=dev)
     check(sc["step"].route == "generated", "the pod step does not take the generated kernel")
+    # a few steps at full width first, outside the counts and the timing: the
+    # caching allocator's blocks of this size and the card's clocks under load
+    sc["run"](3)
     sc["step"].launches = 0  # counts from here to the end of phase 7
     coal32.launches = 0
     y, pod_s, clock = sc["run"]()
@@ -891,7 +877,6 @@ def main():
           f"{rep['nonfinite_fraction']}, total_mass {rep['total_mass']:.6e} {card}")
     check(finite and rep["nonfinite_fraction"] == 0.0, "pod state not finite")
     check(rep["negative_fraction"] == 0.0, "pod state has negative moments")
-    b1_ms = pod_s / sc["n_steps"] * 1e3  # unscaled B1 fixed2gamma, phase 16 prints it again
     n_cmp = N_CMP_COLUMNS * NZ
     yt = sc["state0"][:, :n_cmp].contiguous()
     twin_start = torch.cuda.Event(enable_timing=True)
@@ -948,6 +933,14 @@ def main():
     coal_bound = bound("coal_rhs", coal32.plain, rhs_mom[:, :256].contiguous(),
                        bench.BENCH_COLUMNS, 6, 6)
     step_src = kernel_source(sc["step"])
+    # B1's time is the median of three timed runs of the main path, the
+    # counted one and two more after the counts were read, so that a run
+    # disturbed once does not move the readings later phases compare with
+    pod_runs = [pod_s] + [sc["run"]()[1] for _ in range(2)]
+    pod_s = float(np.median(pod_runs))
+    b1_ms = pod_s / sc["n_steps"] * 1e3  # unscaled B1 fixed2gamma, phase 16 prints it again
+    print(f"phase 7 main path's three timed runs of {sc['n_steps']} steps: "
+          f"{', '.join(f'{s:.4f}' for s in pod_runs)} s; median {b1_ms:.4f} ms/step {card}")
     # phase 26 resumes this run from a checkpoint and holds it to these
     pod_final, pod_twin = y, yt
     del sc, y, yt
@@ -3396,13 +3389,16 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
     from cloudy_tpu_torch.ops import fused_coalescence as fc
     from cloudy_tpu_torch.spec import Family, SpectrumSpec
     from cloudy_tpu_torch.tools import opcount, whole_step_1m
+    from cloudy_tpu_torch.tools import traced_kernels as tk
     from cloudy_tpu_torch.utils import plotting
 
     t = time.perf_counter()
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     G2 = SpectrumSpec((Family.GAMMA, Family.GAMMA))
 
-    # (a) B5's traced arm against its twin at 128 boxes, (64, 32) nodes
+    # (a) B5's traced arm against its twin on the CPU (the reference
+    # semantics: torch's CUDA hardsigmoid and hardswish round otherwise) at
+    # 128 boxes, (64, 32) nodes
     rng = np.random.default_rng(5)
     par = np.stack([np.stack([rng.uniform(10, 200, N_NUM_BOXES), rng.uniform(0.05, 5.0, N_NUM_BOXES),
                               rng.uniform(0.5, 5.0, N_NUM_BOXES)], -1) for _ in range(2)], 1)
@@ -3415,19 +3411,30 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
             x = torch.as_tensor(mom, dtype=dt, device=dev)
             got = fn.soa(x)
             check(fn.launches == 1, f"[B5 gen {kname}] did not count one launch")
-            want = fn.plain(x)
+            want = fn.plain(x.cpu()).to(dev)
             err, abs_err = row_scaled(got, want)
             finite = bool(torch.isfinite(got).all())
             empty_zero = bool((got[:, 5] == 0).all())
             repeat = bool(torch.equal(got, fn.soa(x)))
             rec = built.get(fn.unit.label, {})
             pt = _build.ptxas_report(rec.get("log", ""))
-            print(f"phase 30 (a) B5 gen [{kname}] {fn.unit.label} vs twin {name} at "
+            gen = dict(fn.unit.gen)
+            r_form = (f"R by block sums of {gen['terms']} separable terms" if gen["terms"]
+                      else "R without block sums")
+            r_form += (f" and a pair loop over a remainder of {gen['remainder_nodes']} operations "
+                       f"({gen['x_values']} x values, {gen['tabled']} y values tabled per node)"
+                       if gen["remainder"] else ", no G x G loop")
+            print(f"phase 30 (a) B5 gen [{kname}] {fn.unit.label} vs twin (CPU) {name} at "
                   f"[{x.shape[0]}, {x.shape[1]}], nodes {NUM_NODES}: row-scaled {err:.3e} (tol "
                   f"{NUM_TOL[name]:.0e}), max abs {abs_err:.3e}, finite {finite}, empty box zero "
                   f"{empty_zero}, second launch bit-identical {repeat}; nvcc "
-                  f"{rec.get('seconds', float('nan')):.3f} s (phase 2), ptxas {pt} {card}")
+                  f"{rec.get('seconds', float('nan')):.3f} s (phase 2), ptxas {pt}; {r_form} "
+                  f"{card}")
+            print(json.dumps({"phase": 30, "kind": "numerical_gen_unit", "unit": kname,
+                              "dtype": name, "label": fn.unit.label, "ptxas": pt, **gen}))
             check(bool(rec), f"[B5 gen {kname}] {fn.unit.label} was not built in phase 2")
+            check(kname != "tensor" or (gen["terms"] > 0 and not gen["remainder"]),
+                  "[B5 gen tensor] R is not block sums alone")
             check(finite and empty_zero and repeat, f"[B5 gen {kname}] {name}: not finite, "
                   "empty box not zero or two launches differ")
             check(err < NUM_TOL[name], f"[B5 gen {kname}] {name} vs twin {err:.3e}")
@@ -3436,8 +3443,8 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
             print(f"phase 30 (a) the tagged instances, ptxas (phase 2): {ln}")
 
     # the numerical bench chain through each traced kernel function at
-    # [6, 262144] f32, (96, 48) nodes (`special` at fewer boxes where one
-    # launch there would pass CAPPED_LAUNCH_MS); B5's Long and both in turns
+    # [6, 262144] f32, (96, 48) nodes (`tools.traced_kernels.CAPPED`'s at
+    # fewer boxes); B5's Long and both in turns
     x_bench = torch.as_tensor(bench.numerical_moments().T.copy(), dtype=torch.float32,
                               device=dev)
     fns = {"long": bench.numerical_fn(dev), **traced_numerical(dev, torch.float32)}
@@ -3446,11 +3453,10 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
         fn = fns[kname]
         fn.soa(x_bench[:, :64].contiguous())  # loads the unit, outside the count
         torch.cuda.synchronize()
-        x = xs[kname] = capped_width(fn, x_bench) if kname in CAPPED else x_bench
-        n_box = x.shape[1]
+        n_box = tk.CAPPED.get(kname, x_bench.shape[1])
+        x = xs[kname] = x_bench[:, :n_box].contiguous()
         if n_box < x_bench.shape[1]:
-            print(f"phase 30 (a) [{kname}] one launch at [6, {x_bench.shape[1]}] would pass "
-                  f"{CAPPED_LAUNCH_MS} ms: its chain and turns run at [6, {n_box}], beside B5's "
+            print(f"phase 30 (a) [{kname}] its chain and turns run at [6, {n_box}], beside B5's "
                   f"Long at that width")
             xs[f"long@{n_box}"], fns[f"long@{n_box}"] = x, fns["long"]
         fn.launches = 0
@@ -3459,6 +3465,7 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
         check(n_launch == N_NUM_STEPS + 3,
               f"[B5 gen {kname}] chain launched {n_launch} times, not {N_NUM_STEPS + 3}")
         got = fn.soa(x)
+        fn.plain(x[:, :64].contiguous())  # torch's first-use kernel builds, outside the time
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3599,7 +3606,8 @@ def phase_30(dev, card, kernels, bound, b1_ms, log):
     print(json.dumps(rec))
     print(f"phase 30 (d) whole_step_1m {rec['n_columns']} x {rec['nz']} f32 ({rec['route']}): "
           f"{rec['ms_per_step']:.4f} ms/step, {rec['column_updates_per_s']:.4e} column-updates/s, "
-          f"launches {rec['launches']}; phase 6 in this call {b1_ms:.4f} ms/step {card}")
+          f"launches {rec['launches']}; phase 6 in this call (median of three runs) {b1_ms:.4f} "
+          f"ms/step {card}")
     check(rec["route"] == "generated" and rec["launches"] > 0, "whole_step_1m launched no kernel")
     check(abs(rec["ms_per_step"] / b1_ms - 1.0) < 0.03,
           f"whole_step_1m {rec['ms_per_step']:.4f} ms/step against phase 6's {b1_ms:.4f}")

@@ -221,6 +221,64 @@ template <typename T> __device__ __forceinline__ T dndtr(T x) {
   return (T(1) + derf(x * T(0.70710678118654752440))) * T(0.5);
 }
 
+// torch.nn.functional's activations with a jax.nn counterpart, each with
+// torch's own formula (its CPU kernels', not JAX's where the two differ:
+// softplus switches to x past beta x > threshold, mish has no threshold,
+// log_sigmoid is min(x, 0) - log1p(exp(-|x|))); the clamps keep x on a tie
+// (-0 stays -0) and NaN, as torch's clamp does. A parameter is a constant
+// of the emitted text, rounded to T.
+template <typename T> __device__ __forceinline__ T dclamp_keep(T x, T lo, T hi) {
+  const T r = x < lo ? lo : x;
+  return r > hi ? hi : r;
+}
+template <typename T> __device__ __forceinline__ T dsoftplus(T x, T beta, T threshold) {
+  return x * beta > threshold ? x : dlog1p(dexp(x * beta)) / beta;
+}
+template <typename T> __device__ __forceinline__ T dgelu(T x) {
+  return x * T(0.5) * (T(1) + derf(x * T(0.70710678118654752440)));
+}
+// kBeta = M_SQRT2 * M_2_SQRTPI * 0.5, taken in double, then rounded to T
+template <typename T> __device__ __forceinline__ T dgelu_tanh(T x) {
+  const T beta = T(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+  const T kappa = T(0.044715);
+  return T(0.5) * x * (T(1) + dtanh(beta * (x + kappa * (x * x * x))));
+}
+template <typename T> __device__ __forceinline__ T dsilu(T x) {
+  return x / (T(1) + dexp(-x));
+}
+template <typename T> __device__ __forceinline__ T dmish(T x) {
+  return x * dtanh(dlog1p(dexp(x)));
+}
+// F.elu(alpha) (torch._C._nn.elu also takes scale and input_scale)
+template <typename T>
+__device__ __forceinline__ T delu_alpha(T x, T alpha, T scale, T input_scale) {
+  return delu(x, alpha * scale, input_scale, scale);
+}
+template <typename T> __device__ __forceinline__ T dleaky_relu(T x, T slope) {
+  return x > T(0) ? x : x * slope;
+}
+template <typename T> __device__ __forceinline__ T dhardtanh(T x, T lo, T hi) {
+  return dclamp_keep(x, lo, hi);
+}
+template <typename T> __device__ __forceinline__ T drelu6(T x) {
+  return dclamp_keep(x, T(0), T(6));
+}
+// hardsigmoid and hardswish divide by 6, as torch's CPU kernels and
+// jax.nn.hard_sigmoid do, on the card as on the host (torch's CUDA kernels
+// multiply by one sixth taken in float, 3e-8 off in f64)
+template <typename T> __device__ __forceinline__ T dhardsigmoid(T x) {
+  return dclamp_keep(x + T(3), T(0), T(6)) / T(6);
+}
+template <typename T> __device__ __forceinline__ T dhardswish(T x) {
+  return x * dclamp_keep(x + T(3), T(0), T(6)) / T(6);
+}
+template <typename T> __device__ __forceinline__ T dlog_sigmoid(T x) {
+  return vmin(x, T(0)) - dlog1p(dexp(-dabs(x)));
+}
+template <typename T> __device__ __forceinline__ T dsoftsign(T x) {
+  return x / (dabs(x) + T(1));
+}
+
 // Opts a kernel into more than SMEM_NO_OPTIN bytes of dynamic shared memory
 // where its launch asks for that much (host code: before the launch and
 // before an occupancy query at the same size). Past the card's opt-in limit

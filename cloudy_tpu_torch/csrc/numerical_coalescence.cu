@@ -64,9 +64,18 @@
 // from a unit built at first use (ops/codegen.py `numerical_unit`): this
 // file included with CLOUDY_UNIT -1 (every template, no prebuilt instance or
 // entry point), then CLOUDY_NUMERICAL_UNIT_ENTRY; a traced unit includes its
-// cfg.cuh (cloudy_kernel_gen) first and holds the KT_GEN arm alone. Its R
-// takes the G x G loop over a node table of X and WX F_j, as the
-// hydrodynamic arm does over radii.
+// cfg.cuh first and holds the KT_GEN arm alone. Its cfg.cuh holds the traced
+// K, cloudy_kernel_gen, and K's factored form (ops/kernel_expr.py `factor`):
+// K(x, y) = sum_i f_i(x) g_i(y) + r(x, y), the separable terms split off
+// through +, -, and products with (quotients by) constants and one-variable
+// factors, never a product of sums expanded. R takes the separable terms as
+// block sums, as the tagged arms do: the node pass adds each node's
+// g_i(y) WX F_j(y) to the warp's sums (cloudy_gen_y) and A_j(X) = sum_i
+// f_i(X) S_ij (cloudy_gen_x); only the remainder r keeps a G x G loop, over
+// a node table of the y values it reads (tabled once per node) and WX F_j,
+// its x values in registers (cloudy_gen_pair). A separable K (a kernel
+// tensor) has no G x G loop (quad_node_bytes 0). Q/S calls the whole K at
+// (XR, XS): no node is shared across its pairs.
 
 #include <cmath>
 #include <type_traits>
@@ -104,6 +113,17 @@ constexpr int NUM_MAX_WARPS = NUM_BLOCK / 32;
 // CLOUDY_KERNEL_GEN defined (codegen.numerical_unit): the library and the
 // other units have no KT_GEN arm.
 constexpr int KT_CONSTANT = 0, KT_LINEAR = 1, KT_HYDRO = 2, KT_LONG = 3, KT_GEN = 4;
+// A traced unit's factored form (its cfg.cuh, ops/kernel_expr.py `factor`):
+// K(x, y) = sum_i f_i(x) g_i(y) + r(x, y), with GEN_TERMS separable terms
+// and a remainder r (GEN_REM) that reads GEN_XV values of x and GEN_YV
+// tabled values of y; none outside a traced unit.
+#ifdef CLOUDY_KERNEL_GEN
+constexpr int GEN_TERMS = kGenTerms, GEN_XV = kGenXValues, GEN_YV = kGenYValues;
+constexpr bool GEN_REM = kGenRemainder;
+#else
+constexpr int GEN_TERMS = 0, GEN_XV = 0, GEN_YV = 0;
+constexpr bool GEN_REM = false;
+#endif
 // Template value for "read the tag from the configuration": instantiated only
 // with -DCLOUDY_RUNTIME_KTAG, by which tools/dispatch_compare.py times what
 // compiling the kernel function in buys.
@@ -593,17 +613,18 @@ __device__ __forceinline__ T block_total(const T (*part)[NUM_MAX_WARPS], int k,
 }
 
 // Whether R runs the G x G loop over a node table in shared memory (the
-// hydrodynamic kernel and a traced one) instead of block sums.
-__host__ __device__ constexpr bool node_table(int kt) {
-  return kt == KT_HYDRO || kt == KT_GEN;
-}
+// hydrodynamic kernel) instead of block sums alone.
+__host__ __device__ constexpr bool node_table(int kt) { return kt == KT_HYDRO; }
 
 // The dynamic shared memory of a quad_kernel launch past its configuration:
-// with a node table, each outer node's radius (hydrodynamic) or X (traced)
-// and WX F_j (the G x G loop reads them all), none otherwise.
+// the hydrodynamic kernel's node table, each outer node's radius and WX F_j
+// (the G x G loop reads them all); a traced kernel's with a remainder, each
+// node's GEN_YV tabled y values and WX F_j; none otherwise.
 template <typename T, int N>
 constexpr size_t quad_node_bytes(int ktag, int g_total) {
-  return node_table(ktag) ? (size_t)(N + 1) * g_total * sizeof(T) : 0;
+  if (ktag == KT_HYDRO) return (size_t)(N + 1) * g_total * sizeof(T);
+  if (ktag == KT_GEN && GEN_REM) return (size_t)(N + GEN_YV) * g_total * sizeof(T);
+  return 0;
 }
 
 template <typename T, int N, int KT>
@@ -636,10 +657,11 @@ __global__ void __launch_bounds__(NUM_BLOCK)
   const int n_pass = (G + blockDim.x - 1) / blockDim.x;
   const T k0 = c.kpar[0], k1 = c.kpar[1], k2 = c.kpar[2];
   const int kt = (KT == KT_RUNTIME) ? reinterpret_cast<const int*>(smem)[NH_KTAG] : KT;
-  // node table (hydrodynamic: each node's radius; traced: its X), then
-  // WX F_j, after the configuration (quad_node_bytes)
+  // node table (hydrodynamic: each node's radius; traced: its GEN_YV
+  // tabled y values, value k at k G + node), then WX F_j, after the
+  // configuration (quad_node_bytes)
   T* shR = reinterpret_cast<T*>(smem + cfg_bytes);
-  T* shWF = shR + G;
+  T* shWF = shR + (KT == KT_GEN ? GEN_YV : 1) * G;
 
   // ---- closure inversion, per-mode constants and support bounds (the same
   // in every thread) --------------------------------------------------------
@@ -695,11 +717,17 @@ __global__ void __launch_bounds__(NUM_BLOCK)
   //   Sb over the nodes below the threshold t = k0, Sa over the rest; each
   //   thread adds its nodes' values in pass order first.
   // The hydrodynamic kernel keeps the G x G loop over every node's radius
-  // and WX F_j, published here; a traced kernel function (KT_GEN) the same
-  // loop over every node's X and WX F_j, K(X, y) = cloudy_kernel_gen.
+  // and WX F_j, published here. A traced kernel function (KT_GEN) takes its
+  // separable terms as block sums of g_i(y) WX F_j(y), A_j(X) = sum_i
+  // f_i(X) S_ij, and loops over the pairs for its remainder alone, from
+  // each node's tabled y values and WX F_j, published here (no loop where
+  // K is separable).
   // sums per mode (a run-time tag takes the most)
   constexpr int NS =
-      (KT == KT_CONSTANT || KT == KT_GEN) ? 1 : ((KT == KT_LINEAR) ? 2 : 5);
+      (KT == KT_CONSTANT) ? 1
+                          : ((KT == KT_LINEAR) ? 2
+                                               : ((KT == KT_GEN) ? (GEN_TERMS > 0 ? GEN_TERMS : 1)
+                                                                 : 5));
   __shared__ T part[N * NS][NUM_MAX_WARPS];
   T v[N * NS];
 #pragma unroll
@@ -711,9 +739,28 @@ __global__ void __launch_bounds__(NUM_BLOCK)
     T X, WX;
     node(gg, X, WX);
     const T LX = D::lg(vmax(X, tiny));
+#ifdef CLOUDY_KERNEL_GEN
+    if constexpr (KT == KT_GEN) {
+      T gy[GEN_TERMS > 0 ? GEN_TERMS : 1], yv[GEN_YV > 0 ? GEN_YV : 1];
+      cloudy_gen_y<T>(X, gy, yv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const T wf = active ? WX * (md[j].s * md[j].shape(X, LX)) : T(0);
+#pragma unroll
+        for (int i = 0; i < GEN_TERMS; ++i)
+          v[j * NS + i] = v[j * NS + i] + (active ? gy[i] * wf : T(0));
+        if (GEN_REM && active) shWF[j * G + gg] = wf;
+      }
+      if (GEN_REM && active) {
+#pragma unroll
+        for (int k = 0; k < GEN_YV; ++k) shR[k * G + gg] = yv[k];
+      }
+      continue;
+    }
+#endif
     if (node_table(kt)) {
       if (active) {
-        shR[gg] = (kt == KT_HYDRO) ? hydro_radius(X) : X;
+        shR[gg] = hydro_radius(X);
 #pragma unroll
         for (int j = 0; j < N; ++j) shWF[j * G + gg] = WX * (md[j].s * md[j].shape(X, LX));
       }
@@ -738,7 +785,7 @@ __global__ void __launch_bounds__(NUM_BLOCK)
       }
     }
   }
-  if (node_table(kt))
+  if (node_table(kt) || (KT == KT_GEN && GEN_TERMS == 0))
     __syncthreads();
   else
     block_partials<T, N * NS>(v, lane, warp, part);
@@ -787,13 +834,23 @@ __global__ void __launch_bounds__(NUM_BLOCK)
         }
       }
     } else if (kt == KT_GEN) {
-      if (active) {
+#ifdef CLOUDY_KERNEL_GEN
+      T fx[GEN_TERMS > 0 ? GEN_TERMS : 1], xv[GEN_XV > 0 ? GEN_XV : 1];
+      cloudy_gen_x<T>(X, fx, xv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int i = 0; i < GEN_TERMS; ++i)
+          A[j] = A[j] + fx[i] * block_total(part, j * NS + i, n_warps);
+      }
+      if (GEN_REM && active) {
         for (int y = 0; y < G; ++y) {
-          const T K = kernel_value<T, KT>(kt, k0, k1, k2, X, shR[y]);
+          const T K = cloudy_gen_pair<T>(xv, shR + y, G);
 #pragma unroll
           for (int j = 0; j < N; ++j) A[j] = A[j] + shWF[j * G + y] * K;
         }
       }
+#endif
     } else {
       const bool below = X < k0;
 #pragma unroll

@@ -123,6 +123,10 @@ class Unit:
     scaled: bool = False
     flags: Tuple[str, ...] = ()
     caps: Tuple[int, ...] = ()
+    #: a traced numerical unit's factored form (`kernel_expr.factor`), as
+    #: (name, count) pairs: separable terms, x values, tabled y values,
+    #: remainder operations per pair, remainder (0 or 1)
+    gen: Tuple[Tuple[str, int], ...] = ()
 
     @property
     def label(self) -> str:
@@ -467,10 +471,17 @@ def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
     where the trace calls one of its functions; the digest covers the
     emitted text, so each distinct kernel function builds once."""
     real = "float" if dtype == torch.float32 else "double"
-    cfg, defines = "", []
+    cfg, defines, gen = "", [], ()
     if kernel is not None:
         from cloudy_tpu_torch.ops import kernel_expr
 
+        def lit(v):
+            return literal(v, dtype)
+
+        fac = kernel_expr.factor(kernel)
+        gen = (("terms", len(fac.terms)), ("x_values", len(fac.x_values)),
+               ("tabled", len(fac.tabled)), ("remainder_nodes", fac.remainder_nodes),
+               ("remainder", int(fac.remainder is not None)))
         cfg = "\n".join([
             "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
             "// The kernel function K(x, y), traced (ops/kernel_expr.py).",
@@ -479,7 +490,8 @@ def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
             *(f'#include "{h}"' for h in kernel_expr.includes(kernel)),
             "",
             "namespace cloudy {",
-            kernel_expr.device_source(kernel, lambda v: literal(v, dtype)),
+            kernel_expr.device_source(kernel, lit),
+            kernel_expr.factored_source(fac, lit),
             "}  // namespace cloudy",
             "",
         ])
@@ -488,4 +500,4 @@ def numerical_unit(n_modes: int, dtype: torch.dtype, kernel=None) -> Unit:
                                f"CLOUDY_NUMERICAL_UNIT_ENTRY({real}, {int(n_modes)})")
     return Unit(kind="numerical", dtype=dtype, cfg=cfg, source=source,
                 digest=_digest(cfg, source), threads=0, shfl=False, n_tot=0, nz=0,
-                caps=(int(n_modes),))
+                caps=(int(n_modes),), gen=gen)

@@ -15,8 +15,13 @@ records the operations they meet, as a DAG of `Expr` nodes, and
 one statement per distinct subexpression, its constants rounded once to the
 unit's type (`codegen.literal`). `codegen.numerical_unit` builds the
 quadrature kernel's ``KT_GEN`` arm around it (csrc/numerical_coalescence.cu).
-`evaluate` computes a trace on tensors as that function does, for
-`tools.opcount`'s count of the operations it needs.
+`factor` splits the trace into separable terms f_i(x) g_i(y) and a mixed
+remainder, and `factored_source` writes them as the functions the arm
+takes R from: the g_i and the remainder's y values once per outer node,
+the f_i and its x values once per node, the remainder alone per pair.
+`evaluate` computes a trace on tensors as those functions do, and
+`factored_r_sums` R as the arm takes it, for `tools.opcount`'s count of
+the operations the kernel needs.
 
 What the operands cover, each in the unit's type through a helper of
 csrc/common.cuh with the torch semantics (not C's where they differ):
@@ -40,16 +45,28 @@ csrc/common.cuh with the torch semantics (not C's where they differ):
 - the closed forms, with torch's values at 0, ±inf, NaN and the poles:
   xlogy, xlog1py, entr, logit (with ``eps``), sinc, logaddexp, logaddexp2,
   heaviside, deg2rad, rad2deg, frac, ldexp, nextafter, positive, rsub, sgn,
-  angle (of a real), relu, selu, celu (also as `torch.nn.functional`'s
-  relu, selu, celu), ndtr; the masks isnan, isinf, isfinite, isposinf,
-  isneginf, signbit (bool, usable in `where` and ``& | ~``) and
-  nan_to_num (its defaults the traced type's largest and lowest values);
+  angle (of a real), relu, selu, celu, ndtr; the masks isnan, isinf,
+  isfinite, isposinf, isneginf, signbit (bool, usable in `where` and
+  ``& | ~``) and nan_to_num (its defaults the traced type's largest and
+  lowest values);
 - torch's special functions, its own algorithms copied into
   csrc/special_functions.cuh: log_ndtr, digamma (psi), polygamma,
   zeta (Hurwitz), igamma/igammac (gammainc/gammaincc), mvlgamma
   (multigammaln, as torch's sum of lgammas), i0, i0e, i1, i1e,
   modified_bessel_i0/i1, bessel_j0/j1. polygamma's n and mvlgamma's p are
   a Python int or a 0-d integer tensor, compile-time constants of the
+  emitted text;
+- `torch.nn.functional`'s relu, selu, celu and its activations with a
+  `jax.nn` counterpart, each with torch's own formula (its CPU kernels',
+  where JAX's differs: softplus is x past beta·x > threshold, gelu's
+  default is the erf form, mish has no threshold, logsigmoid is min(x, 0)
+  − log1p(exp(−|x|))): softplus (beta, threshold), gelu (``approximate``
+  'none' or 'tanh'), silu, mish, elu (alpha; torch._C._nn.elu's scale and
+  input_scale too), leaky_relu (negative_slope), hardtanh (min_val,
+  max_val), relu6, hardsigmoid, hardswish (dividing by 6, as torch's CPU
+  kernels do, on the card too), logsigmoid, softsign; also as
+  torch._C._nn's builtins (log_sigmoid) and through an nn.Module over one (nn.GELU(), nn.Softplus(beta=2.0), ...);
+  each parameter a Python number or a 0-d tensor, a constant of the
   emitted text;
 - the method form of each (``x.exp()``, ``x.clamp(min=...)``, ``x.pow(y)``,
   ``x.where(cond, other)``, which is ``torch.where(cond, x, other)``,
@@ -68,21 +85,25 @@ too. Everything else raises `KernelTraceError` naming the operation:
 - the forms with no JAX counterpart: `torch.special.erfcx`, bessel_y0/y1,
   the modified_bessel_k* and scaled_modified_bessel_k* families,
   spherical_bessel_j0, airy_ai, the polynomial families;
+- `torch.nn.functional`'s forms with no `jax.nn` counterpart or that are
+  not elementwise: tanhshrink, softshrink, hardshrink, threshold, rrelu,
+  prelu, glu, softmax, log_softmax, softmin and the normalisations;
 - a Python branch on an operand's value, reductions (``x.sum()``,
   `torch.cumsum`), indexing and shape changes, in-place methods
-  (``x.add_``), dtype changes (``x.double()``, `torch.float_power`), random
-  draws, losses, `torch.isclose` / `torch.isin`, ``alpha`` scaling of
-  add/sub/rsub, an operand as polygamma's n or mvlgamma's p;
-- `torch.nn.functional`'s forms outside the `torch` namespace (softplus,
-  gelu, ...), and any other function not listed.
+  (``x.add_``) and forms (``inplace=True``, ``F.elu_``), dtype changes
+  (``x.double()``, `torch.float_power`), random draws, losses,
+  `torch.isclose` / `torch.isin`, ``alpha`` scaling of add/sub/rsub, an
+  operand as polygamma's n, mvlgamma's p or an activation's parameter, and
+  any other function not listed.
 """
 
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -464,19 +485,24 @@ _BINARY_CALLS = ("atan2", "hypot", "copysign", "fmod", "remainder", "floor_divid
                  "nextafter", "ldexp", "zeta", "igamma", "igammac")
 #: the masks of a value (bool, as the comparisons)
 _MASK_CALLS = ("isnan", "isinf", "isfinite", "isposinf", "isneginf", "signbit")
+#: torch.nn.functional's activations with a `jax.nn` counterpart, each a
+#: helper of csrc/common.cuh with torch's own formula (its CPU kernels')
+_ACTIVATIONS = ("softplus", "gelu", "gelu_tanh", "silu", "mish", "elu", "leaky_relu",
+                "hardtanh", "relu6", "hardsigmoid", "hardswish", "log_sigmoid", "softsign")
 #: the elementwise functions emitted as a call of a csrc/common.cuh (or
 #: special_functions.cuh) helper, ``d<op>`` but for jnp's and torch's
 #: NaN-propagating min/max (``vmin``, ``vmax``), torch.round's half to even
 #: (``drint``), ``dfloordiv``, digamma (``dpsi``), the incomplete gammas
-#: (``dgammainc``, ``dgammaincc``) and modified_bessel_i0, which is i0's
-#: arithmetic; ``logit`` takes an ``eps``, ``celu`` its alpha and 1/alpha,
-#: ``nan_to_num`` its three replacements, ``polygamma`` its order as a
-#: template argument
+#: (``dgammainc``, ``dgammaincc``), modified_bessel_i0, which is i0's
+#: arithmetic, and elu (``delu_alpha``); ``logit`` takes an ``eps``,
+#: ``celu`` its alpha and 1/alpha, ``nan_to_num`` its three replacements,
+#: ``polygamma`` its order as a template argument, the activations their
+#: parameters
 _CALL_C = {**{op: f"d{op}" for op in _UNARY_CALLS + _BINARY_CALLS + _MASK_CALLS
-              + ("pow", "logit", "celu", "nan_to_num", "polygamma")},
+              + _ACTIVATIONS + ("pow", "logit", "celu", "nan_to_num", "polygamma")},
            "min": "vmin", "max": "vmax", "round": "drint", "floor_divide": "dfloordiv",
            "digamma": "dpsi", "igamma": "dgammainc", "igammac": "dgammaincc",
-           "modified_bessel_i0": "di0"}
+           "modified_bessel_i0": "di0", "elu": "delu_alpha"}
 #: the operations whose helpers are in csrc/special_functions.cuh, which a
 #: unit includes only where its trace calls one (`includes`)
 _SPECIAL_OPS = frozenset({"log_ndtr", "digamma", "polygamma", "zeta", "igamma", "igammac",
@@ -550,10 +576,67 @@ def _no_inplace(rule):
     return functional
 
 
-#: the torch.nn.functional forms of covered torch functions (the others,
-#: such as softplus or gelu, stay refused)
+def _param(v, what: str) -> float:
+    """An activation's parameter (softplus's beta, elu's alpha, ...): a
+    Python number or a 0-d tensor, a constant of the emitted text."""
+    if isinstance(v, Expr):
+        raise _unsupported(f"x or y as {what}")
+    return _wrap(v).args[0]
+
+
+def _softplus(x, beta=1.0, threshold=20.0):
+    return _call("softplus", x, _param(beta, "softplus's beta"),
+                 _param(threshold, "softplus's threshold"))
+
+
+def _gelu(x, approximate="none"):
+    if approximate == "none":
+        return _call("gelu", x)
+    if approximate == "tanh":
+        return _call("gelu_tanh", x)
+    raise _unsupported(f"torch.nn.functional.gelu with approximate={approximate!r}")
+
+
+def _elu(x, alpha=1.0, scale=1.0, input_scale=1.0):
+    # torch's elu kernel: alpha * scale at x <= 0 (each rounded to the
+    # type, then multiplied), input_scale inside the exponential
+    return _call("elu", x, _param(alpha, "elu's alpha"), _param(scale, "elu's scale"),
+                 _param(input_scale, "elu's input_scale"))
+
+
+def _leaky_relu(x, negative_slope=0.01):
+    return _call("leaky_relu", x, _param(negative_slope, "leaky_relu's negative_slope"))
+
+
+def _hardtanh(x, min_val=-1.0, max_val=1.0):
+    return _call("hardtanh", x, _param(min_val, "hardtanh's min_val"),
+                 _param(max_val, "hardtanh's max_val"))
+
+
+#: the torch.nn.functional forms the tracer takes: those of covered torch
+#: functions (relu, selu, celu) and the activations (`_ACTIVATIONS`), by
+#: their names there; torch._C._nn's builtins of the same names (and
+#: log_sigmoid, which is logsigmoid) resolve to the same rules, and so does
+#: an nn.Module over them (nn.GELU(), nn.Softplus(beta=2.0), ...), whose
+#: forward calls the functional form. The in-place forms (``inplace=True``
+#: and the names ending in ``_``) are refused; so are the forms with no
+#: `jax.nn` counterpart or that are not elementwise (tanhshrink,
+#: softshrink, hardshrink, threshold, rrelu, prelu, glu, softmax and the
+#: normalisations), each by its name
 _FUNCTIONAL = {"relu": _no_inplace(_unary("relu")), "selu": _no_inplace(_unary("selu")),
-               "celu": _no_inplace(_celu)}
+               "celu": _no_inplace(_celu), "softplus": _softplus, "gelu": _gelu,
+               "silu": _no_inplace(_unary("silu")), "mish": _no_inplace(_unary("mish")),
+               "elu": _no_inplace(_elu), "leaky_relu": _no_inplace(_leaky_relu),
+               "hardtanh": _no_inplace(_hardtanh), "relu6": _no_inplace(_unary("relu6")),
+               "hardsigmoid": _no_inplace(_unary("hardsigmoid")),
+               "hardswish": _no_inplace(_unary("hardswish")),
+               "logsigmoid": _unary("log_sigmoid"), "softsign": _unary("softsign")}
+#: torch._C._nn's names where they differ from torch.nn.functional's
+_NN_NAMES = {"logsigmoid": "log_sigmoid"}
+
+
+def _refuse_inplace(*args, **kw):
+    raise _unsupported("an in-place torch.nn.functional form")
 
 
 def _method_where(self, condition, other):
@@ -585,9 +668,14 @@ def _tables():
             method = _METHOD_ORDER.get(name, rule)
             rules[f], names[f] = method, f"torch.Tensor.{name}"
             methods[name] = method
-    for name in _FUNCTIONAL:
-        f = getattr(torch.nn.functional, name)
-        rules[f], names[f] = _FUNCTIONAL[name], f"torch.nn.functional.{name}"
+    for name, rule in _FUNCTIONAL.items():
+        nn_name = _NN_NAMES.get(name, name)
+        for owner, prefix, n in ((torch._C._nn, "torch._C._nn", nn_name),
+                                 (torch.nn.functional, "torch.nn.functional", name)):
+            for f, r in ((getattr(owner, n, None), rule),
+                         (getattr(owner, f"{n}_", None), _refuse_inplace)):
+                if f is not None:
+                    rules[f], names[f] = r, f"{prefix}.{n}{'' if r is rule else '_'}"
     for dunder, name in _DUNDERS.items():
         f = getattr(torch.Tensor, dunder, None)
         if f is not None:
@@ -642,9 +730,18 @@ def statements(expr: Expr, literal: Callable[[float], str]) -> Tuple[List[str], 
     """(statements, result) of `expr` in C++: one ``const`` per distinct
     subexpression in evaluation order (equal subexpressions share one),
     constants written by `literal`."""
+    lines, refs = statements_of([expr], literal)
+    return lines, refs[0]
+
+
+def statements_of(roots, literal: Callable[[float], str],
+                  leaves: Dict[int, str] = None) -> Tuple[List[str], List[str]]:
+    """`statements` of several roots at once (their shared subexpressions
+    once): (statements, the roots' references). A node in `leaves` (by
+    ``id``) is the C++ expression it maps to, not computed."""
     lines: List[str] = []
     names: Dict[str, str] = {}
-    memo: Dict[int, str] = {}
+    memo: Dict[int, str] = dict(leaves or {})
 
     def emit(e: Expr) -> str:
         if id(e) in memo:
@@ -677,7 +774,7 @@ def statements(expr: Expr, literal: Callable[[float], str]) -> Tuple[List[str], 
         memo[id(e)] = ref
         return ref
 
-    return lines, emit(expr)
+    return lines, [emit(r) for r in roots]
 
 
 def _torch_op(op: str):
@@ -695,17 +792,38 @@ _TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch
               "celu": lambda x, alpha, inv_alpha: torch.celu(x, float(alpha)),
               "nan_to_num": lambda x, nan, posinf, neginf: torch.nan_to_num(
                   x, float(nan), float(posinf), float(neginf)),
-              "polygamma": torch.polygamma}
+              "polygamma": torch.polygamma,
+              **{op: (lambda f: lambda x, *p: f(x, *(float(v) for v in p)))(
+                  getattr(torch.nn.functional, op))
+                 for op in ("softplus", "silu", "mish", "leaky_relu", "hardtanh", "relu6",
+                            "hardsigmoid", "hardswish", "softsign")},
+              "gelu": torch.nn.functional.gelu,
+              "gelu_tanh": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+              "elu": lambda x, alpha, scale, input_scale: torch._C._nn.elu(
+                  x, float(alpha), float(scale), float(input_scale)),
+              "log_sigmoid": torch.nn.functional.logsigmoid}
 
 
-def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor,
+             leaves: Dict[int, torch.Tensor] = None) -> torch.Tensor:
     """`expr` on tensors, as the emitted function computes it: each distinct
     subexpression once (as `statements` shares them), at the shape its own
-    operands broadcast to. `tools.opcount` counts a twin's kernel function
+    operands broadcast to; a node in `leaves` (by ``id``) is the tensor it
+    maps to, not computed. `tools.opcount` counts a twin's kernel function
     through it."""
+    return evaluate_many([expr], x, y, leaves)[0]
+
+
+def evaluate_many(roots, x: torch.Tensor, y: torch.Tensor,
+                  leaves: Dict[int, torch.Tensor] = None) -> List[torch.Tensor]:
+    """`evaluate` of several roots at once, their shared subexpressions
+    once (as `statements_of` emits them)."""
     memo: Dict[str, torch.Tensor] = {}
+    leaves = leaves or {}
 
     def ev(e: Expr):
+        if id(e) in leaves:
+            return leaves[id(e)], f"leaf{id(e)}"
         if e.op == "var":
             return (x if e.args[0] == "x" else y), e.args[0]
         if e.op == "const":
@@ -719,8 +837,12 @@ def evaluate(expr: Expr, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             memo[key] = _TORCH_OPS[e.op](*vals)
         return memo[key], key
 
-    out, _ = ev(expr)
-    return out.expand(torch.broadcast_shapes(x.shape, y.shape, out.shape))
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    out = []
+    for r in roots:
+        v, _ = ev(r)
+        out.append(v.expand(torch.broadcast_shapes(shape, v.shape)))
+    return out
 
 
 def includes(expr: Expr) -> List[str]:
@@ -747,5 +869,291 @@ def device_source(expr: Expr, literal: Callable[[float], str]) -> str:
         "__device__ __forceinline__ T cloudy_kernel_gen(T x, T y) {",
         *(f"  {ln}" for ln in body),
         f"  return {result};",
+        "}",
+    ])
+
+
+# --------------------------------------------------------------------------
+# the factored form: separable terms and a remainder
+# --------------------------------------------------------------------------
+
+#: the most y-only values per outer node the factored arm keeps in shared
+#: memory for its remainder (csrc/numerical_coalescence.cu, the KT_GEN arm):
+#: past it the remainder recomputes the others from y per pair. Measured on
+#: an NVIDIA H100 80GB HBM3 at 700 W (tools/traced_tune.py, PERF.md):
+#: tabling `special`'s nine values gains it 1.3 % over recomputing them,
+#: tabling `coverage`'s four cheap ones (an add each, but for y/(1+y))
+#: costs it 1.0 %: a tabled value is worth about one shared load per pair.
+#: The budget keeps the table from setting the occupancy: the traced units
+#: take 60-80 registers in f32 and 128-188 in f64, so at most 8 (f32) or 5
+#: (f64) blocks of the bench's 96 threads fit an SM, and at 16 values and
+#: the two modes' WX F_j a block takes 6.75 KiB (f32) or 13.5 KiB (f64) of
+#: its 228 KiB
+TABLE_BUDGET = 16
+
+_ONE = Expr("const", (1.0,))
+
+
+@dataclasses.dataclass(frozen=True)
+class Factored:
+    """K(x, y) = sum_i f_i(x) g_i(y) + r(x, y), as `factor` splits a trace.
+
+    `terms` are the separable terms (f_i, g_i): f_i depends on x alone (or
+    is a constant), g_i on y alone (or is 1); terms with equal g are summed
+    into one, then terms with equal f. `remainder` is the mixed rest (None
+    where K is separable). The remainder reads `x_values` (its x-only
+    operands, computed once per outer node) and `y_values` (its y-only
+    operands): the first `TABLE_BUDGET` of these are tabled per node
+    (`tabled`), the rest recomputed per pair from y, which is then tabled
+    too."""
+
+    terms: Tuple[Tuple[Expr, Expr], ...]
+    remainder: Optional[Expr]
+    x_values: Tuple[Expr, ...]
+    y_values: Tuple[Expr, ...]
+    #: the y-only values kept in shared memory per outer node
+    tabled: Tuple[Expr, ...]
+    #: distinct mixed operations the remainder computes per pair
+    remainder_nodes: int
+
+
+def _key(e: Expr, memo: dict) -> str:
+    """A structural key: equal for equal expressions (`memo` by ``id``,
+    holding the node so that its ``id`` is not reused)."""
+    if id(e) not in memo:
+        if e.op in ("var", "const", "int"):
+            k = f"{e.op}:{e.args[0]!r}"
+        else:
+            k = f"{e.op}({','.join(_key(a, memo) for a in e.args)})"
+        memo[id(e)] = (k, e)
+    return memo[id(e)][0]
+
+
+def _deps(e: Expr, memo: dict) -> frozenset:
+    """The variables `e` depends on (`memo` as `_key`'s)."""
+    if id(e) not in memo:
+        if e.op == "var":
+            d = frozenset(e.args)
+        elif e.op in ("const", "int"):
+            d = frozenset()
+        else:
+            d = frozenset().union(*(_deps(a, memo) for a in e.args))
+        memo[id(e)] = (d, e)
+    return memo[id(e)][0]
+
+
+def _neg(e: Expr) -> Expr:
+    return const(-e.args[0]) if e.op == "const" else Expr("neg", (e,))
+
+
+def factor(expr: Expr) -> Factored:
+    """The separable terms and the mixed remainder of a trace.
+
+    The split goes through ``+``, ``-``, unary minus, and a product with
+    (or a quotient by) a constant or a factor of one variable, which
+    multiplies (divides) each term's f or g; a product or quotient of two
+    mixed factors, or any other mixed operation, is a remainder term whole.
+    It never expands a product of sums or a power of a sum, so (x - y)**2
+    and sqrt(x*y) stay in the remainder, and nothing cancels across terms
+    that the written K did not cancel within one: each block sum
+    sum_y g_i(y) WX F_j(y) adds values of one sign where g_i keeps one."""
+    deps: dict = {}
+    keys: dict = {}
+    X, Y = frozenset("x"), frozenset("y")
+
+    def one_var(e):
+        d = _deps(e, deps)
+        return d <= X or d == Y
+
+    def split(e):
+        d = _deps(e, deps)
+        if d <= X:
+            return [(e, _ONE)], None
+        if d == Y:
+            return [(_ONE, e)], None
+        if e.op in ("add", "sub"):
+            (ta, ra), (tb, rb) = split(e.args[0]), split(e.args[1])
+            if not ta and not tb:
+                return [], e
+            if e.op == "sub":
+                tb = [(_neg(f), g) for f, g in tb]
+                rb = None if rb is None else _neg(rb)
+            rem = rb if ra is None else (ra if rb is None else _bin("add", ra, rb))
+            return ta + tb, rem
+        if e.op == "neg":
+            t, r = split(e.args[0])
+            if not t:
+                return [], e
+            return [(_neg(f), g) for f, g in t], None if r is None else _neg(r)
+        if e.op in ("mul", "div"):
+            a, b = e.args
+            if e.op == "div" and one_var(b):
+                s, o = b, a
+            elif e.op == "mul" and one_var(a):
+                s, o = a, b
+            elif e.op == "mul" and one_var(b):
+                s, o = b, a
+            else:
+                return [], e
+            t, r = split(o)
+            if not t:
+                return [], e
+
+            def scale(v):
+                return _bin("div", v, s) if e.op == "div" else _bin("mul", s, v)
+
+            on_x = _deps(s, deps) <= X
+            t = [(scale(f), g) if on_x else (f, scale(g)) for f, g in t]
+            return t, None if r is None else scale(r)
+        return [], e
+
+    terms, rem = split(expr)
+
+    def group(pairs, by_g):
+        out: Dict[str, list] = {}
+        for f, g in pairs:
+            k = _key(g if by_g else f, keys)
+            if k in out:
+                i = 0 if by_g else 1
+                out[k][i] = _bin("add", out[k][i], f if by_g else g)
+            else:
+                out[k] = [f, g]
+        return [tuple(v) for v in out.values()]
+
+    terms = group(group(terms, True), False)
+
+    # the remainder's one-variable operands
+    x_vals: Dict[str, Expr] = {}
+    y_vals: Dict[str, Expr] = {}
+    mixed: set = set()
+    seen: set = set()
+    stack = [] if rem is None else [rem]
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        mixed.add(_key(e, keys))
+        for a in e.args if isinstance(e, Expr) and e.op not in ("var", "const", "int") else ():
+            d = _deps(a, deps)
+            if not d:
+                continue
+            if d == X:
+                x_vals.setdefault(_key(a, keys), a)
+            elif d == Y:
+                y_vals.setdefault(_key(a, keys), a)
+            else:
+                stack.append(a)
+    y_values = tuple(y_vals.values())
+    if len(y_values) > TABLE_BUDGET:
+        y_var = Expr("var", ("y",))
+        tabled = (y_var,) + tuple(v for v in y_values if v.op != "var")[:TABLE_BUDGET - 1]
+    else:
+        tabled = y_values
+    return Factored(terms=tuple(terms), remainder=rem, x_values=tuple(x_vals.values()),
+                    y_values=y_values, tabled=tabled, remainder_nodes=len(mixed))
+
+
+def slot_ids(fac: Factored) -> Tuple[Dict[int, int], Dict[int, int]]:
+    """The remainder's operands that the pair body reads instead of
+    computing: by ``id``, each node equal to an x value (its index in
+    `x_values`), and each equal to a tabled y value (its index in
+    `tabled`)."""
+    keys: dict = {}
+    x_index = {_key(v, keys): i for i, v in enumerate(fac.x_values)}
+    y_index = {_key(v, keys): i for i, v in enumerate(fac.tabled)}
+    xs, ys, seen, stack = {}, {}, set(), [fac.remainder]
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        k = _key(e, keys)
+        if k in x_index:
+            xs[id(e)] = x_index[k]
+        elif k in y_index:
+            ys[id(e)] = y_index[k]
+        elif e.op not in ("var", "const", "int"):
+            stack.extend(e.args)
+    return xs, ys
+
+
+def factored_r_sums(fac: Factored):
+    """R's inner sums A_j(X) = sum_y K(X, y) WX F_j(y) as the KT_GEN arm
+    takes them from `fac`, on a twin's ``[G, B]`` tiles: the separable terms
+    as sums over the nodes of g_i(y) WX F_j(y) times f_i(X), the remainder
+    over every pair from the x values and tabled y values computed once per
+    node. ``r_sums(X, WX, F) -> [A_j]`` (`numerical_coalescence.
+    numerical_soa_plain`'s `r_sums`): `tools.opcount` counts the kernel's
+    work through it."""
+    xs, ys = slot_ids(fac) if fac.remainder is not None else ({}, {})
+
+    def r_sums(X, WX, F):
+        WF = [WX * f for f in F]
+        n = len(fac.terms)
+        gy = evaluate_many([g for _, g in fac.terms] + list(fac.tabled), X, X)
+        fx = evaluate_many([f for f, _ in fac.terms] + list(fac.x_values), X, X)
+        A = []
+        for wf in WF:
+            a = None
+            for i in range(n):
+                term = fx[i] * torch.sum(gy[i] * wf, dim=0, keepdim=True)
+                a = term if a is None else a + term
+            A.append(torch.zeros_like(X) if a is None else a)
+        if fac.remainder is not None:
+            xv, tab = fx[n:], gy[n:]
+            for y in range(X.shape[0]):
+                leaves = {**{k: xv[i] for k, i in xs.items()},
+                          **{k: tab[i][y:y + 1] for k, i in ys.items()}}
+                K = evaluate(fac.remainder, X, X[y:y + 1], leaves)
+                A = [a + wf[y:y + 1] * K for a, wf in zip(A, WF)]
+        return A
+
+    return r_sums
+
+
+def factored_source(fac: Factored, literal: Callable[[float], str]) -> str:
+    """The factored form's device functions, beside ``cloudy_kernel_gen``
+    (csrc/numerical_coalescence.cu's KT_GEN arm takes R from them):
+    ``cloudy_gen_y`` (per outer node as y: the g_i and the tabled y
+    values), ``cloudy_gen_x`` (per outer node as x: the f_i and the x
+    values) and ``cloudy_gen_pair`` (the remainder of one pair from them,
+    the tabled values read at a stride; 0 where K is separable)."""
+
+    def body(roots, outs, leaves=None):
+        lines, refs = statements_of(roots, literal, leaves)
+        return [*(f"  {ln}" for ln in lines),
+                *(f"  {o} = {r};" for o, r in zip(outs, refs))]
+
+    n_terms, n_x, n_y = len(fac.terms), len(fac.x_values), len(fac.tabled)
+    if fac.remainder is None:
+        pair = ["  return T(0);"]
+    else:
+        xs, ys = slot_ids(fac)
+        slots = {**{k: f"xv[{i}]" for k, i in xs.items()},
+                 **{k: f"yv[{i} * ys]" for k, i in ys.items()}}
+        lines, (ref,) = statements_of([fac.remainder], literal, slots)
+        pair = [*(f"  {ln}" for ln in lines), f"  return {ref};"]
+    return "\n".join([
+        "// K(x, y) = sum_i f_i(x) g_i(y) + r(x, y) (ops/kernel_expr.py `factor`):",
+        f"// separable terms {n_terms}; the remainder's operations per pair "
+        f"{fac.remainder_nodes}, x values {n_x}, tabled y values {n_y}",
+        f"constexpr int kGenTerms = {n_terms};",
+        f"constexpr int kGenXValues = {n_x};",
+        f"constexpr int kGenYValues = {n_y};",
+        f"constexpr bool kGenRemainder = {'true' if fac.remainder is not None else 'false'};",
+        "template <typename T>",
+        "__device__ __forceinline__ void cloudy_gen_y(T y, T* g, T* yv) {",
+        *body([g for _, g in fac.terms] + list(fac.tabled),
+              [f"g[{i}]" for i in range(n_terms)] + [f"yv[{i}]" for i in range(n_y)]),
+        "}",
+        "template <typename T>",
+        "__device__ __forceinline__ void cloudy_gen_x(T x, T* f, T* xv) {",
+        *body([f for f, _ in fac.terms] + list(fac.x_values),
+              [f"f[{i}]" for i in range(n_terms)] + [f"xv[{i}]" for i in range(n_x)]),
+        "}",
+        "template <typename T>",
+        "__device__ __forceinline__ T cloudy_gen_pair(const T* xv, const T* yv, int ys) {",
+        *pair,
         "}",
     ])

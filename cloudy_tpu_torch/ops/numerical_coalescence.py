@@ -35,8 +35,10 @@ taking them per node (`inner_log_tables`). The kernel a CUDA call launches,
 ``quad_kernel``, runs its densities in base 2 on the card's special
 function unit in f32 (IEEE exp/log in f64) with their divides hoisted per
 box, and for the constant, linear and Long kernels takes R from block sums
-instead of the G × G loop (the hydrodynamic and traced kernels keep the
-loop over a node table; csrc/numerical_coalescence.cu).
+instead of the G × G loop (the hydrodynamic kernel keeps the loop over a
+node table; a traced kernel takes its separable terms as block sums and
+loops over the pairs for its remainder alone, `kernel_expr.factor`;
+csrc/numerical_coalescence.cu).
 
 Beside the kernel sits its plain twin `numerical_soa_plain`: the same
 operations in the Pallas body's order on ``[G, B]`` tiles (the y-loop for R,
@@ -99,8 +101,9 @@ KERNEL_TAGS = (
 
 
 #: the hydrodynamic kernel's tag (csrc KT_HYDRO) and a traced kernel
-#: function's (KT_GEN): their launches add each outer node's radius or X
-#: and WX·F_j to the block's shared memory
+#: function's (KT_GEN): their launches add each outer node's radius (or
+#: its factored remainder's tabled y values) and WX·F_j to the block's
+#: shared memory
 KT_HYDRO = 2
 KT_GEN = 4
 
@@ -280,10 +283,13 @@ def _density_rows(fam: int, amp, p1, p2, cst, x, logx):
     return special.select(torch.abs(x - p1) < p1 / 10.0, amp / (2.0 * p1 / 10.0), 0.0)
 
 
-def numerical_soa_plain(mom: torch.Tensor, plan: NumericalPlan) -> torch.Tensor:
+def numerical_soa_plain(mom: torch.Tensor, plan: NumericalPlan, r_sums=None) -> torch.Tensor:
     """Plain twin of the quadrature kernel: normalized ``[n_tot, B]`` →
     tendencies ``[n_tot, B]``. Its ``[G, B]`` tiles make it a small-batch
-    routine; `NumericalFn.plain` runs it in chunks of boxes."""
+    routine; `NumericalFn.plain` runs it in chunks of boxes. `r_sums`
+    (``(X, WX, F) -> [A_j]``) replaces R's loop over every pair (a traced
+    kernel's factored form, `kernel_expr.factored_r_sums`, as
+    `tools.opcount` counts it); by default K is called on every pair."""
     dtype, dev = mom.dtype, mom.device
     eps, tiny = torch.finfo(dtype).eps, torch.finfo(dtype).tiny
     N, n_mom = plan.n_modes, plan.n_mom
@@ -357,12 +363,15 @@ def numerical_soa_plain(mom: torch.Tensor, plan: NumericalPlan) -> torch.Tensor:
     Cm = [b * X for b in Bm]
 
     # ---- R: inner ∫ K(x,y) f_j(y) dy on the same grid ----------------------
-    A = [torch.zeros_like(X) for _ in range(N)]
-    for y in range(G):
-        Ky = kf(X, X[y:y + 1])
-        Wy = WX[y:y + 1]
-        for j in range(N):
-            A[j] = A[j] + (Wy * F[j][y:y + 1]) * Ky
+    if r_sums is not None:
+        A = r_sums(X, WX, F)
+    else:
+        A = [torch.zeros_like(X) for _ in range(N)]
+        for y in range(G):
+            Ky = kf(X, X[y:y + 1])
+            Wy = WX[y:y + 1]
+            for j in range(N):
+                A[j] = A[j] + (Wy * F[j][y:y + 1]) * Ky
 
     def reduce(mat):
         return torch.sum(mat, dim=0, keepdim=True)
@@ -475,11 +484,16 @@ class NumericalFn(_KernelFn):
         return pack_config(self.plan, self.dtype)
 
     def _smem_bytes(self, cfg_bytes: int) -> int:
-        # the node tables of the hydrodynamic and traced kernels (csrc
-        # quad_node_bytes)
+        # the node tables (csrc quad_node_bytes): the hydrodynamic kernel's
+        # radius and WX·F_j per outer node; a traced kernel's tabled y
+        # values and WX·F_j where its factored form has a remainder
         if self._direct or self.plan.ktag not in (KT_HYDRO, KT_GEN):
             return cfg_bytes
-        return cfg_bytes + (self.plan.n_modes + 1) * self.plan.g_total * self.dtype.itemsize
+        per_node = self.plan.n_modes + 1
+        if self.plan.ktag == KT_GEN:
+            gen = dict(self.unit.gen)
+            per_node = (self.plan.n_modes + gen["tabled"]) if gen["remainder"] else 0
+        return cfg_bytes + per_node * self.plan.g_total * self.dtype.itemsize
 
     @property
     def _symbol(self) -> str:

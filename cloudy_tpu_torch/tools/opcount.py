@@ -170,11 +170,14 @@ def count_ops_by_class(fn, *args, data_only: bool = False, series_exit: bool = N
 
 def count_ops_traced(fn, mom: torch.Tensor) -> int:
     """`count_ops` of the twin of a B5 wrapper whose kernel function is
-    traced (``KT_GEN``), its kernel function evaluated as the device function
-    emitted from the trace computes it (`kernel_expr.evaluate`): the twin
-    calls the callable as written (a tensor's ``x**0``, its multiply by one,
-    a product computed again in each term), which the emitted
-    ``cloudy_kernel_gen`` folds or shares."""
+    traced (``KT_GEN``), with the work its kernel does: the kernel function
+    evaluated as the device functions emitted from the trace compute it
+    (`kernel_expr.evaluate`: the twin calls the callable as written, a
+    tensor's ``x**0``, its multiply by one, a product computed again in
+    each term, which the emitted functions fold or share), and R from the
+    factored form (`kernel_expr.factored_r_sums`): each one-variable value
+    once per outer node, the separable terms as block sums, the remainder
+    alone per pair. Q/S evaluates the whole K at each inner node."""
     import dataclasses
 
     from cloudy_tpu_torch.ops import kernel_expr
@@ -183,7 +186,8 @@ def count_ops_traced(fn, mom: torch.Tensor) -> int:
     expr = kernel_expr.trace(fn.plan.kernel_func, fn.dtype)
     plan = dataclasses.replace(fn.plan,
                                kernel_func=lambda x, y: kernel_expr.evaluate(expr, x, y))
-    return count_ops(nc.numerical_soa_plain, mom, plan)
+    r_sums = kernel_expr.factored_r_sums(kernel_expr.factor(expr))
+    return count_ops(lambda m: nc.numerical_soa_plain(m, plan, r_sums), mom)
 
 
 def bound_ms(n_bytes: float, n_ops: float, f64: bool = False):

@@ -1,8 +1,9 @@
-"""Three kernel functions K(x, y) that B5's traced arm (`ops.kernel_expr`,
+"""Four kernel functions K(x, y) that B5's traced arm (`ops.kernel_expr`,
 the ``KT_GEN`` arm of csrc/numerical_coalescence.cu) is checked and timed
 with, beside the Long kernel fitted as a tensor and a sqrt lambda
-(`chip_smoke.py` phase 30, tests/test_torch_kernel_expr.py,
-tests/test_torch_cuda_kernels.py).
+(`traced`: `chip_smoke.py` phase 30, `tools.traced_tune`,
+tests/test_torch_kernel_expr.py, tests/test_torch_cuda_kernels.py), and
+what those check and time them by (`NUM_TOL`, `CAPPED`).
 
 - `efficiency`: a collision kernel with a smooth collection efficiency, the
   kind users write (turbulence enhancement through erf and tanh), in
@@ -16,7 +17,13 @@ tests/test_torch_cuda_kernels.py).
   cleanups the tracer took after `coverage` (`SPECIAL_TERMS`): the normal
   distribution, the gamma family (digamma, polygamma, zeta, the incomplete
   gammas, mvlgamma), the Bessel functions, and each in every regime its
-  algorithm switches between.
+  algorithm switches between;
+- `activations`: the same for `torch.nn.functional`'s activations with a
+  `jax.nn` counterpart (`ACTIVATION_TERMS`), each on arguments of both
+  signs that reach every piece of it (softplus past its threshold, the
+  bounds of hardtanh, ±3 of hardsigmoid and hardswish), some on u and v
+  together, so that they also stay in the pair loop of B5's factored arm,
+  and one through an `nn.Module`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import functools
 import operator
 
 import torch
+import torch.nn.functional as F
 
 
 def efficiency(x, y):
@@ -247,5 +255,69 @@ def coverage(x, y):
     return 1e-3 * functools.reduce(operator.add, (t(u, v) for t in COVERAGE_TERMS.values()))
 
 
+#: one term per activation, of (u, v) in [0, 1): non-negative, of order
+#: one (each shifted by its least value); torch's softplus switches to x
+#: past beta x > threshold, reached here at beta 6 (8v - 4 > 20/6), where
+#: its jump is log1p(exp(-20))/6 ~ 3e-10: a larger jump between nodes the
+#: kernel and the twin place an ulp apart shows as an O(jump) difference
+#: (threshold 4 at beta 2: 4e-9 row-scaled in f64)
+ACTIVATION_TERMS = {
+    "softplus": lambda u, v: F.softplus(4.0 * u - 2.0),
+    "softplus_threshold": lambda u, v: F.softplus(8.0 * v - 4.0, beta=6.0),
+    "softplus_module": lambda u, v: torch.nn.Softplus(beta=2.0)(4.0 * (u - v)),
+    "gelu": lambda u, v: 0.2 + F.gelu(4.0 * u - 2.0),
+    "gelu_tanh": lambda u, v: 0.2 + F.gelu(8.0 * v - 4.0, approximate="tanh"),
+    "silu": lambda u, v: 0.3 + F.silu(8.0 * u - 4.0),
+    "mish": lambda u, v: 0.31 + F.mish(4.0 * (u - v)),
+    "elu": lambda u, v: 1.0 + F.elu(4.0 * v - 2.0, alpha=0.5),
+    "leaky_relu": lambda u, v: 1.0 + F.leaky_relu(4.0 * u - 2.0, 0.2),
+    "hardtanh": lambda u, v: 1.0 + F.hardtanh(4.0 * v - 2.0),
+    "hardtanh_bounds": lambda u, v: 0.5 + F.hardtanh(4.0 * (u - v), -0.5, 2.0),
+    "relu6": lambda u, v: F.relu6(8.0 * u - 1.0),
+    "hardsigmoid": lambda u, v: F.hardsigmoid(8.0 * v - 4.0),
+    "hardswish": lambda u, v: 0.375 + F.hardswish(8.0 * u - 4.0),
+    "logsigmoid": lambda u, v: -F.logsigmoid(4.0 * v - 2.0),
+    "softsign": lambda u, v: 1.0 + F.softsign(4.0 * (v - u)),
+}
+
+
+def activations(x, y):
+    """1e-3 times the sum of `ACTIVATION_TERMS` at u = x/(1 + x), v = y/(1 + y)."""
+    u, v = unit_interval(x), unit_interval(y)
+    return 1e-3 * functools.reduce(operator.add, (t(u, v) for t in ACTIVATION_TERMS.values()))
+
+
 #: the traced kernel functions these modules add, by name
-KERNELS = {"efficiency": efficiency, "coverage": coverage, "special": special}
+KERNELS = {"efficiency": efficiency, "coverage": coverage, "special": special,
+           "activations": activations}
+
+#: B5's kernel against its twin, row-scaled, by type: the kernel sums its
+#: nodes in another order than the twin and its assembly subtracts sums of
+#: like size
+NUM_TOL = {"float32": 1e-3, "float64": 1e-9}
+#: the traced kernel functions timed at fewer boxes than the numerical
+#: bench's 262,144 (one launch of `special` there takes seconds), by name:
+#: the width its row has been timed at since it was added, so that its
+#: times compare across trees
+CAPPED = {"special": 4096}
+
+
+def traced() -> dict:
+    """B5's traced kernel functions, by name, as `chip_smoke.py` phase 30
+    and `tools.traced_tune` check and time them: the Long kernel fitted as
+    a kernel tensor (order 2, normalized), a torch lambda, and `KERNELS`."""
+    from cloudy_tpu_torch import kernels as K
+
+    kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
+    return {
+        "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized((1e6, 1e-9)),
+        "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
+        **KERNELS,
+    }
+
+
+def check_only() -> dict:
+    """Traced kernel functions held against their twin, not timed: a
+    separable term that changes sign ((x − 1)(y − 1), its block sums of
+    both signs)."""
+    return {"sign": lambda x, y: 1e-3 * (x + y) + 1e-4 * (x - 1.0) * (y - 1.0)}

@@ -130,6 +130,36 @@ _GXX = ["g++", "-std=c++20", "-O0", "-ffp-contract=off", "-fPIC", "-shared", "-p
         "-Wno-unknown-pragmas"]
 
 
+def kernel_library(d, units: dict, shim_extra: str = "") -> ctypes.CDLL:
+    """Traced units' ``cfg.cuh`` texts (`codegen.numerical_unit`) in one host
+    library under directory `d`, each in a namespace of its own: `units`
+    maps an entry name to (cfg text, torch dtype), and the entry point
+    ``<name>(x, y, out, n)`` calls that unit's ``cloudy_kernel_gen`` element
+    by element. `shim_extra` is added to the shim (a host ``erfinv``)."""
+    (d / "shim").mkdir(exist_ok=True)
+    (d / "shim" / "cuda_runtime.h").write_text(SHIM + shim_extra)
+    lines = []
+    for entry, (cfg, dtype) in units.items():
+        (d / f"{entry}.cuh").write_text(
+            cfg.replace("namespace cloudy {", f"namespace cloudy {{ namespace {entry} {{")
+               .replace("}  // namespace cloudy", "} }"))
+        real = "float" if dtype == torch.float32 else "double"
+        lines += [f'#include "{entry}.cuh"',
+                  f'extern "C" void {entry}(const {real}* x, const {real}* y, {real}* out, '
+                  f"long long n) {{ for (long long i = 0; i < n; ++i) out[i] = "
+                  f"cloudy::{entry}::cloudy_kernel_gen<{real}>(x[i], y[i]); }}"]
+    (d / "host.cpp").write_text("\n".join(lines) + "\n")
+    so = d / "libhost.so"
+    subprocess.run([*_GXX, "-I", str(d / "shim"), "-I", str(_build.CSRC), "-I", str(d), "-o",
+                    str(so), str(d / "host.cpp")], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    for entry in units:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+        fn.restype = None
+    return lib
+
+
 def ker(mod=K):
     return mod.CoalescenceTensor.from_function(mod.LinearKernelFunction(5.0), 1, 1e-6)
 

@@ -289,10 +289,11 @@ def test_evaluated_trace_matches_the_callable(case):
 
 def test_bound_counts_the_emitted_function():
     """The bound of a traced wrapper counts its twin with the kernel
-    function evaluated as emitted (`opcount.count_ops_traced`): the tensor's
-    ``x**0`` powers, products by one and repeated ``x*x`` go (fewer
-    operations than the twin calling the tensor as written); the lambda's
-    trace is the lambda (the same count)."""
+    function evaluated as emitted and R from its factored form
+    (`opcount.count_ops_traced`): the tensor's ``x**0`` powers, products by
+    one and repeated ``x*x`` go, and its R is block sums (fewer operations
+    than the twin calling the tensor as written); the lambda's trace is the
+    lambda, whose x² and y² R takes once per node (fewer, by less)."""
     from cloudy_tpu_torch.tools import opcount
 
     mom = torch.as_tensor(_moments(TWO_GAMMA, 8, seed=3).T.copy())
@@ -302,7 +303,7 @@ def test_bound_counts_the_emitted_function():
                                   device="cpu", dtype=torch.float64)
         counts[case] = (opcount.count_ops_traced(fn, mom), opcount.count_ops(fn.plain, mom))
     assert counts["tensor"][0] < 0.8 * counts["tensor"][1]
-    assert counts["lambda"][0] == counts["lambda"][1]
+    assert 0.8 * counts["lambda"][1] < counts["lambda"][0] < counts["lambda"][1]
     # the emitted tensor has no product by one
     src = kernel_expr.device_source(kernel_expr.trace(CASES["tensor"]()[0]), repr)
     assert "* 1.0" not in src and "1.0 *" not in src

@@ -410,25 +410,30 @@ class _ScaledLinear(K.LinearKernelFunction):
 def _traced_kernels():
     """The kernel functions of B5's generated arm (KT_GEN): the Long kernel
     fitted as a tensor (order 2, normalized), a torch lambda, a subclass,
-    and `tools.traced_kernels`' collection efficiency, the unit that calls
-    the arithmetic, trigonometric, error, rounding and modulus forms
-    (`coverage`) and the one that calls the special functions, closed
-    forms, masks and cleanups (`special`)."""
+    a separable term that changes sign ((x − 1)(y − 1), its block sums of
+    both signs), and `tools.traced_kernels`' collection efficiency, the
+    unit that calls the arithmetic, trigonometric, error, rounding and
+    modulus forms (`coverage`), the one that calls the special functions,
+    closed forms, masks and cleanups (`special`) and the one that calls
+    `torch.nn.functional`'s activations (`activations`)."""
     kf = K.LongKernelFunction(5.236e-10, 9.44e9, 5.78)
     return {
         "tensor": K.CoalescenceTensor.from_function(kf, 2, 5e-10).normalized(NORMS),
         "lambda": lambda x, y: 1e-3 * (x * x + y * y) + 1e-4 * torch.sqrt(x * y),
         "subclass": _ScaledLinear(5e-3),
+        "sign": lambda x, y: 1e-3 * (x + y) + 1e-4 * (x - 1.0) * (y - 1.0),
         **traced_kernels.KERNELS,
     }
 
 
-@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass", "efficiency", "coverage",
-                                   "special"])
+@pytest.mark.parametrize("kname", ["tensor", "lambda", "subclass", "sign", "efficiency",
+                                   "coverage", "special", "activations"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_traced_kernel_function_matches_twin(cuda, dtype, kname):
     """B5 with a kernel function traced into its generated unit against the
-    twin, which calls the callable itself."""
+    twin on the CPU, which calls the callable itself: the reference
+    semantics (torch's CUDA hardsigmoid and hardswish multiply by a float
+    one sixth where its CPU kernels, and JAX's, divide by 6)."""
     fn = nc.make_numerical_fn(SpectrumSpec(TWO_GAMMA), _traced_kernels()[kname], 64, 32,
                               device=cuda, dtype=dtype)
     assert fn.plan.ktag == nc.KT_GEN and fn.unit is not None
@@ -437,7 +442,7 @@ def test_traced_kernel_function_matches_twin(cuda, dtype, kname):
     got = fn.soa(x)
     assert fn.launches == 1
     assert bool(torch.isfinite(got).all()) and bool((got[:, 7] == 0).all())
-    assert _row_scaled(got, fn.plain(x)) < NUM_TOL[dtype]
+    assert _row_scaled(got.cpu(), fn.plain(x.cpu())) < NUM_TOL[dtype]
     assert torch.equal(got, fn.soa(x))
 
 

@@ -26,9 +26,10 @@ B5 (`codegen.numerical_unit`). Here:
   every regime of its algorithms, its poles, infinities and NaN exactly
   and the rest within 1e-13 (f64) and 1e-5 (f32) relative, beside
   `SPECIAL_ALLOWANCE` where the formula itself cancels);
-- `tools.traced_kernels`' `efficiency`, `coverage` and `special` through
-  the twin against JAX's `get_coal_ints_numerical` with their `jnp` /
-  `jax.scipy.special` twins (row-scaled ≤ 1e-12; `special` at B = 32,
+- `tools.traced_kernels`' `efficiency`, `coverage`, `special` and
+  `activations` through the twin against JAX's `get_coal_ints_numerical`
+  with their `jnp` / `jax.scipy.special` / `jax.nn` twins (row-scaled ≤
+  1e-12; `special` at B = 32,
   nodes (32, 16)), and `efficiency` (B = 16, nodes (32, 16), ~11 s) and a
   closed-form subset of `special` (B = 8, nodes (16, 8), ~14 s) against
   `make_pallas_numerical_fn` in interpret mode. The seeded moments keep
@@ -39,18 +40,20 @@ B5 (`codegen.numerical_unit`). Here:
   tests/test_torch_b5_callable.py and of `efficiency` and `coverage`,
   pinned by digest: a trace at a type changes nothing a kernel function
   does not ask the type of, and a helper is emitted only where a trace
-  calls it.
+  calls it (the traced K as pinned before the tracer took more forms, the
+  whole unit with its factored form beside it).
+
+The activations' helpers on their own: tests/test_torch_activations.py;
+the factored form R is taken from: tests/test_torch_b5_factored.py.
 
 The kernels themselves against the twin on the card:
 tests/test_torch_cuda_kernels.py::test_traced_kernel_function_matches_twin.
 """
 
-import ctypes
 import functools
 import hashlib
 import operator
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +69,7 @@ from cloudy_tpu.spec import Family as JFamily, SpectrumSpec as JSpec
 from test_torch_b5_callable import CASES, TWO_GAMMA, _jax_einsum, _moments, _row_scaled
 
 from cloudy_tpu_torch import distributions as pd
-from cloudy_tpu_torch.ops import _build, codegen, kernel_expr
+from cloudy_tpu_torch.ops import codegen, kernel_expr
 from cloudy_tpu_torch.ops import numerical_coalescence as nc
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch.tools import traced_kernels as tk
@@ -400,34 +403,10 @@ def host_lib(tmp_path_factory):
     own, entry points ``host_<form>_<f32|f64>(x, y, out, n)``."""
     if shutil.which("g++") is None:
         pytest.fail("g++ is needed to compile the emitted functions on the host")
-    d = tmp_path_factory.mktemp("kernel_expr_host")
-    (d / "shim").mkdir()
-    (d / "shim" / "cuda_runtime.h").write_text(ch.SHIM + ERFINV)
-    lines = []
-    for name, f in FORMS.items():
-        for dtype in DTYPES.values():
-            entry = _host_name(name, dtype)
-            cfg = codegen.numerical_unit(2, dtype, kernel_expr.trace(f, dtype)).cfg
-            (d / f"{entry}.cuh").write_text(
-                cfg.replace("namespace cloudy {", f"namespace cloudy {{ namespace {entry} {{")
-                   .replace("}  // namespace cloudy", "} }"))
-            real = "float" if dtype == torch.float32 else "double"
-            lines += [f'#include "{entry}.cuh"',
-                      f'extern "C" void {entry}(const {real}* x, const {real}* y, {real}* out, '
-                      f"long long n) {{ for (long long i = 0; i < n; ++i) out[i] = "
-                      f"cloudy::{entry}::cloudy_kernel_gen<{real}>(x[i], y[i]); }}"]
-    (d / "host.cpp").write_text("\n".join(lines) + "\n")
-    so = d / "libhost.so"
-    subprocess.run([*ch._GXX, "-I", str(d / "shim"), "-I", str(_build.CSRC), "-I",
-                    str(d), "-o", str(so), str(d / "host.cpp")], check=True,
-                   capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    for name in FORMS:
-        for dtype in DTYPES.values():
-            fn = getattr(lib, _host_name(name, dtype))
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-            fn.restype = None
-    return lib
+    units = {_host_name(name, dtype): (
+        codegen.numerical_unit(2, dtype, kernel_expr.trace(f, dtype)).cfg, dtype)
+        for name, f in FORMS.items() for dtype in DTYPES.values()}
+    return ch.kernel_library(tmp_path_factory.mktemp("kernel_expr_host"), units, ERFINV)
 
 
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
@@ -615,8 +594,8 @@ REFUSED = {
     "loss": (lambda x, y: torch.nn.functional.mse_loss(x, y), "torch.nn.functional.mse_loss"),
     "isclose": (lambda x, y: torch.where(torch.isclose(x, y), x, y), "torch.isclose"),
     "isin": (lambda x, y: torch.where(torch.isin(x, y), x, y), "torch.isin"),
-    "functional_only": (lambda x, y: torch.nn.functional.softplus(x),
-                        "torch.nn.functional.softplus"),
+    "functional_only": (lambda x, y: torch.nn.functional.tanhshrink(x),
+                        "torch.nn.functional.tanhshrink"),
     "functional_in_place": (lambda x, y: torch.nn.functional.relu(x, inplace=True),
                             "in-place torch.nn.functional"),
     # an integer argument that is an operand
@@ -636,9 +615,12 @@ def test_refused_form_names_itself(name):
 @pytest.mark.parametrize("case", ["tensor", "lambda", "efficiency", "coverage"])
 def test_emitted_text_of_the_earlier_cases_is_unchanged(case, dtype):
     """The units of the tensor and lambda cases, and of `efficiency` and
-    `coverage`, are the ones built before the tracer took more forms (their
-    cfg.cuh, SHA-256): a helper is emitted only where a trace calls it."""
-    pinned = {
+    `coverage`: their traced K (``cloudy_kernel_gen``) is the text built
+    before the tracer took more forms (the cfg.cuh without its factored
+    form, SHA-256 as pinned then: a helper is emitted only where a trace
+    calls it), and the whole cfg.cuh, with the factored form R is taken
+    from (`kernel_expr.factored_source`), is pinned too."""
+    traced_k = {
         ("tensor", torch.float32): "12f7cd4579f7fb9ca68fb1b91e6dd9bbdd0464f5381dd73fa9fdc18533eeaa13",
         ("tensor", torch.float64): "d605a6a2034a317aad2fd8c5b1ead5cd1e38489e5c4096866562f55915f47cc7",
         ("lambda", torch.float32): "1af70703dbb0b2626a431e20c3245880b062099aec4806f5909769fef74dbe06",
@@ -652,9 +634,26 @@ def test_emitted_text_of_the_earlier_cases_is_unchanged(case, dtype):
         ("coverage", torch.float64):
             "d78f1c3f4287bb59896385cac9f1de4745da6c45967dfebaf19e2956e4b84b2b",
     }
+    pinned = {
+        ("tensor", torch.float32): "fde17533202f7d91dbaf4be1f87f85929f3420546d4378f784c6af086fe68730",
+        ("tensor", torch.float64): "7b44444820aa10a4ce0d13564126b6ac302d362573be85730fdc91024c70c44a",
+        ("lambda", torch.float32): "49773a677949eb795b298b18b3c72b529f75a97b0312b5ba1290eadf3a482f77",
+        ("lambda", torch.float64): "a1647d8e9f3095c13a3635bb2fe69e1350dab72e676e27f10ef104eaec3f0c98",
+        ("efficiency", torch.float32):
+            "03d10dd4b1b6074f3e9e4c5bf2e7ea0105d44c6d96af3a356b63026d6048b997",
+        ("efficiency", torch.float64):
+            "8327a84209fc6b14491d2fb06a383288fe2b6b5912927ce11309987afbb9b465",
+        ("coverage", torch.float32):
+            "80bf1efdad9207d9a61d4c2cc3e4039114cde21880624f39be24d9153b516b56",
+        ("coverage", torch.float64):
+            "1103a00ecd450ea155a00689993a2a3df97fe44691016cdbf1976f3cebb98817",
+    }
     kf = tk.KERNELS[case] if case in tk.KERNELS else CASES[case]()[0]
     fn = nc.make_numerical_fn(SpectrumSpec(TWO_GAMMA), kf, device="cpu", dtype=dtype)
-    assert hashlib.sha256(fn.unit.cfg.encode()).hexdigest() == pinned[case, dtype]
+    cfg = fn.unit.cfg
+    start, end = cfg.index("// K(x, y) = sum_i"), cfg.index("}  // namespace cloudy")
+    assert hashlib.sha256((cfg[:start] + cfg[end:]).encode()).hexdigest() == traced_k[case, dtype]
+    assert hashlib.sha256(cfg.encode()).hexdigest() == pinned[case, dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
@@ -860,7 +859,42 @@ def _jspecial(x, y):
     return _jspecial_flat(pad(x), pad(y))[:n].reshape(x.shape)
 
 
-JAX_KERNELS = {"efficiency": _jefficiency, "coverage": _jcoverage, "special": _jspecial}
+#: the JAX twins of `tools.traced_kernels.ACTIVATION_TERMS`, by the same
+#: names: `jax.nn`'s counterparts, each naming its mode where the two
+#: differ (jax.nn.gelu defaults to the tanh form, F.gelu to erf; torch's
+#: softplus switches to x past beta x > threshold, JAX's is logaddexp(x, 0):
+#: the thresholded term's twin makes the switch itself, and the other two
+#: stay below theirs); hardtanh with other bounds is jnp.clip
+J_ACTIVATIONS = {
+    "softplus": lambda u, v: jax.nn.softplus(4.0 * u - 2.0),
+    "softplus_threshold": lambda u, v: jnp.where(6.0 * (8.0 * v - 4.0) > 20.0, 8.0 * v - 4.0,
+                                                 jax.nn.softplus(6.0 * (8.0 * v - 4.0)) / 6.0),
+    "softplus_module": lambda u, v: jax.nn.softplus(2.0 * (4.0 * (u - v))) / 2.0,
+    "gelu": lambda u, v: 0.2 + jax.nn.gelu(4.0 * u - 2.0, approximate=False),
+    "gelu_tanh": lambda u, v: 0.2 + jax.nn.gelu(8.0 * v - 4.0, approximate=True),
+    "silu": lambda u, v: 0.3 + jax.nn.silu(8.0 * u - 4.0),
+    "mish": lambda u, v: 0.31 + jax.nn.mish(4.0 * (u - v)),
+    "elu": lambda u, v: 1.0 + jax.nn.elu(4.0 * v - 2.0, alpha=0.5),
+    "leaky_relu": lambda u, v: 1.0 + jax.nn.leaky_relu(4.0 * u - 2.0, 0.2),
+    "hardtanh": lambda u, v: 1.0 + jax.nn.hard_tanh(4.0 * v - 2.0),
+    "hardtanh_bounds": lambda u, v: 0.5 + jnp.clip(4.0 * (u - v), -0.5, 2.0),
+    "relu6": lambda u, v: jax.nn.relu6(8.0 * u - 1.0),
+    "hardsigmoid": lambda u, v: jax.nn.hard_sigmoid(8.0 * v - 4.0),
+    "hardswish": lambda u, v: 0.375 + jax.nn.hard_swish(8.0 * u - 4.0),
+    "logsigmoid": lambda u, v: -jax.nn.log_sigmoid(4.0 * v - 2.0),
+    "softsign": lambda u, v: 1.0 + jax.nn.soft_sign(4.0 * (v - u)),
+}
+
+
+def _jactivations(x, y):
+    """The JAX twin of `tools.traced_kernels.activations`."""
+    u, v = x / (1.0 + x), y / (1.0 + y)
+    return 1e-3 * functools.reduce(lambda a, b: a + b, (J_ACTIVATIONS[k](u, v)
+                                                         for k in tk.ACTIVATION_TERMS))
+
+
+JAX_KERNELS = {"efficiency": _jefficiency, "coverage": _jcoverage, "special": _jspecial,
+               "activations": _jactivations}
 #: (boxes, outer nodes, inner nodes) of each kernel's twin against JAX's
 #: einsum path: `special`'s JAX twin takes ~19 s at (128, 64, 32)
 EINSUM_SIZE = {"special": (32, 32, 16)}
