@@ -293,14 +293,16 @@ def _profile_file(ckpt_path: str, step: int) -> str:
 def column_mean(y: torch.Tensor, nz: int, mesh=None, n_columns: Optional[int] = None
                 ) -> torch.Tensor:
     """The column-mean profile ``[nz, n_tot]`` of a SoA state ``[n_tot,
-    n_columns·nz]``, reduced where the state lies. With a `mesh`, `y` is
-    this rank's shard: its column sums are all-reduced over the ranks and
+    n_columns·nz]``, reduced where the state lies, in a ``column_mean`` span
+    (`utils.metrics.span`). With a `mesh`, `y` is this rank's shard: its
+    column sums are all-reduced over the ranks (inside the span) and
     divided by the global `n_columns`."""
-    if mesh is None:
-        return y.reshape(y.shape[0], -1, nz).mean(dim=1).T
-    sums = y.reshape(y.shape[0], -1, nz).sum(dim=1).T.contiguous()
-    group, _, _ = pmesh.axis_group(mesh, "columns")
-    return pmesh.all_reduce(sums, group=group) / n_columns
+    with metrics.span("column_mean"):
+        if mesh is None:
+            return y.reshape(y.shape[0], -1, nz).mean(dim=1).T
+        sums = y.reshape(y.shape[0], -1, nz).sum(dim=1).T.contiguous()
+        group, _, _ = pmesh.axis_group(mesh, "columns")
+        return pmesh.all_reduce(sums, group=group) / n_columns
 
 
 def global_report(spec, final: torch.Tensor, mesh, finite: bool) -> Dict:

@@ -88,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -98,6 +99,7 @@ from cloudy_tpu_torch.spec import Family, get_moments_normalizing_factors
 from cloudy_tpu_torch.coalescence import LOGNORM_WINDOW_SIGMA, CoalescenceData
 from cloudy_tpu_torch.ops import special
 from cloudy_tpu_torch.ops.simpson import simpson_even_fast_weights
+from cloudy_tpu_torch.utils import metrics
 
 # Capacities of the prebuilt table-driven kernels (csrc/coal_body.cuh
 # CLOUDY_CAP_*: modes, moments, moment orders M) and the int32 header slots
@@ -1093,11 +1095,33 @@ def rainshaft_step_soa_plain(mom: torch.Tensor, plan: FusedPlan,
 # --------------------------------------------------------------------------
 
 
+def _launching(entry):
+    """A wrapper's entry point on a state ``mom``, inside a ``launch`` span
+    (`utils.metrics.span`) while the recorder is on and ``mom`` lies on the
+    card: the wrapper's host work from its entry to the return of the launch
+    call. The span carries the kernel's `label` (its unit's label or the
+    prebuilt library's entry point). The plain twin launches nothing and
+    records no span."""
+
+    @functools.wraps(entry)
+    def call(self, mom, *args):
+        if not metrics.recording() or mom.device.type != "cuda":
+            return entry(self, mom, *args)
+        with metrics.span("launch") as attrs:
+            out = entry(self, mom, *args)
+        if attrs is not None:
+            attrs["label"] = self.kernel
+        return out
+
+    return call
+
+
 class _KernelFn:
     """Dispatch shared by the kernel wrappers: the plain twin for a CPU
     tensor, the CUDA kernel for a CUDA tensor; `launches` counts kernel
-    launches. A subclass names its entry point (`_name`) and may pack its own
-    configuration (`_pack`)."""
+    launches and `kernel` is the label of the last one launched. A subclass
+    names its entry point (`_name`), may pack its own configuration
+    (`_pack`) and puts each entry point on a state under `_launching`."""
 
     _name = ""
     #: whether the kernel stops the lower series early (`series_exit`)
@@ -1122,6 +1146,7 @@ class _KernelFn:
         self.device = device
         self.dtype = dtype
         self.launches = 0
+        self.kernel = None
         self._cfg = None
         #: the kernel a CUDA call launches: "table" (csrc/fused_coalescence.cu)
         #: or "generated" (`ops.codegen`)
@@ -1175,19 +1200,20 @@ class _KernelFn:
         if not mom.is_contiguous():
             raise ValueError("expected a contiguous [n_tot, B] tensor")
 
-    def _done(self, err: int, what: str, error_string) -> None:
+    def _done(self, err: int, label: str, error_string) -> None:
         if err != 0:
             raise RuntimeError(
-                f"{what} launch failed: cudaError {err} ({error_string(err).decode()})")
+                f"{label} launch failed: cudaError {err} ({error_string(err).decode()})")
         self.launches += 1
+        self.kernel = label
 
     def _launch(self, mom: torch.Tensor, n_out: int, *extra, symbol: str = None,
-                lib=None, error_string=None) -> torch.Tensor:
+                lib=None, error_string=None, label: str = None) -> torch.Tensor:
         """Launch a table-driven kernel on ``[n_tot, B]`` into a new
         ``[n_out, B]``: entry point `symbol` (default `_symbol`) of `lib`
         (default the prebuilt library; a unit built at first use gives its
-        own `error_string`); `extra` are the entry point's arguments between
-        B and the stream."""
+        own `error_string` and its `label`); `extra` are the entry point's
+        arguments between B and the stream."""
         from cloudy_tpu_torch.ops import _build
 
         if lib is None:
@@ -1202,7 +1228,7 @@ class _KernelFn:
                 mom.data_ptr(), out.data_ptr(), cfg.data_ptr(), cfg.numel(),
                 mom.shape[1], *extra, stream,
             )
-        self._done(err, symbol, error_string)
+        self._done(err, label or symbol, error_string)
         return out
 
 
@@ -1290,7 +1316,7 @@ class _GeneratedFn(_KernelFn):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             err = lib.cloudy_gen_launch(mom.data_ptr(), out.data_ptr(), mom.shape[1],
                                         None if scale is None else scale.data_ptr(), stream)
-        self._done(err, f"generated {self.unit.label}", lib.cloudy_gen_error_string)
+        self._done(err, self.unit.label, lib.cloudy_gen_error_string)
         return out
 
     def _launch_ref(self, mom: torch.Tensor, n_out: int, kind: str, nz: int = 0,
@@ -1299,10 +1325,11 @@ class _GeneratedFn(_KernelFn):
         capacities (built at first use)."""
         from cloudy_tpu_torch.ops import _build
 
-        lib = _build.load_ref(self.ref_unit(kind))
+        unit = self.ref_unit(kind)
+        lib = _build.load_ref(unit)
         return self._launch(mom, n_out, nz, None if scale is None else scale.data_ptr(),
                             symbol="cloudy_ref_launch", lib=lib,
-                            error_string=lib.cloudy_ref_error_string)
+                            error_string=lib.cloudy_ref_error_string, label=unit.label)
 
 def coal_layout(plan: FusedPlan, B: int, n_sm: int, threads_per_sm: int) -> str:
     """The coalescence kernel's layout for `plan` at `B` boxes on a card of
@@ -1385,6 +1412,7 @@ class CoalFn(_GeneratedFn):
             self._slots = (n_sm.value, threads.value)
         return self._slots
 
+    @_launching
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":
@@ -1438,6 +1466,7 @@ class RainshaftStepFn(_GeneratedFn):
         threads = (1 if nz >= STEP_TARGET_THREADS else STEP_TARGET_THREADS // nz) * nz
         return cfg_bytes + self.caps[1] * threads * self.dtype.itemsize
 
+    @_launching
     def _step(self, mom: torch.Tensor, scale) -> torch.Tensor:
         self._check(mom)
         nz = self.plan.nz
@@ -1496,6 +1525,7 @@ class RainshaftRhsFn(_GeneratedFn):
     _name = "cloudy_rhs"
     _kind = "rhs"
 
+    @_launching
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":

@@ -58,7 +58,7 @@ import torch
 from cloudy_tpu_torch import kernels as K
 from cloudy_tpu_torch.spec import Family, SpectrumSpec
 from cloudy_tpu_torch.ops import special
-from cloudy_tpu_torch.ops.fused_coalescence import _KernelFn, _invert_rows
+from cloudy_tpu_torch.ops.fused_coalescence import _KernelFn, _invert_rows, _launching
 from cloudy_tpu_torch.ops.gauss import gauss_legendre
 
 _SQRT2PI = float(np.sqrt(2.0 * np.pi))
@@ -500,6 +500,7 @@ class NumericalFn(_KernelFn):
         body = "direct_" if self._direct else ""
         return f"cloudy_numerical_{body}{self._tag}_n{self.plan.n_modes}"
 
+    @_launching
     def soa(self, mom: torch.Tensor) -> torch.Tensor:
         self._check(mom)
         if mom.device.type == "cpu":
@@ -512,7 +513,8 @@ class NumericalFn(_KernelFn):
         lib = _build.load_numerical(self.unit)
         return self._launch(mom, self.plan.n_tot, *extra,
                             symbol="cloudy_numerical_unit_launch", lib=lib,
-                            error_string=lib.cloudy_numerical_unit_error_string)
+                            error_string=lib.cloudy_numerical_unit_error_string,
+                            label=self.unit.label)
 
     def __call__(self, mom: torch.Tensor) -> torch.Tensor:
         return self.soa(mom.T.contiguous()).T

@@ -1,22 +1,35 @@
-"""Observability: step timing, physics invariant monitors, a JSONL log.
+"""Observability: step timing, physics invariant monitors, a JSONL log,
+and spans.
 
 Port of `cloudy_tpu.utils.metrics` (`StepTimer`, `conservation_report`,
 `JsonlLogger`); the reductions run where the state lies (on the card for a
 CUDA state), and a call whose result is a CUDA tensor is timed by CUDA
 events.
+
+The span recorder (`span`, `recording`, `take_spans`) times the port's own
+work on the host clock, kept in memory (the newest `MAX_SPANS`): each
+kernel launch (``launch``, `ops.fused_coalescence`) and each column-mean
+frame (``column_mean``, `harness.column_mean`). It records only while a
+`torch.profiler` session profiles the process, so that a profile carries
+the port's spans; a profile taken by the port's own tools
+(`tools/profile_step.py`, `chip_smoke.py`) pays for them too. Its clock,
+`time.perf_counter_ns`, is the one whose readings a profile's trace is
+fitted to.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Deque, Dict, List
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 
 @dataclass
@@ -120,3 +133,70 @@ class JsonlLogger:
     def log(self, record: Dict):
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+# --------------------------------------------------------------------------
+# spans
+# --------------------------------------------------------------------------
+
+
+#: the most spans the recorder keeps: beyond it the oldest are dropped, so a
+#: profile whose spans nobody takes holds a bounded list
+MAX_SPANS = 1 << 16
+
+
+@dataclass(slots=True)
+class Span:
+    """One recorded span: its `name`, its start and end in
+    `time.perf_counter_ns` nanoseconds and what its site attached
+    (`attrs`)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+_spans: Deque[Span] = collections.deque(maxlen=MAX_SPANS)
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether `span` records: while a `torch.profiler` session profiles
+    the process."""
+    return _torch_profiler._is_profiler_enabled
+
+
+def take_spans() -> List[Span]:
+    """The spans recorded since the last call (the newest `MAX_SPANS`), in
+    the order they opened, and clear them; take them with no span open."""
+    global _spans
+    out, _spans = _spans, collections.deque(maxlen=MAX_SPANS)
+    return list(out)
+
+
+class _OpenSpan:
+    __slots__ = ("_rec",)
+
+    def __init__(self, name: str, attrs: dict):
+        self._rec = Span(name, 0, 0, attrs)
+
+    def __enter__(self) -> dict:
+        rec = self._rec
+        _spans.append(rec)
+        rec.start_ns = time.perf_counter_ns()
+        return rec.attrs
+
+    def __exit__(self, *exc) -> None:
+        self._rec.end_ns = time.perf_counter_ns()
+
+
+def span(name: str, **attrs):
+    """A context manager that records the span `name` around its block
+    while the recorder is on (`recording`); entering it gives the span's
+    `attrs`, which the block may add to. While the recorder is off, the one
+    shared null context (entering it gives None), after one flag test: it
+    reads no clock and keeps nothing."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _OpenSpan(name, attrs)
