@@ -59,7 +59,15 @@
 // switches, in a compiled-in one constants. The fast instances compile to
 // the code they had without it.
 //
-// No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
+// Logs, exps, divides and square roots go through the domain of the
+// configuration (`Sfu`, common.cuh `Dom`): the IEEE routines in every unit
+// but the generated fast-tier f32 ones without a monodisperse mode
+// (`kSfu`), which take the same operations in the same order in base 2 on
+// the SFU, with log2(e) folded into their constants in double and rounded
+// once. The table-driven configuration, the reference tier, f64 and the
+// monodisperse plans (built without FMA contraction, held to the twin bit for
+// bit) keep the IEEE expressions, operation for operation. No fast-math flag;
+// denormals are kept.
 
 #pragma once
 
@@ -77,6 +85,16 @@ template <class C, class = void> struct SeriesExit : std::false_type {};
 template <class C>
 struct SeriesExit<C, std::void_t<decltype(C::kSeriesExit)>>
     : std::integral_constant<bool, C::kSeriesExit> {};
+
+// Whether a configuration takes the SFU forms (common.cuh `Dom<float,
+// true>`): a generated configuration's `kSfu` (ops/codegen.py: fast tier,
+// float, no monodisperse mode), in f32 only; the table-driven configuration,
+// which has none, keeps the IEEE routines.
+template <class C, class = void> struct Sfu : std::false_type {};
+template <class C>
+struct Sfu<C, std::void_t<decltype(C::kSfu)>>
+    : std::integral_constant<bool, C::kSfu &&
+                                       std::is_same<typename C::real, float>::value> {};
 
 // Capacities. A configuration type `C` carries its own as `C::kModes`,
 // `C::kNtot` and `C::kM` (modes, moments, moment orders M: the size of every
@@ -245,47 +263,59 @@ __device__ __forceinline__ void each(int n, F&& f) {
   }
 }
 
-// special.lgamma_stirling: Stirling at z = x + 4, shift removed exactly
-template <typename T> __device__ __forceinline__ T lgamma_stirling(T x) {
+// special.lgamma_stirling: Stirling at z = x + 4, shift removed exactly;
+// kSfu: in the domain of Dom<T, kSfu> (times log2(e) in base 2), for x >= 0
+// (every such caller's: z >= 4, a normal reciprocal)
+template <bool kSfu = false, typename T> __device__ __forceinline__ T lgamma_stirling(T x) {
+  using D = Dom<T, kSfu>;
   const T z = x + T(4);
-  const T log_z = dlog(z);
-  const T iz = T(1) / z;
+  const T log_z = D::lg(z);
+  const T iz = D::rcp(z);
   const T iz2 = iz * iz;
   const T iz3 = iz * iz2;
-  const T tail = iz * T(1.0 / 12.0) - iz3 * T(1.0 / 360.0) +
-                 iz3 * iz2 * T(1.0 / 1260.0) -
-                 iz3 * iz2 * iz2 * T(1.0 / 1680.0);
-  const T lg_z = T(0.9189385332046727) + (z - T(0.5)) * log_z - z + tail;
+  const T tail = iz * T(D::kFromLnD / 12.0) - iz3 * T(D::kFromLnD / 360.0) +
+                 iz3 * iz2 * T(D::kFromLnD / 1260.0) -
+                 iz3 * iz2 * iz2 * T(D::kFromLnD / 1680.0);
+  const T lg_z =
+      T(0.9189385332046727 * D::kFromLnD) + (z - T(0.5)) * log_z - D::from_ln(z) + tail;
   const T shift =
       vmax(x * (x + T(1)) * (x + T(2)) * (x + T(3)), Lim<T>::tiny());
-  return lg_z - dlog(shift);
+  return lg_z - D::lg(shift);
 }
 
-// special.gamma_ratio: Gamma(k + e) / Gamma(k)
-template <typename T> __device__ __forceinline__ T gamma_ratio(T k, T e) {
+// special.gamma_ratio: Gamma(k + e) / Gamma(k); e_dom is e in the domain of
+// Dom<T, kSfu> (e itself, or e log2(e) rounded once: the configuration's
+// `vel_e2`). z >= 3 and, for k > 0 and e >= 0 (every caller's), ze and the
+// front's denominator are normal: reciprocals.
+template <bool kSfu = false, typename T>
+__device__ __forceinline__ T gamma_ratio(T k, T e, T e_dom) {
+  using D = Dom<T, kSfu>;
   const T z = k + T(3);
   const T ze = z + e;
-  const T log_z = dlog(z);
-  const T log_ze = dlog(ze);
-  const T iz = T(1) / z, ize = T(1) / ze;
+  const T log_z = D::lg(z);
+  const T log_ze = D::lg(ze);
+  const T iz = D::rcp(z), ize = D::rcp(ze);
   const T iz2 = iz * iz, ize2 = ize * ize;
-  const T tail = (ize - iz) * T(1.0 / 12.0) -
-                 (ize * ize2 - iz * iz2) * T(1.0 / 360.0) +
-                 (ize * ize2 * ize2 - iz * iz2 * iz2) * T(1.0 / 1260.0);
-  const T d = (ze - T(0.5)) * log_ze - (z - T(0.5)) * log_z - e + tail;
-  const T front = (k * (k + T(1)) * (k + T(2))) /
-                  ((k + e) * ((k + T(1)) + e) * ((k + T(2)) + e));
-  return dexp(d) * front;
+  const T tail = (ize - iz) * T(D::kFromLnD / 12.0) -
+                 (ize * ize2 - iz * iz2) * T(D::kFromLnD / 360.0) +
+                 (ize * ize2 * ize2 - iz * iz2 * iz2) * T(D::kFromLnD / 1260.0);
+  const T d = (ze - T(0.5)) * log_ze - (z - T(0.5)) * log_z - e_dom + tail;
+  const T front = D::quo(k * (k + T(1)) * (k + T(2)),
+                         (k + e) * ((k + T(1)) + e) * ((k + T(2)) + e));
+  return D::ex(d) * front;
 }
 
 // special.gammainc_gl: P(a, x) by fixed Gauss-Legendre integration of the
-// gamma density towards the far tail; gln = lgamma(a)
+// gamma density towards the far tail; gln = lgamma(a), in the domain of the
+// configuration (`Sfu`: times log2(e)), so that each node is one log, two
+// FMAs and one exp
 template <class C, typename T>
 __device__ __forceinline__ T gammainc_gl(const C& c, T a, T x, T gln) {
+  using D = Dom<T, Sfu<C>::value>;
   const T tiny = Lim<T>::tiny();
   x = vmin(x, T(1e6));
   const T a1 = a - T(1);
-  const T sqa = dsqrt(vmax(a1, tiny));
+  const T sqa = D::sqrt(vmax(a1, tiny));  // tiny or more
   const T xu_hi = vmax(a1 + T(11.5) * sqa, x + T(6) * sqa);
   const T xu_lo = vmax(vmin(a1 - T(7.5) * sqa, x - T(5) * sqa), T(0));
   const bool above = x > a1;
@@ -294,7 +324,7 @@ __device__ __forceinline__ T gammainc_gl(const C& c, T a, T x, T gln) {
   T s = T(0);
   each<C>(c.n_gl, [&](int j) {
     const T t = vmax(x + half * c.gl_y1[j], tiny);
-    const T f = dexp(a1 * dlog(t) - t - gln);
+    const T f = D::ex(a1 * D::lg(t) - D::from_ln(t) - gln);
     s = (j == 0) ? c.gl_w[j] * f : s + c.gl_w[j] * f;
   });
   s = s * half;
@@ -302,9 +332,12 @@ __device__ __forceinline__ T gammainc_gl(const C& c, T a, T x, T gln) {
   return (x > T(0)) ? out : T(0);
 }
 
-// special.ndtri: Acklam's inverse normal CDF, branch-free
-template <typename T> __device__ __forceinline__ T ndtri_tail(T p) {
-  const T q = dsqrt(T(-2) * dlog(p));
+// special.ndtri: Acklam's inverse normal CDF, branch-free; kSfu: the SFU
+// forms of Dom<T, true> (the tail's p is tiny or more, its denominator 1 or
+// more)
+template <bool kSfu = false, typename T> __device__ __forceinline__ T ndtri_tail(T p) {
+  using D = Dom<T, kSfu>;
+  const T q = D::sqrt(T(-2.0 * D::kToLnD) * D::lg(p));
   const T num = ((((T(-7.784894002430293e-03) * q + T(-3.223964580411365e-01)) *
                        q + T(-2.400758277161838e+00)) * q +
                   T(-2.549732539343734e+00)) * q + T(4.374664141464968e+00)) *
@@ -312,10 +345,11 @@ template <typename T> __device__ __forceinline__ T ndtri_tail(T p) {
   const T den = (((T(7.784695709041462e-03) * q + T(3.224671290700398e-01)) * q +
                   T(2.445134137142996e+00)) * q + T(3.754408661907416e+00)) *
                     q + T(1);
-  return num / den;
+  return D::quo(num, den);
 }
 
-template <typename T> __device__ __forceinline__ T ndtri(T p) {
+template <bool kSfu = false, typename T> __device__ __forceinline__ T ndtri(T p) {
+  using D = Dom<T, kSfu>;
   const T p_low = T(0.02425), p_high = T(1.0 - 0.02425);
   p = vclip(p, Lim<T>::tiny(), T(1.0 - 1e-16));
   const T q = vclip(p, p_low, p_high) - T(0.5);
@@ -328,9 +362,9 @@ template <typename T> __device__ __forceinline__ T ndtri(T p) {
                        r + T(-1.556989798598866e+02)) * r +
                   T(6.680131188771972e+01)) * r + T(-1.328068155288572e+01)) *
                     r + T(1);
-  const T x_central = num * q / den;
-  const T x_low = ndtri_tail(vmin(p, p_low));
-  const T x_up = -ndtri_tail(vmin(T(1) - p, p_low));
+  const T x_central = D::div(num * q, den);
+  const T x_low = ndtri_tail<kSfu>(vmin(p, p_low));
+  const T x_up = -ndtri_tail<kSfu>(vmin(T(1) - p, p_low));
   return p < p_low ? x_low : (p > p_high ? x_up : x_central);
 }
 
@@ -343,38 +377,43 @@ template <> struct Eps<double> {
 };
 
 // special.gammaincinv_gl_impl: x with P(a, x) = p; max(Wilson-Hilferty,
-// small-x) start, n_iter = 3 Halley steps on the shift-4 GL P(a, x)
+// small-x) start, n_iter = 3 Halley steps on the shift-4 GL P(a, x). The
+// logs in the domain of the configuration (`Sfu`); a > 0, and xs_t is tiny
+// or more and 1e6 or less: normal denominators
 template <class C, typename T>
 __device__ __forceinline__ T gammaincinv_gl(const C& c, T a, T p) {
+  constexpr bool kSfu = Sfu<C>::value;
+  using D = Dom<T, kSfu>;
   const T tiny = Lim<T>::tiny();
   p = vclip(p, tiny, T(1) - Eps<T>::neg());
-  const T z = ndtri(p);
-  const T t = T(1) - T(1) / (T(9) * a) + z * dsqrt(T(1) / (T(9) * a));
+  const T z = ndtri<kSfu>(p);
+  const T t = T(1) - D::rcp(T(9) * a) + z * D::sqrt(D::rcp(T(9) * a));
   const T x_wh = (t > T(0)) ? a * t * t * t : T(0);
-  const T lga1 = lgamma_lanczos(a + T(1));
-  const T x_small = dexp((dlog(p) + lga1) / a);
+  const T lga1 = lgamma_lanczos<kSfu>(a + T(1));
+  const T x_small = D::ex(D::quo(D::lg(p) + lga1, a));
   T x = vmax(vmax(x_wh, x_small), tiny);
-  const T gln4 = lga1 + dlog((a + T(1)) * (a + T(2)) * (a + T(3)));
+  const T gln4 = lga1 + D::lg((a + T(1)) * (a + T(2)) * (a + T(3)));
 #pragma unroll 1
   for (int it = 0; it < 3; ++it) {
     const T xs = vmin(x, T(1e6));
     const T xs_t = vmax(xs, tiny);
-    T d = dexp(a * dlog(xs_t) - xs - lga1);
+    T d = D::ex(a * D::lg(xs_t) - D::from_ln(xs) - lga1);
     d = (xs > T(0)) ? d : T(0);
-    const T deriv = d * a / xs_t;
+    const T deriv = D::quo(d * a, xs_t);
     T total = d;
-    d = d * xs / (a + T(1));
+    d = D::quo(d * xs, a + T(1));
     total = total + d;
-    d = d * xs / (a + T(2));
+    d = D::quo(d * xs, a + T(2));
     total = total + d;
-    d = d * xs / (a + T(3));
+    d = D::quo(d * xs, a + T(3));
     total = total + d;
     const T p4 = gammainc_gl(c, a + T(4), xs, gln4);
     const T f = vclip(p4 + total, T(0), T(1)) - p;
-    const T step_n = f / vmax(deriv, tiny);
-    const T h = T(0.5) * ((a - T(1)) / xs_t - T(1));
+    // deriv may overflow to inf: rcp(inf) is 0, as f / inf
+    const T step_n = D::quo(f, vmax(deriv, tiny));
+    const T h = T(0.5) * (D::quo(a - T(1), xs_t) - T(1));
     const T denom = vclip(T(1) - step_n * h, T(0.5), T(2));
-    T step = step_n / denom;
+    T step = D::quo(step_n, denom);
     step = vclip(step, T(-9) * x, T(0.9) * x);
     x = x - step;
   }
@@ -409,14 +448,16 @@ __device__ __forceinline__ T gammaincinv_newton(T a, T p, int n_newton,
   return x;
 }
 
-// special.erf_approx: A&S 7.1.26, sign(x) * y (0 at x = 0, as jnp.sign)
-template <typename T> __device__ __forceinline__ T erf_approx(T x) {
+// special.erf_approx: A&S 7.1.26, sign(x) * y (0 at x = 0, as jnp.sign);
+// kSfu: the SFU forms of Dom<T, true> (the denominator is 1 or more)
+template <bool kSfu = false, typename T> __device__ __forceinline__ T erf_approx(T x) {
+  using D = Dom<T, kSfu>;
   const T ax = dabs(x);
-  const T t = T(1) / (T(1) + T(0.3275911) * ax);
+  const T t = D::rcp(T(1) + T(0.3275911) * ax);
   const T poly = ((((T(1.061405429) * t + T(-1.453152027)) * t +
                     T(1.421413741)) * t + T(-0.284496736)) * t +
                   T(0.254829592)) * t;
-  const T y = T(1) - poly * dexp(-ax * ax);
+  const T y = T(1) - poly * D::ex(D::from_ln(-ax * ax));
   return vsign(x) * y;
 }
 
@@ -432,18 +473,22 @@ __device__ __forceinline__ T erf_series(T z, int n_iters, T lg_half) {
 
 // _f2_gamma_exact: gis[s] = P(2k + s, T/theta), s = 0..2M-2; the top order
 // by GL with the Stirling lgamma, or (reference tier, n_gl = 0) by series/CF
-// with the Lanczos one
+// with the Lanczos one. The logs in the domain of the configuration (`Sfu`);
+// theta may be any positive f32 (a full-range divide), a0 + j >= 1 (a
+// reciprocal).
 template <bool kRef, class C, typename T>
 __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
                                           T* gis) {
+  constexpr bool kSfu = Sfu<C>::value;
+  using D = Dom<T, kSfu>;
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const bool sc = kRef && c.n_gl == 0;
-  const T x = vmin(thr / theta, T(1e6));
-  const T log_x = dlog(vmax(x, tiny));
+  const T x = vmin(D::div(thr, theta), T(1e6));
+  const T log_x = D::lg(vmax(x, tiny));
   const T a0 = T(2) * k;
-  const T lga01 = sc ? lgamma_lanczos(a0 + T(1)) : lgamma_stirling(a0 + T(1));
-  T d = dexp(a0 * log_x - x - lga01);
+  const T lga01 = sc ? lgamma_lanczos(a0 + T(1)) : lgamma_stirling<kSfu>(a0 + T(1));
+  T d = D::ex(a0 * log_x - D::from_ln(x) - lga01);
   d = (x > T(0)) ? d : T(0);
   T ds[C::kS];
   ds[0] = d;
@@ -451,7 +496,7 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
 #pragma unroll
   for (int j = 1; j < C::kS - 1; ++j) {
     if (j < 2 * M - 2) {
-      ds[j] = ds[j - 1] * x / (a0 + T(j));
+      ds[j] = D::quo(ds[j - 1] * x, a0 + T(j));
       prod = (j == 1) ? (a0 + T(j)) : prod * (a0 + T(j));
     }
   }
@@ -465,7 +510,7 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
       gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
     }
   } else {
-    gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + dlog(prod));
+    gi = gammainc_gl(c, a0 + T(2 * M - 2), x, lga01 + D::lg(prod));
   }
   gis[2 * M - 2] = gi;
 #pragma unroll
@@ -486,12 +531,16 @@ __device__ __forceinline__ void gis_exact(const C& c, T thr, T theta, T k,
 template <class C, typename T>
 __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
                                                     T mu, T sig, T* f2) {
+  // the domain of the configuration (`Sfu`); mu, sig and the nodes u stay
+  // natural; two_s2, sig_c and sig_r2 are normal (sig >= eps): reciprocals
+  constexpr bool kSfu = Sfu<C>::value;
+  using D = Dom<T, kSfu>;
   const T tiny = Lim<T>::tiny();
   const int M = c.M;
   const T W = T(6);  // coalescence.LOGNORM_WINDOW_SIGMA
   const T s2 = sig * sig;
   const T lo = mu - W * sig;
-  const T hi = vmin(dlog(vmax(thr, tiny)), mu + T(M) * s2 + W * sig);
+  const T hi = vmin(D::to_ln(D::lg(vmax(thr, tiny))), mu + T(M) * s2 + W * sig);
   const T half = vmax(hi - lo, T(0)) * T(0.5);
   const T center = lo + half;
   const T two_s2 = T(2) * s2;
@@ -500,24 +549,25 @@ __device__ __forceinline__ void f2_lognormal_window(const C& c, T thr, T n,
   T eq[C::kM], qs2[C::kM], acc[C::kFtab];
 #pragma unroll
   for (int q = 0; q < C::kM; ++q) {
-    eq[q] = dexp(T(q) * mu + T(0.5 * q * q) * s2);
+    eq[q] = D::ex(D::from_ln(T(q) * mu + T(0.5 * q * q) * s2));
     qs2[q] = T(q) * s2;
   }
 #pragma unroll
   for (int e = 0; e < C::kFtab; ++e) acc[e] = T(0);
   each<C>(c.n_win, [&](int g) {
     const T u = center + half * c.win_v[g];
-    const T x = dexp(u);
+    const T x = D::ex(D::from_ln(u));
     const T du = u - mu;
-    const T g0 = half * c.win_w[g] * dexp(-(du * du) / two_s2) / sig_c;
+    const T g0 =
+        D::quo(half * c.win_w[g] * D::ex(D::from_ln(D::quo(-(du * du), two_s2))), sig_c);
     const T rem = vmax(thr - x, T(0));
-    const T logrem = dlog(vmax(rem, tiny));
+    const T logrem = D::to_ln(D::lg(vmax(rem, tiny)));
     T pm[C::kM];
 #pragma unroll
     for (int q = 0; q < C::kM; ++q) {
       if (q < M) {
-        const T z = (logrem - mu - qs2[q]) / sig_r2;
-        const T v = eq[q] * T(0.5) * (T(1) + erf_approx(z));
+        const T z = D::quo(logrem - mu - qs2[q], sig_r2);
+        const T v = eq[q] * T(0.5) * (T(1) + erf_approx<kSfu>(z));
         pm[q] = (rem > T(0)) ? v : T(0);
       }
     }
@@ -803,7 +853,8 @@ __device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
   } else if (fam == FAM_EXPONENTIAL) {
     thr = p1 * c.thr[i];
   } else {
-    thr = dexp(p1 + p2 * c.thr[i]);
+    using D = Dom<T, Sfu<C>::value>;
+    thr = D::ex(D::from_ln(p1 + p2 * c.thr[i]));
   }
   return vmax(thr, T(1e-18));
 }
@@ -815,6 +866,8 @@ __device__ __forceinline__ T mode_threshold(const C& c, int i, int fam, T p1,
 template <bool kArms, bool kRef, class C, typename T, class Sp = Serial>
 __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
                                           T (*params)[3], const Sp& sp = Sp{}) {
+  constexpr bool kSfu = Sfu<C>::value;
+  using D = Dom<T, kSfu>;
   const T eps = Lim<T>::eps();
   const int M = c.M;
   T mf[C::kModes * C::kM];
@@ -825,7 +878,7 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
     const int fam = c.fam[i];
     const bool logn = kArms && fam == FAM_LOGNORMAL;
     T n, p1, p2;
-    invert_mode<T, kArms>(fam, mom + c.off[i], n, p1, p2);
+    invert_mode<T, kArms, kSfu>(fam, mom + c.off[i], n, p1, p2);
     params[i][0] = n;
     params[i][1] = p1;
     params[i][2] = p2;
@@ -835,7 +888,7 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
     mf[i * M] = n;
     each<C>(M - 1, [&](int o) {
       if (logn)
-        m = m * dexp(p1 + T((2.0 * o + 1.0) * 0.5) * (p2 * p2));
+        m = m * D::ex(D::from_ln(p1 + T((2.0 * o + 1.0) * 0.5) * (p2 * p2)));
       else if (fam == FAM_EXPONENTIAL)
         m = m * p1 * T(o + 1);
       else if (kRef && fam == FAM_MONODISPERSE)
@@ -905,6 +958,9 @@ __device__ __forceinline__ void coal_body(const C& c, const T* mom, T* acc,
 template <bool kArms, bool kRef, class C, typename T>
 __device__ __forceinline__ void sedi_flux(const C& c, const T (*params)[3],
                                           T* flux) {
+  // logp1 in the domain of the configuration (`Sfu`): p1^e = ex(e logp1)
+  constexpr bool kSfu = Sfu<C>::value;
+  using D = Dom<T, kSfu>;
   const T tiny = Lim<T>::tiny();
 #pragma unroll
   for (int i = 0; i < C::kModes; ++i) {
@@ -913,19 +969,21 @@ __device__ __forceinline__ void sedi_flux(const C& c, const T (*params)[3],
     const bool logn = kArms && fam == FAM_LOGNORMAL;
     const int np = c.nprog[i];
     const T n = params[i][0], p1 = params[i][1], p2 = params[i][2];
-    const T logp1 = dlog(vmax(p1, tiny));
+    const T logp1 = D::lg(vmax(p1, tiny));
     T fl[MAX_NPROG];
 #pragma unroll
     for (int m = 0; m < MAX_NPROG; ++m) fl[m] = T(0);
     each<C>(c.n_vel, [&](int v) {
       const T cv = c.vel_c[v], e = c.vel_e[v];
+      T e_dom = e;  // e log2(e), rounded once on the host, with kSfu
+      if constexpr (kSfu) e_dom = c.vel_e2[v];
       T t = T(0);
       if (kRef && fam == FAM_GAMMA && c.n_gl == 0)
         t = n * dexp(e * logp1 + lgamma_lanczos(p2 + e) - lgamma_lanczos(p2));
       else if (fam == FAM_GAMMA)
-        t = n * dexp(e * logp1) * gamma_ratio(p2, e);
+        t = n * D::ex(e * logp1) * gamma_ratio<kSfu>(p2, e, e_dom);
       else if (fam == FAM_EXPONENTIAL)
-        t = n * c.vel_g[v] * dexp(e * logp1);
+        t = n * c.vel_g[v] * D::ex(e * logp1);
       else if (kRef && fam == FAM_MONODISPERSE)
         t = n * dexp(e * logp1);
 #pragma unroll
@@ -934,7 +992,7 @@ __device__ __forceinline__ void sedi_flux(const C& c, const T (*params)[3],
         const T q = c.vel_me[3 * v + m];
         if (logn) {
           // direct closed form n exp(q mu + q^2 sigma^2 / 2)
-          t = n * dexp(q * p1 + c.vel_hq2[3 * v + m] * p2 * p2);
+          t = n * D::ex(D::from_ln(q * p1 + c.vel_hq2[3 * v + m] * p2 * p2));
         } else if (kRef && fam == FAM_MONODISPERSE && m > 0) {
           t = t * p1;
         } else if (m > 0) {

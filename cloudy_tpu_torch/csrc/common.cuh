@@ -1,10 +1,18 @@
 // What every kernel of this package shares: numeric limits, the math
 // wrappers that pick the float or double routine, jnp's min/max/clip
-// semantics, the Lanczos lgamma and the series/continued-fraction
-// incomplete gamma of cloudy_tpu/ops/special.py, the closure inversion, the
-// family tags and the copy of a packed configuration into shared memory.
+// semantics, the exp/log domain of a body (`Dom`: IEEE, or base 2 on the
+// SFU), the Lanczos lgamma and the series/continued-fraction incomplete
+// gamma of cloudy_tpu/ops/special.py, the closure inversion, the family tags
+// and the copy of a packed configuration into shared memory.
 //
-// No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
+// No fast-math flag on any unit, and denormals are kept. expf/logf/division
+// stay IEEE-accurate everywhere but in the SFU forms of `sfu` / `Dom<float,
+// true>`, which only two kinds of f32 code take, each by a compile-time
+// choice: B5's quad_kernel, and the generated fast-tier units whose
+// configuration sets `kSfu` (ops/codegen.py: float, no monodisperse mode).
+// The reference tier, every f64 unit and every plan with a monodisperse mode
+// keep the IEEE routines: they are held to f64 goldens or to the twin bit
+// for bit.
 
 #pragma once
 
@@ -290,6 +298,108 @@ template <class K> inline cudaError_t allow_smem(K kern, size_t smem) {
              : cudaSuccess;
 }
 
+// The SFU's f32 forms (PTX; no .ftz, so subnormal operands and results are
+// kept), each compiled inline, with no slow-path call:
+// - lg2 / ex2: lg2.approx.f32 / ex2.approx.f32, base-2 log and exp,
+//   relative error near 2^-22;
+// - rcp: rcp.approx.f32, 1 ulp, for a denominator known to be a normal
+//   number (a * rcp(b) is then within 2 ulp of a / b);
+// - div: div.full.f32, 2 ulp over the whole range of the denominator,
+//   subnormals included (tests/test_torch_sfu.py holds both on the card);
+// - sqrt: sqrt.approx.f32, for an operand clamped away from the subnormals.
+// A host build of this header (the tests' g++ shim) takes <cmath>'s
+// routines and IEEE division in their place.
+namespace sfu {
+__device__ __forceinline__ float lg2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("lg2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return std::log2(x);
+#endif
+}
+__device__ __forceinline__ float ex2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return std::exp2(x);
+#endif
+}
+__device__ __forceinline__ float rcp(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / x;
+#endif
+}
+__device__ __forceinline__ float div(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("div.full.f32 %0, %1, %2;" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+#else
+  return a / b;
+#endif
+}
+__device__ __forceinline__ float sqrt(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return std::sqrt(x);
+#endif
+}
+}  // namespace sfu
+
+// The exp/log domain of a body: natural, with the IEEE routines, or, with
+// kSfu in f32, base 2 on the SFU (`sfu`). `lg` / `ex` are the domain's log
+// and exp; `from_ln` turns a natural log (or a quantity added to one) into
+// the domain and `to_ln` the domain's log back, each the identity in the
+// natural domain; kFromLnD / kToLnD are the same factors in double, for
+// constants folded at compile time and rounded once to T. `rcp` and `quo`
+// take a denominator known to be a normal number, `div` any denominator;
+// `pow` and `sqrt` as dpow and dsqrt. Written once against `Dom<T, kSfu>`, a
+// body is, in the natural domain, the IEEE expressions it had, operation for
+// operation. B5's quad_kernel takes Dom<T, true> (the SFU in f32, IEEE in
+// f64); coal_body.cuh takes its configuration's `kSfu`.
+template <typename T, bool kSfu> struct Dom {
+  static constexpr double kFromLnD = 1.0;
+  static constexpr double kToLnD = 1.0;
+  static constexpr T kFromLn = T(1);
+  static constexpr T kToLn = T(1);
+  static __device__ __forceinline__ T lg(T x) { return dlog(x); }
+  static __device__ __forceinline__ T ex(T x) { return dexp(x); }
+  static __device__ __forceinline__ T from_ln(T x) { return x; }
+  static __device__ __forceinline__ T to_ln(T x) { return x; }
+  static __device__ __forceinline__ T rcp(T x) { return T(1) / x; }
+  static __device__ __forceinline__ T quo(T a, T b) { return a / b; }
+  static __device__ __forceinline__ T div(T a, T b) { return a / b; }
+  static __device__ __forceinline__ T pow(T x, T y) { return dpow(x, y); }
+  static __device__ __forceinline__ T sqrt(T x) { return dsqrt(x); }
+};
+template <> struct Dom<float, true> {
+  static constexpr double kFromLnD = 1.4426950408889634;  // log2(e)
+  static constexpr double kToLnD = 0.6931471805599453;    // ln(2)
+  static constexpr float kFromLn = 1.4426950408889634f;
+  static constexpr float kToLn = 0.6931471805599453f;
+  static __device__ __forceinline__ float lg(float x) { return sfu::lg2(x); }
+  static __device__ __forceinline__ float ex(float x) { return sfu::ex2(x); }
+  static __device__ __forceinline__ float from_ln(float x) { return x * kFromLn; }
+  static __device__ __forceinline__ float to_ln(float x) { return x * kToLn; }
+  static __device__ __forceinline__ float rcp(float x) { return sfu::rcp(x); }
+  static __device__ __forceinline__ float quo(float a, float b) { return a * sfu::rcp(b); }
+  static __device__ __forceinline__ float div(float a, float b) { return sfu::div(a, b); }
+  // x > 0 (every caller's): 2^(y lg2 x)
+  static __device__ __forceinline__ float pow(float x, float y) { return sfu::ex2(y * sfu::lg2(x)); }
+  static __device__ __forceinline__ float sqrt(float x) { return sfu::sqrt(x); }
+};
+
 // Copy the packed configuration (16-byte padded) into shared memory.
 __device__ __forceinline__ void load_config(unsigned char* smem,
                                             const unsigned char* cfg,
@@ -300,24 +410,26 @@ __device__ __forceinline__ void load_config(unsigned char* smem,
 }
 
 // special.lgamma: Lanczos (g = 7, n = 9), lgamma(z) = lgamma(z+1) - log z
-// below 1
-template <typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
+// below 1; kSfu: in the domain of Dom<T, kSfu> (times log2(e) in base 2),
+// for x > 0 (every such caller's: each zm1 + i >= 1, a normal reciprocal)
+template <bool kSfu = false, typename T> __device__ __forceinline__ T lgamma_lanczos(T x) {
+  using D = Dom<T, kSfu>;
   const bool shift = x < T(1);
   const T z = shift ? x + T(1) : x;
   const T zm1 = z - T(1);
   T series = T(0.99999999999980993);
-  series = series + T(676.5203681218851) / (zm1 + T(1));
-  series = series + T(-1259.1392167224028) / (zm1 + T(2));
-  series = series + T(771.32342877765313) / (zm1 + T(3));
-  series = series + T(-176.61502916214059) / (zm1 + T(4));
-  series = series + T(12.507343278686905) / (zm1 + T(5));
-  series = series + T(-0.13857109526572012) / (zm1 + T(6));
-  series = series + T(9.9843695780195716e-6) / (zm1 + T(7));
-  series = series + T(1.5056327351493116e-7) / (zm1 + T(8));
+  series = series + D::quo(T(676.5203681218851), zm1 + T(1));
+  series = series + D::quo(T(-1259.1392167224028), zm1 + T(2));
+  series = series + D::quo(T(771.32342877765313), zm1 + T(3));
+  series = series + D::quo(T(-176.61502916214059), zm1 + T(4));
+  series = series + D::quo(T(12.507343278686905), zm1 + T(5));
+  series = series + D::quo(T(-0.13857109526572012), zm1 + T(6));
+  series = series + D::quo(T(9.9843695780195716e-6), zm1 + T(7));
+  series = series + D::quo(T(1.5056327351493116e-7), zm1 + T(8));
   const T t = zm1 + T(7) + T(0.5);
-  const T out =
-      T(0.9189385332046727) + (zm1 + T(0.5)) * dlog(t) - t + dlog(series);
-  return shift ? out - dlog(vmax(x, Lim<T>::tiny())) : out;
+  const T out = T(0.9189385332046727 * D::kFromLnD) + (zm1 + T(0.5)) * D::lg(t) -
+                D::from_ln(t) + D::lg(series);
+  return shift ? out - D::lg(vmax(x, Lim<T>::tiny())) : out;
 }
 
 // special.gammainc_impl (cloudy_tpu/ops/special.py:200-291): P(a, x) by the
@@ -375,10 +487,12 @@ __device__ __forceinline__ T gammainc_sc(T a, T x, int n_iters, T lga,
 
 // Closure inversion (pallas_numerical.py::_invert_rows, :79-118) of one mode
 // from its normalized moments `m`; a monodisperse mode inverts as an
-// exponential one. The lognormal branch exists only with kArms.
-template <typename T, bool kArms>
+// exponential one. The lognormal branch exists only with kArms. kSfu: the
+// SFU forms of Dom<T, true>; p1 and p2 stay natural (mu in ln).
+template <typename T, bool kArms, bool kSfu = false>
 __device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
                                             T& p2) {
+  using D = Dom<T, kSfu>;
   const T eps = Lim<T>::eps();
   const T m0 = m[0], m1 = m[1];
   if (kArms && fam == FAM_LOGNORMAL) {
@@ -386,10 +500,12 @@ __device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
     const T m0s = valid ? m0 : T(1);
     const T m1s = valid ? m1 : T(1);
     const T m2s = valid ? m[2] : T(2);
-    const T mu = dlog(m1s * m1s / (dpow(m0s, T(1.5)) * dpow(m2s, T(0.5))));
-    const T sig2 = dlog(vmax(m0s * m2s / (m1s * m1s), T(1)));
-    const T sigma = vmax(dsqrt(sig2), eps);
-    const T nn = m1s / dexp(mu + T(0.5) * (sigma * sigma));
+    // the denominators' products may overflow or underflow: full-range divides
+    const T mu = D::to_ln(
+        D::lg(D::div(m1s * m1s, D::pow(m0s, T(1.5)) * D::pow(m2s, T(0.5)))));
+    const T sig2 = D::to_ln(D::lg(vmax(D::div(m0s * m2s, m1s * m1s), T(1))));
+    const T sigma = vmax(D::sqrt(sig2), eps);  // sig2 is 0 or normal
+    const T nn = D::div(m1s, D::ex(D::from_ln(mu + T(0.5) * (sigma * sigma))));
     n = valid ? nn : T(0);
     p1 = valid ? mu : T(1);
     p2 = valid ? sigma : T(1);
@@ -398,18 +514,20 @@ __device__ __forceinline__ void invert_mode(int fam, const T* m, T& n, T& p1,
   const bool valid = (m0 > eps) && (m1 > eps);
   const T m0s = valid ? m0 : T(1);
   const T m1s = valid ? m1 : T(1);
+  // m0s and m1s are eps or more: normal denominators
   if (fam == FAM_EXPONENTIAL || fam == FAM_MONODISPERSE) {
     n = valid ? m0 : T(0);
-    p1 = valid ? m1s / m0s : T(1);
+    p1 = valid ? D::quo(m1s, m0s) : T(1);
     p2 = T(0);
     return;
   }
   const T m2s = valid ? m[2] : T(2);
-  const T mean = m1s / m0s;
-  T denom = m2s / m1s - mean;
+  const T mean = D::quo(m1s, m0s);
+  T denom = D::quo(m2s, m1s) - mean;
   denom = (dabs(denom) > T(0)) ? denom : eps;
-  const T kk = vclip(mean / denom, eps, T(10));
-  const T theta = mean / kk;
+  // denom may be any nonzero f32, subnormals included: the full-range divide
+  const T kk = vclip(D::div(mean, denom), eps, T(10));
+  const T theta = D::quo(mean, kk);  // kk in [eps, 10]
   n = valid ? m0 : T(0);
   p1 = valid ? theta : T(1);
   p2 = valid ? kk : T(1);

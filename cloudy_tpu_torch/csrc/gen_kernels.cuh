@@ -20,7 +20,13 @@
 // configuration copy and, where a column fits a warp segment, the whole
 // step's shared memory and barriers are gone.
 //
-// No fast-math: expf/logf/division stay IEEE-accurate and denormals are kept.
+// A configuration's `kSfu` (ops/codegen.py: fast tier, float, no
+// monodisperse mode) gives its body the SFU forms of common.cuh's `Dom`:
+// base-2 logs and exps, approximate reciprocals and full-range approximate
+// divides, the same operations in the same order and no IEEE slow path. The
+// reference tier, f64 and the monodisperse plans (built without FMA
+// contraction, held to the twin bit for bit) keep the IEEE routines. No
+// fast-math flag on any unit; denormals are kept.
 
 #pragma once
 
@@ -127,7 +133,8 @@ template <class C> constexpr size_t gen_smem_bytes() {
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's block
 //     size and shared memory);
 //   cloudy_gen_info(out): kind (0 step, 1 rhs, 2 coal), n_tot, nz, sizeof(T),
-//     threads per block, shuffle stencil, scaled; returns the count;
+//     threads per block, shuffle stencil, scaled, SFU forms; returns the
+//     count;
 //   cloudy_gen_error_string(err).
 // A unit ends with CLOUDY_GEN_ENTRY(CFG, KERNEL), a scaled step unit with
 // CLOUDY_GEN_SCALED_ENTRY: the kernel takes the scale row as its last
@@ -158,9 +165,10 @@ template <class C> constexpr size_t gen_smem_bytes() {
   int cloudy_gen_info(int* out) {                                              \
     const int v[] = {CFG::kKind, CFG::n_tot, CFG::nz,                          \
                      (int)sizeof(typename CFG::real), CFG::kThreads,           \
-                     (int)CFG::kShfl, (int)cloudy::Scaled<CFG>::value};        \
-    for (int i = 0; i < 7; ++i) out[i] = v[i];                                 \
-    return 7;                                                                  \
+                     (int)CFG::kShfl, (int)cloudy::Scaled<CFG>::value,         \
+                     (int)cloudy::Sfu<CFG>::value};                            \
+    for (int i = 0; i < 8; ++i) out[i] = v[i];                                 \
+    return 8;                                                                  \
   }                                                                            \
   const char* cloudy_gen_error_string(int err) {                               \
     return cudaGetErrorString((cudaError_t)err);                               \

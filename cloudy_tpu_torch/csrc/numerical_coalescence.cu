@@ -513,32 +513,12 @@ __global__ void __launch_bounds__(NUM_MAX_G)
 // it changes against numerical_kernel above, the wrapper's `_direct`).
 // ---------------------------------------------------------------------------
 
-// The exp/log domain of quad_kernel's densities: base 2 on the SFU in f32
-// (lg2.approx / ex2.approx, subnormals kept: no .ftz; a relative error near
-// 2^-22, far inside the f32 tolerance against the twin), natural IEEE
-// log/exp in f64. `kFromLn` turns a natural log,
-// or a constant that multiplies one, into the domain; `kToLn` turns the
+// The exp/log domain of quad_kernel's densities: Dom<T, true> of
+// common.cuh, base 2 on the SFU in f32 (lg2.approx / ex2.approx, subnormals
+// kept: no .ftz; a relative error near 2^-22, far inside the f32 tolerance
+// against the twin), natural IEEE log/exp in f64. `kFromLn` turns a natural
+// log, or a constant that multiplies one, into the domain; `kToLn` turns the
 // domain's log back.
-template <typename T> struct Dom {
-  static constexpr T kFromLn = T(1);
-  static constexpr T kToLn = T(1);
-  static __device__ __forceinline__ T lg(T x) { return dlog(x); }
-  static __device__ __forceinline__ T ex(T x) { return dexp(x); }
-};
-template <> struct Dom<float> {
-  static constexpr float kFromLn = 1.4426950408889634f;  // log2(e)
-  static constexpr float kToLn = 0.6931471805599453f;    // ln(2)
-  static __device__ __forceinline__ float lg(float x) {
-    float y;
-    asm("lg2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-  }
-  static __device__ __forceinline__ float ex(float x) {
-    float y;
-    asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-  }
-};
 
 // One mode's density (`_density_rows`) in the domain `D` (Dom), its
 // divides and constant logs hoisted per box: at x, with L the domain log of
@@ -633,7 +613,7 @@ __global__ void __launch_bounds__(NUM_BLOCK)
                 const unsigned char* __restrict__ cfg_g, int cfg_bytes,
                 long long B) {
   constexpr int NP = N * (N - 1) / 2;  // mode pairs j < k
-  using D = Dom<T>;
+  using D = Dom<T, true>;
   // the inner nodes' log tables, in f64 only: in f32 an inner node's
   // lg2.approx is quicker than the table read and its offset (measured on
   // an H100 80GB HBM3 at 700 W, PERF.md)

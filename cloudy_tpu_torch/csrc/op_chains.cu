@@ -79,7 +79,7 @@ CLOUDY_LINK(LGammaStirling, 1, lgamma_stirling(x + T(2.2)))
 CLOUDY_LINK(GammaincGl12, 1,
             gammainc_gl(c, T(4.5), T(0.5) + T(3) * x, T(2.4537365708424423)))
 CLOUDY_LINK(ErfApprox, 1, T(0.1) + T(0.7) * dabs(erf_approx(x)))
-CLOUDY_LINK(GammaRatio, 1, T(0.2) + T(0.5) * gamma_ratio(x + T(0.5), T(1.0 / 6.0)))
+CLOUDY_LINK(GammaRatio, 1, T(0.2) + T(0.5) * gamma_ratio(x + T(0.5), T(1.0 / 6.0), T(1.0 / 6.0)))
 CLOUDY_LINK(GammaincinvGl12, 1, T(0.1) * gammaincinv_gl(c, T(2.5), x))
 #undef CLOUDY_LINK
 

@@ -179,9 +179,15 @@ __device__ __forceinline__ void step_lane(const C& c, const St& st,
   }
   if (!active) return;
 #pragma unroll
-  for (int o = 0; o < C::kNtot; ++o)
-    if (o < c.n_tot)
+  for (int o = 0; o < C::kNtot; ++o) {
+    if (o >= c.n_tot) continue;
+    // with the SFU forms (`Sfu`) the third is a product by the constant's
+    // reciprocal, rounded once: no divide
+    if constexpr (Sfu<C>::value)
+      out[o * B + lane] = y[o] * T(1.0 / 3.0) + c.two_thirds * (u2[o] + dt * f[o]);
+    else
       out[o * B + lane] = y[o] / T(3) + c.two_thirds * (u2[o] + dt * f[o]);
+  }
 }
 
 }  // namespace cloudy

@@ -381,10 +381,10 @@ def _load_unit(u, prefix: str, entries: dict, info: tuple):
 def load_generated(u) -> ctypes.CDLL:
     """Build the generated unit `u` if needed and load it, checking that it
     is the kernel the host asked for (kind, n_tot, nz, type size, block
-    size, stencil, scaled)."""
+    size, stencil, scaled, SFU forms)."""
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     info = (_gen_kinds()[u.kind], u.n_tot, u.nz, u.dtype.itemsize, u.threads,
-            int(u.shfl), int(u.scaled))
+            int(u.shfl), int(u.scaled), int(u.sfu))
     return _load_unit(u, "cloudy_gen", {"launch": [p, p, ll, p, p],  # mom, out, B, scale, stream
                                         "blocks_per_sm": [p]}, info)
 

@@ -49,6 +49,17 @@ A unit whose plan has a monodisperse mode is built without FMA contraction
 is rounded as the twin rounds it. Every other unit keeps nvcc's
 contraction.
 
+A fast-tier f32 unit takes the SFU forms (`sfu_forms`: ``kSfu`` in its
+configuration, csrc/common.cuh ``Dom``): the body's logs and exps in base 2
+(``lg2.approx`` / ``ex2.approx``, log2(e) folded into its constants, and
+into ``vel_e2``, the velocity exponents times log2(e), in double and
+rounded once), its divides by a known normal denominator as approximate
+reciprocals and the others as full-range approximate divides, its clamped
+square roots approximate: the same operations in the same order, none
+through an IEEE slow path. Every other unit (the reference tier, which
+every monodisperse plan is, and f64; ``kSfu`` false) compiles to the IEEE
+code it had. An SFU unit's label says so: ``step_sfu_f32_<digest>``.
+
 Two more kinds of unit are built at first use from the package's own
 sources, for configurations past what the prebuilt library holds:
 `ref_unit`, a table-driven reference-tier kernel at capacities past the
@@ -100,6 +111,8 @@ REF_THREADS = 128
 NO_FMA = "-fmad=false"
 #: the MAX_M of csrc/coal_body.cuh: the least stride of an F2 row (`_tri`)
 _MAX_M = fc.MAX_M
+#: log2(e) in double (csrc/common.cuh Dom<float, true>::kFromLnD)
+_LOG2E = 1.4426950408889634
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +134,8 @@ class Unit:
     n_tot: int
     nz: int
     scaled: bool = False
+    #: the SFU forms (`sfu_forms`): ``kSfu`` in the configuration
+    sfu: bool = False
     flags: Tuple[str, ...] = ()
     caps: Tuple[int, ...] = ()
     #: a traced numerical unit's factored form (`kernel_expr.factor`), as
@@ -131,6 +146,7 @@ class Unit:
     @property
     def label(self) -> str:
         kind = f"{self.kind}_scaled" if self.scaled else self.kind
+        kind = f"{kind}_sfu" if self.sfu else kind
         return f"{kind}_{'f32' if self.dtype == torch.float32 else 'f64'}_{self.digest}"
 
 
@@ -160,6 +176,15 @@ def _tri(p: int, q: int, kM: int = _MAX_M) -> int:
     """The packed (p, q), p ≤ q, slot of an F2 row of stride kM
     (csrc/coal_body.cuh tri)."""
     return p * (2 * kM - p - 1) // 2 + q
+
+
+def sfu_forms(plan: fc.FusedPlan, dtype: torch.dtype) -> bool:
+    """Whether `plan`'s units in `dtype` take the SFU forms: the fast tier in
+    float. The reference tier (held to f64 goldens and to the twin bit for
+    bit), every plan with a monodisperse mode (reference tier by
+    `FusedPlan.ref`: its ill-conditioned pulse is held to the twin bit for
+    bit) and f64 keep IEEE."""
+    return not plan.ref and dtype == torch.float32
 
 
 def _check(plan: fc.FusedPlan, kind: str) -> None:
@@ -290,7 +315,9 @@ def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
     `scaled` whole step carries ``kScale`` (csrc/gen_kernels.cuh `Scaled`);
     an unscaled one's text has no such line. A reference-tier plan's
     configuration carries ``kRef`` and its switches (`_reference`), the
-    series incomplete gamma's early exit (``kSeriesExit``) among them."""
+    series incomplete gamma's early exit (``kSeriesExit``) among them.
+    ``kSfu`` says whether the body takes the SFU forms (`sfu_forms`); with it
+    true the configuration also carries ``vel_e2``."""
     _check(plan, kind)
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {tuple(KINDS)}, not {kind!r}")
@@ -301,6 +328,7 @@ def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
     r = fc.config_reals(plan)
     lit = lambda v: literal(v, dtype)  # noqa: E731
     fams = " ".join(Family(f).name.lower() for f in plan.families)
+    on_sfu = sfu_forms(plan, dtype)
     tables, ref_body = _reference(plan, lit, real) if plan.ref else ([], [])
     head = [
         "// Generated by cloudy_tpu_torch/ops/codegen.py; do not edit.",
@@ -323,6 +351,7 @@ def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
         "static constexpr bool kStatic = true;",
         f"static constexpr bool kArms = {'true' if plan.arms or plan.ref else 'false'};",
         f"static constexpr bool kRef = {'true' if plan.ref else 'false'};",
+        f"static constexpr bool kSfu = {'true' if on_sfu else 'false'};",
         f"static constexpr int kKind = {KINDS[kind]};",
         *(["static constexpr bool kScale = true;"] if scaled else []),
         f"static constexpr int kThreads = {threads};",
@@ -349,6 +378,8 @@ def config_source(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
     for name in ("thr", "norm", "inv_norm", "vel_c", "vel_e", "vel_g", "vel_me", "vel_hq2",
                  "gl_y1", "gl_w", "win_v", "win_w"):
         body += _table(name, "real", [lit(v) for v in r[name]])
+    if on_sfu:  # the velocity exponents times log2(e), in double, rounded once
+        body += _table("vel_e2", "real", [lit(e * _LOG2E) for e in r["vel_e"]])
     body += ref_body
     body += [
         "// Q/R/S: the configuration's terms, wb then wf (pallas_coalescence.py:598-620)",
@@ -419,7 +450,8 @@ def unit(plan: fc.FusedPlan, dtype: torch.dtype, kind: str = "step",
     flags = (NO_FMA,) if Family.MONODISPERSE in plan.families else ()
     return Unit(kind=kind, dtype=dtype, cfg=cfg, source=source,
                 digest=_digest(cfg, source, " ".join(flags)), threads=threads, shfl=shfl,
-                n_tot=plan.n_tot, nz=plan.nz, scaled=scaled, flags=flags)
+                n_tot=plan.n_tot, nz=plan.nz, scaled=scaled, sfu=sfu_forms(plan, dtype),
+                flags=flags)
 
 
 def _first_use_source(caps_defines, include: str, entry: str) -> str:

@@ -365,7 +365,9 @@ def test_coal_kind_source_digest_and_route(dtype):
     assert "gen_coal_body<Cfg>(mom, out, B);" in u.source
     assert "CLOUDY_GEN_ENTRY(cloudy::gen::Cfg, cloudy::gen::gen_coal)" in u.source
     assert u.digest != codegen.unit(_plan(data, "rhs"), dtype, "rhs").digest
-    assert u.label == f"coal_{'f32' if dtype == torch.float32 else 'f64'}_{u.digest}"
+    # a fast-tier f32 unit takes the SFU forms, and its label says so
+    form = "sfu_f32" if dtype == torch.float32 else "f64"
+    assert u.sfu == (dtype == torch.float32) and u.label == f"coal_{form}_{u.digest}"
     assert codegen.unit(fn.plan, dtype, "coal").digest == u.digest  # deterministic
 
 
@@ -541,3 +543,225 @@ def test_generated_sources_are_written_whole(tmp_path):
     _build._write(p, "old")
     _build._write(p, "new")
     assert p.read_text() == "new" and [q.name for q in tmp_path.iterdir()] == ["cfg.cuh"]
+
+
+# --------------------------------------------------------------------------
+# the SFU forms (`codegen.sfu_forms`, csrc/common.cuh `Dom`)
+# --------------------------------------------------------------------------
+
+
+def _case_plan(name, kind):
+    """The plan of a pod variant (fast tier) or of a family-matrix case
+    (`tools.whole_step_ablation`: the reference-tier and monodisperse ones)
+    for kernel `kind`, at nz 32."""
+    from cloudy_tpu_torch import harness
+    from cloudy_tpu_torch.tools import whole_step_ablation as wsa
+
+    if name in VARIANTS:
+        data, kw = harness.pod_data(name)[1], {}
+    else:
+        data, kw = wsa.case_data(name)
+    if kind == "step":
+        return fc.build_plan(data, VEL, NORMS, 32, 3000.0 / 32, 1.0, **kw)
+    if kind == "coal":
+        return fc.build_plan(data, **kw)
+    return fc.build_plan(data, VEL, NORMS, **kw)
+
+
+#: (case, kind, dtype, scaled, takes the SFU forms)
+SFU_CASES = [
+    *[(v, k, torch.float32, False, True) for v in VARIANTS for k in ("step", "rhs", "coal")],
+    ("fixed2gamma", "step", torch.float32, True, True),
+    ("fixed2gamma", "step", torch.float64, False, False),
+    ("lognorm", "coal", torch.float64, False, False),
+    ("lognorm-gamma-grid", "step", torch.float32, False, False),
+    ("2gamma-exact", "rhs", torch.float32, False, True),
+    ("mono-gamma-closed", "step", torch.float32, False, False),
+    ("mono-gamma-closed", "step", torch.float32, True, False),
+]
+
+
+@pytest.mark.parametrize("name,kind,dtype,scaled,want", SFU_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'f32' if c[2] == torch.float32 else 'f64'}"
+                              f"{'-scaled' if c[3] else ''}" for c in SFU_CASES])
+def test_sfu_constant_follows_tier_type_and_mono(name, kind, dtype, scaled, want):
+    """``kSfu`` is emitted true exactly for fast-tier f32 plans without a
+    monodisperse mode, false for the reference tier, f64 and the mono plans;
+    the unit, its label and the ``vel_e2`` table follow it, and only the mono
+    plans build without FMA contraction."""
+    plan = _case_plan(name, kind)
+    u = codegen.unit(plan, dtype, kind, scaled)
+    assert codegen.sfu_forms(plan, dtype) is want and u.sfu is want
+    lines = [ln.strip() for ln in u.cfg.splitlines() if "kSfu" in ln]
+    assert lines == [f"static constexpr bool kSfu = {'true' if want else 'false'};"]
+    assert ("struct vel_e2_tab" in u.cfg) is want
+    assert ("_sfu_" in u.label) is want
+    assert u.flags == ((codegen.NO_FMA,) if Family.MONODISPERSE in plan.families else ())
+
+
+#: SHA-256 of the configuration header (its ``kSfu = false`` line taken out)
+#: and of the unit source of units that keep the IEEE routines, as the
+#: generator emitted them before the SFU forms existed
+IEEE_TEXTS = {
+    ("fixed2gamma", "step", torch.float64, False): (
+        "a6703d82a788fa7f6c6b85aad7ca69e092b38369663f6fddb2ec3fe92b45b59a",
+        "49ea48339352fe4741cdb9cfb99bf0c0396efaaba227909c7faf9012b4cb4d3b"),
+    ("fixed2gamma", "step", torch.float64, True): (
+        "54ab66a4ac0dd0319db4ca7982d0465bfcd083668a28a5416befe82ec690cc16",
+        "87c5c42bba2b199272fbc630126183cf2cac069a7ff84db4c53cbf3eb95d7e61"),
+    ("fixed2gamma", "rhs", torch.float64, False): (
+        "1cd6b2b66683c3c989f7f5fa9c412c8a99141ac89654fdbfe62d3b4f60b6a857",
+        "b3a5f1e45dd0b2b01ecf427178c4de5eeb0d412619e2d5abb3c7e1070871b833"),
+    ("fixed2gamma", "coal", torch.float64, False): (
+        "19e970810b929b5c48ff6d26246be803e5938ecbd0d9c1266c926b8013277bbc",
+        "c9a06226fc921adb5ec2b40548036f62f7a20d95f98dd5d7bccd0672b41f63c3"),
+    ("moving", "step", torch.float64, False): (
+        "6ad90fb89ce4a8c795a238a170b620d74c72fe132b82ea6d5e2e13274a883ef4",
+        "49ea48339352fe4741cdb9cfb99bf0c0396efaaba227909c7faf9012b4cb4d3b"),
+    ("lognorm", "step", torch.float64, False): (
+        "5a49b7969b17d8ed29789468939e3da8953e9de5414c3fc1ba6de99b51e5800e",
+        "49ea48339352fe4741cdb9cfb99bf0c0396efaaba227909c7faf9012b4cb4d3b"),
+    ("lognorm-gamma-grid", "step", torch.float32, False): (
+        "0bada4ef9da7ab334becd0b022d234e1ce0fc09086397050bc51b5439e4ab4d3",
+        "0698722062f74566ac8e6dfc4a751f808495fddc431305acefd81a2af5091169"),
+    ("lognorm-gamma-grid", "rhs", torch.float64, False): (
+        "15a6450d9729f48498bb5d5d1d4a15883d6759c573410b18eb05caeee3b52223",
+        "b3a5f1e45dd0b2b01ecf427178c4de5eeb0d412619e2d5abb3c7e1070871b833"),
+    ("mono-gamma-closed", "step", torch.float32, False): (
+        "e4d47d082562756376f4c8175268418e587a8d1c6359ae04ee6567441e7abef2",
+        "0698722062f74566ac8e6dfc4a751f808495fddc431305acefd81a2af5091169"),
+    ("mono-gamma-closed", "step", torch.float64, True): (
+        "28fa269dfb5ba51ca3136fa0ca4e0568731bf35d18f42d675ad348b902576ff2",
+        "a28561856e3efaa50da9cb8c31f82b691f55fd447fd20da74d183177111ffee6"),
+    ("mono-gamma-closed", "rhs", torch.float32, False): (
+        "9828e48a5bcfe9fa3eae9b3d603e6f24574ffecc3c82ab0ee66a7470f9ffca98",
+        "66a85c9eaf6466c6b5c3b621ed3346476f277bd941af58c45e32c8bb4128c583"),
+}
+
+
+@pytest.mark.parametrize("case", list(IEEE_TEXTS),
+                         ids=[f"{c[0]}-{c[1]}-{'f32' if c[2] == torch.float32 else 'f64'}"
+                              f"{'-scaled' if c[3] else ''}" for c in IEEE_TEXTS])
+def test_ieee_unit_text_is_unchanged_apart_from_the_constant(case):
+    """A reference-tier, f64 or monodisperse unit's generated text is, byte
+    for byte, the text it had before the SFU forms, apart from the one line
+    ``kSfu = false``."""
+    import hashlib
+
+    name, kind, dtype, scaled = case
+    u = codegen.unit(_case_plan(name, kind), dtype, kind, scaled)
+    line = "  static constexpr bool kSfu = false;\n"
+    assert u.cfg.count(line) == 1
+    cfg = u.cfg.replace(line, "")
+    want_cfg, want_source = IEEE_TEXTS[case]
+    assert hashlib.sha256(cfg.encode()).hexdigest() == want_cfg
+    assert hashlib.sha256(u.source.encode()).hexdigest() == want_source
+
+
+@pytest.mark.parametrize("kind,scaled,dtype,want", [
+    ("step", False, torch.float32, "step_sfu_f32_"), ("step", True, torch.float32,
+                                                      "step_scaled_sfu_f32_"),
+    ("rhs", False, torch.float32, "rhs_sfu_f32_"), ("step", False, torch.float64, "step_f64_"),
+    ("step", True, torch.float64, "step_scaled_f64_")])
+def test_label_names_the_form(kind, scaled, dtype, want):
+    """The label (which the ``launch`` span records on each launch) says
+    whether the unit takes the SFU forms, before its type and digest."""
+    u = codegen.unit(_case_plan("fixed2gamma", kind), dtype, kind, scaled)
+    assert u.label == want + u.digest
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_vel_e2_is_log2e_times_vel_e_rounded_once(variant):
+    """``vel_e2``: each velocity exponent times log2(e), taken in double and
+    rounded once to f32 (the exponent of gamma_ratio in base 2)."""
+    plan = _case_plan(variant, "step")
+    src = codegen.config_source(plan, torch.float32)
+    m = re.search(r"struct vel_e2_tab \{.*?v\[\] = \{(.*?)\};", src, re.S)
+    got = np.asarray([_unhex(x) for x in m.group(1).split(",")], np.float64)
+    want = np.asarray(fc.config_reals(plan)["vel_e"], np.float64) * 1.4426950408889634
+    assert got.astype(np.float32).tobytes() == want.astype(np.float32).tobytes()
+    assert np.array_equal(got, want.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def sfu_step_lib(tmp_path_factory):
+    """`sfu_step_lib(variant)`: the variant's SFU whole step (nz 32), its
+    scaled form and its SFU fused RHS compiled as host C++ through the
+    tests' shim (tests/_codegen_host.py: the warp shuffle on 32 threads at a
+    barrier, <cmath>'s log2/exp2 and IEEE division in the SFU forms' place),
+    with entries ``host_step`` / ``host_scaled`` (mom, out, B, scale) and
+    ``host_rhs`` (mom, out, B); compiled once per variant and module."""
+    import _codegen_host as ch
+
+    if shutil.which("g++") is None:
+        pytest.fail("g++ is needed to compile the generated body on the host")
+    libs = {}
+
+    def get(variant):
+        if variant in libs:
+            return libs[variant]
+        d = tmp_path_factory.mktemp(f"sfu_{variant}")
+        (d / "shim").mkdir()
+        (d / "shim" / "cuda_runtime.h").write_text(ch.SHIM)
+        lines = [ch.SHELLS]
+        for ns, kind, scaled in (("s", "step", False), ("ss", "step", True), ("r", "rhs", False)):
+            u = codegen.unit(_case_plan(variant, kind), torch.float32, kind, scaled)
+            assert u.sfu
+            (d / f"{ns}.cuh").write_text(u.cfg.replace("namespace gen {", f"namespace {ns} {{"))
+            lines.append(f'#include "{ns}.cuh"')
+        lines += [
+            'extern "C" void host_step(const float* m, float* o, long long B, const float* s)'
+            " { warps<cloudy::s::Cfg>(m, o, B, s); }",
+            'extern "C" void host_scaled(const float* m, float* o, long long B, const float* s)'
+            " { warps<cloudy::ss::Cfg>(m, o, B, s); }",
+            'extern "C" void host_rhs(const float* m, float* o, long long B)'
+            " { rhs<cloudy::r::Cfg>(m, o, B); }",
+        ]
+        (d / "host.cpp").write_text("\n".join(lines) + "\n")
+        so = d / "libhost.so"
+        subprocess.run([*ch._GXX, "-I", str(d / "shim"), "-I", str(_build.CSRC), "-I", str(d),
+                        "-o", str(so), str(d / "host.cpp")], check=True, capture_output=True,
+                       text=True)
+        lib = ctypes.CDLL(str(so))
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.host_step.argtypes = lib.host_scaled.argtypes = [p, p, ll, p]
+        lib.host_rhs.argtypes = [p, p, ll]
+        libs[variant] = lib
+        return lib
+
+    return get
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_sfu_units_build_and_run_on_the_host(sfu_step_lib, variant):
+    """The SFU forms' host fallbacks keep the shim building: the variant's
+    SFU whole step, scaled step and fused RHS, run as host C++ on 16
+    seeded columns, against the twins (f32 < 1e-5, row-scaled)."""
+    from cloudy_tpu_torch.models import rainshaft as rs
+
+    lib = sfu_step_lib(variant)
+    plan = _case_plan(variant, "step")
+    norm = torch.tensor(plan.mom_norms, dtype=torch.float32)[:, None]
+    # the card tests' columns: two top-hat modes, each column's amplitudes
+    # drawn from [0.5, 1.5], one negative moment and one negative level
+    z = (np.arange(32) + 0.5) * 3000.0 / 32
+    ic = np.concatenate([rs.initial_condition(z, [1e8, 1e-2, 2e-12]),
+                         rs.initial_condition(z, [1e7, 1e-3, 2e-13])], axis=-1)
+    amp = np.random.default_rng(21).uniform(0.5, 1.5, (16, 1, 2)).repeat(3, axis=2)
+    st = np.tile(ic[None], (16, 1, 1)) * amp
+    st[0, 16, 0] *= -1.0
+    st[-1, 17, :] = -1e-3
+    x = rs.to_soa(torch.as_tensor(st)).to(torch.float32).contiguous()
+    got = torch.empty_like(x)
+    lib.host_step(x.data_ptr(), got.data_ptr(), x.shape[1], None)
+    assert bool(torch.isfinite(got).all())
+    assert _row_scaled(got / norm, fc.rainshaft_step_soa_plain(x, plan) / norm) < 1e-5
+    s = torch.linspace(0.4, 2.5, 16, dtype=torch.float32).repeat_interleave(32).contiguous()
+    lib.host_scaled(x.data_ptr(), got.data_ptr(), x.shape[1], s.data_ptr())
+    sp = _case_plan(variant, "step")
+    assert _row_scaled(got / norm, fc.rainshaft_step_soa_plain(x, sp, s) / norm) < 1e-5
+    rplan = _case_plan(variant, "rhs")
+    out = torch.empty((2 * plan.n_tot, x.shape[1]), dtype=torch.float32)
+    lib.host_rhs(x.data_ptr(), out.data_ptr(), x.shape[1])
+    norm2 = torch.cat([norm, norm])
+    assert _row_scaled(out / norm2, fc.rainshaft_rhs_soa_plain(x, rplan) / norm2) < 1e-5
